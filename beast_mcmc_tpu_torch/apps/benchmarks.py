@@ -2,7 +2,9 @@
 
 Counterpart of beast_mcmc_tpu/apps/benchmarks.py. benchmark2.xml is 62
 taxa, 5,565 patterns, GTR+Gamma4, strict clock, constant coalescent; the
-Makona shape is the same model on 1,610 taxa and 2,048 patterns. Sequence
+Makona shape is the same model on 1,610 taxa and 2,048 patterns;
+benchmark1.xml is 1,441 taxa, HKY on three codon-position partitions of 593
+patterns each with their own kappa and relative rate ("hky_codon3"). Sequence
 content is random from a fixed seed (throughput depends on shapes, not on
 nucleotides); the same seed gives the same tips, weights and start tree as
 the JAX package's build_analysis.
@@ -18,6 +20,7 @@ import torch
 from beast_mcmc_tpu_torch.inference.mcmc import apply_derived
 from beast_mcmc_tpu_torch.inference.operators import (
     TREE_HEIGHTS,
+    DeltaExchangeOperator,
     NarrowExchangeOperator,
     RootHeightScaleOperator,
     ScaleOperator,
@@ -30,7 +33,10 @@ from beast_mcmc_tpu_torch.models.coalescent import constant_coalescent_loglik
 from beast_mcmc_tpu_torch.models.priors import lognormal_logpdf, one_on_x_logpdf
 from beast_mcmc_tpu_torch.models.sitemodel import discrete_gamma_rates, single_rate
 from beast_mcmc_tpu_torch.models.substitution import gtr_eigen, hky_eigen
-from beast_mcmc_tpu_torch.models.treelikelihood import tree_loglikelihood
+from beast_mcmc_tpu_torch.models.treelikelihood import (
+    multipartition_loglikelihood,
+    tree_loglikelihood,
+)
 from beast_mcmc_tpu_torch.ops.peeling import pad_patterns
 from beast_mcmc_tpu_torch.tree.topology import (
     make_tree_state,
@@ -59,11 +65,9 @@ def build_analysis(n_taxa: int = 62, n_patterns: int = 5565,
 
     aux["derived"] is the eigensystem/gamma-rate cache for
     make_mcmc_step(derived=...), used with aux["log_post_cached"]; the plain
-    log_post always recomputes both."""
-    if model == "hky_codon3":
-        raise NotImplementedError(
-            "hky_codon3 needs the multipartition likelihood, which this "
-            "package does not have yet")
+    log_post always recomputes both. For "hky_codon3" n_patterns is the
+    count per partition, aux["tips"] is [3, N, 4, P] and aux["weights"]
+    [3, P]."""
     # float32 products on the card stay full precision (no TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -113,6 +117,39 @@ def build_analysis(n_taxa: int = 62, n_patterns: int = 5565,
         extra_ops = [
             ScaleOperator(parameter="gtr.rates", weight=2.0),
             ScaleOperator(parameter="alpha", weight=1.0),
+        ]
+    elif model == "hky_codon3":
+        k_parts = 3
+        parts = [synthetic_tips(n_taxa, n_patterns, seed + 10 * k, np.float32)
+                 for k in range(k_parts)]
+        parts = [pad_patterns(
+            torch.as_tensor(tp).to(device=device, dtype=dtype),
+            torch.as_tensor(w).to(device=device, dtype=dtype), pad_multiple)
+            for tp, w in parts]
+        tips = torch.stack([tp for tp, _ in parts])  # [3, N, 4, P]
+        weights = torch.stack([w for _, w in parts])  # [3, P]
+        freqs3 = freqs.expand(k_parts, 4)
+        base_rates, base_w = single_rate(dtype=dtype, device=device)
+        cat_w = base_w.expand(k_parts, 1)
+
+        def log_lik(params, tree):
+            # no derived cache: one batched eigh of [3, 4, 4] per evaluation
+            eigs = hky_eigen(params["kappa"], freqs3)
+            cat_rates = params["mu"][:, None] * base_rates[None, :]
+            return multipartition_loglikelihood(
+                tips, weights, tree.parent, tree.children, tree.heights,
+                tree.root, eigs, freqs3, cat_rates, cat_w,
+                params["clock.rate"])
+
+        params0 = {
+            "kappa": torch.full((k_parts,), 2.0, dtype=dtype, device=device),
+            "mu": torch.ones(k_parts, dtype=dtype, device=device),
+            "clock.rate": scalar(1.0),
+            "pop.size": scalar(0.5),
+        }
+        extra_ops = [
+            ScaleOperator(parameter="kappa", weight=3.0),
+            DeltaExchangeOperator(parameter="mu", weight=3.0),
         ]
     elif model == "hky":
         def log_lik(params, tree):

@@ -1,7 +1,8 @@
-// Shared pieces of the two Felsenstein peel kernels (peel_resident.cu,
+// Shared pieces of the Felsenstein peel kernels. peel_stream_ring.cu takes
+// only dmax and dlog; the rest serves the two S = 4 kernels (peel_resident.cu,
 // peel_stream.cu).
 //
-// Thread layout of both: a block is PX patterns x C categories
+// Thread layout of those two: a block is PX patterns x C categories
 // (threadIdx.x = pattern in the tile, threadIdx.y = category), one thread
 // per (pattern, category). Patterns are independent, so blocks never talk
 // to each other. Every thread walks the internal nodes in peel order and

@@ -35,12 +35,14 @@ def jc_eigen(freqs: Optional[torch.Tensor] = None, dtype=DEFAULT_FLOAT,
 
 
 def hky_eigen(kappa, freqs: torch.Tensor) -> EigenSystem:
-    """HKY85: kappa on the transitions A<->G and C<->T, 1 elsewhere."""
+    """HKY85: kappa on the transitions A<->G and C<->T, 1 elsewhere. A
+    kappa of shape [K] with freqs [K, 4] gives K systems at once."""
     kappa = torch.as_tensor(kappa, dtype=freqs.dtype, device=freqs.device)
     transition = torch.zeros((4, 4), dtype=torch.bool, device=freqs.device)
     transition[0, 2] = transition[2, 0] = transition[1, 3] = transition[3, 1] = True
     ones = torch.ones((4, 4), dtype=freqs.dtype, device=freqs.device)
-    return reversible_eigen(torch.where(transition, kappa * ones, ones), freqs)
+    rates = torch.where(transition, kappa[..., None, None] * ones, ones)
+    return reversible_eigen(rates, freqs)
 
 
 def gtr_eigen(rates6: torch.Tensor, freqs: torch.Tensor) -> EigenSystem:

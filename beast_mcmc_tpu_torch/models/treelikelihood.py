@@ -9,12 +9,18 @@ from __future__ import annotations
 
 import torch
 
-from beast_mcmc_tpu_torch.ops.cuda_peeling import peel_loglikelihood_auto
+from beast_mcmc_tpu_torch.ops.cuda_peeling import (
+    peel_loglikelihood_auto,
+    peel_site_loglik_auto,
+)
+from beast_mcmc_tpu_torch.ops.cuda_stream import stream_schedule
 from beast_mcmc_tpu_torch.ops.eigen import EigenSystem, transition_probs
 from beast_mcmc_tpu_torch.ops.peeling import (
     peel_loglikelihood,
     peel_order_from_heights,
+    peel_site_loglik,
 )
+from beast_mcmc_tpu_torch.utils.accum import stable_dot
 
 
 def branch_lengths(parent: torch.Tensor, heights: torch.Tensor) -> torch.Tensor:
@@ -26,9 +32,10 @@ def branch_lengths(parent: torch.Tensor, heights: torch.Tensor) -> torch.Tensor:
 def branch_transition_matrices(eig: EigenSystem, parent: torch.Tensor,
                                heights: torch.Tensor, branch_rates,
                                category_rates: torch.Tensor) -> torch.Tensor:
-    """[M, C, S, S] matrices of every node's parent branch."""
+    """[M, C, S, S] matrices of every node's parent branch; [K, M, C, S, S]
+    from a batched eigensystem and category_rates [K, C]."""
     bl = branch_lengths(parent, heights) * branch_rates
-    t = bl[:, None] * category_rates[None, :]
+    t = bl[:, None] * category_rates[..., None, :]
     return transition_probs(eig, t)
 
 
@@ -44,3 +51,69 @@ def tree_loglikelihood(tip_partials, pattern_weights, parent, children,
     peel = peel_loglikelihood_auto if tip_partials.is_cuda else peel_loglikelihood
     return peel(tip_partials, children, order, root, p_mats, freqs,
                 category_weights, pattern_weights)
+
+
+def tree_site_logliks(tip_partials, parent, children, heights, root,
+                      eig: EigenSystem, freqs, category_rates,
+                      category_weights, branch_rates) -> torch.Tensor:
+    """Per-pattern log-likelihoods [P] (the getSiteLogLikelihoods
+    surface)."""
+    n_taxa = tip_partials.shape[0]
+    p_mats = branch_transition_matrices(eig, parent, heights, branch_rates,
+                                        category_rates)
+    order = peel_order_from_heights(heights, n_taxa, parent)
+    peel = peel_site_loglik_auto if tip_partials.is_cuda else peel_site_loglik
+    return peel(tip_partials, children, order, root, p_mats, freqs,
+                category_weights)
+
+
+def multipartition_loglikelihood(tip_partials, pattern_weights, parent,
+                                 children, heights, root, eigs: EigenSystem,
+                                 freqs, category_rates, category_weights,
+                                 branch_rates) -> torch.Tensor:
+    """Sum over K partitions on one shared tree, float64 0-d tensor.
+
+    tip_partials [K, N, S, P], pattern_weights [K, P], eigs batched over K,
+    freqs [K, S], category_rates and category_weights [K, C] (a partition's
+    relative rate folds into its category rates); branch_rates is shared.
+    The peel order, and on a CUDA device the streaming schedule, are
+    computed once; the branch matrices of all partitions come from one
+    batched product; each partition is then one peel (one kernel launch)."""
+    k_parts, n_taxa = tip_partials.shape[:2]
+    order = peel_order_from_heights(heights, n_taxa, parent)
+    p_mats = branch_transition_matrices(eigs, parent, heights, branch_rates,
+                                        category_rates)  # [K, M, C, S, S]
+    args = [(tip_partials[k], children, order, root, p_mats[k], freqs[k],
+             category_weights[k], pattern_weights[k]) for k in range(k_parts)]
+    if tip_partials.is_cuda:
+        schedule = stream_schedule(children, order)
+        parts = [peel_loglikelihood_auto(*a, schedule) for a in args]
+    else:
+        parts = [peel_loglikelihood(*a) for a in args]
+    return torch.sum(torch.stack(parts))
+
+
+def tree_loglikelihood_pmats(tip_partials, pattern_weights, children, heights,
+                             root, parent, p_mats, freqs,
+                             category_weights) -> torch.Tensor:
+    """Tree likelihood from branch matrices [M, C, S, S] built by the caller
+    (epoch or branch-specific models), for any state count."""
+    n_taxa = tip_partials.shape[0]
+    order = peel_order_from_heights(heights, n_taxa, parent)
+    peel = peel_loglikelihood_auto if tip_partials.is_cuda else peel_loglikelihood
+    return peel(tip_partials, children, order, root, p_mats, freqs,
+                category_weights, pattern_weights)
+
+
+def ascertainment_correction(site_logl_excluded: torch.Tensor) -> torch.Tensor:
+    """log(1 - sum_e P(excluded pattern e)): the per-site normaliser when
+    the excluded patterns can never be observed."""
+    return torch.log1p(-torch.sum(torch.exp(site_logl_excluded)))
+
+
+def ascertained_loglik(site_logl_data, pattern_weights,
+                       site_logl_excluded) -> torch.Tensor:
+    """Ascertainment-corrected total: each observed site is renormalised by
+    the probability of being ascertainable."""
+    corr = ascertainment_correction(site_logl_excluded)
+    return stable_dot(pattern_weights, site_logl_data - corr)

@@ -80,13 +80,14 @@ def build_all(names: Sequence[str]) -> Dict[str, float]:
 class KernelCall:
     """One prepared launch: a C entry point taking (7 pointers, ints,
     stream), the tensors its pointers point into (held alive here) and the
-    output tensor. `launch` enqueues it on the current stream of the
-    tensors' device and raises on a non-zero cudaError_t."""
+    output (a tensor, or a tuple of them). `launch` enqueues it on the
+    current stream of the tensors' device and raises on a non-zero
+    cudaError_t."""
 
     def __init__(self, name: str, fn, tensors, ints, out):
         self.name, self.fn, self.tensors, self.ints, self.out = (
             name, fn, tuple(tensors), tuple(ints), out)
-        self.device = out.device
+        self.device = self.tensors[0].device
 
     def launch(self):
         import torch

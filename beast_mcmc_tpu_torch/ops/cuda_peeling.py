@@ -7,9 +7,12 @@ per block; see the source for what bounds it and what the design does about
 that. Its plain version is ops/peeling.py::peel_site_loglik, which a CPU
 tensor takes; a CUDA tensor launches the kernel or raises.
 
-`resident_plan_fits` decides between this kernel and the streaming one
-(ops/cuda_stream.py) from the bytes of the branch matrices against the
-shared memory a Hopper block may use.
+`peel_route` names the kernel a shape goes to. For S = 4,
+`resident_plan_fits` decides between this kernel and the deep streaming one
+(ops/cuda_stream2.py) from the bytes of the branch matrices against the
+shared memory a Hopper block may use, as the JAX dispatcher does. Any other
+S goes to the v1 streaming kernel (ops/cuda_stream.py), the only one that
+takes it.
 """
 
 from __future__ import annotations
@@ -33,33 +36,37 @@ def resident_plan_fits(m: int, c: int, s: int, itemsize: int = 8) -> bool:
     return (m * c * s * s + 2 * c * PX) * itemsize <= SMEM_BUDGET
 
 
-def check_kernel_inputs(tips, p_matrices, freqs, cat_w, *int_tensors):
-    """Raise unless the tensors are what the peel kernels take: one CUDA
-    device, float32 or float64 throughout, S = 4, contiguous."""
+def check_kernel_inputs(tips, p_matrices, freqs, cat_w, *int_tensors,
+                        states=(4,), max_categories=1024 // PX):
+    """Raise unless the tensors are what a peel kernel takes: one CUDA
+    device, float32 or float64 throughout, contiguous, a state count in
+    `states` and at most `max_categories` rate categories (the defaults are
+    those of the two S = 4 kernels)."""
     dt = p_matrices.dtype
     if dt not in (torch.float32, torch.float64):
         raise TypeError(f"peel kernels take float32 or float64, got {dt}")
+    for t in (tips, freqs, cat_w):
+        if t.dtype != dt:
+            raise TypeError(f"mixed dtypes {t.dtype} and {dt}")
+    n_tips, s, p = tips.shape
+    if s not in states:
+        raise ValueError(f"this peel kernel takes {min(states)} to "
+                         f"{max(states)} states, got {s}")
+    if p_matrices.dim() != 4 or p_matrices.shape[2:] != (s, s):
+        raise ValueError(f"p_matrices must be [M,C,{s},{s}], "
+                         f"got {tuple(p_matrices.shape)}")
+    c = p_matrices.shape[1]
+    if c > max_categories:
+        raise ValueError(f"at most {max_categories} rate categories, got {c}")
+    if freqs.shape != (s,) or cat_w.shape != (c,):
+        raise ValueError("freqs must be [S] and cat_w [C]")
+    if not (tips.is_contiguous() and p_matrices.is_contiguous()):
+        raise ValueError("tips and p_matrices must be contiguous")
     dev = tips.device
     for t in (tips, p_matrices, freqs, cat_w, *int_tensors):
         if not t.is_cuda or t.device != dev:
             raise ValueError("peel kernel inputs must all lie on one CUDA "
                              f"device, got {t.device} and {dev}")
-    for t in (tips, freqs, cat_w):
-        if t.dtype != dt:
-            raise TypeError(f"mixed dtypes {t.dtype} and {dt}")
-    n_tips, s, p = tips.shape
-    if s != 4:
-        raise ValueError(f"peel kernels are built for S = 4 states, got {s}")
-    if p_matrices.dim() != 4 or p_matrices.shape[2:] != (s, s):
-        raise ValueError(f"p_matrices must be [M,C,{s},{s}], "
-                         f"got {tuple(p_matrices.shape)}")
-    c = p_matrices.shape[1]
-    if c * PX > 1024:
-        raise ValueError(f"at most {1024 // PX} rate categories, got {c}")
-    if freqs.shape != (s,) or cat_w.shape != (c,):
-        raise ValueError("freqs must be [S] and cat_w [C]")
-    if not (tips.is_contiguous() and p_matrices.is_contiguous()):
-        raise ValueError("tips and p_matrices must be contiguous")
 
 
 def prepare_resident(tips, children, order, p_matrices, freqs,
@@ -110,19 +117,39 @@ def peel_site_loglik_cuda(tip_partials, children, order, root, p_matrices,
                                  freqs, category_weights)
 
 
-def peel_loglikelihood_auto(tip_partials, children, order, root, p_matrices,
-                            freqs, category_weights, pattern_weights
-                            ) -> torch.Tensor:
-    """Shape-dispatched peel: the resident kernel when the branch matrices
-    fit in shared memory, the streaming kernel otherwise. Returns the
-    pattern-weighted total in float64."""
+def peel_route(m: int, c: int, s: int, itemsize: int = 8) -> str:
+    """The kernel a CUDA peel of these shapes goes to: "resident" or
+    "deep" for S = 4, by `resident_plan_fits`; "stream" for any other S."""
+    if s != 4:
+        return "stream"
+    return "resident" if resident_plan_fits(m, c, s, itemsize) else "deep"
+
+
+def peel_site_loglik_auto(tip_partials, children, order, root, p_matrices,
+                          freqs, category_weights,
+                          schedule=None) -> torch.Tensor:
+    """Shape-dispatched peel (`peel_route`): per-pattern log-likelihood [P].
+    `schedule` is stream_schedule(children, order) where the caller already
+    has it (several partitions on one tree); the resident kernel does not
+    read it."""
     from beast_mcmc_tpu_torch.ops.cuda_stream import peel_site_loglik_stream
+    from beast_mcmc_tpu_torch.ops.cuda_stream2 import peel_site_loglik_deep
 
     m, c, s = p_matrices.shape[:3]
-    if resident_plan_fits(m, c, s, p_matrices.element_size()):
-        site = peel_site_loglik_cuda(tip_partials, children, order, root,
-                                     p_matrices, freqs, category_weights)
-    else:
-        site = peel_site_loglik_stream(tip_partials, children, order, root,
-                                       p_matrices, freqs, category_weights)
+    route = peel_route(m, c, s, p_matrices.element_size())
+    args = (tip_partials, children, order, root, p_matrices, freqs,
+            category_weights)
+    if route == "resident":
+        return peel_site_loglik_cuda(*args)
+    if route == "deep":
+        return peel_site_loglik_deep(*args, schedule)
+    return peel_site_loglik_stream(*args, schedule)
+
+
+def peel_loglikelihood_auto(tip_partials, children, order, root, p_matrices,
+                            freqs, category_weights, pattern_weights,
+                            schedule=None) -> torch.Tensor:
+    """`peel_site_loglik_auto` summed with the pattern weights, in float64."""
+    site = peel_site_loglik_auto(tip_partials, children, order, root,
+                                 p_matrices, freqs, category_weights, schedule)
     return stable_dot(pattern_weights, site)

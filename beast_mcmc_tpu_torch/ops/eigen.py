@@ -4,6 +4,11 @@ Counterpart of beast_mcmc_tpu/ops/eigen.py. A reversible Q is made
 symmetric by D = diag(sqrt(pi)), so a real symmetric eigh suffices:
 Q = (D^-1 V) W (V^T D). The eigh runs in float64 through
 torch.linalg.eigh (the JAX package's f64 route), whatever the input dtype.
+
+Where the JAX package maps these functions over K partitions with jax.vmap,
+here the axis is written out: a leading K on the rates and frequencies gives
+an EigenSystem with a leading K on every field, from one eigh call (each
+call synchronises with the host on a CUDA device).
 """
 
 from __future__ import annotations
@@ -55,7 +60,13 @@ def reversible_eigen(rates_symmetric: torch.Tensor,
 
 def transition_probs(eig: EigenSystem, t: torch.Tensor) -> torch.Tensor:
     """P(t) = U exp(values t) U_inv, batched over t's shape: [..., S, S].
-    Negative round-off entries are clamped to 0."""
-    e = torch.exp(eig.values * t[..., None])  # [..., S]
-    p = (eig.U * e[..., None, :]) @ eig.U_inv
+    With a batched eigensystem (values [K, S]) t is [K, ...] and row k of t
+    goes with system k. Negative round-off entries are clamped to 0."""
+    k_shape = eig.values.shape[:-1]
+    s = eig.values.shape[-1]
+    ones = (1,) * (t.dim() - len(k_shape))  # t's axes after the batch
+    values = eig.values.reshape(*k_shape, *ones, s)
+    e = torch.exp(values * t[..., None])  # [..., S]
+    p = ((eig.U.reshape(*k_shape, *ones, s, s) * e[..., None, :])
+         @ eig.U_inv.reshape(*k_shape, *ones, s, s))
     return torch.clamp_min(p, 0.0)

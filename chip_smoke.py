@@ -6,15 +6,32 @@ CUDA toolkit: `python3 chip_smoke.py`. The peel kernels build into build/
 at first use. Phases, each of which fails the run (non-zero exit, no
 result line):
 
-  1. build both kernels (one nvcc per source, in parallel);
+  1. build the three kernels (one nvcc per source, in parallel);
   2. hold each kernel against its plain PyTorch version on the card, at the
-     shapes the main path gives it, and time both; hold the card's
-     log posterior against the CPU's on a small analysis;
+     shapes the main path gives it, and time both: the resident and the
+     deep streaming peel (S = 4), and the v1 streaming peel at S = 4, 20
+     and 61, its partials output included; hold the card's log posterior
+     against the CPU's on a small analysis;
   3. the f64 GTR+Gamma4 chain at the benchmark2 shape (62 taxa, 5,565
      patterns) through the resident kernel, with the full-evaluation
      self-check (< 0.1);
   4. the same model at the Makona shape (1,610 taxa, 2,048 patterns)
-     through the streaming kernel, with the same check.
+     through the deep streaming kernel, with the same check;
+  5. the f64 HKY x 3 codon-partition chain at the benchmark1 shape (1,441
+     taxa, 3 x 593 patterns): three deep streaming launches a step, with
+     the same check;
+  6. the remaining entry points: tree_site_logliks at the benchmark2 and
+     Makona shapes (one resident and one deep launch), a 20-state
+     likelihood by tree_loglikelihood_pmats and the benchmark1 likelihood
+     partition by partition by peel_loglikelihood_stream (the v1 streaming
+     kernel).
+
+`python3 chip_smoke.py --tiles` instead builds the v1 streaming kernel and
+times it at every pattern-tile width its planner could pick (32, 16, 8, 4
+patterns a block, where shared memory allows), with its largest deviation
+from the plain version; `*` marks the width the planner picks. This is the measurement
+behind the planner's rule of narrowing the tile while the grid would leave
+more than half of the SMs idle.
 
 It prints the card's name and power limit, one {"kernels": [...]} line,
 and last {"ok": true, "device": {...}}. It imports nothing of JAX and
@@ -33,15 +50,27 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # per site, relative to max(|site logL|, 1): padded patterns have logL 0
 F64_REL_TOL = 1e-10
 F32_ABS_TOL = 5e-5  # per site, absolute (as tests/test_pallas_stream.py)
+F32_ABS_TOL_WIDE = 1e-4  # S >= 16: the j-sum runs in another order
+F32_POST_TOL = 1e-5  # rescaled partials lie in [0, 1]
 FULL_EVAL_TOL = 0.1  # MarkovChain.java:55
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}  # data sheet, no tensor cores
+# data sheet: float64 on the FP64 tensor cores (full precision), float32
+# outside the tensor cores (TF32 would lose precision)
+PEAK_FLOPS = {"float64": 67e12, "float32": 67e12}
 
 B2 = (62, 5565)
 MAKONA = (1610, 2048)
 SMALL = (12, 130)
+B1 = (1441, 593)  # taxa, patterns per codon partition
+AMINO = (128, 4, 20, 1024)  # taxa, categories, states, patterns
+CODON = (64, 1, 61, 512)
+TILE_SHAPES = [CODON, AMINO, (20, 4, 61, 70), (300, 2, 16, 2048),
+               (128, 4, 20, 8192), (1441, 1, 4, 640), (1610, 4, 4, 2048),
+               (62, 4, 4, 5632)]
 B2_STEPS, B2_CHECK = 3000, 200
 MAK_STEPS, MAK_CHECK = 200, 50
+B1_STEPS, B1_CHECK = 300, 50
+KERNELS = ("peel_resident", "peel_stream", "peel_stream_ring")
 
 
 def log(*a):
@@ -66,13 +95,13 @@ def time_ms(fn, reps):
     return statistics.median(times)
 
 
-def bound_ms(tensors_in, out, n_int, c, s, p, dtype_name):
-    """Least time for the peel: inputs read once and output written once
+def bound_ms(tensors_in, tensors_out, n_int, c, s, p, dtype_name):
+    """Least time for the peel: inputs read once and outputs written once
     over HBM bandwidth, against the peel's operations (bench.py's count,
     4S^2 + 3S per node, category and pattern, plus the root) over the
-    card's non-tensor-core peak."""
-    nbytes = sum(t.numel() * t.element_size() for t in tensors_in)
-    nbytes += out.numel() * out.element_size()
+    card's full-precision peak for the type."""
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (*tensors_in, *tensors_out))
     flops = n_int * c * p * (4 * s * s + 3 * s) + 2 * c * s * p
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype_name]
@@ -81,6 +110,7 @@ def bound_ms(tensors_in, out, n_int, c, s, p, dtype_name):
 
 
 def main():
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -91,11 +121,17 @@ def main():
     from beast_mcmc_tpu_torch.inference.mcmc import (
         full_evaluation_check, init_mcmc_state, make_mcmc_step,
         operator_report, run_chain)
+    from beast_mcmc_tpu_torch.models.sitemodel import single_rate
+    from beast_mcmc_tpu_torch.models.substitution import hky_eigen
     from beast_mcmc_tpu_torch.models.treelikelihood import (
-        branch_transition_matrices)
-    from beast_mcmc_tpu_torch.ops import _build, cuda_peeling, cuda_stream
+        branch_transition_matrices, tree_loglikelihood_pmats,
+        tree_site_logliks)
+    from beast_mcmc_tpu_torch.ops import (
+        _build, cuda_peeling, cuda_stream, cuda_stream2)
     from beast_mcmc_tpu_torch.ops import peeling as plain
     from beast_mcmc_tpu_torch.ops.peeling import peel_order_from_heights
+    from beast_mcmc_tpu_torch.tree.topology import (
+        make_tree_state, simulate_coalescent_tree)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -110,9 +146,63 @@ def main():
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {kind}")
 
+    # each wrapper's module counts the launches of its kernel
+    counters = {"peel_resident": cuda_peeling, "peel_stream": cuda_stream2,
+                "peel_stream_ring": cuda_stream}
+
+    def reset_counts():
+        for mod in counters.values():
+            mod.launches = 0
+
+    def read_counts():
+        return {k: mod.launches for k, mod in counters.items()}
+
+    def random_inputs(n_taxa, c, s, p, seed, dtype):
+        """The same tuple for any state count, and its tree, made on the
+        host from a seed: a coalescent tree, partly ambiguous tips,
+        row-stochastic matrices."""
+        rng = np.random.default_rng(seed)
+        tr = make_tree_state(*simulate_coalescent_tree(
+            rng, np.zeros(n_taxa), 1.0), dtype=torch.float64, device=dev)
+        tips = (rng.random((n_taxa, s, p)) > 0.6) * 0.9 + 0.1
+        pm = rng.random((2 * n_taxa - 1, c, s, s)) * 0.2 + 0.01
+        pm = pm / pm.sum(-1, keepdims=True)
+        order = peel_order_from_heights(tr.heights, n_taxa, tr.parent)
+        f = lambda x: torch.tensor(x, dtype=dtype, device=dev)  # noqa: E731
+        return (f(tips), tr.children, order, tr.root, f(pm),
+                f(np.full(s, 1.0 / s)), f(np.full(c, 1.0 / c))), tr
+
+    if "--tiles" in sys.argv[1:]:
+        _build.build_all(["peel_stream_ring"])
+        for shape in TILE_SHAPES:
+            for dtype in (torch.float64, torch.float32):
+                (tips, ch, order, _, pm, fr, cw), _ = random_inputs(
+                    *shape, 1, dtype)
+                ids, pos = cuda_stream.stream_schedule(ch, order)
+                pmo = pm[ids]
+                ref = cuda_stream._stream_plain(tips, ids, pos, pmo,
+                                                cw[:, None] * fr[None, :])
+                n_taxa, c, s, p = shape
+                picked = cuda_stream.stream_plan(p, c, s,
+                                                 pm.element_size()).bp
+                line = f"[tiles] {shape} {str(dtype)[6:]}"
+                for bp in (32, 16, 8, 4):
+                    try:
+                        call = cuda_stream.prepare_stream(tips, ids, pos, pmo,
+                                                          fr, cw, bp)
+                    except ValueError:  # this width overflows shared memory
+                        continue
+                    got = call.launch()
+                    err = max((g - r).abs().max().item()
+                              for g, r in zip(got, ref))
+                    line += (f" | bp {bp}{'*' if bp == picked else ''} "
+                             f"err {err:.1e} ms {time_ms(call.launch, 10):.4f}")
+                log(line)
+        return 0
+
     # -- phase 1: build ------------------------------------------------
     t0 = time.perf_counter()
-    built = _build.build_all(["peel_resident", "peel_stream"])
+    built = _build.build_all(KERNELS)
     log(f"[build] {time.perf_counter() - t0:.2f} s wall, per source "
         f"{json.dumps({k: round(v, 2) for k, v in built.items()})}")
     for name, text in _build.build_log.items():
@@ -120,78 +210,147 @@ def main():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
-    # -- set-up: the two analyses of the main path ---------------------
+    # -- set-up: the analyses of the main path -------------------------
     t0 = time.perf_counter()
     analyses = {shape: build_analysis(*shape, model="gtr_gamma", device=dev,
                                       dtype=torch.float64)
                 for shape in (B2, MAKONA, SMALL)}
+    analyses[B1] = build_analysis(*B1, model="hky_codon3", device=dev,
+                                  dtype=torch.float64)
     torch.cuda.synchronize()
     log(f"[setup] analyses built in {time.perf_counter() - t0:.2f} s")
 
     def peel_inputs(shape, dtype):
+        """(tips, children, order, root, p_matrices, freqs, cat_w) of an
+        analysis at its start; partition 0 of the benchmark1 one."""
         _, _, p0, t0_, aux = analyses[shape]
-        rates, cw = p0["site.rates"]
-        pm = branch_transition_matrices(p0["eig"], t0_.parent, t0_.heights,
+        tips, freqs = aux["tips"], aux["freqs"]
+        if shape == B1:
+            tips = tips[0]
+            eig = hky_eigen(p0["kappa"][0], freqs)
+            rates, cw = single_rate(dtype=torch.float64, device=dev)
+            rates = p0["mu"][0] * rates
+        else:
+            eig = p0["eig"]
+            rates, cw = p0["site.rates"]
+        pm = branch_transition_matrices(eig, t0_.parent, t0_.heights,
                                         p0["clock.rate"], rates)
         order = peel_order_from_heights(t0_.heights, shape[0], t0_.parent)
-        return (aux["tips"].to(dtype).contiguous(), t0_.children, order,
-                t0_.root, pm.to(dtype).contiguous(), aux["freqs"].to(dtype),
+        return (tips.to(dtype).contiguous(), t0_.children, order,
+                t0_.root, pm.to(dtype).contiguous(), freqs.to(dtype),
                 cw.to(dtype))
 
     # -- phase 2: kernel vs plain on the card -------------------------
-    checks = {"peel_resident": [], "peel_stream": []}
+    checks = {k: [] for k in KERNELS}
 
-    def check(kname, label, shape, dtype, reps, plain_reps):
-        tips, ch, order, root, pm, fr, cw = peel_inputs(shape, dtype)
+    def deviation(got, ref):
+        err = (got - ref).abs()
+        return (err.max().item(),
+                (err / ref.abs().clamp_min(1.0)).max().item(),
+                bool(torch.isfinite(got).all()))
+
+    def check(kname, label, inputs, reps, plain_reps):
+        tips, ch, order, root, pm, fr, cw = inputs
+        dtype = pm.dtype
         n_int = tips.shape[0] - 1
         c, s, p = pm.shape[1], pm.shape[2], tips.shape[2]
+        wcs = cw[:, None] * fr[None, :]
+        rec = {"label": label, "shape": [tips.shape[0], c, s, p],
+               "dtype": str(dtype).replace("torch.", "")}
         if kname == "peel_resident":
             call = cuda_peeling.prepare_resident(tips, ch, order, pm, fr, cw)
-            plain_fn = lambda: plain.peel_site_loglik(  # noqa: E731
-                tips, ch, order, root, pm, fr, cw)
+            plain_fn = lambda: (plain.peel_site_loglik(  # noqa: E731
+                tips, ch, order, root, pm, fr, cw),)
             ins = [tips, pm, ch, order, fr, cw]
         else:
-            lr_ids, lr_pos, pm_ord = cuda_stream.stream_schedule(ch, order, pm)
-            call = cuda_stream.prepare_stream(tips, lr_ids, lr_pos, pm_ord,
-                                              fr, cw)
-            wcs = cw[:, None] * fr[None, :]
-            plain_fn = lambda: cuda_stream._stream_plain(  # noqa: E731
-                tips, lr_ids, lr_pos, pm_ord, wcs)
+            lr_ids, lr_pos = cuda_stream.stream_schedule(ch, order)
+            pm_ord = pm[lr_ids]
             ins = [tips, pm_ord, lr_ids, lr_pos, fr, cw]
-        got = call.launch().clone()
+            if kname == "peel_stream":
+                call = cuda_stream2.prepare_deep(tips, lr_ids, lr_pos, pm_ord,
+                                                 fr, cw)
+                plain_fn = lambda: (cuda_stream2._deep_plain(  # noqa: E731
+                    tips, lr_ids, lr_pos, pm_ord, wcs),)
+            else:
+                call = cuda_stream.prepare_stream(tips, lr_ids, lr_pos,
+                                                  pm_ord, fr, cw)
+                plain_fn = lambda: cuda_stream._stream_plain(  # noqa: E731
+                    tips, lr_ids, lr_pos, pm_ord, wcs)
+                # children the ring serves from shared memory
+                step = torch.arange(n_int, device=dev)[:, None]
+                inner = lr_pos >= 0
+                rec["internal_child_reads"] = int(inner.sum())
+                rec["ring_share"] = (int((inner & (lr_pos >= step - 2)).sum())
+                                     / rec["internal_child_reads"])
+        got = call.launch()
+        got = tuple(t.clone() for t in (got if isinstance(got, tuple)
+                                        else (got,)))
         ref = plain_fn()
         torch.cuda.synchronize()
-        err = (got - ref).abs()
-        max_abs = err.max().item()
-        max_rel = (err / ref.abs().clamp_min(1.0)).max().item()
-        finite = bool(torch.isfinite(got).all())
+        max_abs, max_rel, finite = deviation(got[0], ref[0])
         if dtype == torch.float64:
             ok, tol = max_rel < F64_REL_TOL, f"rel<{F64_REL_TOL}"
         else:
-            ok, tol = max_abs < F32_ABS_TOL, f"abs<{F32_ABS_TOL}"
-        ms = time_ms(call.launch, reps)
-        plain_ms = time_ms(plain_fn, plain_reps)
-        dname = str(dtype).replace("torch.", "")
+            lim = F32_ABS_TOL if s < 16 else F32_ABS_TOL_WIDE
+            ok, tol = max_abs < lim, f"abs<{lim}"
+        rec.update({"max_abs_err": max_abs, "max_rel_err": max_rel,
+                    "tol": tol})
+        if len(got) == 2:  # the rescaled partials by peel position
+            post_abs, _, post_finite = deviation(got[1], ref[1])
+            lim = F64_REL_TOL if dtype == torch.float64 else F32_POST_TOL
+            ok = ok and post_abs < lim and post_finite
+            rec.update({"post_max_abs_err": post_abs,
+                        "post_tol": f"abs<{lim}"})
+        del ref
+        rec["ms"] = time_ms(call.launch, reps)
+        rec["plain_ms"] = time_ms(plain_fn, plain_reps)
         # int inputs counted as the int32 the kernel reads
         b_ms, b_by, nbytes, flops = bound_ms(
             [t for t in ins if t.is_floating_point()]
             + [t.to(torch.int32) for t in ins if not t.is_floating_point()],
-            got, n_int, c, s, p, dname)
-        rec = {"label": label, "shape": [tips.shape[0], c, s, p],
-               "dtype": dname, "max_abs_err": max_abs, "max_rel_err": max_rel,
-               "tol": tol, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-               "bound_by": b_by, "bytes": nbytes, "flops": flops}
+            got, n_int, c, s, p, rec["dtype"])
+        rec.update({"bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                    "flops": flops})
         log(f"[kernel] {kname} {json.dumps(rec)}")
         if not (ok and finite):
             raise AssertionError(f"{kname} {label}: kernel disagrees with its "
                                  f"plain version ({tol}): {rec}")
         checks[kname].append(rec)
+        return call, got
 
-    check("peel_resident", "benchmark2 f64", B2, torch.float64, 50, 5)
-    check("peel_resident", "benchmark2 f32", B2, torch.float32, 50, 5)
-    check("peel_stream", "makona f64", MAKONA, torch.float64, 20, 2)
-    check("peel_stream", "small forced stream f64", SMALL, torch.float64, 50, 5)
-    check("peel_stream", "small forced stream f32", SMALL, torch.float32, 50, 5)
+    f64, f32 = torch.float64, torch.float32
+    check("peel_resident", "benchmark2 f64", peel_inputs(B2, f64), 50, 5)
+    check("peel_resident", "benchmark2 f32", peel_inputs(B2, f32), 50, 5)
+    mak = peel_inputs(MAKONA, f64)
+    deep_call, deep_got = check("peel_stream", "makona f64", mak, 20, 2)
+    check("peel_stream", "small forced stream f64", peel_inputs(SMALL, f64),
+          50, 5)
+    check("peel_stream", "small forced stream f32", peel_inputs(SMALL, f32),
+          50, 5)
+    b1_part = peel_inputs(B1, f64)
+    check("peel_stream", "benchmark1 partition f64", b1_part, 20, 2)
+
+    check("peel_stream_ring", "benchmark1 partition f64", b1_part, 20, 2)
+    ring_call, ring_got = check("peel_stream_ring", "makona f64", mak, 20, 2)
+    # the two streaming kernels on the same Makona inputs, timed in turns
+    _, rel, _ = deviation(ring_got[0], deep_got[0])
+    turns = [time_ms(c.launch, 10)
+             for c in (ring_call, deep_call, deep_call, ring_call)]
+    log(f"[kernel] makona f64 peel_stream_ring vs peel_stream: max rel "
+        f"{rel:.3e}; ms in turns ring {turns[0]:.4f} deep {turns[1]:.4f} "
+        f"deep {turns[2]:.4f} ring {turns[3]:.4f}")
+    if not rel < F64_REL_TOL:
+        raise AssertionError("the two streaming kernels disagree at Makona")
+    del ring_call, ring_got, deep_call, deep_got, mak
+    for dtype in (f64, f32):
+        name = str(dtype).replace("torch.", "")
+        check("peel_stream_ring", f"amino acid {name}",
+              random_inputs(*AMINO, 20, dtype)[0], 10, 2)
+        check("peel_stream_ring", f"codon {name}",
+              random_inputs(*CODON, 61, dtype)[0], 10, 2)
+        small = peel_inputs(SMALL, dtype)  # padded to 256 patterns: cut back
+        check("peel_stream_ring", f"small ragged {name}",
+              (small[0][..., :SMALL[1]].contiguous(), *small[1:]), 50, 5)
 
     # the card's log posterior against the CPU's plain path, small input
     lp_s, _, p_s, t_s, _ = analyses[SMALL]
@@ -202,8 +361,10 @@ def main():
     if not abs(a - b) <= 1e-10 * abs(b):
         raise AssertionError("card and CPU log posteriors disagree")
 
-    # -- phases 3 and 4: the chain ------------------------------------
-    def chain(shape, n_steps, n_check, expect, other, seed):
+    # -- phases 3 to 5: the chains -------------------------------------
+    def chain(label, shape, n_steps, n_check, per_step, seed):
+        """Run the chain of one analysis; `per_step` is the launches each
+        kernel must count for one step."""
         log_post, ops, p0, tr0, aux = analyses[shape]
         lpc = aux["log_post_cached"]
         step = make_mcmc_step(lpc, ops, derived=aux["derived"])
@@ -211,39 +372,39 @@ def main():
         state = init_mcmc_state(p0, tr0, gen, ops, lpc)
         state, _ = run_chain(step, state, 20)  # warm-up
         torch.cuda.synchronize()
-        cuda_peeling.launches = 0
-        cuda_stream.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         state, _ = run_chain(step, state, n_steps)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        counts = {"peel_resident": cuda_peeling.launches,
-                  "peel_stream": cuda_stream.launches}
+        counts = read_counts()
         lp = float(state.log_posterior)
-        log(f"[chain {shape}] {n_steps} steps in {dt:.3f} s = "
+        log(f"[chain {label}] {n_steps} steps in {dt:.3f} s = "
             f"{n_steps / dt:.2f} states/s; log posterior {lp!r}; "
             f"launches {json.dumps(counts)}")
         log(operator_report(ops, state))
-        if counts[expect] != n_steps or counts[other] != 0:
-            raise AssertionError(f"expected {n_steps} {expect} launches and no "
-                                 f"{other} launches, got {counts}")
+        expect = {k: n_steps * per_step.get(k, 0) for k in KERNELS}
+        if counts != expect:
+            raise AssertionError(f"expected launches {expect}, got {counts}")
         if lp != lp or lp == float("inf") or lp == -float("inf"):
             raise AssertionError(f"posterior not finite: {lp}")
         t0 = time.perf_counter()
         state, dev_max = full_evaluation_check(step, log_post, state, n_check,
                                                derived=aux["derived"])
         dev_max = float(dev_max)
-        log(f"[chain {shape}] full-evaluation max deviation over {n_check} "
+        log(f"[chain {label}] full-evaluation max deviation over {n_check} "
             f"steps: {dev_max!r} (tolerance {FULL_EVAL_TOL}) in "
             f"{time.perf_counter() - t0:.2f} s")
         if not dev_max < FULL_EVAL_TOL:
             raise AssertionError(f"full-evaluation deviation {dev_max}")
-        return counts[expect], n_steps / dt, step, state, lpc
+        return counts, n_steps / dt, step, state
 
-    res_launches, b2_rate, b2_step, b2_state, _ = chain(
-        B2, B2_STEPS, B2_CHECK, "peel_resident", "peel_stream", 0)
-    mak_launches, mak_rate, mak_step, mak_state, _ = chain(
-        MAKONA, MAK_STEPS, MAK_CHECK, "peel_stream", "peel_resident", 1)
+    b2_counts, b2_rate, b2_step, b2_state = chain(
+        "benchmark2", B2, B2_STEPS, B2_CHECK, {"peel_resident": 1}, 0)
+    mak_counts, mak_rate, mak_step, mak_state = chain(
+        "makona", MAKONA, MAK_STEPS, MAK_CHECK, {"peel_stream": 1}, 1)
+    b1_counts, b1_rate, b1_step, b1_state = chain(
+        "benchmark1", B1, B1_STEPS, B1_CHECK, {"peel_stream": 3}, 2)
 
     # where the time of a step goes: a profiler window over the chain
     from torch.autograd import DeviceType
@@ -275,8 +436,71 @@ def main():
 
     where_time_goes("benchmark2", b2_step, b2_state, 200)
     where_time_goes("makona", mak_step, mak_state, 50)
+    where_time_goes("benchmark1", b1_step, b1_state, 50)
 
-    # -- phase 5: summary ---------------------------------------------
+    # -- phase 6: the remaining entry points ---------------------------
+    # per-site log-likelihoods go through the same dispatcher as the chains
+    for label, shape, kname in (("benchmark2", B2, "peel_resident"),
+                                ("makona", MAKONA, "peel_stream")):
+        _, _, p0, tr, aux = analyses[shape]
+        rates, cw = p0["site.rates"]
+        reset_counts()
+        got = tree_site_logliks(aux["tips"], tr.parent, tr.children,
+                                tr.heights, tr.root, p0["eig"], aux["freqs"],
+                                rates, cw, p0["clock.rate"])
+        counts = read_counts()
+        _, rel, finite = deviation(
+            got, plain.peel_site_loglik(*peel_inputs(shape, f64)))
+        log(f"[entry] tree_site_logliks {label}: max rel {rel:.3e} against "
+            f"the plain peel; launches {json.dumps(counts)}")
+        if counts != {k: int(k == kname) for k in KERNELS}:
+            raise AssertionError(f"tree_site_logliks at {label} did not go "
+                                 f"through {kname} once")
+        if not (finite and rel < F64_REL_TOL):
+            raise AssertionError("tree_site_logliks disagrees with the plain "
+                                 "peel")
+    reset_counts()
+    # a 20-state likelihood from caller-built matrices: the dispatcher sends
+    # S != 4 to the streaming kernel
+    (tips, ch, order, root, pm, fr, cw), tr = random_inputs(*AMINO, 20, f64)
+    w = torch.ones(AMINO[3], dtype=f64, device=dev)
+    got = float(tree_loglikelihood_pmats(tips, w, ch, tr.heights, root,
+                                         tr.parent, pm, fr, cw))
+    ref = float(plain.peel_loglikelihood(tips, ch, order, root, pm, fr, cw, w))
+    log(f"[entry] tree_loglikelihood_pmats S=20 card {got!r} plain {ref!r} "
+        f"launches {json.dumps(read_counts())}")
+    if read_counts() != {"peel_resident": 0, "peel_stream": 0,
+                         "peel_stream_ring": 1}:
+        raise AssertionError("S = 20 did not go through peel_stream_ring once")
+    if not abs(got - ref) <= F64_REL_TOL * abs(ref):
+        raise AssertionError("tree_loglikelihood_pmats disagrees with the "
+                             "plain peel")
+    # the benchmark1 likelihood at the chain's last state: the chain's route
+    # (three deep launches) against the streaming entry point, by partition
+    _, _, _, _, aux = analyses[B1]
+    prm, tr = b1_state.params, b1_state.tree
+    via_chain = float(aux["log_lik"](prm, tr))
+    order = peel_order_from_heights(tr.heights, B1[0], tr.parent)
+    rates, cw = single_rate(dtype=f64, device=dev)
+    via_ring = 0.0
+    for k in range(3):
+        pm = branch_transition_matrices(
+            hky_eigen(prm["kappa"][k], aux["freqs"]), tr.parent, tr.heights,
+            prm["clock.rate"], prm["mu"][k] * rates)
+        via_ring += float(cuda_stream.peel_loglikelihood_stream(
+            aux["tips"][k], tr.children, order, tr.root, pm, aux["freqs"], cw,
+            aux["weights"][k]))
+    ring_counts = read_counts()
+    log(f"[entry] benchmark1 log likelihood: chain's route {via_chain!r}, "
+        f"peel_loglikelihood_stream {via_ring!r}; launches "
+        f"{json.dumps(ring_counts)}")
+    if ring_counts != {"peel_resident": 0, "peel_stream": 3,
+                       "peel_stream_ring": 4}:
+        raise AssertionError(f"unexpected launches {ring_counts}")
+    if not abs(via_chain - via_ring) <= F64_REL_TOL * abs(via_chain):
+        raise AssertionError("the two routes disagree at benchmark1")
+
+    # -- phase 7: summary ---------------------------------------------
     def entry(kname, source, replaces, launches, rec):
         return {"name": kname, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
@@ -285,17 +509,23 @@ def main():
                 "bound_by": rec["bound_by"], "library_ms": None,
                 "checks": checks[kname]}
 
-    log(f"[summary] benchmark2 {b2_rate:.2f} states/s, makona "
-        f"{mak_rate:.2f} states/s, on {smi_line}")
+    log(f"[summary] states/s: benchmark2 {b2_rate:.2f}, makona "
+        f"{mak_rate:.2f}, benchmark1 {b1_rate:.2f}, on {smi_line}")
     log(smi_line)
     print(json.dumps({"kernels": [
         entry("peel_resident", "beast_mcmc_tpu_torch/csrc/peel_resident.cu",
-              "beast_mcmc_tpu/ops/pallas_peeling.py:52", res_launches,
-              checks["peel_resident"][0]),
+              "beast_mcmc_tpu/ops/pallas_peeling.py:52",
+              b2_counts["peel_resident"], checks["peel_resident"][0]),
         entry("peel_stream", "beast_mcmc_tpu_torch/csrc/peel_stream.cu",
-              "beast_mcmc_tpu/ops/pallas_stream2.py:64", mak_launches,
-              checks["peel_stream"][0]),
-    ]}), flush=True)
+              "beast_mcmc_tpu/ops/pallas_stream2.py:64",
+              mak_counts["peel_stream"], checks["peel_stream"][0]),
+        entry("peel_stream_ring",
+              "beast_mcmc_tpu_torch/csrc/peel_stream_ring.cu",
+              "beast_mcmc_tpu/ops/pallas_stream.py:62",
+              ring_counts["peel_stream_ring"], checks["peel_stream_ring"][0]),
+    ], "launches_per_path": {"benchmark2": b2_counts, "makona": mak_counts,
+                             "benchmark1": b1_counts,
+                             "stream entry points": ring_counts}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

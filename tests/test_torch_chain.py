@@ -82,8 +82,15 @@ def test_log_post_matches_jax(model):
 
 
 def test_hky_codon3_waits_for_multipartition():
-    with pytest.raises(NotImplementedError):
-        build_analysis(8, 64, model="hky_codon3", device="cpu")
+    """hky_codon3 no longer waits: build_analysis builds it (held against
+    JAX in tests/test_torch_multipartition.py). A model it does not know
+    still raises."""
+    log_post, ops, params0, tree0, aux = build_analysis(
+        8, 64, model="hky_codon3", device="cpu")
+    assert aux["tips"].shape == (3, 8, 4, 128)
+    assert bool(torch.isfinite(log_post(params0, tree0)))
+    with pytest.raises(ValueError):
+        build_analysis(8, 64, model="hky_codon4", device="cpu")
 
 
 def _main_path_operators():

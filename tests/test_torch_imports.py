@@ -20,6 +20,9 @@ def _modules():
 
 
 def test_import_every_module_without_jax():
+    # both streaming-peel wrappers are among the modules found
+    assert {"beast_mcmc_tpu_torch.ops.cuda_stream",
+            "beast_mcmc_tpu_torch.ops.cuda_stream2"} <= set(_modules())
     code = (
         "import importlib, json, sys\n"
         f"for m in {_modules()!r}:\n"

@@ -1,12 +1,14 @@
 """The port's peels against the JAX package's.
 
-The plain PyTorch peel (the CPU path and the reference for both CUDA
-kernels) is held against the JAX scan peel in float64 (rtol 1e-12: the
+The plain PyTorch peels (the CPU path and the references of the three CUDA
+kernels) are held against the JAX scan peel in float64 (rtol 1e-12: the
 same operations in another summation order), and in float32 against the
-two Pallas kernels it replaces, run in interpret mode (atol 5e-5 per site,
-as tests/test_pallas_stream.py holds the streaming kernel). The kernels
-themselves run only on the card: chip_smoke.py holds them against these
-plain versions there.
+three Pallas kernels they replace, run in interpret mode (atol 5e-5 per
+site at S = 4 and 1e-4 at S = 61, as tests/test_pallas_stream.py holds the
+streaming kernel; atol 1e-5 on its rescaled partials, which lie in [0, 1]).
+The kernels themselves run only on the card: chip_smoke.py holds them
+against these plain versions there. The dispatch rule and the streaming
+kernel's launch planner are pure functions of shapes and are held here.
 """
 
 import jax.numpy as jnp
@@ -15,6 +17,7 @@ import pytest
 import torch
 
 from beast_mcmc_tpu.ops import peeling as jpeel
+from beast_mcmc_tpu.ops import pallas_stream as jstream
 from beast_mcmc_tpu.ops.pallas_peeling import peel_site_loglik_pallas
 from beast_mcmc_tpu.ops.pallas_stream2 import peel_site_loglik_deep
 from beast_mcmc_tpu.tree.topology import simulate_coalescent_tree
@@ -29,7 +32,7 @@ from beast_mcmc_tpu_torch.models.substitution import (
     jc_eigen,
 )
 from beast_mcmc_tpu_torch.models.treelikelihood import tree_loglikelihood
-from beast_mcmc_tpu_torch.ops import cuda_peeling, cuda_stream
+from beast_mcmc_tpu_torch.ops import cuda_peeling, cuda_stream, cuda_stream2
 from beast_mcmc_tpu_torch.ops import peeling as tpeel
 
 from fixtures import primate_patterns, primate_tree
@@ -66,6 +69,8 @@ def _torch(args, dt):
 
 
 SHAPES = [(6, 4, 4, 40), (33, 1, 4, 200), (64, 2, 4, 130), (1025, 2, 4, 128)]
+STREAM_SHAPES = [(6, 4, 4, 40), (33, 1, 4, 200), (64, 2, 4, 130),
+                 (9, 1, 61, 40)]
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -75,9 +80,61 @@ def test_plain_peel_matches_jax_scan_f64(shape):
     targs = _torch(args, torch.float64)
     got = tpeel.peel_site_loglik(*targs)
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-12)
-    # the streaming kernel's plain version reads the peel-ordered schedule
-    got = cuda_stream.peel_site_loglik_stream(*targs)
+    # the deep kernel's plain version reads the peel-ordered schedule
+    got = cuda_stream2.peel_site_loglik_deep(*targs)
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-12)
+
+
+@pytest.mark.parametrize("shape,rtol", [(s, 1e-12) for s in STREAM_SHAPES]
+                         + [((1025, 2, 4, 128), 1e-10)])
+def test_stream_plain_matches_jax_scan_f64(shape, rtol):
+    """The v1 streaming kernel's plain version, through its entry points,
+    against the JAX scan; its partials against the scan's, by position."""
+    args = _problem(*shape, seed=3)
+    jargs = _jax(args, jnp.float64)
+    ref, ref_post, _ = jpeel._peel_forward(*jargs)
+    targs = _torch(args, torch.float64)
+    got = cuda_stream.peel_site_loglik_stream(*targs)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=rtol)
+    tips, children, order, root, pm, freqs, cw = targs
+    site, post_pos = cuda_stream._stream_forward(tips, children, order, pm,
+                                                 freqs, cw)
+    assert post_pos.shape == (shape[0] - 1, *shape[1:])
+    np.testing.assert_array_equal(site.numpy(), got.numpy())
+    np.testing.assert_allclose(post_pos.numpy(),
+                               np.asarray(ref_post)[args[2]], rtol=rtol,
+                               atol=1e-300)
+    # the plain peel returns what the JAX one does where a test needs it
+    p_site, p_post = tpeel._peel_forward(*targs)
+    np.testing.assert_allclose(p_site.numpy(), np.asarray(ref), rtol=rtol)
+    np.testing.assert_allclose(p_post.numpy(), np.asarray(ref_post),
+                               rtol=rtol, atol=1e-300)
+    w = torch.arange(1, shape[3] + 1, dtype=torch.float64)
+    total = cuda_stream.peel_loglikelihood_stream(*targs, w)
+    np.testing.assert_allclose(float(total), float(np.dot(w.numpy(), ref)),
+                               rtol=max(rtol, 1e-11))
+
+
+@pytest.mark.parametrize("shape", STREAM_SHAPES)
+def test_stream_plain_matches_pallas_stream_f32(shape):
+    """The TPU kernel this package's peel_stream_ring replaces, in interpret
+    mode, float32: the per-site log-likelihood and the partials by peel
+    position."""
+    args = _problem(*shape, seed=7)
+    tips, children, order, root, pm, freqs, cw = _jax(args, jnp.float32)
+    ref_site, ref_post = jstream._stream_forward(tips, children, order, pm,
+                                                 freqs, cw, interpret=True)
+    ref_entry = jstream.peel_site_loglik_stream(tips, children, order, root,
+                                                pm, freqs, cw, True)
+    targs = _torch(args, torch.float32)
+    got = cuda_stream.peel_site_loglik_stream(*targs)
+    atol = 5e-5 if shape[2] < 16 else 1e-4
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref_entry), atol=atol)
+    _, post_pos = cuda_stream._stream_forward(targs[0], targs[1], targs[2],
+                                              *targs[4:])
+    np.testing.assert_allclose(post_pos.numpy(), np.asarray(ref_post),
+                               atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref_site), atol=atol)
 
 
 @pytest.mark.parametrize("shape", [(6, 4, 4, 40), (33, 1, 4, 200),
@@ -92,7 +149,7 @@ def test_plain_peel_matches_pallas_kernels_f32(shape):
     got = cuda_peeling.peel_site_loglik_cuda(*targs).numpy()
     np.testing.assert_allclose(got, resident, atol=5e-5)
     np.testing.assert_allclose(got, deep, atol=5e-5)
-    got = cuda_stream.peel_site_loglik_stream(*targs).numpy()
+    got = cuda_stream2.peel_site_loglik_deep(*targs).numpy()
     np.testing.assert_allclose(got, deep, atol=5e-5)
 
 
@@ -171,6 +228,9 @@ def test_non_divisible_patterns(primates):
         jnp.asarray(cw, jnp.float32), True)
     np.testing.assert_allclose(site.numpy(), np.asarray(ref), atol=5e-5)
     np.testing.assert_allclose(
+        cuda_stream2.peel_site_loglik_deep(tips, *args).numpy(),
+        site.numpy(), rtol=1e-12)
+    np.testing.assert_allclose(
         cuda_stream.peel_site_loglik_stream(tips, *args).numpy(),
         site.numpy(), rtol=1e-12)
     tips_p, w_p = tpeel.pad_patterns(tips, w, 128)
@@ -195,3 +255,125 @@ def test_resident_plan_cut_over(dtype, itemsize):
                 if cuda_peeling.resident_plan_fits(m, 4, 4, itemsize))
     assert (m_max * 64 + 256) * itemsize <= 200 * 1024 < (
         (m_max + 1) * 64 + 256) * itemsize
+
+
+@pytest.mark.parametrize("m,c,s,itemsize,route", [
+    (2 * 62 - 1, 4, 4, 8, "resident"),     # benchmark2
+    (2 * 1610 - 1, 4, 4, 8, "deep"),       # Makona
+    (2 * 1441 - 1, 1, 4, 8, "deep"),       # one benchmark1 partition
+    (2 * 1441 - 1, 1, 4, 4, "resident"),   # in float32 its 184 KB fit
+    (11, 4, 20, 8, "stream"),              # amino acids, however small
+    (2 * 1610 - 1, 1, 61, 4, "stream"),    # codons
+    (11, 1, 2, 8, "stream"),
+])
+def test_peel_route(m, c, s, itemsize, route):
+    """S = 4 goes by resident_plan_fits as in the JAX dispatcher; any other
+    S goes to the v1 streaming kernel, the only one that takes it."""
+    assert cuda_peeling.peel_route(m, c, s, itemsize) == route
+
+
+@pytest.mark.parametrize("shape", [
+    (6, 4, 4, 40),       # resident
+    (1025, 2, 4, 128),   # deep
+    (9, 1, 61, 40),      # stream
+])
+def test_auto_dispatchers_on_cpu_tensors(shape):
+    """Each route of the per-site dispatcher, and the total built on it,
+    against the JAX scan; CPU tensors take each wrapper's plain version."""
+    args = _problem(*shape, seed=5)
+    ref = np.asarray(jpeel.peel_site_loglik(*_jax(args, jnp.float64)))
+    targs = _torch(args, torch.float64)
+    got = cuda_peeling.peel_site_loglik_auto(*targs)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-10)
+    w = torch.arange(1, shape[3] + 1, dtype=torch.float64)
+    total = cuda_peeling.peel_loglikelihood_auto(*targs, w)
+    assert total.dtype == torch.float64
+    np.testing.assert_allclose(float(total), float(np.dot(w.numpy(), ref)),
+                               rtol=1e-10)
+
+
+def test_check_kernel_inputs_takes_the_states_a_kernel_supports():
+    """The two S = 4 kernels go on refusing 20 states; the streaming
+    kernel's envelope lets them through to the device check, which CPU
+    tensors then fail; 9 categories are outside it."""
+    def args(c, s):
+        return (torch.zeros((3, s, 8)), torch.zeros((5, c, s, s)),
+                torch.zeros(s), torch.zeros(c))
+
+    with pytest.raises(ValueError, match="states"):
+        cuda_peeling.check_kernel_inputs(*args(1, 20))
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_peeling.check_kernel_inputs(*args(1, 4))
+    envelope = dict(states=cuda_stream.STATES,
+                    max_categories=cuda_stream.MAX_CATEGORIES)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_peeling.check_kernel_inputs(*args(8, 20), **envelope)
+    with pytest.raises(ValueError, match="states"):
+        cuda_peeling.check_kernel_inputs(*args(1, 65), **envelope)
+    with pytest.raises(ValueError, match="categories"):
+        cuda_peeling.check_kernel_inputs(*args(9, 20), **envelope)
+    with pytest.raises(TypeError):
+        cuda_peeling.check_kernel_inputs(
+            *(t.half() for t in args(1, 20)), **envelope)
+
+
+@pytest.mark.parametrize("p,c,s,itemsize,bp,rows,chunk", [
+    (640, 1, 4, 8, 8, 1, 64),       # one benchmark1 partition: 80 blocks
+    (2048, 4, 4, 8, 16, 4, 32),     # Makona: 128 blocks
+    (5632, 4, 4, 8, 32, 4, 32),     # benchmark2: 176 blocks fill the card
+    (1024, 4, 20, 8, 8, 20, 1),     # amino acids: one node per matrix slot
+    (1024, 4, 20, 4, 8, 20, 2),
+    (8192, 4, 20, 8, 32, 16, 1),    # the same with the card full
+    (512, 1, 61, 8, 8, 16, 0),      # codons, f64: [S, S] pieces
+    (512, 1, 61, 4, 8, 16, 1),
+    (512, 4, 61, 8, 8, 16, 0),      # 238 KB of matrices a node: pieces
+    (64, 8, 64, 8, 4, 16, 0),       # the corner of the envelope
+    (64, 8, 64, 4, 8, 16, 0),
+    (130, 4, 4, 4, 8, 4, 64),
+    (7, 1, 2, 8, 8, 1, 64),
+])
+def test_stream_plan(p, c, s, itemsize, bp, rows, chunk):
+    """The streaming kernel's planners, derived from Hopper's 227 KB of
+    shared memory a block (ring 3 + staged children 4 tiles of [C*S, BP],
+    two matrix slots, the max-reduction buffer) and its 132 SMs (a tile
+    narrower than 32, down to 8, while half the SMs would have no block)."""
+    plan = cuda_stream.stream_plan(p, c, s, itemsize)
+    assert (plan.bp, plan.rows, plan.chunk) == (bp, rows, chunk)
+    assert cuda_stream._pick_bp(p, c, s, itemsize) == bp
+    assert cuda_stream._pick_chunk(c, s, itemsize) == chunk
+    unit = chunk * 2 * c * s * s if chunk else s * s
+    assert plan.smem == (7 * c * s * bp + 2 * unit + rows * bp) * itemsize
+    assert plan.smem <= cuda_stream.SMEM_BUDGET < 227 * 1024
+    assert rows * bp <= cuda_stream.MAX_THREADS
+    blocks = -(-p // bp)
+    assert bp <= 8 or 2 * blocks > cuda_stream.N_SM
+    if chunk:
+        assert chunk * 2 * c * s * s * itemsize <= cuda_stream.CHUNK_BYTES
+    else:
+        assert 2 * c * s * s * itemsize > cuda_stream.CHUNK_BYTES
+
+
+def test_stream_plan_covers_the_envelope_and_refuses_outside():
+    for itemsize in (4, 8):
+        for c in range(1, 9):
+            for s in range(2, 65):
+                plan = cuda_stream.stream_plan(1000, c, s, itemsize)
+                assert plan.bp >= 4 and plan.smem <= cuda_stream.SMEM_BUDGET
+    for c, s in [(9, 4), (0, 4), (1, 1), (1, 65)]:
+        with pytest.raises(ValueError):
+            cuda_stream.stream_plan(128, c, s, 8)
+
+
+def test_stream_schedule():
+    """lr_ids are the children in peel order, lr_pos their positions, -1 for
+    tips; a child always sits before its parent."""
+    args = _problem(20, 1, 4, 8, seed=2)
+    _, children, order, *_ = _torch(args, torch.float64)
+    lr_ids, lr_pos = cuda_stream.stream_schedule(children, order)
+    assert lr_ids.dtype == lr_pos.dtype == torch.int32
+    np.testing.assert_array_equal(lr_ids.numpy(), args[1][args[2]])
+    pos = {int(n): i for i, n in enumerate(order.tolist())}
+    for i in range(19):
+        for k in range(2):
+            child = int(lr_ids[i, k])
+            assert int(lr_pos[i, k]) == pos.get(child, -1) < i
