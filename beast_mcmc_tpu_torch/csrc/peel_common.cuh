@@ -1,6 +1,6 @@
-// Shared pieces of the Felsenstein peel kernels. peel_stream_ring.cu takes
-// only dmax and dlog; the rest serves the two S = 4 kernels (peel_resident.cu,
-// peel_stream.cu).
+// Shared pieces of the Felsenstein peel kernels. peel_stream_ring.cu and
+// peel_mxu.cu take only dmax, dlog and the element-wise cp.async helpers; the
+// rest serves the two S = 4 kernels (peel_resident.cu, peel_stream.cu).
 //
 // Thread layout of those two: a block is PX patterns x C categories
 // (threadIdx.x = pattern in the tile, threadIdx.y = category), one thread
@@ -22,6 +22,22 @@ __device__ __forceinline__ float dmax(float a, float b) { return fmaxf(a, b); }
 __device__ __forceinline__ double dmax(double a, double b) { return fmax(a, b); }
 __device__ __forceinline__ float dlog(float a) { return logf(a); }
 __device__ __forceinline__ double dlog(double a) { return log(a); }
+
+// One element (4 or 8 bytes) from device to shared memory, asynchronously:
+// no pattern or state count needs padding for alignment.
+template <typename T>
+__device__ __forceinline__ void cp_async_elem(T* smem, const T* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(gmem),
+               "n"(static_cast<int>(sizeof(T)))
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
 
 // x[s] = (Pl . vl)[s] * (Pr . vr)[s]; the j-sum runs in index order, like
 // the TPU kernels' broadcast matvec. Returns max_s x[s] (>= 0).

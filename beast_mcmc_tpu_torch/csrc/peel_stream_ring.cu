@@ -49,19 +49,9 @@ constexpr int TR = 4;                  // rows a thread accumulates at a time
 constexpr int MAX_THREADS = 512;       // of one block
 constexpr size_t SMEM_LIMIT = 232448;  // bytes a block may take on sm_90
 
-template <typename T>
-__device__ __forceinline__ void cp_async_elem(T* smem, const T* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(gmem),
-               "n"(static_cast<int>(sizeof(T)))
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
+using peel::cp_async_commit;
+using peel::cp_async_elem;
+using peel::cp_async_wait_all;
 
 // acc[r] = sum_j m[ro[r] + j] * ch[j * bp], j in index order, for the TR
 // rows at offsets ro[] of one [S, S] matrix and one child column.

@@ -1,9 +1,12 @@
-"""Across-site rate variation: the discretised gamma.
+"""Across-site rate variation: the discretised gamma, invariant sites,
+free rates.
 
 Counterpart of beast_mcmc_tpu/models/sitemodel.py (GammaSiteModel's
 calculateCategoryRates): K categories at the median quantiles
-(2i+1)/(2K) of Gamma(alpha, 1/alpha), normalised to mean rate 1, equal
-weights; mu rescales all rates.
+(2i+1)/(2K) of Gamma(alpha, 1/alpha); an optional invariant category of
+rate 0 and weight pInv; rates normalised so that the weighted mean over all
+categories is 1; mu rescales all rates. The exact-quantile (AS91) route is
+not ported.
 """
 
 from __future__ import annotations
@@ -18,12 +21,15 @@ from beast_mcmc_tpu_torch.utils.dtypes import DEFAULT_DEVICE, DEFAULT_FLOAT
 
 
 def discrete_gamma_rates(alpha: torch.Tensor, n_categories: int,
+                         p_invariant: Optional[torch.Tensor] = None,
                          mu: Optional[torch.Tensor] = None,
                          dtype: torch.dtype = DEFAULT_FLOAT
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(rates [C], weights [C]), computed in float64 and cast to `dtype`.
     The scale 1/alpha cancels in the mean normalisation, which is taken in
-    log space so it stays exact where raw quantiles underflow."""
+    log space so it stays exact where raw quantiles underflow. With
+    `p_invariant` the result has C + 1 entries: category 0 is the invariant
+    one (rate exactly 0, weight pInv)."""
     alpha = torch.as_tensor(alpha).to(torch.float64)
     k = n_categories
     lq = log_gamma_category_quantiles(alpha, k)
@@ -31,6 +37,11 @@ def discrete_gamma_rates(alpha: torch.Tensor, n_categories: int,
     rates = torch.exp(lq - lnorm)
     weights = torch.full((k,), 1.0 / k, dtype=torch.float64,
                          device=alpha.device)
+    if p_invariant is not None:
+        p_inv = torch.as_tensor(p_invariant, dtype=torch.float64,
+                                device=alpha.device).reshape(())
+        rates = torch.cat([rates.new_zeros(1), rates / (1.0 - p_inv)])
+        weights = torch.cat([p_inv[None], weights * (1.0 - p_inv)])
     if mu is not None:
         rates = rates * mu
     return rates.to(dtype), weights.to(dtype)
@@ -43,3 +54,23 @@ def single_rate(mu: Optional[torch.Tensor] = None,
     if mu is not None:
         r = r * mu
     return r, torch.ones(1, dtype=dtype, device=device)
+
+
+def invariant_only_rates(p_invariant: torch.Tensor,
+                         mu: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """No gamma, just +I: one zero-rate category plus one at 1/(1 - pInv)."""
+    p_inv = torch.as_tensor(p_invariant).reshape(())
+    rates = torch.stack([torch.zeros_like(p_inv), 1.0 / (1.0 - p_inv)])
+    weights = torch.stack([p_inv, 1.0 - p_inv])
+    if mu is not None:
+        rates = rates * mu
+    return rates, weights
+
+
+def free_rates(rates: torch.Tensor, weights: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Free-rate site model: arbitrary positive rates and simplex weights,
+    renormalised so that the expected rate is 1."""
+    w = weights / torch.sum(weights)
+    return rates / torch.sum(w * rates), w

@@ -1,8 +1,12 @@
-"""Nucleotide substitution models: parameters -> EigenSystem.
+"""Substitution models: parameters -> EigenSystem.
 
-Counterpart of beast_mcmc_tpu/models/substitution.py. States A,C,G,T =
-0..3; Q normalised to mean rate 1; GTR takes 6 exchangeabilities in the
-reference order AC, AG, AT, CG, CT, GT.
+Counterpart of beast_mcmc_tpu/models/substitution.py. Nucleotide states
+A,C,G,T = 0..3; Q normalised to mean rate 1; GTR takes 6 exchangeabilities
+in the reference order AC, AG, AT, CG, CT, GT. The amino-acid models take
+their 190 exchangeabilities and 20 frequencies from models/data/
+aa_matrices.py (order ACDEFGHIKLMNPQRSTVWY); the codon models run over the
+61 sense codons of data/codons.py. Only the reversible models are here: the
+generators that need a matrix exponential are not ported yet.
 """
 
 from __future__ import annotations
@@ -11,6 +15,8 @@ from typing import Optional
 
 import torch
 
+from beast_mcmc_tpu_torch.data.codons import UNIVERSAL_CODE, codon_structure
+from beast_mcmc_tpu_torch.models.data.aa_matrices import AA_MODELS
 from beast_mcmc_tpu_torch.ops.eigen import EigenSystem, reversible_eigen
 from beast_mcmc_tpu_torch.utils.dtypes import DEFAULT_DEVICE, DEFAULT_FLOAT
 
@@ -48,3 +54,78 @@ def hky_eigen(kappa, freqs: torch.Tensor) -> EigenSystem:
 def gtr_eigen(rates6: torch.Tensor, freqs: torch.Tensor) -> EigenSystem:
     """GTR with 6 exchangeabilities in reference order."""
     return reversible_eigen(symmetric_rates_from_vector(rates6, 4), freqs)
+
+
+def tn93_eigen(kappa1, kappa2, freqs: torch.Tensor) -> EigenSystem:
+    """TN93: separate purine (A<->G, kappa1) and pyrimidine (C<->T, kappa2)
+    transition rates."""
+    k1 = torch.as_tensor(kappa1, dtype=freqs.dtype, device=freqs.device)
+    k2 = torch.as_tensor(kappa2, dtype=freqs.dtype, device=freqs.device)
+    # exchangeabilities AC, AG, AT, CG, CT, GT
+    one = torch.ones((), dtype=freqs.dtype, device=freqs.device)
+    return gtr_eigen(torch.stack([one, k1, one, one, k2, one]), freqs)
+
+
+def general_reversible_eigen(rates_vec: torch.Tensor,
+                             freqs: torch.Tensor) -> EigenSystem:
+    """S-state reversible model from S(S-1)/2 exchangeabilities (discrete
+    traits, phylogeography)."""
+    return reversible_eigen(
+        symmetric_rates_from_vector(rates_vec, freqs.shape[-1]), freqs)
+
+
+def svs_masked_rates(rates_vec: torch.Tensor,
+                     indicators: torch.Tensor) -> torch.Tensor:
+    """BSSVS: elementwise indicator mask over the exchangeabilities;
+    masked-out rates become 0."""
+    return rates_vec * indicators
+
+
+def empirical_aa_eigen(model_name: str, freqs: Optional[torch.Tensor] = None,
+                       dtype=DEFAULT_FLOAT, device=DEFAULT_DEVICE
+                       ) -> EigenSystem:
+    """Empirical amino-acid replacement model (Dayhoff, JTT, WAG, LG, mt*,
+    cpREV, FLU, Blosum62). freqs=None uses the model's published
+    frequencies; pass alignment frequencies for the +F variants."""
+    entry = AA_MODELS[model_name.upper()]
+    if freqs is None:
+        freqs = torch.tensor(entry["frequencies"], dtype=dtype, device=device)
+    rates = torch.tensor(entry["rates"], dtype=freqs.dtype,
+                         device=freqs.device)
+    return general_reversible_eigen(rates, freqs)
+
+
+def _codon_rates(codon_freqs: torch.Tensor, code):
+    """(single, is_transition, is_nonsynonymous), each [61, 61], on the
+    frequencies' device."""
+    return tuple(torch.as_tensor(a, dtype=codon_freqs.dtype,
+                                 device=codon_freqs.device)
+                 for a in codon_structure(code or UNIVERSAL_CODE))
+
+
+def gy94_eigen(kappa, omega, codon_freqs: torch.Tensor,
+               code=None) -> EigenSystem:
+    """Goldman-Yang 1994 codon model: single-nucleotide codon exchanges at
+    rate kappa^[transition] * omega^[nonsynonymous]; reversible with respect
+    to the codon frequencies."""
+    single, is_ts, is_nonsyn = _codon_rates(codon_freqs, code)
+    kappa = torch.as_tensor(kappa, dtype=codon_freqs.dtype,
+                            device=codon_freqs.device)
+    omega = torch.as_tensor(omega, dtype=codon_freqs.dtype,
+                            device=codon_freqs.device)
+    return reversible_eigen(single * kappa ** is_ts * omega ** is_nonsyn,
+                            codon_freqs)
+
+
+def mg94_eigen(alpha, beta, kappa, codon_freqs: torch.Tensor,
+               code=None) -> EigenSystem:
+    """Muse-Gaut 1994 codon model, HKY-parameterised: synonymous rate alpha
+    (dS), non-synonymous beta (dN), each times kappa for transitions;
+    multi-position changes 0."""
+    single, is_ts, is_nonsyn = _codon_rates(codon_freqs, code)
+    alpha, beta, kappa = (torch.as_tensor(v, dtype=codon_freqs.dtype,
+                                          device=codon_freqs.device)
+                          for v in (alpha, beta, kappa))
+    return reversible_eigen(
+        single * kappa ** is_ts * torch.where(is_nonsyn > 0, beta, alpha),
+        codon_freqs)

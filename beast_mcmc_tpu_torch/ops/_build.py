@@ -78,7 +78,7 @@ def build_all(names: Sequence[str]) -> Dict[str, float]:
 
 
 class KernelCall:
-    """One prepared launch: a C entry point taking (7 pointers, ints,
+    """One prepared launch: a C entry point taking (7 pointers, its ints,
     stream), the tensors its pointers point into (held alive here) and the
     output (a tensor, or a tuple of them). `launch` enqueues it on the
     current stream of the tensors' device and raises on a non-zero

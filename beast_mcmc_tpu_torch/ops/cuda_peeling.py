@@ -10,9 +10,10 @@ tensor takes; a CUDA tensor launches the kernel or raises.
 `peel_route` names the kernel a shape goes to. For S = 4,
 `resident_plan_fits` decides between this kernel and the deep streaming one
 (ops/cuda_stream2.py) from the bytes of the branch matrices against the
-shared memory a Hopper block may use, as the JAX dispatcher does. Any other
-S goes to the v1 streaming kernel (ops/cuda_stream.py), the only one that
-takes it.
+shared memory a Hopper block may use, as the JAX dispatcher does. S >= 16
+(amino acids, codons) goes to the matrix-product kernel (ops/cuda_mxu.py)
+where `resident_mxu_fits` finds it a plan. Every other shape goes to the v1
+streaming kernel (ops/cuda_stream.py), which takes any S up to 64.
 """
 
 from __future__ import annotations
@@ -117,12 +118,20 @@ def peel_site_loglik_cuda(tip_partials, children, order, root, p_matrices,
                                  freqs, category_weights)
 
 
+MXU_MIN_STATES = 16  # from here a node's products fill 8 x 8 tiles
+
+
 def peel_route(m: int, c: int, s: int, itemsize: int = 8) -> str:
     """The kernel a CUDA peel of these shapes goes to: "resident" or
-    "deep" for S = 4, by `resident_plan_fits`; "stream" for any other S."""
-    if s != 4:
-        return "stream"
-    return "resident" if resident_plan_fits(m, c, s, itemsize) else "deep"
+    "deep" for S = 4, by `resident_plan_fits`; "mxu" for S >= 16 where
+    `resident_mxu_fits`; "stream" for every other shape."""
+    from beast_mcmc_tpu_torch.ops.cuda_mxu import resident_mxu_fits
+
+    if s == 4:
+        return "resident" if resident_plan_fits(m, c, s, itemsize) else "deep"
+    if s >= MXU_MIN_STATES and resident_mxu_fits(m, c, s, itemsize):
+        return "mxu"
+    return "stream"
 
 
 def peel_site_loglik_auto(tip_partials, children, order, root, p_matrices,
@@ -130,8 +139,9 @@ def peel_site_loglik_auto(tip_partials, children, order, root, p_matrices,
                           schedule=None) -> torch.Tensor:
     """Shape-dispatched peel (`peel_route`): per-pattern log-likelihood [P].
     `schedule` is stream_schedule(children, order) where the caller already
-    has it (several partitions on one tree); the resident kernel does not
-    read it."""
+    has it (several partitions on one tree); the resident and the
+    matrix-product kernel do not read it."""
+    from beast_mcmc_tpu_torch.ops.cuda_mxu import peel_site_loglik_mxu
     from beast_mcmc_tpu_torch.ops.cuda_stream import peel_site_loglik_stream
     from beast_mcmc_tpu_torch.ops.cuda_stream2 import peel_site_loglik_deep
 
@@ -143,6 +153,8 @@ def peel_site_loglik_auto(tip_partials, children, order, root, p_matrices,
         return peel_site_loglik_cuda(*args)
     if route == "deep":
         return peel_site_loglik_deep(*args, schedule)
+    if route == "mxu":
+        return peel_site_loglik_mxu(*args)
     return peel_site_loglik_stream(*args, schedule)
 
 

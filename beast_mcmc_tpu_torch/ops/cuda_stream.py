@@ -7,8 +7,9 @@ position, keeps the last two nodes in a shared-memory ring, fetches the
 other children one step ahead and streams the peel-ordered branch
 matrices through shared memory; see the source for what bounds it and
 what the design does about that. It takes 2 <= S <= 64 states and up to 8
-rate categories in float32 or float64, and is the only kernel of the
-package that takes S != 4.
+rate categories in float32 or float64; the dispatcher sends it the shapes
+that neither the S = 4 kernels nor the matrix-product kernel
+(ops/cuda_mxu.py, S >= 16) take.
 
 `stream_schedule` is the gather of pallas_stream.py:277-284: `lr_ids`
 [n_int, 2] are each step's children, `lr_pos` their peel positions (-1

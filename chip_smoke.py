@@ -6,12 +6,14 @@ CUDA toolkit: `python3 chip_smoke.py`. The peel kernels build into build/
 at first use. Phases, each of which fails the run (non-zero exit, no
 result line):
 
-  1. build the three kernels (one nvcc per source, in parallel);
+  1. build the four kernels (one nvcc per source, in parallel);
   2. hold each kernel against its plain PyTorch version on the card, at the
      shapes the main path gives it, and time both: the resident and the
-     deep streaming peel (S = 4), and the v1 streaming peel at S = 4, 20
-     and 61, its partials output included; hold the card's log posterior
-     against the CPU's on a small analysis;
+     deep streaming peel (S = 4), the v1 streaming peel at S = 4, 20 and
+     61, and the matrix-product peel at the protein (S = 20) and codon
+     (S = 61) shapes and a ragged small one, partials included, timed in
+     turns with the v1 streaming peel on the same inputs; hold the card's
+     log posterior against the CPU's on a small analysis;
   3. the f64 GTR+Gamma4 chain at the benchmark2 shape (62 taxa, 5,565
      patterns) through the resident kernel, with the full-evaluation
      self-check (< 0.1);
@@ -20,18 +22,26 @@ result line):
   5. the f64 HKY x 3 codon-partition chain at the benchmark1 shape (1,441
      taxa, 3 x 593 patterns): three deep streaming launches a step, with
      the same check;
-  6. the remaining entry points: tree_site_logliks at the benchmark2 and
-     Makona shapes (one resident and one deep launch), a 20-state
-     likelihood by tree_loglikelihood_pmats and the benchmark1 likelihood
-     partition by partition by peel_loglikelihood_stream (the v1 streaming
-     kernel).
+  6. the f64 LG+Gamma4 protein chain (`protein_analysis`: 128 taxa, 1,024
+     patterns, 20 states) and the f64 GY94 codon chain (`codon_analysis`:
+     64 taxa, 512 patterns, 61 states): one matrix-product launch a step,
+     with the same check;
+  7. the remaining entry points: tree_site_logliks at the benchmark2 and
+     Makona shapes (one resident and one deep launch), a 20-state and an
+     8-state likelihood by tree_loglikelihood_pmats (one matrix-product and
+     one v1 streaming launch), a few real amino-acid sequences from
+     Alignment to tree_loglikelihood against the CPU, and the benchmark1
+     likelihood partition by partition by peel_loglikelihood_stream (the v1
+     streaming kernel).
 
 `python3 chip_smoke.py --tiles` instead builds the v1 streaming kernel and
 times it at every pattern-tile width its planner could pick (32, 16, 8, 4
 patterns a block, where shared memory allows), with its largest deviation
-from the plain version; `*` marks the width the planner picks. This is the measurement
-behind the planner's rule of narrowing the tile while the grid would leave
-more than half of the SMs idle.
+from the plain version; `*` marks the width the planner picks. This is the
+measurement behind the planner's rule of narrowing the tile while the grid
+would leave more than half of the SMs idle. At the shapes with 16 states or
+more it then does the same for the matrix-product kernel, at each tile width
+with the planner's warps per 8-pattern tile and with half of them.
 
 It prints the card's name and power limit, one {"kernels": [...]} line,
 and last {"ok": true, "device": {...}}. It imports nothing of JAX and
@@ -64,13 +74,15 @@ SMALL = (12, 130)
 B1 = (1441, 593)  # taxa, patterns per codon partition
 AMINO = (128, 4, 20, 1024)  # taxa, categories, states, patterns
 CODON = (64, 1, 61, 512)
-TILE_SHAPES = [CODON, AMINO, (20, 4, 61, 70), (300, 2, 16, 2048),
+RAGGED = (20, 4, 61, 70)
+TILE_SHAPES = [CODON, AMINO, RAGGED, (300, 2, 16, 2048),
                (128, 4, 20, 8192), (1441, 1, 4, 640), (1610, 4, 4, 2048),
                (62, 4, 4, 5632)]
-B2_STEPS, B2_CHECK = 3000, 200
+B2_STEPS, B2_CHECK = 1000, 100
 MAK_STEPS, MAK_CHECK = 200, 50
 B1_STEPS, B1_CHECK = 300, 50
-KERNELS = ("peel_resident", "peel_stream", "peel_stream_ring")
+PC_STEPS, PC_CHECK = 300, 50  # the protein and the codon chain
+KERNELS = ("peel_resident", "peel_stream", "peel_stream_ring", "peel_mxu")
 
 
 def log(*a):
@@ -109,6 +121,146 @@ def bound_ms(tensors_in, tensors_out, n_int, c, s, p, dtype_name):
                                        else "operations"), nbytes, flops
 
 
+def _strict_clock_analysis(tips_np, weights_np, freqs, seed, dtype, device,
+                           params0, derived, model, extra_ops):
+    """The five-tuple of `build_analysis` for a one-partition analysis under
+    a strict clock and a constant coalescent. `model(params, cached)` gives
+    (eigensystem, category rates, category weights), from the derived
+    entries of `params` when `cached`."""
+    import numpy as np
+    import torch
+
+    from beast_mcmc_tpu_torch.inference.mcmc import apply_derived
+    from beast_mcmc_tpu_torch.inference.operators import (
+        TREE_HEIGHTS, NarrowExchangeOperator, RootHeightScaleOperator,
+        ScaleOperator, UniformNodeHeightOperator, UpDownOperator,
+        WideExchangeOperator, WilsonBaldingOperator)
+    from beast_mcmc_tpu_torch.models.coalescent import (
+        constant_coalescent_loglik)
+    from beast_mcmc_tpu_torch.models.priors import (
+        lognormal_logpdf, one_on_x_logpdf)
+    from beast_mcmc_tpu_torch.models.treelikelihood import tree_loglikelihood
+    from beast_mcmc_tpu_torch.tree.topology import (
+        make_tree_state, simulate_coalescent_tree)
+
+    n_taxa = tips_np.shape[0]
+    tips = torch.tensor(tips_np, dtype=dtype, device=device)
+    weights = torch.tensor(weights_np, dtype=dtype, device=device)
+    tree0 = make_tree_state(*simulate_coalescent_tree(
+        np.random.default_rng(seed + 1), np.zeros(n_taxa), pop_size=0.5),
+        dtype, device)
+
+    def log_lik(params, tree, cached=False):
+        eig, rates, cat_w = model(params, cached)
+        return tree_loglikelihood(
+            tips, weights, tree.parent, tree.children, tree.heights,
+            tree.root, eig, freqs, rates, cat_w, params["clock.rate"])
+
+    def log_prior(params, tree):
+        return (one_on_x_logpdf(params["pop.size"])
+                + lognormal_logpdf(params["clock.rate"], 0.0, 1.0)
+                + constant_coalescent_loglik(tree.heights, n_taxa,
+                                             params["pop.size"]))
+
+    def log_post(params, tree):
+        return log_lik(params, tree) + log_prior(params, tree)
+
+    def log_post_cached(params, tree):
+        return log_lik(params, tree, cached=True) + log_prior(params, tree)
+
+    params0 = {k: torch.tensor(v, dtype=dtype, device=device)
+               for k, v in {**params0, "clock.rate": 1.0,
+                            "pop.size": 0.5}.items()}
+    operators = [
+        *extra_ops,
+        ScaleOperator(parameter="pop.size", weight=3.0),
+        UpDownOperator(up=("clock.rate",), down=(TREE_HEIGHTS,), weight=3.0),
+        UniformNodeHeightOperator(weight=15.0),
+        RootHeightScaleOperator(weight=3.0),
+        NarrowExchangeOperator(weight=15.0),
+        WideExchangeOperator(weight=3.0),
+        WilsonBaldingOperator(weight=3.0),
+    ]
+    aux = {"tips": tips, "weights": weights, "freqs": freqs,
+           "log_lik": log_lik, "derived": derived,
+           "log_post_cached": log_post_cached}
+    return log_post, operators, apply_derived(derived, params0), tree0, aux
+
+
+def _one_hot_tips(n_taxa, n_patterns, n_states, seed):
+    """Random unambiguous tip partials [N, S, P] and pattern weights [P]."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    states = rng.integers(0, n_states, size=(n_taxa, n_patterns))
+    tips = (states[:, None, :] == np.arange(n_states)[None, :, None])
+    weights = rng.integers(1, 10, size=n_patterns)
+    return tips.astype(np.float64), weights.astype(np.float64)
+
+
+def protein_analysis(n_taxa=128, n_patterns=1024, seed=0, dtype=None,
+                     device="cuda"):
+    """LG+Gamma4 on 20-state tips, strict clock, constant coalescent:
+    (log_post, operators, params0, tree0, aux) as `build_analysis` returns
+    them. The LG eigensystem is fixed (aux["eig"]); "site.rates" is derived
+    from "alpha"."""
+    import torch
+
+    from beast_mcmc_tpu_torch.inference.operators import ScaleOperator
+    from beast_mcmc_tpu_torch.models.data.aa_matrices import AA_MODELS
+    from beast_mcmc_tpu_torch.models.sitemodel import discrete_gamma_rates
+    from beast_mcmc_tpu_torch.models.substitution import empirical_aa_eigen
+
+    dtype = dtype or torch.float64
+    freqs = torch.tensor(AA_MODELS["LG"]["frequencies"], dtype=dtype,
+                         device=device)
+    eig = empirical_aa_eigen("LG", freqs)
+
+    def site_rates(params):
+        return discrete_gamma_rates(params["alpha"], 4, dtype=dtype)
+
+    def model(params, cached):
+        rates, cat_w = params["site.rates"] if cached else site_rates(params)
+        return eig, rates, cat_w
+
+    out = _strict_clock_analysis(
+        *_one_hot_tips(n_taxa, n_patterns, 20, seed), freqs, seed, dtype,
+        device, {"alpha": 0.5}, {"site.rates": (site_rates, ("alpha",))},
+        model, [ScaleOperator(parameter="alpha", weight=1.0)])
+    out[4]["eig"] = eig
+    return out
+
+
+def codon_analysis(n_taxa=64, n_patterns=512, seed=0, dtype=None,
+                   device="cuda"):
+    """GY94 (kappa, omega, uniform codon frequencies) on 61-state tips, one
+    rate category, strict clock, constant coalescent. "eig" is derived from
+    ("kappa", "omega"), so the 61 x 61 eigh runs only when one of them
+    moves."""
+    import torch
+
+    from beast_mcmc_tpu_torch.inference.operators import ScaleOperator
+    from beast_mcmc_tpu_torch.models.sitemodel import single_rate
+    from beast_mcmc_tpu_torch.models.substitution import gy94_eigen
+
+    dtype = dtype or torch.float64
+    freqs = torch.full((61,), 1.0 / 61, dtype=dtype, device=device)
+    rates, cat_w = single_rate(dtype=dtype, device=device)
+
+    def eigen(params):
+        return gy94_eigen(params["kappa"], params["omega"], freqs)
+
+    def model(params, cached):
+        return (params["eig"] if cached else eigen(params)), rates, cat_w
+
+    return _strict_clock_analysis(
+        *_one_hot_tips(n_taxa, n_patterns, 61, seed), freqs, seed, dtype,
+        device, {"kappa": 2.0, "omega": 0.5},
+        {"eig": (eigen, ("kappa", "omega"))}, model,
+        [ScaleOperator(parameter="kappa", weight=1.0),
+         ScaleOperator(parameter="omega", weight=1.0)])
+
+
 def main():
     import numpy as np
     import torch
@@ -121,13 +273,16 @@ def main():
     from beast_mcmc_tpu_torch.inference.mcmc import (
         full_evaluation_check, init_mcmc_state, make_mcmc_step,
         operator_report, run_chain)
+    from beast_mcmc_tpu_torch.data import AMINO_ACIDS, Alignment, SitePatterns
+    from beast_mcmc_tpu_torch.models.data.aa_matrices import AA_MODELS
     from beast_mcmc_tpu_torch.models.sitemodel import single_rate
-    from beast_mcmc_tpu_torch.models.substitution import hky_eigen
+    from beast_mcmc_tpu_torch.models.substitution import (
+        empirical_aa_eigen, hky_eigen)
     from beast_mcmc_tpu_torch.models.treelikelihood import (
-        branch_transition_matrices, tree_loglikelihood_pmats,
-        tree_site_logliks)
+        branch_transition_matrices, tree_loglikelihood,
+        tree_loglikelihood_pmats, tree_site_logliks)
     from beast_mcmc_tpu_torch.ops import (
-        _build, cuda_peeling, cuda_stream, cuda_stream2)
+        _build, cuda_mxu, cuda_peeling, cuda_stream, cuda_stream2)
     from beast_mcmc_tpu_torch.ops import peeling as plain
     from beast_mcmc_tpu_torch.ops.peeling import peel_order_from_heights
     from beast_mcmc_tpu_torch.tree.topology import (
@@ -148,7 +303,7 @@ def main():
 
     # each wrapper's module counts the launches of its kernel
     counters = {"peel_resident": cuda_peeling, "peel_stream": cuda_stream2,
-                "peel_stream_ring": cuda_stream}
+                "peel_stream_ring": cuda_stream, "peel_mxu": cuda_mxu}
 
     def reset_counts():
         for mod in counters.values():
@@ -173,7 +328,7 @@ def main():
                 f(np.full(s, 1.0 / s)), f(np.full(c, 1.0 / c))), tr
 
     if "--tiles" in sys.argv[1:]:
-        _build.build_all(["peel_stream_ring"])
+        _build.build_all(["peel_stream_ring", "peel_mxu"])
         for shape in TILE_SHAPES:
             for dtype in (torch.float64, torch.float32):
                 (tips, ch, order, _, pm, fr, cw), _ = random_inputs(
@@ -198,6 +353,27 @@ def main():
                     line += (f" | bp {bp}{'*' if bp == picked else ''} "
                              f"err {err:.1e} ms {time_ms(call.launch, 10):.4f}")
                 log(line)
+                if s < cuda_peeling.MXU_MIN_STATES:
+                    continue
+                # the matrix-product kernel: the width and the warps per
+                # tile are forced through the call's integer arguments
+                call = cuda_mxu.prepare_mxu(tips, ch, order, pm, fr, cw)
+                picked = call.ints[5:7]
+                units = c * -(-s // 8)
+                line = f"[tiles] {shape} {str(dtype)[6:]} peel_mxu"
+                for bp in (32, 16, 8):
+                    plan = cuda_mxu._plan(n_taxa - 1, c, s, pm.element_size(),
+                                          bp)
+                    if plan is None:  # this width overflows shared memory
+                        continue
+                    for w in sorted({plan.w, max(plan.w // 2, -(
+                            -units // cuda_mxu.MAX_UNITS))}):
+                        call.ints = (*call.ints[:5], bp, w, plan.g)
+                        err = (call.launch()[0] - ref[0]).abs().max().item()
+                        line += (f" | bp {bp} w {w}"
+                                 f"{'*' if (bp, w) == picked else ''} err "
+                                 f"{err:.1e} ms {time_ms(call.launch, 10):.4f}")
+                log(line)
         return 0
 
     # -- phase 1: build ------------------------------------------------
@@ -217,6 +393,9 @@ def main():
                 for shape in (B2, MAKONA, SMALL)}
     analyses[B1] = build_analysis(*B1, model="hky_codon3", device=dev,
                                   dtype=torch.float64)
+    analyses[AMINO] = protein_analysis(AMINO[0], AMINO[3], 0, torch.float64,
+                                       dev)
+    analyses[CODON] = codon_analysis(CODON[0], CODON[3], 0, torch.float64, dev)
     torch.cuda.synchronize()
     log(f"[setup] analyses built in {time.perf_counter() - t0:.2f} s")
 
@@ -230,6 +409,12 @@ def main():
             eig = hky_eigen(p0["kappa"][0], freqs)
             rates, cw = single_rate(dtype=torch.float64, device=dev)
             rates = p0["mu"][0] * rates
+        elif shape == AMINO:
+            eig = aux["eig"]
+            rates, cw = p0["site.rates"]
+        elif shape == CODON:
+            eig = p0["eig"]
+            rates, cw = single_rate(dtype=torch.float64, device=dev)
         else:
             eig = p0["eig"]
             rates, cw = p0["site.rates"]
@@ -262,6 +447,11 @@ def main():
             plain_fn = lambda: (plain.peel_site_loglik(  # noqa: E731
                 tips, ch, order, root, pm, fr, cw),)
             ins = [tips, pm, ch, order, fr, cw]
+        elif kname == "peel_mxu":
+            call = cuda_mxu.prepare_mxu(tips, ch, order, pm, fr, cw)
+            plain_fn = lambda: cuda_mxu._mxu_plain(  # noqa: E731
+                tips, ch, order, pm, wcs)
+            ins = [tips, pm, ch, order, fr, cw]
         else:
             lr_ids, lr_pos = cuda_stream.stream_schedule(ch, order)
             pm_ord = pm[lr_ids]
@@ -285,6 +475,8 @@ def main():
         got = call.launch()
         got = tuple(t.clone() for t in (got if isinstance(got, tuple)
                                         else (got,)))
+        if kname == "peel_mxu":  # the kernel leaves the tips' rows to the
+            got[1][:tips.shape[0]] = tips[:, None]  # wrapper, as here
         ref = plain_fn()
         torch.cuda.synchronize()
         max_abs, max_rel, finite = deviation(got[0], ref[0])
@@ -304,11 +496,14 @@ def main():
         del ref
         rec["ms"] = time_ms(call.launch, reps)
         rec["plain_ms"] = time_ms(plain_fn, plain_reps)
-        # int inputs counted as the int32 the kernel reads
+        # int inputs counted as the int32 the kernel reads; the partials are
+        # an output of peel_stream_ring, scratch of the others (the chains
+        # call peel_mxu without them)
         b_ms, b_by, nbytes, flops = bound_ms(
             [t for t in ins if t.is_floating_point()]
             + [t.to(torch.int32) for t in ins if not t.is_floating_point()],
-            got, n_int, c, s, p, rec["dtype"])
+            got[:1] if kname == "peel_mxu" else got, n_int, c, s, p,
+            rec["dtype"])
         rec.update({"bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
                     "flops": flops})
         log(f"[kernel] {kname} {json.dumps(rec)}")
@@ -351,6 +546,37 @@ def main():
         small = peel_inputs(SMALL, dtype)  # padded to 256 patterns: cut back
         check("peel_stream_ring", f"small ragged {name}",
               (small[0][..., :SMALL[1]].contiguous(), *small[1:]), 50, 5)
+
+    # the matrix-product peel at the shapes of the protein and the codon
+    # chain, and against the v1 streaming peel on the same inputs, in turns.
+    # float64 takes the chains' own inputs. float32 takes random ones, as the
+    # v1 streaming peel's checks above do: the chains' site logL is near -800,
+    # where the absolute tolerance is one or two float32 steps and the plain
+    # version's own float32 log-scale sum is not that close to the truth.
+    for dtype in (f64, f32):
+        name = str(dtype).replace("torch.", "")
+        for label, shape in (("protein", AMINO), ("codon", CODON)):
+            inputs = (peel_inputs(shape, dtype) if dtype == f64
+                      else random_inputs(*shape, shape[2], dtype)[0])
+            mxu_call, mxu_got = check("peel_mxu", f"{label} {name}", inputs,
+                                      20, 2)
+            ring_call, ring_got = check("peel_stream_ring",
+                                        f"{label} analysis {name}", inputs,
+                                        20, 2)
+            err, rel, _ = deviation(mxu_got[0], ring_got[0])
+            turns = [time_ms(c.launch, 10)
+                     for c in (mxu_call, ring_call, ring_call, mxu_call)]
+            log(f"[kernel] {label} {name} peel_mxu vs peel_stream_ring: max "
+                f"abs {err:.3e} rel {rel:.3e}; ms in turns mxu "
+                f"{turns[0]:.4f} ring {turns[1]:.4f} ring {turns[2]:.4f} mxu "
+                f"{turns[3]:.4f}")
+            if not (rel < F64_REL_TOL if dtype == f64
+                    else err < 2 * F32_ABS_TOL_WIDE):
+                raise AssertionError(f"the two S >= 16 kernels disagree at "
+                                     f"{label} {name}")
+            del mxu_call, mxu_got, ring_call, ring_got, inputs
+        check("peel_mxu", f"ragged {name}",
+              random_inputs(*RAGGED, 7, dtype)[0], 20, 5)
 
     # the card's log posterior against the CPU's plain path, small input
     lp_s, _, p_s, t_s, _ = analyses[SMALL]
@@ -405,6 +631,10 @@ def main():
         "makona", MAKONA, MAK_STEPS, MAK_CHECK, {"peel_stream": 1}, 1)
     b1_counts, b1_rate, b1_step, b1_state = chain(
         "benchmark1", B1, B1_STEPS, B1_CHECK, {"peel_stream": 3}, 2)
+    aa_counts, aa_rate, aa_step, aa_state = chain(
+        "protein", AMINO, PC_STEPS, PC_CHECK, {"peel_mxu": 1}, 3)
+    cod_counts, cod_rate, cod_step, cod_state = chain(
+        "codon", CODON, PC_STEPS, PC_CHECK, {"peel_mxu": 1}, 4)
 
     # where the time of a step goes: a profiler window over the chain
     from torch.autograd import DeviceType
@@ -437,8 +667,10 @@ def main():
     where_time_goes("benchmark2", b2_step, b2_state, 200)
     where_time_goes("makona", mak_step, mak_state, 50)
     where_time_goes("benchmark1", b1_step, b1_state, 50)
+    where_time_goes("protein", aa_step, aa_state, 50)
+    where_time_goes("codon", cod_step, cod_state, 50)
 
-    # -- phase 6: the remaining entry points ---------------------------
+    # -- phase 7: the remaining entry points ---------------------------
     # per-site log-likelihoods go through the same dispatcher as the chains
     for label, shape, kname in (("benchmark2", B2, "peel_resident"),
                                 ("makona", MAKONA, "peel_stream")):
@@ -459,22 +691,57 @@ def main():
         if not (finite and rel < F64_REL_TOL):
             raise AssertionError("tree_site_logliks disagrees with the plain "
                                  "peel")
+    # likelihoods from caller-built matrices: the dispatcher sends S = 20 to
+    # the matrix-product kernel and S = 8 to the v1 streaming kernel
+    for shape, kname in ((AMINO, "peel_mxu"), ((40, 2, 8, 300),
+                                               "peel_stream_ring")):
+        reset_counts()
+        (tips, ch, order, root, pm, fr, cw), tr = random_inputs(*shape, 20,
+                                                                f64)
+        w = torch.ones(shape[3], dtype=f64, device=dev)
+        got = float(tree_loglikelihood_pmats(tips, w, ch, tr.heights, root,
+                                             tr.parent, pm, fr, cw))
+        ref = float(plain.peel_loglikelihood(tips, ch, order, root, pm, fr,
+                                             cw, w))
+        log(f"[entry] tree_loglikelihood_pmats S={shape[2]} card {got!r} "
+            f"plain {ref!r} launches {json.dumps(read_counts())}")
+        if read_counts() != {k: int(k == kname) for k in KERNELS}:
+            raise AssertionError(f"S = {shape[2]} did not go through {kname} "
+                                 f"once")
+        if not abs(got - ref) <= F64_REL_TOL * abs(ref):
+            raise AssertionError("tree_loglikelihood_pmats disagrees with "
+                                 "the plain peel")
+    # real sequences: amino-acid strings (an ambiguity code and a gap among
+    # them) from the alignment to the likelihood, on the card and on the CPU
+    pats = SitePatterns.from_alignment(Alignment.from_sequences(
+        ["a", "b", "c", "d", "e"],
+        ["ACDEFGHIKLMNPQRSTVWYAC", "ACDEWGHIKLMNPQRSTVWYAC",
+         "ACDEYGHLKLMNPQRSTVWXAC", "ACDEFGHIKIMNPQ-STVWYAC",
+         "GCDEFGHIKLMNPQRSTVFYAC"], AMINO_ACIDS))
+    tree_np = simulate_coalescent_tree(np.random.default_rng(5), np.zeros(5),
+                                       0.2)
     reset_counts()
-    # a 20-state likelihood from caller-built matrices: the dispatcher sends
-    # S != 4 to the streaming kernel
-    (tips, ch, order, root, pm, fr, cw), tr = random_inputs(*AMINO, 20, f64)
-    w = torch.ones(AMINO[3], dtype=f64, device=dev)
-    got = float(tree_loglikelihood_pmats(tips, w, ch, tr.heights, root,
-                                         tr.parent, pm, fr, cw))
-    ref = float(plain.peel_loglikelihood(tips, ch, order, root, pm, fr, cw, w))
-    log(f"[entry] tree_loglikelihood_pmats S=20 card {got!r} plain {ref!r} "
+    vals = {}
+    for where in (dev, "cpu"):
+        tr = make_tree_state(*tree_np, dtype=f64, device=where)
+        fr = torch.tensor(AA_MODELS["WAG"]["frequencies"], dtype=f64,
+                          device=where)
+        rates, cw = single_rate(dtype=f64, device=where)
+        vals[where] = float(tree_loglikelihood(
+            torch.tensor(pats.tip_partials().transpose(0, 2, 1), dtype=f64,
+                         device=where).contiguous(),
+            torch.tensor(pats.weights, dtype=f64, device=where), tr.parent,
+            tr.children, tr.heights, tr.root, empirical_aa_eigen("WAG", fr),
+            fr, rates, cw, 1.0))
+    log(f"[entry] WAG on 5 sequences, {pats.n_patterns} patterns of "
+        f"{pats.n_sites} sites: card {vals[dev]!r} cpu {vals['cpu']!r} "
         f"launches {json.dumps(read_counts())}")
-    if read_counts() != {"peel_resident": 0, "peel_stream": 0,
-                         "peel_stream_ring": 1}:
-        raise AssertionError("S = 20 did not go through peel_stream_ring once")
-    if not abs(got - ref) <= F64_REL_TOL * abs(ref):
-        raise AssertionError("tree_loglikelihood_pmats disagrees with the "
-                             "plain peel")
+    if read_counts() != {k: int(k == "peel_mxu") for k in KERNELS}:
+        raise AssertionError("the sequences did not go through peel_mxu once")
+    if not (abs(vals[dev] - vals["cpu"]) <= F64_REL_TOL * abs(vals["cpu"])
+            and vals["cpu"] < 0):
+        raise AssertionError("card and CPU disagree on the sequences")
+    reset_counts()
     # the benchmark1 likelihood at the chain's last state: the chain's route
     # (three deep launches) against the streaming entry point, by partition
     _, _, _, _, aux = analyses[B1]
@@ -495,12 +762,12 @@ def main():
         f"peel_loglikelihood_stream {via_ring!r}; launches "
         f"{json.dumps(ring_counts)}")
     if ring_counts != {"peel_resident": 0, "peel_stream": 3,
-                       "peel_stream_ring": 4}:
+                       "peel_stream_ring": 3, "peel_mxu": 0}:
         raise AssertionError(f"unexpected launches {ring_counts}")
     if not abs(via_chain - via_ring) <= F64_REL_TOL * abs(via_chain):
         raise AssertionError("the two routes disagree at benchmark1")
 
-    # -- phase 7: summary ---------------------------------------------
+    # -- phase 8: summary ---------------------------------------------
     def entry(kname, source, replaces, launches, rec):
         return {"name": kname, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
@@ -510,7 +777,8 @@ def main():
                 "checks": checks[kname]}
 
     log(f"[summary] states/s: benchmark2 {b2_rate:.2f}, makona "
-        f"{mak_rate:.2f}, benchmark1 {b1_rate:.2f}, on {smi_line}")
+        f"{mak_rate:.2f}, benchmark1 {b1_rate:.2f}, protein {aa_rate:.2f}, "
+        f"codon {cod_rate:.2f}, on {smi_line}")
     log(smi_line)
     print(json.dumps({"kernels": [
         entry("peel_resident", "beast_mcmc_tpu_torch/csrc/peel_resident.cu",
@@ -523,8 +791,12 @@ def main():
               "beast_mcmc_tpu_torch/csrc/peel_stream_ring.cu",
               "beast_mcmc_tpu/ops/pallas_stream.py:62",
               ring_counts["peel_stream_ring"], checks["peel_stream_ring"][0]),
+        entry("peel_mxu", "beast_mcmc_tpu_torch/csrc/peel_mxu.cu",
+              "beast_mcmc_tpu/ops/pallas_mxu.py:67",
+              aa_counts["peel_mxu"], checks["peel_mxu"][0]),
     ], "launches_per_path": {"benchmark2": b2_counts, "makona": mak_counts,
-                             "benchmark1": b1_counts,
+                             "benchmark1": b1_counts, "protein": aa_counts,
+                             "codon": cod_counts,
                              "stream entry points": ring_counts}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -20,9 +20,15 @@ def _modules():
 
 
 def test_import_every_module_without_jax():
-    # both streaming-peel wrappers are among the modules found
+    # every kernel's wrapper and the data modules are among the modules found
     assert {"beast_mcmc_tpu_torch.ops.cuda_stream",
-            "beast_mcmc_tpu_torch.ops.cuda_stream2"} <= set(_modules())
+            "beast_mcmc_tpu_torch.ops.cuda_stream2",
+            "beast_mcmc_tpu_torch.ops.cuda_mxu",
+            "beast_mcmc_tpu_torch.data",
+            "beast_mcmc_tpu_torch.data.alignment",
+            "beast_mcmc_tpu_torch.data.codons",
+            "beast_mcmc_tpu_torch.data.datatype",
+            "beast_mcmc_tpu_torch.models.data.aa_matrices"} <= set(_modules())
     code = (
         "import importlib, json, sys\n"
         f"for m in {_modules()!r}:\n"

@@ -262,20 +262,23 @@ def test_resident_plan_cut_over(dtype, itemsize):
     (2 * 1610 - 1, 4, 4, 8, "deep"),       # Makona
     (2 * 1441 - 1, 1, 4, 8, "deep"),       # one benchmark1 partition
     (2 * 1441 - 1, 1, 4, 4, "resident"),   # in float32 its 184 KB fit
-    (11, 4, 20, 8, "stream"),              # amino acids, however small
-    (2 * 1610 - 1, 1, 61, 4, "stream"),    # codons
+    (11, 4, 20, 8, "mxu"),                 # amino acids, however small
+    (2 * 1610 - 1, 1, 61, 4, "mxu"),       # codons
     (11, 1, 2, 8, "stream"),
+    (11, 4, 15, 8, "stream"),              # below the matrix-product kernel
 ])
 def test_peel_route(m, c, s, itemsize, route):
-    """S = 4 goes by resident_plan_fits as in the JAX dispatcher; any other
-    S goes to the v1 streaming kernel, the only one that takes it."""
+    """S = 4 goes by resident_plan_fits as in the JAX dispatcher; S >= 16
+    goes to the matrix-product kernel (its own table is in
+    tests/test_torch_mxu.py); any other S goes to the v1 streaming kernel."""
     assert cuda_peeling.peel_route(m, c, s, itemsize) == route
 
 
 @pytest.mark.parametrize("shape", [
     (6, 4, 4, 40),       # resident
     (1025, 2, 4, 128),   # deep
-    (9, 1, 61, 40),      # stream
+    (9, 1, 61, 40),      # mxu
+    (9, 2, 8, 40),       # stream
 ])
 def test_auto_dispatchers_on_cpu_tensors(shape):
     """Each route of the per-site dispatcher, and the total built on it,
