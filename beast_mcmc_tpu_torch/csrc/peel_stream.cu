@@ -1,27 +1,62 @@
-// Streaming Felsenstein peel for Hopper (sm_90a), for trees whose branch
-// matrices do not fit in shared memory.
+// Level-scheduled Felsenstein peel for Hopper (sm_90a), for S = 4 trees whose
+// branch matrices do not fit in shared memory, all partitions of one tree in
+// one launch.
 //
 // Replaces beast_mcmc_tpu/ops/pallas_stream2.py::_deep_kernel. Same function
-// as the resident peel (peel_resident.cu): per pattern, post-order products
-// of child partials through the branch matrices, rescaled per node by the
-// max over (category, state), log-scales summed, root reduction with the
+// as the resident peel (peel_resident.cu), for each of K partitions: per
+// pattern, post-order products of child partials through the branch
+// matrices, rescaled per node by the max over (category, state) (1 where
+// that max is 0), log-scales summed, root reduction with the
 // category-weighted frequencies.
 //
-// What bounds it on this card: bytes are the tips read once and the site
-// log-likelihoods written once (~105 MB of tips at the Makona shape in f64),
-// operations ~1 GFLOP; the bound is tens of microseconds. As in the resident
-// kernel the per-pattern node chain is a dependent sequence of loads, so the
-// kernel is latency-bound; at 1,609 internal nodes the partials scratch
-// (~422 MB in f64) no longer stays in the 50 MB L2 either.
+// What bounds it on this card. The bound proper is tens of microseconds:
+// the tips read once (~105 MB at the Makona shape in f64) and ~1 GFLOP. What
+// the kernel really pays for is the chain of dependent nodes: a node can
+// start only when its children's partials are written. A walk of the nodes
+// one after the other pays a dependent load and a block barrier for every
+// node (1,609 at Makona). Beneath that, the partials scratch (422 MB in f64
+// at Makona) is written once and read back once, and would go to device
+// memory and back through the 50 MB L2; and every node costs each of its
+// C x pw lanes a rescaling and a logarithm.
 //
-// What the design does about it: the wrapper gathers the branch matrices in
-// peel order ([n_int, 2, C, S, S], left then right child, as the TPU kernel's
-// pm_flat), so a block reads them as one contiguous stream. The block copies
-// CHUNK nodes' matrices at a time into shared memory with cp.async, double
-// buffered: chunk k+1 is in flight while chunk k is peeled. Partials are
-// indexed by peel position ([n_int, C, S, P], patterns innermost, coalesced);
-// a child with a negative position is a tip. The TPU kernel's DMA lookahead
-// ring has no counterpart: each thread reads only partials it wrote itself.
+// What the design does about it.
+// - Levels, not nodes. The wrapper sorts the internal nodes by depth from the
+//   root, deepest first (ops/cuda_stream.py::level_schedule, on the device).
+//   A node's children lie exactly one level deeper, so the nodes of a level
+//   are independent. `level_start` [n_int + 1] holds each level's first
+//   position; entries past the last level equal n_int, the sentinel at which
+//   the kernel stops, so the host never learns the number of levels. A
+//   coalescent tree of 1,610 taxa has 24-28 levels; a caterpillar has n_int.
+// - Slots side by side. A slot is a group of pw x C lanes of one warp: pw
+//   patterns by C categories, so the max over categories is a warp shuffle
+//   within the group. A warp holds 32 / (pw C) slots; a block's slots take
+//   the nodes of a level round robin. One barrier a level, which also makes
+//   one level's partials, written to device memory, visible to the next.
+// - Partials stay in device memory by peel position, tile-major:
+//   [K, tiles, n_int, C, S, pw], so one node's partials for one block are
+//   C x S x pw contiguous elements (1 KB at C = 4, pw = 8 in f64), read and
+//   written in whole 128-byte lines. Keeping a tile's live partials in
+//   shared memory would need two levels' nodes there, and a level of a
+//   coalescent tree of Makona's size has up to ~200 nodes, 200 KB at pw = 8,
+//   C = 4 in f64: more than a block keeps beside its matrices. The scratch is
+//   read with ld.global.cg (L2, coherent across the barrier), never through
+//   the non-coherent read-only path. Dropping a child's lines from L2 once
+//   read (discard.global.L2), so that dead partials are never written back,
+//   was measured and bought nothing in f64 (PERF.md section 7): what is left is
+//   the latency of a slot's dependent loads, which more warps a block hide
+//   (16 by default, chip_smoke.py --tiles).
+// - Each slot keeps the log-scales of the nodes it peeled as a running
+//   product in double, for both types (one logarithm where it nears the ends
+//   of the exponent range, as in peel_mxu.cu); the block adds the slots'
+//   sums once, at the end. The rescaling multiplies by one reciprocal.
+// - Each slot copies its next node's matrices ([2, C, 4, 4], 1 KB at C = 4 in
+//   f64) and schedule entries into its own shared-memory buffer with
+//   cp.async, one node ahead, so copies of the next level's first nodes are
+//   in flight across the barrier. A whole level's matrices (up to ~200 KB)
+//   would not fit twice in shared memory, so the look-ahead is per slot.
+// - The grid is (pattern tiles of pw, partitions). Blocks never share
+//   patterns, so no synchronisation crosses blocks. Ragged pattern edges are
+//   clamped on load and never written to the output.
 
 #include <cuda_runtime.h>
 
@@ -29,137 +64,233 @@
 
 namespace {
 
-using peel::PX;
+using peel::dlog;
+using peel::dmax;
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
                : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem)
+               : "memory");
 }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// The log-scale sum as a running product (peel_mxu.cu's take_scale): prod
+// takes the scales while it and they stay far from the ends of the exponent
+// range, and goes into acc as one logarithm when they do not.
+__device__ __forceinline__ void take_scale(double& acc, double& prod, double s) {
+  constexpr double tiny = 1e-150, big = 1e150;
+  if (prod > tiny && prod < big && s > tiny && s < big) {
+    prod *= s;
+  } else {
+    acc += log(prod) + log(s);
+    prod = 1.0;
+  }
+}
+
+// The node a slot peels after node `i` of level `lvl` (updated in place): the
+// next of its round robin in the same level, else its first in the first
+// later level wide enough to give it one; -1 when there is none. i = -1
+// asks for the slot's first node.
+__device__ __forceinline__ int next_node(const int* __restrict__ ls, int n_int,
+                                         int slot, int n_slots, int& lvl, int i) {
+  if (i >= 0 && i + n_slots < __ldg(ls + lvl + 1)) return i + n_slots;
+  for (++lvl;; ++lvl) {
+    const int a = __ldg(ls + lvl);
+    if (a >= n_int) return -1;
+    if (a + slot < __ldg(ls + lvl + 1)) return a + slot;
+  }
+}
+
+// Sum (or max) over the C category lanes of one pattern within a slot.
+template <typename T, bool kMax>
+__device__ __forceinline__ T over_categories(T v, unsigned gmask, int base,
+                                             int q, int pw, int c_n, int gs) {
+  if (c_n == 1) return v;
+  if ((c_n & (c_n - 1)) == 0) {  // lanes differ in the bits pw .. gs/2
+    for (int off = pw; off < gs; off <<= 1) {
+      const T o = __shfl_xor_sync(gmask, v, off);
+      v = kMax ? dmax(v, o) : v + o;
+    }
+    return v;
+  }
+  T acc = __shfl_sync(gmask, v, base + q);
+  for (int c = 1; c < c_n; ++c) {
+    const T o = __shfl_sync(gmask, v, base + c * pw + q);
+    acc = kMax ? dmax(acc, o) : acc + o;
+  }
+  return acc;
+}
+
 template <typename T, int S>
-__global__ void peel_stream_kernel(const T* __restrict__ tips,      // [N,S,P]
-                                   const T* __restrict__ pm_ord,    // [n_int,2,C,S,S]
-                                   const int* __restrict__ lr_ids,  // [n_int,2]
-                                   const int* __restrict__ lr_pos,  // [n_int,2]
-                                   const T* __restrict__ wcs,       // [C,S]
-                                   T* __restrict__ scratch,         // [n_int,C,S,P]
-                                   T* __restrict__ out,             // [P]
-                                   int n_int, int c_n, int p_n, int chunk) {
+__global__ void __launch_bounds__(1024)
+    peel_levels_kernel(const T* __restrict__ tips,     // [K,N,S,P]
+                       const T* __restrict__ pm_ord,   // [K,n_int,2,C,S,S]
+                       const int* __restrict__ lr_ids, // [n_int,2]
+                       const int* __restrict__ lr_pos, // [n_int,2]
+                       const int* __restrict__ ls,     // [n_int+1]
+                       const T* __restrict__ wcs,      // [K,C,S]
+                       T* scratch,  // [K,tiles,n_int,C,S,pw]
+                       T* __restrict__ out,            // [K,P]
+                       int n_tips, int n_int, int c_n, int p_n, int pw) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gs = pw * c_n, groups = 32 / gs;
+  const int g = lane / gs, r = lane - g * gs;
+  const int cc = r / pw, q = r - cc * pw;
+  const int n_slots = (blockDim.x >> 5) * groups;
+  const int slot = warp * groups + g;
+  const bool active = g < groups;
+  const int base = g * gs;
+  const unsigned gmask =
+      gs == 32 ? 0xffffffffu : (((1u << gs) - 1u) << (base & 31));
   const int node_elems = 2 * c_n * S * S;
-  const int chunk_elems = chunk * node_elems;
-  T* buf = reinterpret_cast<T*>(smem_raw);  // [2][chunk][2][C][S][S]
-  T* red = buf + 2 * (size_t)chunk_elems;   // [2][C][PX]
+  T* mats = reinterpret_cast<T*>(smem_raw);  // [n_slots][2][node_elems]
+  int* sched = reinterpret_cast<int*>(mats + (size_t)n_slots * 2 * node_elems);
+  double* red = reinterpret_cast<double*>(sched + n_slots * 8);  // [slots][pw]
 
-  const int tx = threadIdx.x, cc = threadIdx.y;
-  const int tid = cc * PX + tx, nthreads = PX * c_n;
-  const int n_chunks = (n_int + chunk - 1) / chunk;
+  const int k = blockIdx.y;
+  const int p_raw = blockIdx.x * pw + q;
+  const bool valid = p_raw < p_n;
+  const int p = valid ? p_raw : p_n - 1;  // ragged edge: no output stored
+  const size_t slab = (size_t)S * p_n;
+  const T* tips_k = tips + (size_t)k * n_tips * slab;
+  const int part_elems = c_n * S * pw;  // one node's partials in this tile
+  T* scr_t = scratch + ((size_t)k * gridDim.x + blockIdx.x) * n_int * part_elems;
+  const T* pm_k = pm_ord + (size_t)k * n_int * node_elems;
 
-  // all threads copy 16-byte pieces of one chunk's matrices into one slot
-  auto fetch = [&](int ch) {
-    const int nodes = min(chunk, n_int - ch * chunk);
-    const char* src = reinterpret_cast<const char*>(
-        pm_ord + (size_t)ch * chunk_elems);
-    char* dst = reinterpret_cast<char*>(buf + (ch & 1) * (size_t)chunk_elems);
-    const int nvec = nodes * node_elems * (int)sizeof(T) / 16;
-    for (int v = tid; v < nvec; v += nthreads) cp_async16(dst + 16 * v, src + 16 * v);
-    cp_async_commit();
+  // node i's matrices and its schedule row (ids, positions) into buffer b
+  auto fetch = [&](int i, int b) {
+    char* dst = reinterpret_cast<char*>(mats + ((size_t)slot * 2 + b) * node_elems);
+    const char* src = reinterpret_cast<const char*>(pm_k + (size_t)i * node_elems);
+    const int nvec = node_elems * (int)sizeof(T) / 16;
+    for (int v = r; v < nvec; v += gs) cp_async16(dst + 16 * v, src + 16 * v);
+    if (r == 0) {
+      int* sd = sched + (slot * 2 + b) * 4;
+      cp_async8(sd, lr_ids + 2 * i);
+      cp_async8(sd + 2, lr_pos + 2 * i);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  auto load_child = [&](T (&v)[S], int id, int pos) {
+    if (pos < 0) {
+      const T* src = tips_k + (size_t)id * slab + p;
+#pragma unroll
+      for (int s = 0; s < S; ++s) v[s] = __ldg(src + (size_t)s * p_n);
+    } else {
+      const T* src = scr_t + (size_t)pos * part_elems + cc * S * pw + q;
+#pragma unroll
+      for (int s = 0; s < S; ++s) v[s] = __ldcg(src + s * pw);
+    }
   };
 
-  const int p_raw = blockIdx.x * PX + tx;
-  const bool valid = p_raw < p_n;
-  const int p = valid ? p_raw : p_n - 1;  // ragged edge: recompute, never store
-  const size_t slab = (size_t)S * p_n;
-
-  T acc = T(0);
   T x[S];
-  fetch(0);
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    if (ch + 1 < n_chunks) {
-      fetch(ch + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const T* pb = buf + (ch & 1) * (size_t)chunk_elems;
-    const int nodes = min(chunk, n_int - ch * chunk);
-    for (int k = 0; k < nodes; ++k) {
-      const int i = ch * chunk + k;
-      const int pos_l = lr_pos[2 * i], pos_r = lr_pos[2 * i + 1];
-      const T* src_l = pos_l < 0 ? tips + (size_t)lr_ids[2 * i] * slab
-                                 : scratch + ((size_t)pos_l * c_n + cc) * slab;
-      const T* src_r = pos_r < 0 ? tips + (size_t)lr_ids[2 * i + 1] * slab
-                                 : scratch + ((size_t)pos_r * c_n + cc) * slab;
+#pragma unroll
+  for (int s = 0; s < S; ++s) x[s] = T(0);
+  double acc = 0.0, prod = 1.0;
+  int cur_lvl = -1;
+  int cur = active ? next_node(ls, n_int, slot, n_slots, cur_lvl, -1) : -1;
+  int buf = 0;
+  if (cur >= 0) fetch(cur, 0);
+
+  for (int lvl = 0; __ldg(ls + lvl) < n_int; ++lvl) {
+    while (cur >= 0 && cur_lvl == lvl) {
+      int nxt_lvl = cur_lvl;
+      const int nxt = next_node(ls, n_int, slot, n_slots, nxt_lvl, cur);
+      if (nxt >= 0) {
+        fetch(nxt, buf ^ 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncwarp(gmask);
+      const int* sd = sched + (slot * 2 + buf) * 4;
       T vl[S], vr[S];
+      load_child(vl, sd[0], sd[2]);
+      load_child(vr, sd[1], sd[3]);
+      const T* pl = mats + ((size_t)slot * 2 + buf) * node_elems + cc * S * S;
+      const T* pr = pl + c_n * S * S;
+      T mx = peel::node_product<T, S>(pl, pr, vl, vr, x);
+      mx = over_categories<T, true>(mx, gmask, base, q, pw, c_n, gs);
+      const T scale = mx > T(0) ? mx : T(1);
+      const T inv = T(1) / scale;
 #pragma unroll
-      for (int j = 0; j < S; ++j) {
-        vl[j] = src_l[(size_t)j * p_n + p];
-        vr[j] = src_r[(size_t)j * p_n + p];
-      }
-      const T* pl = pb + ((size_t)(2 * k) * c_n + cc) * S * S;
-      const T* pr = pb + ((size_t)(2 * k + 1) * c_n + cc) * S * S;
-      const T mx = peel::node_product<T, S>(pl, pr, vl, vr, x);
-      acc += peel::dlog(peel::rescale<T, S>(red + (i & 1) * c_n * PX, mx, x, c_n));
-      if (valid) {
-        T* dst = scratch + ((size_t)i * c_n + cc) * slab;
+      for (int s = 0; s < S; ++s) x[s] *= inv;
+      take_scale(acc, prod, (double)scale);
+      T* dst = scr_t + (size_t)cur * part_elems + cc * S * pw + q;
 #pragma unroll
-        for (int s = 0; s < S; ++s) dst[(size_t)s * p_n + p] = x[s];
-      }
+      for (int s = 0; s < S; ++s) dst[s * pw] = x[s];
+      __syncwarp(gmask);  // buffer `buf` is refilled for the node after next
+      buf ^= 1;
+      cur = nxt;
+      cur_lvl = nxt_lvl;
     }
-    __syncthreads();  // slot (ch & 1) is refilled by the next iteration's fetch
+    __syncthreads();  // this level's partials are written before the next reads
   }
-  // x now holds the root's rescaled partials (the peel order ends at it)
-  peel::root_reduce<T, S>(red + (n_int & 1) * c_n * PX, x, wcs, acc, out, p,
-                          valid, c_n);
+
+  if (active && cc == 0) red[slot * pw + q] = acc + log(prod);
+  __syncthreads();
+  // slot 0 took the last level's only node, the root: x holds its partials
+  if (slot == 0 && active) {
+    T part = T(0);
+    const T* w = wcs + ((size_t)k * c_n + cc) * S;
+#pragma unroll
+    for (int s = 0; s < S; ++s) part += x[s] * __ldg(w + s);
+    const T site = over_categories<T, false>(part, gmask, base, q, pw, c_n, gs);
+    if (cc == 0 && valid) {
+      double tot = 0.0;
+      for (int j = 0; j < n_slots; ++j) tot += red[j * pw + q];
+      out[(size_t)k * p_n + p] = (T)((double)dlog(site) + tot);
+    }
+  }
 }
 
 template <typename T>
 int launch(const void* tips, const void* pm_ord, const void* lr_ids,
-           const void* lr_pos, const void* wcs, void* scratch, void* out,
-           int n_int, int c_n, int s_n, int p_n, int chunk, void* stream) {
-  if (s_n != 4 || c_n < 1 || c_n * PX > 1024 || n_int < 1 || p_n < 1 ||
-      chunk < 1 || (2 * c_n * s_n * s_n * (int)sizeof(T)) % 16 != 0)
+           const void* lr_pos, const void* level_start, const void* wcs,
+           void* scratch, void* out, int n_tips, int n_int, int c_n, int s_n,
+           int p_n, int k_n, int pw, int warps, void* stream) {
+  if (s_n != 4 || c_n < 1 || pw < 1 || (pw & (pw - 1)) != 0 || pw * c_n > 32 ||
+      pw * c_n < 2 || warps < 1 || warps > 32 || n_int < 1 ||
+      n_tips != n_int + 1 || p_n < 1 || k_n < 1 || k_n > 65535)
     return (int)cudaErrorInvalidValue;
   constexpr int S = 4;
-  auto kern = peel_stream_kernel<T, S>;
-  const size_t smem =
-      (2 * (size_t)chunk * 2 * c_n * S * S + 2 * (size_t)c_n * PX) * sizeof(T);
+  const int slots = warps * (32 / (pw * c_n));
+  const size_t smem = (size_t)slots * 2 * 2 * c_n * S * S * sizeof(T) +
+                      (size_t)slots * 8 * sizeof(int) +
+                      (size_t)slots * pw * sizeof(double);
+  auto kern = peel_levels_kernel<T, S>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 block(PX, c_n);
-  dim3 grid((p_n + PX - 1) / PX);
-  kern<<<grid, block, smem, (cudaStream_t)stream>>>(
+  dim3 grid((p_n + pw - 1) / pw, k_n);
+  kern<<<grid, 32 * warps, smem, (cudaStream_t)stream>>>(
       (const T*)tips, (const T*)pm_ord, (const int*)lr_ids, (const int*)lr_pos,
-      (const T*)wcs, (T*)scratch, (T*)out, n_int, c_n, p_n, chunk);
+      (const int*)level_start, (const T*)wcs, (T*)scratch, (T*)out, n_tips,
+      n_int, c_n, p_n, pw);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int peel_stream_f64(const void* tips, const void* pm_ord,
-                               const void* lr_ids, const void* lr_pos,
-                               const void* wcs, void* scratch, void* out,
-                               int n_int, int c_n, int s_n, int p_n, int chunk,
-                               void* stream) {
-  return launch<double>(tips, pm_ord, lr_ids, lr_pos, wcs, scratch, out, n_int,
-                        c_n, s_n, p_n, chunk, stream);
-}
+#define PEEL_STREAM_ENTRY(NAME, T)                                            \
+  extern "C" int NAME(const void* tips, const void* pm_ord,                  \
+                      const void* lr_ids, const void* lr_pos,                \
+                      const void* level_start, const void* wcs,              \
+                      void* scratch, void* out, int n_tips, int n_int,       \
+                      int c_n, int s_n, int p_n, int k_n, int pw, int warps, \
+                      void* stream) {                                        \
+    return launch<T>(tips, pm_ord, lr_ids, lr_pos, level_start, wcs,         \
+                     scratch, out, n_tips, n_int, c_n, s_n, p_n, k_n, pw,    \
+                     warps, stream);                                         \
+  }
 
-extern "C" int peel_stream_f32(const void* tips, const void* pm_ord,
-                               const void* lr_ids, const void* lr_pos,
-                               const void* wcs, void* scratch, void* out,
-                               int n_int, int c_n, int s_n, int p_n, int chunk,
-                               void* stream) {
-  return launch<float>(tips, pm_ord, lr_ids, lr_pos, wcs, scratch, out, n_int,
-                       c_n, s_n, p_n, chunk, stream);
-}
+PEEL_STREAM_ENTRY(peel_stream_f64, double)
+PEEL_STREAM_ENTRY(peel_stream_f32, float)

@@ -1,8 +1,12 @@
 """Tree data likelihood: tree + substitution + site + clock -> logL.
 
-Counterpart of beast_mcmc_tpu/models/treelikelihood.py. The peel goes by
-the device of the tensors: CUDA tensors to the kernels through
-ops/cuda_peeling.py::peel_loglikelihood_auto, CPU tensors to the plain peel.
+Counterpart of beast_mcmc_tpu/models/treelikelihood.py. Where
+ops/cuda_peeling.py::peel_route gives a shape the deep kernel (S = 4 trees
+whose branch matrices overflow shared memory), the peel goes through
+ops/cuda_stream2.py: by levels of depth from the root, with no height order,
+all partitions in one launch (its plain version for CPU tensors). Every
+other shape goes by the device: CUDA tensors to the kernels through
+ops/cuda_peeling.py::peel_site_loglik_auto, CPU tensors to the plain peel.
 """
 
 from __future__ import annotations
@@ -11,9 +15,11 @@ import torch
 
 from beast_mcmc_tpu_torch.ops.cuda_peeling import (
     peel_loglikelihood_auto,
+    peel_route,
     peel_site_loglik_auto,
 )
-from beast_mcmc_tpu_torch.ops.cuda_stream import stream_schedule
+from beast_mcmc_tpu_torch.ops.cuda_stream import level_schedule, stream_schedule
+from beast_mcmc_tpu_torch.ops.cuda_stream2 import peel_site_loglik_deep
 from beast_mcmc_tpu_torch.ops.eigen import EigenSystem, transition_probs
 from beast_mcmc_tpu_torch.ops.peeling import (
     peel_loglikelihood,
@@ -39,18 +45,40 @@ def branch_transition_matrices(eig: EigenSystem, parent: torch.Tensor,
     return transition_probs(eig, t)
 
 
+def _deep_route(p_mats: torch.Tensor) -> bool:
+    """True where the peel of these [..., M, C, S, S] matrices goes to the
+    deep kernel (its plain version on the CPU)."""
+    m, c, s = p_mats.shape[-4:-1]
+    return peel_route(m, c, s, p_mats.element_size()) == "deep"
+
+
+def _site_logliks(tip_partials, parent, children, heights, root, p_mats,
+                  freqs, category_weights) -> torch.Tensor:
+    """Per-pattern log-likelihoods of one tree, or [K, P] of K partitions
+    on it from the deep route. The deep route orders the peel by depth
+    alone (`level_schedule`, which computes the depth once); the others
+    take the height order."""
+    n_taxa = tip_partials.shape[-3]
+    if _deep_route(p_mats):
+        return peel_site_loglik_deep(
+            tip_partials, children, None, root, p_mats, freqs,
+            category_weights, level_schedule(children, n_taxa, parent))
+    order = peel_order_from_heights(heights, n_taxa, parent)
+    peel = peel_site_loglik_auto if tip_partials.is_cuda else peel_site_loglik
+    return peel(tip_partials, children, order, root, p_mats, freqs,
+                category_weights)
+
+
 def tree_loglikelihood(tip_partials, pattern_weights, parent, children,
                        heights, root, eig: EigenSystem, freqs,
                        category_rates, category_weights,
                        branch_rates) -> torch.Tensor:
     """Pattern-weighted log-likelihood of the tree, float64 0-d tensor."""
-    n_taxa = tip_partials.shape[0]
     p_mats = branch_transition_matrices(eig, parent, heights, branch_rates,
                                         category_rates)
-    order = peel_order_from_heights(heights, n_taxa, parent)
-    peel = peel_loglikelihood_auto if tip_partials.is_cuda else peel_loglikelihood
-    return peel(tip_partials, children, order, root, p_mats, freqs,
-                category_weights, pattern_weights)
+    return stable_dot(pattern_weights, _site_logliks(
+        tip_partials, parent, children, heights, root, p_mats, freqs,
+        category_weights))
 
 
 def tree_site_logliks(tip_partials, parent, children, heights, root,
@@ -58,13 +86,10 @@ def tree_site_logliks(tip_partials, parent, children, heights, root,
                       category_weights, branch_rates) -> torch.Tensor:
     """Per-pattern log-likelihoods [P] (the getSiteLogLikelihoods
     surface)."""
-    n_taxa = tip_partials.shape[0]
     p_mats = branch_transition_matrices(eig, parent, heights, branch_rates,
                                         category_rates)
-    order = peel_order_from_heights(heights, n_taxa, parent)
-    peel = peel_site_loglik_auto if tip_partials.is_cuda else peel_site_loglik
-    return peel(tip_partials, children, order, root, p_mats, freqs,
-                category_weights)
+    return _site_logliks(tip_partials, parent, children, heights, root,
+                         p_mats, freqs, category_weights)
 
 
 def multipartition_loglikelihood(tip_partials, pattern_weights, parent,
@@ -76,13 +101,18 @@ def multipartition_loglikelihood(tip_partials, pattern_weights, parent,
     tip_partials [K, N, S, P], pattern_weights [K, P], eigs batched over K,
     freqs [K, S], category_rates and category_weights [K, C] (a partition's
     relative rate folds into its category rates); branch_rates is shared.
-    The peel order, and on a CUDA device the streaming schedule, are
-    computed once; the branch matrices of all partitions come from one
-    batched product; each partition is then one peel (one kernel launch)."""
+    The branch matrices of all partitions come from one batched product.
+    On the deep route all K partitions are one peel (one kernel launch, the
+    grid's second axis). Elsewhere the peel order, and on a CUDA device the
+    streaming schedule, are computed once and each partition is one peel."""
     k_parts, n_taxa = tip_partials.shape[:2]
-    order = peel_order_from_heights(heights, n_taxa, parent)
     p_mats = branch_transition_matrices(eigs, parent, heights, branch_rates,
                                         category_rates)  # [K, M, C, S, S]
+    if _deep_route(p_mats):
+        return stable_dot(pattern_weights, _site_logliks(
+            tip_partials, parent, children, heights, root, p_mats, freqs,
+            category_weights))
+    order = peel_order_from_heights(heights, n_taxa, parent)
     args = [(tip_partials[k], children, order, root, p_mats[k], freqs[k],
              category_weights[k], pattern_weights[k]) for k in range(k_parts)]
     if tip_partials.is_cuda:
@@ -98,11 +128,9 @@ def tree_loglikelihood_pmats(tip_partials, pattern_weights, children, heights,
                              category_weights) -> torch.Tensor:
     """Tree likelihood from branch matrices [M, C, S, S] built by the caller
     (epoch or branch-specific models), for any state count."""
-    n_taxa = tip_partials.shape[0]
-    order = peel_order_from_heights(heights, n_taxa, parent)
-    peel = peel_loglikelihood_auto if tip_partials.is_cuda else peel_loglikelihood
-    return peel(tip_partials, children, order, root, p_mats, freqs,
-                category_weights, pattern_weights)
+    return stable_dot(pattern_weights, _site_logliks(
+        tip_partials, parent, children, heights, root, p_mats, freqs,
+        category_weights))
 
 
 def ascertainment_correction(site_logl_excluded: torch.Tensor) -> torch.Tensor:

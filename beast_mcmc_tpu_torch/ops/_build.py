@@ -78,7 +78,7 @@ def build_all(names: Sequence[str]) -> Dict[str, float]:
 
 
 class KernelCall:
-    """One prepared launch: a C entry point taking (7 pointers, its ints,
+    """One prepared launch: a C entry point taking (its pointers, its ints,
     stream), the tensors its pointers point into (held alive here) and the
     output (a tensor, or a tuple of them). `launch` enqueues it on the
     current stream of the tensors' device and raises on a non-zero
@@ -100,15 +100,16 @@ class KernelCall:
         return self.out
 
 
-def load(name: str, entry_points: Sequence[str], n_ints: int) -> ctypes.CDLL:
+def load(name: str, entry_points: Sequence[str], n_ints: int,
+         n_ptrs: int = 7) -> ctypes.CDLL:
     """Build (if needed) and load lib<name>; declare each entry point as
-    int f(7 pointers, n_ints ints, stream)."""
+    int f(n_ptrs pointers, n_ints ints, stream)."""
     if name not in _libs:
         build_all([name])
         lib = ctypes.CDLL(str(_lib_path(name)))
         for ep in entry_points:
             fn = getattr(lib, ep)
-            fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * n_ints
+            fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
         _libs[name] = lib

@@ -138,9 +138,11 @@ def peel_site_loglik_auto(tip_partials, children, order, root, p_matrices,
                           freqs, category_weights,
                           schedule=None) -> torch.Tensor:
     """Shape-dispatched peel (`peel_route`): per-pattern log-likelihood [P].
-    `schedule` is stream_schedule(children, order) where the caller already
-    has it (several partitions on one tree); the resident and the
-    matrix-product kernel do not read it."""
+    `schedule` is the route's schedule where the caller already has it:
+    level_schedule(children, N, parent) for the deep kernel, which orders
+    by depth and does not read `order`; stream_schedule(children, order)
+    for the v1 streaming one (several partitions on one tree); the resident
+    and the matrix-product kernel do not read it."""
     from beast_mcmc_tpu_torch.ops.cuda_mxu import peel_site_loglik_mxu
     from beast_mcmc_tpu_torch.ops.cuda_stream import peel_site_loglik_stream
     from beast_mcmc_tpu_torch.ops.cuda_stream2 import peel_site_loglik_deep

@@ -15,7 +15,9 @@ that neither the S = 4 kernels nor the matrix-product kernel
 [n_int, 2] are each step's children, `lr_pos` their peel positions (-1
 for a tip); `p_matrices[lr_ids]` is `pm_ord` [n_int, 2, C, S, S]. The
 plain version `_stream_plain` peels from these, so a CPU tensor checks the
-gather as well as the arithmetic.
+gather as well as the arithmetic. `level_schedule` is the same gather in
+the deep kernel's order (ops/cuda_stream2.py): by depth, deepest first,
+with the first position of every level.
 
 The planners are derived from the 227 KB of shared memory a Hopper block
 may take. A block holds, in elements of the working type,
@@ -37,6 +39,7 @@ import torch
 
 from beast_mcmc_tpu_torch.ops import _build
 from beast_mcmc_tpu_torch.ops.cuda_peeling import check_kernel_inputs
+from beast_mcmc_tpu_torch.ops.peeling import node_depths
 from beast_mcmc_tpu_torch.utils.accum import stable_dot
 
 SMEM_BUDGET = 220 * 1024  # of the 227 KB a block may take
@@ -111,6 +114,32 @@ def stream_schedule(children, order):
                                device=children.device))
     lr_ids = children.long()[order]
     return lr_ids.to(torch.int32), pos_of[lr_ids]
+
+
+def level_schedule(children, n_tips, parent=None):
+    """(order, lr_ids, lr_pos, level_start) of the deep kernel: the
+    internal nodes by depth from the root, deepest first (ties by node
+    index), and stream_schedule's two arrays in that order. A child lies exactly one
+    level deeper than its parent, so the order is child-before-parent and
+    the nodes of a level are independent. `level_start` int32 [n_int + 1]
+    holds each level's first position; every entry past the last level is
+    n_int. All on the device, with no host synchronisation; `parent` is
+    derived from `children` when not given."""
+    m = children.shape[0]
+    n_int = m - n_tips
+    dev = children.device
+    if parent is None:
+        parent = torch.full((m,), -1, dtype=torch.long, device=dev)
+        parent[children[n_tips:].long().reshape(-1)] = torch.arange(
+            n_tips, m, device=dev).repeat_interleave(2)
+    d = node_depths(parent)[n_tips:]
+    lvl = d.max() - d  # 0 for the deepest level
+    order = torch.sort(lvl, stable=True).indices + n_tips
+    counts = torch.zeros(n_int, dtype=torch.int32, device=dev)
+    counts.index_add_(0, lvl, torch.ones_like(counts))
+    level_start = torch.zeros(n_int + 1, dtype=torch.int32, device=dev)
+    level_start[1:] = torch.cumsum(counts, 0, dtype=torch.int32)
+    return (order, *stream_schedule(children, order), level_start)
 
 
 def _stream_plain(tip_partials, lr_ids, lr_pos, pm_ord, wcs):

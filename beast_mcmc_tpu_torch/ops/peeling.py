@@ -25,6 +25,20 @@ def _stable_argsort(key: torch.Tensor) -> torch.Tensor:
     return torch.sort(key, stable=True).indices
 
 
+def node_depths(parent: torch.Tensor) -> torch.Tensor:
+    """int64[M] edge count from the root of every node (`parent` -1 at the
+    root), by pointer doubling on the device: ceil(log2 M) rounds of
+    gathers, whatever the tree's depth, so the host learns nothing."""
+    m = parent.shape[0]
+    jump = torch.where(parent >= 0, parent.long(),
+                       torch.arange(m, device=parent.device))
+    d = (parent >= 0).long()
+    for _ in range(max(1, math.ceil(math.log2(max(m, 2))))):
+        d = d + d[jump]
+        jump = jump[jump]
+    return d
+
+
 def peel_order_from_heights(heights: torch.Tensor, n_taxa: int,
                             parent: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
@@ -35,14 +49,7 @@ def peel_order_from_heights(heights: torch.Tensor, n_taxa: int,
     h = heights[n_taxa:]
     if parent is None:
         return _stable_argsort(h) + n_taxa
-    m = heights.shape[0]
-    ar = torch.arange(m, device=heights.device)
-    # depth (edge count from the root) by pointer doubling
-    jump = torch.where(parent >= 0, parent.long(), ar)
-    d = (parent >= 0).long()
-    for _ in range(max(1, math.ceil(math.log2(max(m, 2))))):
-        d = d + d[jump]
-        jump = jump[jump]
+    d = node_depths(parent)
     # lexsort from two stable sorts: secondary key (depth, descending)
     # first, then the primary key (height, ascending)
     sec = _stable_argsort(-d[n_taxa:])

@@ -8,20 +8,23 @@ result line):
 
   1. build the four kernels (one nvcc per source, in parallel);
   2. hold each kernel against its plain PyTorch version on the card, at the
-     shapes the main path gives it, and time both: the resident and the
-     deep streaming peel (S = 4), the v1 streaming peel at S = 4, 20 and
-     61, and the matrix-product peel at the protein (S = 20) and codon
-     (S = 61) shapes and a ragged small one, partials included, timed in
-     turns with the v1 streaming peel on the same inputs; hold the card's
-     log posterior against the CPU's on a small analysis;
+     shapes the main path gives it, and time both: the resident peel
+     (S = 4); the level-scheduled deep peel (S = 4) at the Makona shape, at
+     the benchmark1 three-partition launch (K = 3), at the small forced
+     shape, on a caterpillar tree (one node a level) and at a ragged
+     pattern count; the v1 streaming peel at S = 4, 20 and 61, and the
+     matrix-product peel at the protein (S = 20) and codon (S = 61) shapes
+     and a ragged small one, partials included, timed in turns with the v1
+     streaming peel on the same inputs; hold the card's log posterior
+     against the CPU's on a small analysis;
   3. the f64 GTR+Gamma4 chain at the benchmark2 shape (62 taxa, 5,565
      patterns) through the resident kernel, with the full-evaluation
      self-check (< 0.1);
   4. the same model at the Makona shape (1,610 taxa, 2,048 patterns)
      through the deep streaming kernel, with the same check;
   5. the f64 HKY x 3 codon-partition chain at the benchmark1 shape (1,441
-     taxa, 3 x 593 patterns): three deep streaming launches a step, with
-     the same check;
+     taxa, 3 x 593 patterns): one deep streaming launch a step for all
+     three partitions, with the same check;
   6. the f64 LG+Gamma4 protein chain (`protein_analysis`: 128 taxa, 1,024
      patterns, 20 states) and the f64 GY94 codon chain (`codon_analysis`:
      64 taxa, 512 patterns, 61 states): one matrix-product launch a step,
@@ -32,7 +35,7 @@ result line):
      one v1 streaming launch), a few real amino-acid sequences from
      Alignment to tree_loglikelihood against the CPU, and the benchmark1
      likelihood partition by partition by peel_loglikelihood_stream (the v1
-     streaming kernel).
+     streaming kernel) against the chain's route (one deep launch).
 
 `python3 chip_smoke.py --tiles` instead builds the v1 streaming kernel and
 times it at every pattern-tile width its planner could pick (32, 16, 8, 4
@@ -41,7 +44,10 @@ from the plain version; `*` marks the width the planner picks. This is the
 measurement behind the planner's rule of narrowing the tile while the grid
 would leave more than half of the SMs idle. At the shapes with 16 states or
 more it then does the same for the matrix-product kernel, at each tile width
-with the planner's warps per 8-pattern tile and with half of them.
+with the planner's warps per 8-pattern tile and with half of them. Last it
+times the deep kernel at the Makona and the benchmark1 three-partition
+shapes at every pattern tile (pw patterns a slot) and 4, 8, 16 and 32 warps
+a block.
 
 It prints the card's name and power limit, one {"kernels": [...]} line,
 and last {"ok": true, "device": {...}}. It imports nothing of JAX and
@@ -72,6 +78,13 @@ B2 = (62, 5565)
 MAKONA = (1610, 2048)
 SMALL = (12, 130)
 B1 = (1441, 593)  # taxa, patterns per codon partition
+CATERPILLAR = (500, 4, 4, 203)  # taxa, categories, states, patterns
+RAGGED_DEEP = (1610, 4, 4, 1001)
+DEEP_TILE_SHAPES = [(1610, 1, 4, 2048), (1441, 3, 1, 640)]  # taxa, K, C, P
+# f32 deep checks draw tips with 85% of entries 1: site logL stays under
+# 300 in magnitude, where one f32 step is 3e-5; at the chains' ~1,500 it is
+# 1.2e-4, beyond the 5e-5 the check allows, whatever the kernel does
+F32_CUT = 0.15
 AMINO = (128, 4, 20, 1024)  # taxa, categories, states, patterns
 CODON = (64, 1, 61, 512)
 RAGGED = (20, 4, 61, 70)
@@ -107,14 +120,14 @@ def time_ms(fn, reps):
     return statistics.median(times)
 
 
-def bound_ms(tensors_in, tensors_out, n_int, c, s, p, dtype_name):
-    """Least time for the peel: inputs read once and outputs written once
-    over HBM bandwidth, against the peel's operations (bench.py's count,
-    4S^2 + 3S per node, category and pattern, plus the root) over the
-    card's full-precision peak for the type."""
+def bound_ms(tensors_in, tensors_out, n_int, c, s, p, dtype_name, k=1):
+    """Least time for the peel of k partitions: inputs read once and outputs
+    written once over HBM bandwidth, against the peel's operations
+    (bench.py's count, 4S^2 + 3S per node, category and pattern, plus the
+    root) over the card's full-precision peak for the type."""
     nbytes = sum(t.numel() * t.element_size()
                  for t in (*tensors_in, *tensors_out))
-    flops = n_int * c * p * (4 * s * s + 3 * s) + 2 * c * s * p
+    flops = k * (n_int * c * p * (4 * s * s + 3 * s) + 2 * c * s * p)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype_name]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -312,23 +325,37 @@ def main():
     def read_counts():
         return {k: mod.launches for k, mod in counters.items()}
 
-    def random_inputs(n_taxa, c, s, p, seed, dtype):
+    def random_inputs(n_taxa, c, s, p, seed, dtype, cut=0.6, k=None,
+                      caterpillar=False):
         """The same tuple for any state count, and its tree, made on the
-        host from a seed: a coalescent tree, partly ambiguous tips,
-        row-stochastic matrices."""
+        host from a seed: a coalescent tree (or a caterpillar: each internal
+        node joins the previous one and the next tip), tips whose entries
+        are 1 with probability 1 - `cut` and 0.1 otherwise,
+        row-stochastic matrices; with `k`, k partitions on the tree (tips,
+        matrices, freqs and weights gain a leading axis)."""
         rng = np.random.default_rng(seed)
-        tr = make_tree_state(*simulate_coalescent_tree(
-            rng, np.zeros(n_taxa), 1.0), dtype=torch.float64, device=dev)
-        tips = (rng.random((n_taxa, s, p)) > 0.6) * 0.9 + 0.1
-        pm = rng.random((2 * n_taxa - 1, c, s, s)) * 0.2 + 0.01
+        tree_np = simulate_coalescent_tree(rng, np.zeros(n_taxa), 1.0)
+        if caterpillar:
+            m = 2 * n_taxa - 1
+            parent, children = np.full(m, -1), np.full((m, 2), -1)
+            for i in range(1, n_taxa):
+                children[n_taxa + i - 1] = (n_taxa + i - 2 if i > 1 else 0, i)
+                parent[children[n_taxa + i - 1]] = n_taxa + i - 1
+            tree_np = (parent, children,
+                       np.r_[np.zeros(n_taxa), np.arange(1.0, n_taxa)], m - 1)
+        tr = make_tree_state(*tree_np, dtype=torch.float64, device=dev)
+        lead = () if k is None else (k,)
+        tips = (rng.random((*lead, n_taxa, s, p)) > cut) * 0.9 + 0.1
+        pm = rng.random((*lead, 2 * n_taxa - 1, c, s, s)) * 0.2 + 0.01
         pm = pm / pm.sum(-1, keepdims=True)
         order = peel_order_from_heights(tr.heights, n_taxa, tr.parent)
         f = lambda x: torch.tensor(x, dtype=dtype, device=dev)  # noqa: E731
         return (f(tips), tr.children, order, tr.root, f(pm),
-                f(np.full(s, 1.0 / s)), f(np.full(c, 1.0 / c))), tr
+                f(np.full((*lead, s), 1.0 / s)),
+                f(np.full((*lead, c), 1.0 / c))), tr
 
     if "--tiles" in sys.argv[1:]:
-        _build.build_all(["peel_stream_ring", "peel_mxu"])
+        _build.build_all(["peel_stream_ring", "peel_mxu", "peel_stream"])
         for shape in TILE_SHAPES:
             for dtype in (torch.float64, torch.float32):
                 (tips, ch, order, _, pm, fr, cw), _ = random_inputs(
@@ -374,6 +401,33 @@ def main():
                                  f"{'*' if (bp, w) == picked else ''} err "
                                  f"{err:.1e} ms {time_ms(call.launch, 10):.4f}")
                 log(line)
+        # the deep kernel: pw patterns a slot, warps a block; f32 on mostly
+        # ambiguous tips (see F32_CUT)
+        for n_taxa, k, c, p in DEEP_TILE_SHAPES:
+            for dtype in (torch.float64, torch.float32):
+                (tips, ch, _, _, pm, fr, cw), _ = random_inputs(
+                    n_taxa, c, 4, p, 1, dtype,
+                    F32_CUT if dtype == torch.float32 else 0.6, k)
+                _, ids, pos, ls = cuda_stream.level_schedule(ch, n_taxa)
+                pmo = pm[:, ids.long()].contiguous()
+                ref = cuda_stream2._deep_plain(tips, ids, pos, ls, pmo,
+                                               cw[:, :, None] * fr[:, None])
+                picked = cuda_stream2.deep_plan(p, k, c, pm.element_size())
+                line = f"[tiles] deep {(n_taxa, k, c, p)} {str(dtype)[6:]}"
+                pw = 1 << ((32 // c).bit_length() - 1)
+                while pw * c >= 2:
+                    for w in (4, 8, 16, 32):
+                        try:
+                            call = cuda_stream2.prepare_deep(
+                                tips, ids, pos, ls, pmo, fr, cw, pw, w)
+                        except ValueError:  # overflows shared memory
+                            continue
+                        err = (call.launch() - ref).abs().max().item()
+                        star = "*" if (pw, w) == picked[:2] else ""
+                        line += (f" | pw {pw} w {w}{star} err {err:.1e} ms "
+                                 f"{time_ms(call.launch, 10):.4f}")
+                    pw //= 2
+                log(line)
         return 0
 
     # -- phase 1: build ------------------------------------------------
@@ -399,12 +453,18 @@ def main():
     torch.cuda.synchronize()
     log(f"[setup] analyses built in {time.perf_counter() - t0:.2f} s")
 
-    def peel_inputs(shape, dtype):
+    def peel_inputs(shape, dtype, partitions=False):
         """(tips, children, order, root, p_matrices, freqs, cat_w) of an
-        analysis at its start; partition 0 of the benchmark1 one."""
+        analysis at its start; partition 0 of the benchmark1 one, or with
+        `partitions` all three ([K, ...] tips, matrices, freqs, weights)."""
         _, _, p0, t0_, aux = analyses[shape]
         tips, freqs = aux["tips"], aux["freqs"]
-        if shape == B1:
+        if shape == B1 and partitions:
+            freqs = freqs.expand(3, 4)
+            eig = hky_eigen(p0["kappa"], freqs)
+            rates, cw = single_rate(dtype=torch.float64, device=dev)
+            rates, cw = p0["mu"][:, None] * rates, cw.expand(3, 1)
+        elif shape == B1:
             tips = tips[0]
             eig = hky_eigen(p0["kappa"][0], freqs)
             rates, cw = single_rate(dtype=torch.float64, device=dev)
@@ -437,10 +497,11 @@ def main():
     def check(kname, label, inputs, reps, plain_reps):
         tips, ch, order, root, pm, fr, cw = inputs
         dtype = pm.dtype
-        n_int = tips.shape[0] - 1
-        c, s, p = pm.shape[1], pm.shape[2], tips.shape[2]
-        wcs = cw[:, None] * fr[None, :]
-        rec = {"label": label, "shape": [tips.shape[0], c, s, p],
+        n_int = tips.shape[-3] - 1
+        c, s, p = pm.shape[-3], pm.shape[-2], tips.shape[-1]
+        k_parts = tips.shape[0] if tips.dim() == 4 else 1
+        wcs = cw[..., None] * fr[..., None, :]
+        rec = {"label": label, "shape": [tips.shape[-3], c, s, p],
                "dtype": str(dtype).replace("torch.", "")}
         if kname == "peel_resident":
             call = cuda_peeling.prepare_resident(tips, ch, order, pm, fr, cw)
@@ -452,26 +513,33 @@ def main():
             plain_fn = lambda: cuda_mxu._mxu_plain(  # noqa: E731
                 tips, ch, order, pm, wcs)
             ins = [tips, pm, ch, order, fr, cw]
+        elif kname == "peel_stream":  # one tree, or K partitions on it
+            if tips.dim() == 3:
+                tips, pm, fr, cw = tips[None], pm[None], fr[None], cw[None]
+            _, lr_ids, lr_pos, ls = cuda_stream.level_schedule(ch, n_int + 1)
+            pm_ord = pm[:, lr_ids.long()].contiguous()
+            call = cuda_stream2.prepare_deep(tips, lr_ids, lr_pos, ls, pm_ord,
+                                             fr, cw)
+            wcs = cw[:, :, None] * fr[:, None, :]
+            plain_fn = lambda: (cuda_stream2._deep_plain(  # noqa: E731
+                tips, lr_ids, lr_pos, ls, pm_ord, wcs),)
+            ins = [tips, pm_ord, lr_ids, lr_pos, ls, fr, cw]
+            rec["shape"] = [tips.shape[0], *rec["shape"]]
+            rec["levels"] = int((ls < n_int).sum())
         else:
             lr_ids, lr_pos = cuda_stream.stream_schedule(ch, order)
             pm_ord = pm[lr_ids]
             ins = [tips, pm_ord, lr_ids, lr_pos, fr, cw]
-            if kname == "peel_stream":
-                call = cuda_stream2.prepare_deep(tips, lr_ids, lr_pos, pm_ord,
-                                                 fr, cw)
-                plain_fn = lambda: (cuda_stream2._deep_plain(  # noqa: E731
-                    tips, lr_ids, lr_pos, pm_ord, wcs),)
-            else:
-                call = cuda_stream.prepare_stream(tips, lr_ids, lr_pos,
-                                                  pm_ord, fr, cw)
-                plain_fn = lambda: cuda_stream._stream_plain(  # noqa: E731
-                    tips, lr_ids, lr_pos, pm_ord, wcs)
-                # children the ring serves from shared memory
-                step = torch.arange(n_int, device=dev)[:, None]
-                inner = lr_pos >= 0
-                rec["internal_child_reads"] = int(inner.sum())
-                rec["ring_share"] = (int((inner & (lr_pos >= step - 2)).sum())
-                                     / rec["internal_child_reads"])
+            call = cuda_stream.prepare_stream(tips, lr_ids, lr_pos, pm_ord,
+                                              fr, cw)
+            plain_fn = lambda: cuda_stream._stream_plain(  # noqa: E731
+                tips, lr_ids, lr_pos, pm_ord, wcs)
+            # children the ring serves from shared memory
+            step = torch.arange(n_int, device=dev)[:, None]
+            inner = lr_pos >= 0
+            rec["internal_child_reads"] = int(inner.sum())
+            rec["ring_share"] = (int((inner & (lr_pos >= step - 2)).sum())
+                                 / rec["internal_child_reads"])
         got = call.launch()
         got = tuple(t.clone() for t in (got if isinstance(got, tuple)
                                         else (got,)))
@@ -503,7 +571,7 @@ def main():
             [t for t in ins if t.is_floating_point()]
             + [t.to(torch.int32) for t in ins if not t.is_floating_point()],
             got[:1] if kname == "peel_mxu" else got, n_int, c, s, p,
-            rec["dtype"])
+            rec["dtype"], k_parts)
         rec.update({"bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
                     "flops": flops})
         log(f"[kernel] {kname} {json.dumps(rec)}")
@@ -517,18 +585,34 @@ def main():
     check("peel_resident", "benchmark2 f64", peel_inputs(B2, f64), 50, 5)
     check("peel_resident", "benchmark2 f32", peel_inputs(B2, f32), 50, 5)
     mak = peel_inputs(MAKONA, f64)
+    # the deep kernel: f64 on the chains' own inputs, f32 on random ones
+    # (F32_CUT); K = 3 is the launch of the benchmark1 chain
     deep_call, deep_got = check("peel_stream", "makona f64", mak, 20, 2)
+    b1_all = peel_inputs(B1, f64, partitions=True)
+    check("peel_stream", "benchmark1 three partitions f64", b1_all, 20, 2)
     check("peel_stream", "small forced stream f64", peel_inputs(SMALL, f64),
           50, 5)
     check("peel_stream", "small forced stream f32", peel_inputs(SMALL, f32),
           50, 5)
+    check("peel_stream", "makona f32",
+          random_inputs(MAKONA[0], 4, 4, MAKONA[1], 31, f32, F32_CUT)[0],
+          20, 2)
+    check("peel_stream", "benchmark1 three partitions f32",
+          random_inputs(B1[0], 1, 4, 640, 32, f32, F32_CUT, 3)[0], 20, 2)
+    for dtype in (f64, f32):
+        name = str(dtype).replace("torch.", "")
+        cut = F32_CUT if dtype == f32 else 0.6
+        check("peel_stream", f"caterpillar {name}", random_inputs(
+            *CATERPILLAR, 33, dtype, cut, caterpillar=True)[0], 10, 1)
+        check("peel_stream", f"ragged {name}",
+              random_inputs(*RAGGED_DEEP, 34, dtype, cut)[0], 10, 2)
+    del b1_all
     b1_part = peel_inputs(B1, f64)
-    check("peel_stream", "benchmark1 partition f64", b1_part, 20, 2)
 
     check("peel_stream_ring", "benchmark1 partition f64", b1_part, 20, 2)
     ring_call, ring_got = check("peel_stream_ring", "makona f64", mak, 20, 2)
     # the two streaming kernels on the same Makona inputs, timed in turns
-    _, rel, _ = deviation(ring_got[0], deep_got[0])
+    _, rel, _ = deviation(ring_got[0], deep_got[0][0])
     turns = [time_ms(c.launch, 10)
              for c in (ring_call, deep_call, deep_call, ring_call)]
     log(f"[kernel] makona f64 peel_stream_ring vs peel_stream: max rel "
@@ -630,7 +714,7 @@ def main():
     mak_counts, mak_rate, mak_step, mak_state = chain(
         "makona", MAKONA, MAK_STEPS, MAK_CHECK, {"peel_stream": 1}, 1)
     b1_counts, b1_rate, b1_step, b1_state = chain(
-        "benchmark1", B1, B1_STEPS, B1_CHECK, {"peel_stream": 3}, 2)
+        "benchmark1", B1, B1_STEPS, B1_CHECK, {"peel_stream": 1}, 2)
     aa_counts, aa_rate, aa_step, aa_state = chain(
         "protein", AMINO, PC_STEPS, PC_CHECK, {"peel_mxu": 1}, 3)
     cod_counts, cod_rate, cod_step, cod_state = chain(
@@ -743,7 +827,7 @@ def main():
         raise AssertionError("card and CPU disagree on the sequences")
     reset_counts()
     # the benchmark1 likelihood at the chain's last state: the chain's route
-    # (three deep launches) against the streaming entry point, by partition
+    # (one deep launch) against the streaming entry point, by partition
     _, _, _, _, aux = analyses[B1]
     prm, tr = b1_state.params, b1_state.tree
     via_chain = float(aux["log_lik"](prm, tr))
@@ -761,7 +845,7 @@ def main():
     log(f"[entry] benchmark1 log likelihood: chain's route {via_chain!r}, "
         f"peel_loglikelihood_stream {via_ring!r}; launches "
         f"{json.dumps(ring_counts)}")
-    if ring_counts != {"peel_resident": 0, "peel_stream": 3,
+    if ring_counts != {"peel_resident": 0, "peel_stream": 1,
                        "peel_stream_ring": 3, "peel_mxu": 0}:
         raise AssertionError(f"unexpected launches {ring_counts}")
     if not abs(via_chain - via_ring) <= F64_REL_TOL * abs(via_chain):
