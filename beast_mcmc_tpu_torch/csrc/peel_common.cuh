@@ -1,22 +1,19 @@
-// Shared pieces of the Felsenstein peel kernels. peel_stream_ring.cu and
-// peel_mxu.cu take only dmax, dlog and the element-wise cp.async helpers; the
-// rest serves the two S = 4 kernels (peel_resident.cu, peel_stream.cu).
+// Shared pieces of the Felsenstein peel kernels. peel_stream_ring.cu takes
+// only dmax, dlog and the element-wise cp.async helpers; peel_mxu.cu takes
+// dmax, dlog and take_scale; node_product and over_categories serve the two
+// S = 4 kernels (peel_resident.cu, peel_stream.cu), which walk the tree by
+// levels in the same way and differ only in where the branch matrices come
+// from.
 //
-// Thread layout of those two: a block is PX patterns x C categories
-// (threadIdx.x = pattern in the tile, threadIdx.y = category), one thread
-// per (pattern, category). Patterns are independent, so blocks never talk
-// to each other. Every thread walks the internal nodes in peel order and
-// keeps its log-scale accumulator in a register. A child's partials for
-// (category, pattern) are written and read back by the same thread, so the
-// partials scratch in device memory needs no synchronisation; only the
-// per-pattern max over categories goes through shared memory.
+// The level walk of those two: a slot is pw patterns x C categories of one
+// warp (lane = category * pw + pattern), so the max over categories is a
+// warp shuffle within the slot; a block's slots take the nodes of a level
+// round robin, one barrier a level.
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace peel {
-
-constexpr int PX = 32;  // patterns per block: one warp per category row
 
 __device__ __forceinline__ float dmax(float a, float b) { return fmaxf(a, b); }
 __device__ __forceinline__ double dmax(double a, double b) { return fmax(a, b); }
@@ -62,39 +59,39 @@ __device__ __forceinline__ T node_product(const T* __restrict__ pl,
   return mx;
 }
 
-// Per-pattern rescale: scale = max over (category, state), 1 where that max
-// is 0; x /= scale. `red` is one parity half of the [2][C][PX] buffer: the
-// two halves alternate node by node, so one barrier per node suffices.
-template <typename T, int S>
-__device__ __forceinline__ T rescale(T* red, T mx, T (&x)[S], int c_n) {
-  const int tx = threadIdx.x, cc = threadIdx.y;
-  red[cc * PX + tx] = mx;
-  __syncthreads();
-  T scale = red[tx];
-  for (int k = 1; k < c_n; ++k) scale = dmax(scale, red[k * PX + tx]);
-  if (!(scale > T(0))) scale = T(1);
-#pragma unroll
-  for (int s = 0; s < S; ++s) x[s] = x[s] / scale;
-  return scale;
+// The log-scale sum as a running product, in double for either type: prod
+// takes the scales while it and they stay far from the ends of the exponent
+// range, and goes into acc as one logarithm when they do not. A logarithm a
+// node is on every node's critical path; a multiplication is not.
+__device__ __forceinline__ void take_scale(double& acc, double& prod, double s) {
+  constexpr double tiny = 1e-150, big = 1e150;
+  if (prod > tiny && prod < big && s > tiny && s < big) {
+    prod *= s;
+  } else {
+    acc += log(prod) + log(s);
+    prod = 1.0;
+  }
 }
 
-// Root: site_lik = sum_c sum_s wcs[c,s] * post_root[c,s]; out = log + acc.
-template <typename T, int S>
-__device__ __forceinline__ void root_reduce(T* red, const T (&x)[S],
-                                            const T* __restrict__ wcs, T acc,
-                                            T* __restrict__ out, int p,
-                                            bool valid, int c_n) {
-  const int tx = threadIdx.x, cc = threadIdx.y;
-  T part = T(0);
-#pragma unroll
-  for (int s = 0; s < S; ++s) part += x[s] * wcs[cc * S + s];
-  red[cc * PX + tx] = part;
-  __syncthreads();
-  if (cc == 0 && valid) {
-    T site = red[tx];
-    for (int k = 1; k < c_n; ++k) site += red[k * PX + tx];
-    out[p] = dlog(site) + acc;
+// Sum (or max) over the C category lanes of one pattern within a slot of
+// gs = pw * C lanes starting at lane `base`; q is the lane's pattern.
+template <typename T, bool kMax>
+__device__ __forceinline__ T over_categories(T v, unsigned gmask, int base,
+                                             int q, int pw, int c_n, int gs) {
+  if (c_n == 1) return v;
+  if ((c_n & (c_n - 1)) == 0) {  // lanes differ in the bits pw .. gs/2
+    for (int off = pw; off < gs; off <<= 1) {
+      const T o = __shfl_xor_sync(gmask, v, off);
+      v = kMax ? dmax(v, o) : v + o;
+    }
+    return v;
   }
+  T acc = __shfl_sync(gmask, v, base + q);
+  for (int c = 1; c < c_n; ++c) {
+    const T o = __shfl_sync(gmask, v, base + c * pw + q);
+    acc = kMax ? dmax(acc, o) : acc + o;
+  }
+  return acc;
 }
 
 }  // namespace peel

@@ -65,7 +65,8 @@
 namespace {
 
 using peel::dlog;
-using peel::dmax;
+using peel::over_categories;
+using peel::take_scale;
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -82,19 +83,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// The log-scale sum as a running product (peel_mxu.cu's take_scale): prod
-// takes the scales while it and they stay far from the ends of the exponent
-// range, and goes into acc as one logarithm when they do not.
-__device__ __forceinline__ void take_scale(double& acc, double& prod, double s) {
-  constexpr double tiny = 1e-150, big = 1e150;
-  if (prod > tiny && prod < big && s > tiny && s < big) {
-    prod *= s;
-  } else {
-    acc += log(prod) + log(s);
-    prod = 1.0;
-  }
-}
-
 // The node a slot peels after node `i` of level `lvl` (updated in place): the
 // next of its round robin in the same level, else its first in the first
 // later level wide enough to give it one; -1 when there is none. i = -1
@@ -107,26 +95,6 @@ __device__ __forceinline__ int next_node(const int* __restrict__ ls, int n_int,
     if (a >= n_int) return -1;
     if (a + slot < __ldg(ls + lvl + 1)) return a + slot;
   }
-}
-
-// Sum (or max) over the C category lanes of one pattern within a slot.
-template <typename T, bool kMax>
-__device__ __forceinline__ T over_categories(T v, unsigned gmask, int base,
-                                             int q, int pw, int c_n, int gs) {
-  if (c_n == 1) return v;
-  if ((c_n & (c_n - 1)) == 0) {  // lanes differ in the bits pw .. gs/2
-    for (int off = pw; off < gs; off <<= 1) {
-      const T o = __shfl_xor_sync(gmask, v, off);
-      v = kMax ? dmax(v, o) : v + o;
-    }
-    return v;
-  }
-  T acc = __shfl_sync(gmask, v, base + q);
-  for (int c = 1; c < c_n; ++c) {
-    const T o = __shfl_sync(gmask, v, base + c * pw + q);
-    acc = kMax ? dmax(acc, o) : acc + o;
-  }
-  return acc;
 }
 
 template <typename T, int S>

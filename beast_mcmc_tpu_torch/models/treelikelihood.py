@@ -6,7 +6,10 @@ whose branch matrices overflow shared memory), the peel goes through
 ops/cuda_stream2.py: by levels of depth from the root, with no height order,
 all partitions in one launch (its plain version for CPU tensors). Every
 other shape goes by the device: CUDA tensors to the kernels through
-ops/cuda_peeling.py::peel_site_loglik_auto, CPU tensors to the plain peel.
+ops/cuda_peeling.py::peel_site_loglik_auto, with the schedule that
+`peel_schedule` builds for the route (the level schedule for the resident
+and matrix-product kernels too, the height order only for the v1 streaming
+one); CPU tensors to the height-ordered plain peel.
 """
 
 from __future__ import annotations
@@ -16,9 +19,10 @@ import torch
 from beast_mcmc_tpu_torch.ops.cuda_peeling import (
     peel_loglikelihood_auto,
     peel_route,
+    peel_schedule,
     peel_site_loglik_auto,
 )
-from beast_mcmc_tpu_torch.ops.cuda_stream import level_schedule, stream_schedule
+from beast_mcmc_tpu_torch.ops.cuda_stream import level_schedule
 from beast_mcmc_tpu_torch.ops.cuda_stream2 import peel_site_loglik_deep
 from beast_mcmc_tpu_torch.ops.eigen import EigenSystem, transition_probs
 from beast_mcmc_tpu_torch.ops.peeling import (
@@ -45,28 +49,35 @@ def branch_transition_matrices(eig: EigenSystem, parent: torch.Tensor,
     return transition_probs(eig, t)
 
 
-def _deep_route(p_mats: torch.Tensor) -> bool:
-    """True where the peel of these [..., M, C, S, S] matrices goes to the
-    deep kernel (its plain version on the CPU)."""
+def _route(p_mats: torch.Tensor) -> str:
+    """`peel_route` of these [..., M, C, S, S] matrices: the kernel a CUDA
+    peel goes to ("deep" takes its plain version on the CPU too)."""
     m, c, s = p_mats.shape[-4:-1]
-    return peel_route(m, c, s, p_mats.element_size()) == "deep"
+    return peel_route(m, c, s, p_mats.element_size())
 
 
 def _site_logliks(tip_partials, parent, children, heights, root, p_mats,
                   freqs, category_weights) -> torch.Tensor:
     """Per-pattern log-likelihoods of one tree, or [K, P] of K partitions
     on it from the deep route. The deep route orders the peel by depth
-    alone (`level_schedule`, which computes the depth once); the others
-    take the height order."""
+    alone (`level_schedule`, which computes the depth once); on a CUDA
+    device the resident and matrix-product routes do too, and the v1
+    streaming one takes the height order (`peel_schedule`); the CPU's plain
+    peel takes the height order."""
     n_taxa = tip_partials.shape[-3]
-    if _deep_route(p_mats):
+    route = _route(p_mats)
+    if route == "deep":
         return peel_site_loglik_deep(
             tip_partials, children, None, root, p_mats, freqs,
             category_weights, level_schedule(children, n_taxa, parent))
+    if tip_partials.is_cuda:
+        order, schedule = peel_schedule(route, children, heights, parent)
+        return peel_site_loglik_auto(tip_partials, children, order, root,
+                                     p_mats, freqs, category_weights,
+                                     schedule)
     order = peel_order_from_heights(heights, n_taxa, parent)
-    peel = peel_site_loglik_auto if tip_partials.is_cuda else peel_site_loglik
-    return peel(tip_partials, children, order, root, p_mats, freqs,
-                category_weights)
+    return peel_site_loglik(tip_partials, children, order, root, p_mats,
+                            freqs, category_weights)
 
 
 def tree_loglikelihood(tip_partials, pattern_weights, parent, children,
@@ -104,23 +115,28 @@ def multipartition_loglikelihood(tip_partials, pattern_weights, parent,
     The branch matrices of all partitions come from one batched product.
     On the deep route all K partitions are one peel (one kernel launch, the
     grid's second axis). Elsewhere the peel order, and on a CUDA device the
-    streaming schedule, are computed once and each partition is one peel."""
+    schedule of the route's kernel (`peel_schedule`), are computed once and
+    each partition is one peel."""
     k_parts, n_taxa = tip_partials.shape[:2]
     p_mats = branch_transition_matrices(eigs, parent, heights, branch_rates,
                                         category_rates)  # [K, M, C, S, S]
-    if _deep_route(p_mats):
+    route = _route(p_mats)
+    if route == "deep":
         return stable_dot(pattern_weights, _site_logliks(
             tip_partials, parent, children, heights, root, p_mats, freqs,
             category_weights))
-    order = peel_order_from_heights(heights, n_taxa, parent)
-    args = [(tip_partials[k], children, order, root, p_mats[k], freqs[k],
-             category_weights[k], pattern_weights[k]) for k in range(k_parts)]
     if tip_partials.is_cuda:
-        schedule = stream_schedule(children, order)
-        parts = [peel_loglikelihood_auto(*a, schedule) for a in args]
+        order, schedule = peel_schedule(route, children, heights, parent)
+
+        def peel(*a):
+            return peel_loglikelihood_auto(*a, schedule)
     else:
-        parts = [peel_loglikelihood(*a) for a in args]
-    return torch.sum(torch.stack(parts))
+        order = peel_order_from_heights(heights, n_taxa, parent)
+        peel = peel_loglikelihood
+    return torch.sum(torch.stack([
+        peel(tip_partials[k], children, order, root, p_mats[k], freqs[k],
+             category_weights[k], pattern_weights[k])
+        for k in range(k_parts)]))
 
 
 def tree_loglikelihood_pmats(tip_partials, pattern_weights, children, heights,

@@ -133,7 +133,10 @@ def level_schedule(children, n_tips, parent=None):
         parent[children[n_tips:].long().reshape(-1)] = torch.arange(
             n_tips, m, device=dev).repeat_interleave(2)
     d = node_depths(parent)[n_tips:]
-    lvl = d.max() - d  # 0 for the deepest level
+    # 0 for the deepest level. An invalid proposal (a cycle, which its
+    # operator rejects whatever the likelihood) has depths past n_int: the
+    # clamp keeps its schedule in range, and is a no-op on a tree.
+    lvl = (d.max() - d).clamp_(0, n_int - 1)
     order = torch.sort(lvl, stable=True).indices + n_tips
     counts = torch.zeros(n_int, dtype=torch.int32, device=dev)
     counts.index_add_(0, lvl, torch.ones_like(counts))

@@ -40,14 +40,16 @@ from typing import NamedTuple
 import torch
 
 from beast_mcmc_tpu_torch.ops import _build
-from beast_mcmc_tpu_torch.ops.cuda_peeling import PX, check_kernel_inputs
+from beast_mcmc_tpu_torch.ops.cuda_peeling import (
+    MAX_CATEGORIES,
+    check_kernel_inputs,
+)
 from beast_mcmc_tpu_torch.ops.cuda_stream import level_schedule
 from beast_mcmc_tpu_torch.utils.accum import stable_dot
 
 N_SM = 132  # streaming multiprocessors of an H100
 WARPS = 16  # warps per block (chip_smoke.py --tiles)
 SMEM_BUDGET = 220 * 1024  # of the 227 KB a block may take
-MAX_CATEGORIES = 1024 // PX
 
 launches = 0  # kernel launches since the caller last set this to 0
 
@@ -86,10 +88,14 @@ def deep_plan(p: int, k: int, c: int, itemsize: int, pw: int | None = None,
     return DeepPlan(pw, warps, slots, smem)
 
 
-def _deep_plain(tips, lr_ids, lr_pos, level_start, pm_ord, wcs):
+def _deep_plain(tips, lr_ids, lr_pos, level_start, pm_ord, wcs,
+                want_post=False):
     """Plain PyTorch version of the deep kernel: tips [K, N, S, P], pm_ord
     [K, n_int, 2, C, S, S], wcs [K, C, S]; returns the per-pattern
-    log-likelihood [K, P]. One batched step a level."""
+    log-likelihood [K, P], and with `want_post` the rescaled partials by
+    peel position [K, n_int, C, S, P] too. One batched step a level. It is
+    the plain version of the resident and the matrix-product kernels as well
+    (K = 1), which peel the same schedule."""
     k_parts, n_tips, s, p = tips.shape
     n_int = lr_ids.shape[0]
     c = pm_ord.shape[3]
@@ -114,7 +120,8 @@ def _deep_plain(tips, lr_ids, lr_pos, level_start, pm_ord, wcs):
         post[:, a:b] = x / scale[:, :, None, None]
         acc += torch.log(scale.to(torch.float64)).sum(1)
     site = torch.log(torch.einsum("kcs,kcsp->kp", wcs, post[:, n_int - 1]))
-    return (site.to(torch.float64) + acc).to(dt)
+    site = (site.to(torch.float64) + acc).to(dt)
+    return (site, post) if want_post else site
 
 
 def prepare_deep(tips, lr_ids, lr_pos, level_start, pm_ord, freqs, cat_w,

@@ -9,12 +9,15 @@ result line):
   1. build the four kernels (one nvcc per source, in parallel);
   2. hold each kernel against its plain PyTorch version on the card, at the
      shapes the main path gives it, and time both: the resident peel
-     (S = 4); the level-scheduled deep peel (S = 4) at the Makona shape, at
-     the benchmark1 three-partition launch (K = 3), at the small forced
-     shape, on a caterpillar tree (one node a level) and at a ragged
-     pattern count; the v1 streaming peel at S = 4, 20 and 61, and the
-     matrix-product peel at the protein (S = 20) and codon (S = 61) shapes
-     and a ragged small one, partials included, timed in turns with the v1
+     (S = 4, by levels) at the benchmark2 shape, on a caterpillar tree of
+     62 taxa (61 levels of one node) and at a ragged pattern count, timed
+     in turns with the deep peel on the benchmark2 inputs; the
+     level-scheduled deep peel (S = 4) at the Makona shape, at the
+     benchmark1 three-partition launch (K = 3), at the small forced shape,
+     on a caterpillar tree and at a ragged pattern count; the v1 streaming
+     peel at S = 4, 20 and 61, and the matrix-product peel (by levels) at the
+     protein (S = 20) and codon (S = 61) shapes, a ragged small one and a
+     caterpillar of 128 taxa, partials included, timed in turns with the v1
      streaming peel on the same inputs; hold the card's log posterior
      against the CPU's on a small analysis;
   3. the f64 GTR+Gamma4 chain at the benchmark2 shape (62 taxa, 5,565
@@ -43,11 +46,12 @@ patterns a block, where shared memory allows), with its largest deviation
 from the plain version; `*` marks the width the planner picks. This is the
 measurement behind the planner's rule of narrowing the tile while the grid
 would leave more than half of the SMs idle. At the shapes with 16 states or
-more it then does the same for the matrix-product kernel, at each tile width
-with the planner's warps per 8-pattern tile and with half of them. Last it
-times the deep kernel at the Makona and the benchmark1 three-partition
-shapes at every pattern tile (pw patterns a slot) and 4, 8, 16 and 32 warps
-a block.
+more it then times the matrix-product kernel at 1 to 8 teams a block, where
+shared memory allows. It times the deep kernel at the Makona
+and the benchmark1 three-partition shapes at every pattern tile (pw
+patterns a slot) and 4, 8, 16 and 32 warps a block, and last the resident
+kernel at the benchmark2 shape at 8 and 4 patterns a slot, 4 to 32 warps
+and 1 to 8 pattern tiles a block.
 
 It prints the card's name and power limit, one {"kernels": [...]} line,
 and last {"ok": true, "device": {...}}. It imports nothing of JAX and
@@ -80,6 +84,8 @@ SMALL = (12, 130)
 B1 = (1441, 593)  # taxa, patterns per codon partition
 CATERPILLAR = (500, 4, 4, 203)  # taxa, categories, states, patterns
 RAGGED_DEEP = (1610, 4, 4, 1001)
+B2_PEEL = (62, 4, 4, 5632)  # the benchmark2 chain's peel, patterns padded
+RAGGED_B2 = (62, 4, 4, 1001)
 DEEP_TILE_SHAPES = [(1610, 1, 4, 2048), (1441, 3, 1, 640)]  # taxa, K, C, P
 # f32 deep checks draw tips with 85% of entries 1: site logL stays under
 # 300 in magnitude, where one f32 step is 3e-5; at the chains' ~1,500 it is
@@ -88,6 +94,7 @@ F32_CUT = 0.15
 AMINO = (128, 4, 20, 1024)  # taxa, categories, states, patterns
 CODON = (64, 1, 61, 512)
 RAGGED = (20, 4, 61, 70)
+CATERPILLAR_MXU = (128, 4, 20, 1024)
 TILE_SHAPES = [CODON, AMINO, RAGGED, (300, 2, 16, 2048),
                (128, 4, 20, 8192), (1441, 1, 4, 640), (1610, 4, 4, 2048),
                (62, 4, 4, 5632)]
@@ -355,7 +362,8 @@ def main():
                 f(np.full((*lead, c), 1.0 / c))), tr
 
     if "--tiles" in sys.argv[1:]:
-        _build.build_all(["peel_stream_ring", "peel_mxu", "peel_stream"])
+        _build.build_all(["peel_stream_ring", "peel_mxu", "peel_stream",
+                          "peel_resident"])
         for shape in TILE_SHAPES:
             for dtype in (torch.float64, torch.float32):
                 (tips, ch, order, _, pm, fr, cw), _ = random_inputs(
@@ -382,24 +390,23 @@ def main():
                 log(line)
                 if s < cuda_peeling.MXU_MIN_STATES:
                     continue
-                # the matrix-product kernel: the width and the warps per
-                # tile are forced through the call's integer arguments
-                call = cuda_mxu.prepare_mxu(tips, ch, order, pm, fr, cw)
-                picked = call.ints[5:7]
-                units = c * -(-s // 8)
+                # the matrix-product kernel: teams a block, forced through
+                # the planner's argument
+                sched = cuda_stream.level_schedule(ch, n_taxa)
+                picked = cuda_mxu.mxu_plan(n_taxa - 1, c, s,
+                                           pm.element_size())
                 line = f"[tiles] {shape} {str(dtype)[6:]} peel_mxu"
-                for bp in (32, 16, 8):
-                    plan = cuda_mxu._plan(n_taxa - 1, c, s, pm.element_size(),
-                                          bp)
-                    if plan is None:  # this width overflows shared memory
+                for teams in range(1, 9):
+                    try:
+                        call = cuda_mxu.prepare_mxu(tips, ch, order, pm, fr,
+                                                    cw, sched, teams)
+                    except ValueError:  # overflows shared memory
                         continue
-                    for w in sorted({plan.w, max(plan.w // 2, -(
-                            -units // cuda_mxu.MAX_UNITS))}):
-                        call.ints = (*call.ints[:5], bp, w, plan.g)
-                        err = (call.launch()[0] - ref[0]).abs().max().item()
-                        line += (f" | bp {bp} w {w}"
-                                 f"{'*' if (bp, w) == picked else ''} err "
-                                 f"{err:.1e} ms {time_ms(call.launch, 10):.4f}")
+                    err = (call.launch()[0] - ref[0]).abs().max().item()
+                    star = "*" if teams == picked.teams else ""
+                    ms = time_ms(call.launch, 10)
+                    line += (f" | teams {teams} tw {call.ints[5]}{star} err "
+                             f"{err:.1e} ms {ms:.4f}")
                 log(line)
         # the deep kernel: pw patterns a slot, warps a block; f32 on mostly
         # ambiguous tips (see F32_CUT)
@@ -428,6 +435,32 @@ def main():
                                  f"{time_ms(call.launch, 10):.4f}")
                     pw //= 2
                 log(line)
+        # the resident kernel at the benchmark2 shape: patterns a slot,
+        # warps and pattern tiles a block
+        for dtype in (torch.float64, torch.float32):
+            (tips, ch, _, _, pm, fr, cw), _ = random_inputs(*B2_PEEL, 1,
+                                                            dtype)
+            sched = cuda_stream.level_schedule(ch, B2_PEEL[0])
+            _, ids, pos, ls = sched
+            ref = cuda_peeling._resident_plain(tips, ids, pos, ls, pm,
+                                               cw[:, None] * fr[None, :])
+            picked = cuda_peeling.resident_plan(pm.shape[0], 4,
+                                                pm.element_size())
+            line = f"[tiles] resident {B2_PEEL} {str(dtype)[6:]}"
+            for pw in (8, 4):
+                for w in (4, 8, 16, 32):
+                    for tl in (1, 2, 4, 8):
+                        try:
+                            call = cuda_peeling.prepare_resident(
+                                tips, ch, None, pm, fr, cw, sched, pw, w, tl)
+                        except ValueError:  # slots do not divide the tiles
+                            continue
+                        err = (call.launch() - ref).abs().max().item()
+                        star = "*" if (pw, w, tl) == picked[:3] else ""
+                        ms = time_ms(call.launch, 10)
+                        line += (f" | pw {pw} w {w} tiles {tl}{star} err "
+                                 f"{err:.1e} ms {ms:.4f}")
+            log(line)
         return 0
 
     # -- phase 1: build ------------------------------------------------
@@ -503,16 +536,21 @@ def main():
         wcs = cw[..., None] * fr[..., None, :]
         rec = {"label": label, "shape": [tips.shape[-3], c, s, p],
                "dtype": str(dtype).replace("torch.", "")}
+        if kname in ("peel_resident", "peel_mxu"):  # by levels
+            sched = cuda_stream.level_schedule(ch, n_int + 1)
+            lvl_order, lr_ids, lr_pos, ls = sched
+            rec["levels"] = int((ls < n_int).sum())
         if kname == "peel_resident":
-            call = cuda_peeling.prepare_resident(tips, ch, order, pm, fr, cw)
-            plain_fn = lambda: (plain.peel_site_loglik(  # noqa: E731
-                tips, ch, order, root, pm, fr, cw),)
-            ins = [tips, pm, ch, order, fr, cw]
+            call = cuda_peeling.prepare_resident(tips, ch, order, pm, fr, cw,
+                                                 sched)
+            plain_fn = lambda: (cuda_peeling._resident_plain(  # noqa: E731
+                tips, lr_ids, lr_pos, ls, pm, wcs),)
+            ins = [tips, pm, lr_ids, lr_pos, ls, fr, cw]
         elif kname == "peel_mxu":
-            call = cuda_mxu.prepare_mxu(tips, ch, order, pm, fr, cw)
+            call = cuda_mxu.prepare_mxu(tips, ch, order, pm, fr, cw, sched)
             plain_fn = lambda: cuda_mxu._mxu_plain(  # noqa: E731
-                tips, ch, order, pm, wcs)
-            ins = [tips, pm, ch, order, fr, cw]
+                tips, sched, pm, wcs)
+            ins = [tips, pm, lvl_order.to(torch.int32), lr_ids, ls, fr, cw]
         elif kname == "peel_stream":  # one tree, or K partitions on it
             if tips.dim() == 3:
                 tips, pm, fr, cw = tips[None], pm[None], fr[None], cw[None]
@@ -582,8 +620,29 @@ def main():
         return call, got
 
     f64, f32 = torch.float64, torch.float32
-    check("peel_resident", "benchmark2 f64", peel_inputs(B2, f64), 50, 5)
+    b2_in = peel_inputs(B2, f64)
+    res_call, res_got = check("peel_resident", "benchmark2 f64", b2_in, 50,
+                              5)
     check("peel_resident", "benchmark2 f32", peel_inputs(B2, f32), 50, 5)
+    for dtype in (f64, f32):
+        name = str(dtype).replace("torch.", "")
+        check("peel_resident", f"caterpillar {name}", random_inputs(
+            *B2_PEEL, 35, dtype, caterpillar=True)[0], 20, 1)
+        check("peel_resident", f"ragged {name}",
+              random_inputs(*RAGGED_B2, 36, dtype)[0], 50, 5)
+    # the deep kernel on the benchmark2 inputs: a yardstick for the resident
+    # design (the route stays resident), timed in turns
+    b2_deep_call, b2_deep_got = check("peel_stream", "benchmark2 yardstick "
+                                      "f64", b2_in, 50, 5)
+    _, rel, _ = deviation(res_got[0], b2_deep_got[0][0])
+    turns = [time_ms(c.launch, 20)
+             for c in (res_call, b2_deep_call, b2_deep_call, res_call)]
+    log(f"[kernel] benchmark2 f64 peel_resident vs peel_stream: max rel "
+        f"{rel:.3e}; ms in turns resident {turns[0]:.4f} deep {turns[1]:.4f} "
+        f"deep {turns[2]:.4f} resident {turns[3]:.4f}")
+    if not rel < F64_REL_TOL:
+        raise AssertionError("the two S = 4 kernels disagree at benchmark2")
+    del res_call, res_got, b2_deep_call, b2_deep_got, b2_in
     mak = peel_inputs(MAKONA, f64)
     # the deep kernel: f64 on the chains' own inputs, f32 on random ones
     # (F32_CUT); K = 3 is the launch of the benchmark1 chain
@@ -661,6 +720,8 @@ def main():
             del mxu_call, mxu_got, ring_call, ring_got, inputs
         check("peel_mxu", f"ragged {name}",
               random_inputs(*RAGGED, 7, dtype)[0], 20, 5)
+        check("peel_mxu", f"caterpillar {name}", random_inputs(
+            *CATERPILLAR_MXU, 8, dtype, caterpillar=True)[0], 10, 1)
 
     # the card's log posterior against the CPU's plain path, small input
     lp_s, _, p_s, t_s, _ = analyses[SMALL]
@@ -740,10 +801,13 @@ def main():
         if busy <= 0:
             log(f"[profile {label}] device time not measured by the profiler")
             return
+        sorts = sum(e.count for e in prof.key_averages()
+                    if e.key == "aten::sort")
         log(f"[profile {label}] {n_steps} steps, wall {wall:.4f} s "
             f"(profiled), device busy {busy:.4f} s = "
             f"{100 * busy / wall:.1f}%, idle {100 * (1 - busy / wall):.1f}%, "
-            f"{sum(e.count for e in kern) / n_steps:.1f} device events/step")
+            f"{sum(e.count for e in kern) / n_steps:.1f} device events/step, "
+            f"{sorts / n_steps:.2f} sorts/step")
         for e in kern[:8]:
             log(f"[profile {label}]   {e.self_device_time_total / 1e3:9.3f} ms"
                 f"  {e.count:6d}x  {e.key[:70]}")
@@ -852,7 +916,8 @@ def main():
         raise AssertionError("the two routes disagree at benchmark1")
 
     # -- phase 8: summary ---------------------------------------------
-    def entry(kname, source, replaces, launches, rec):
+    def entry(kname, source, replaces, launches, label):
+        rec = next(r for r in checks[kname] if r["label"] == label)
         return {"name": kname, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
@@ -867,17 +932,18 @@ def main():
     print(json.dumps({"kernels": [
         entry("peel_resident", "beast_mcmc_tpu_torch/csrc/peel_resident.cu",
               "beast_mcmc_tpu/ops/pallas_peeling.py:52",
-              b2_counts["peel_resident"], checks["peel_resident"][0]),
+              b2_counts["peel_resident"], "benchmark2 f64"),
         entry("peel_stream", "beast_mcmc_tpu_torch/csrc/peel_stream.cu",
               "beast_mcmc_tpu/ops/pallas_stream2.py:64",
-              mak_counts["peel_stream"], checks["peel_stream"][0]),
+              mak_counts["peel_stream"], "makona f64"),
         entry("peel_stream_ring",
               "beast_mcmc_tpu_torch/csrc/peel_stream_ring.cu",
               "beast_mcmc_tpu/ops/pallas_stream.py:62",
-              ring_counts["peel_stream_ring"], checks["peel_stream_ring"][0]),
+              ring_counts["peel_stream_ring"],
+              "benchmark1 partition f64"),
         entry("peel_mxu", "beast_mcmc_tpu_torch/csrc/peel_mxu.cu",
               "beast_mcmc_tpu/ops/pallas_mxu.py:67",
-              aa_counts["peel_mxu"], checks["peel_mxu"][0]),
+              aa_counts["peel_mxu"], "protein float64"),
     ], "launches_per_path": {"benchmark2": b2_counts, "makona": mak_counts,
                              "benchmark1": b1_counts, "protein": aa_counts,
                              "codon": cod_counts,

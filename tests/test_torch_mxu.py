@@ -139,41 +139,41 @@ def test_peel_route_table(m, c, s, itemsize, route):
 
 @pytest.mark.parametrize("itemsize", [4, 8])
 def test_planner_stays_inside_shared_memory(itemsize):
-    """For every S up to 64 and C up to 8: where `resident_mxu_fits`, the
-    plan `_pick_block` leads to fits the card's limit, the block has at most
-    512 threads, a warp at most 8 tiles, and the pieces per slot divide the
-    node's 2*C."""
+    """For every S up to 64 and C up to 8 the kernel has a plan: it fits the
+    card's limit, the block has at most 512 threads, a warp at most
+    MAX_UNITS output tiles, at most 15 teams (a named barrier each), and
+    the pieces per slot divide the node's 2*C. `resident_mxu_fits`, the
+    route rule, keeps the shapes of the node-by-node design."""
     n_fit = 0
     for s in range(2, 65):
         for c in range(1, 9):
-            for n_int, p in ((7, 40), (127, 1024), (127, 100000)):
-                if not cuda_mxu.resident_mxu_fits(2 * n_int + 1, c, s,
-                                                  itemsize):
-                    with pytest.raises(ValueError):
-                        cuda_mxu.mxu_plan(n_int, c, s, p, itemsize)
-                    continue
-                n_fit += 1
-                bp = cuda_mxu._pick_block(n_int, c, s, p, itemsize)
-                plan = cuda_mxu.mxu_plan(n_int, c, s, p, itemsize)
-                assert plan.bp == bp and bp in (8, 16, 32)
-                assert plan.smem <= cuda_mxu.SMEM_BUDGET < SMEM_LIMIT
-                assert 1 <= plan.w and 32 * plan.w * bp // 8 <= 512
+            for n_int in (7, 127, 4000):
+                n_fit += cuda_mxu.resident_mxu_fits(2 * n_int + 1, c, s,
+                                                    itemsize)
+                plan = cuda_mxu.mxu_plan(n_int, c, s, itemsize)
                 units = c * -(-s // 8)
-                assert -(-units // plan.w) <= cuda_mxu.MAX_UNITS
+                assert plan.smem <= cuda_mxu.SMEM_BUDGET < SMEM_LIMIT
+                assert 1 <= plan.teams <= 15
+                assert 32 * plan.teams * plan.tw <= 512
+                assert -(-units // plan.tw) <= cuda_mxu.MAX_UNITS
                 assert plan.g in (2 * c, 2, 1) and (2 * c) % plan.g == 0
                 # the bytes the kernel will ask for (csrc/peel_mxu.cu)
                 kp, mp = -(-s // 4) * 4, -(-s // 8) * 8
                 lda = kp + (4 - kp) % 8
                 assert lda % 8 == 4 and lda >= kp
-                assert plan.smem == (
-                    (6 * c * kp * (bp + 4) + 2 * plan.g * mp * lda
-                     + 2 * plan.w * bp) * itemsize + 16 * n_int)
+                elems = (plan.teams * (plan.g * mp * lda + 2 * c * kp * 8)
+                         + (plan.teams + 1) * plan.tw * 8)
+                head = -(-(-(-(20 * n_int + 4) // 8) * 8 + 8 * plan.teams)
+                         // 16) * 16
+                assert plan.smem == (head + -(-elems * itemsize // 8) * 8
+                                     + plan.teams * 64)
     assert n_fit > 1000
-    # the chains' shapes: the narrowest tile, and the whole node per slot
-    assert cuda_mxu.mxu_plan(127, 4, 20, 1024, 8)[:3] == (8, 12, 8)
-    assert cuda_mxu.mxu_plan(63, 1, 61, 512, 8)[:3] == (8, 8, 2)
-    assert cuda_mxu.mxu_plan(19, 4, 61, 70, 8).g == 1
-    assert cuda_mxu.mxu_plan(127, 4, 20, 100000, 8).bp == 32
+    # the chains' shapes: the whole node a slot at S = 20, a category's pair
+    # at S = 61; as many teams as fit, the warps shared out
+    assert cuda_mxu.mxu_plan(127, 4, 20, 8)[:3] == (5, 3, 8)
+    assert cuda_mxu.mxu_plan(63, 1, 61, 8)[:3] == (2, 8, 2)
+    assert cuda_mxu.mxu_plan(19, 4, 61, 8)[:3] == (2, 8, 2)
+    assert cuda_mxu.mxu_plan(127, 8, 64, 8)[:3] == (1, 16, 2)
 
 
 def test_prepare_mxu_takes_cuda_tensors_only():
@@ -191,6 +191,6 @@ def test_prepare_mxu_takes_cuda_tensors_only():
     with pytest.raises(ValueError):
         cuda_mxu.prepare_mxu(tips, ch, order, pm[:, :, :19], fr, cw)
     with pytest.raises(ValueError):
-        cuda_mxu.mxu_plan(5, 9, 20, 16, 8)
+        cuda_mxu.mxu_plan(5, 9, 20, 8)
     with pytest.raises(ValueError):
-        cuda_mxu.mxu_plan(5, 2, 65, 16, 8)
+        cuda_mxu.mxu_plan(5, 2, 65, 8)
