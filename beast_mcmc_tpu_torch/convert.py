@@ -1,14 +1,19 @@
-"""Carry parameters and trees from the JAX package into this one.
+"""Carry parameters, trees and operator settings from the JAX package into
+this one.
 
 The JAX side hands over plain numpy: `params` is a dict whose values are
 arrays or scalars, a tuple of them (the "site.rates" (rates, weights)
 cache), or an object with `values`, `U` and `U_inv` attributes (the "eig"
 EigenSystem cache, its leaves turned to numpy); the tree is numpy
-parent / children / heights / root. Nothing here imports JAX.
+parent / children / heights / root. An operator is a dataclass whose
+settings are plain values; `operator_from` builds this package's class of
+the same name from them (the HMC operators' transforms too). Nothing here
+imports JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict
 
 import numpy as np
@@ -40,3 +45,35 @@ def params_from_numpy(params: Dict[str, Any], dtype=DEFAULT_FLOAT,
 def tree_from_numpy(parent, children, heights, root, dtype=DEFAULT_FLOAT,
                     device=DEFAULT_DEVICE) -> TreeState:
     return make_tree_state(parent, children, heights, root, dtype, device)
+
+
+def _spec(obj, modules):
+    """The dataclass of `obj`'s class name found in `modules`, built from
+    `obj`'s values of its public fields; nested dataclasses (transforms, and
+    the (transform, size) blocks of an array transform) likewise."""
+    from beast_mcmc_tpu_torch.utils import transforms
+
+    name = type(obj).__name__
+    cls = next((getattr(m, name) for m in modules if hasattr(m, name)), None)
+    if cls is None or not dataclasses.is_dataclass(obj):
+        raise ValueError(f"no counterpart of {name} in this package")
+
+    def conv(v):
+        if dataclasses.is_dataclass(v):
+            return _spec(v, (transforms,))
+        if isinstance(v, (list, tuple)):
+            return type(v)(conv(x) for x in v)
+        return v
+
+    return cls(**{f.name: conv(getattr(obj, f.name))
+                  for f in dataclasses.fields(cls)
+                  if not f.name.startswith("_") and hasattr(obj, f.name)})
+
+
+def operator_from(op):
+    """The JAX package's operator `op` as this package's operator of the
+    same class name and settings (weights, tuning, leapfrog steps, mass,
+    preconditioning, transforms). Raises for an operator not ported."""
+    from beast_mcmc_tpu_torch.inference import hmc, operators
+
+    return _spec(op, (operators, hmc))

@@ -66,7 +66,19 @@ def make_mcmc_step(log_posterior: LogPosteriorFn,
                    adaptation: bool = True,
                    adaptation_delay: int = 0,
                    derived: Optional[Dict] = None):
-    """Build `step(state, temperature=1.0) -> state`."""
+    """Build `step(state, temperature=1.0) -> state`. Every operator that
+    evaluates the posterior inside its proposal (HMC) is bound to
+    `log_posterior`; such an operator may not move a parameter that a
+    derived entry depends on, since its in-proposal evaluations would read
+    the stale cache."""
+    deps = {d for _, ds in (derived or {}).values() for d in ds}
+    for op in operators:
+        if hasattr(op, "bind_log_posterior"):
+            op.bind_log_posterior(log_posterior)
+            moved = sorted(set(op.modified_params() or ()) & deps)
+            if moved:
+                raise ValueError(f"{type(op).__name__} moves {moved}, on "
+                                 "which a derived cache depends")
     weights = np.asarray([op.weight for op in operators], np.float64)
     probs = weights / weights.sum()
     cum = np.cumsum(probs).tolist()

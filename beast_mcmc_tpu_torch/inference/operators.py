@@ -111,7 +111,7 @@ class Operator:
         names = []
         if getattr(self, "parameter", None):
             names.append(self.parameter)
-        for attr in ("up", "down"):
+        for attr in ("up", "down", "parameters"):
             names.extend(n for n in getattr(self, attr, ()) or ()
                          if isinstance(n, str))
         names = [n for n in names if n != TREE_HEIGHTS]

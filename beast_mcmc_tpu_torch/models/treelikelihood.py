@@ -10,6 +10,11 @@ ops/cuda_peeling.py::peel_site_loglik_auto, with the schedule that
 `peel_schedule` builds for the route (the level schedule for the resident
 and matrix-product kernels too, the height order only for the v1 streaming
 one); CPU tensors to the height-ordered plain peel.
+
+Every function here is differentiable on every route and both devices, in
+the heights, the branch rates, the eigensystem, the category rates and
+weights and the frequencies: each peel is an autograd Function over the
+peel's adjoint (ops/peeling.py).
 """
 
 from __future__ import annotations

@@ -47,6 +47,10 @@ node-by-node design could stage in shared memory (six [C, S, 8] child tiles,
 two [S, S] matrix pieces and the schedule). The kernel no longer stages
 them, but the rule is kept as it was, so that no shape changes route;
 outside it the dispatcher keeps the v1 streaming kernel.
+
+Gradients: where autograd asks for one, `peel_site_loglik_mxu` takes
+`_peel_forward_mxu(want_post=True)` as the forward of
+ops/peeling.py::peel_with_adjoint, the level adjoint over the same schedule.
 """
 
 from __future__ import annotations
@@ -57,6 +61,7 @@ import torch
 
 from beast_mcmc_tpu_torch.ops import _build
 from beast_mcmc_tpu_torch.ops.cuda_peeling import check_kernel_inputs
+from beast_mcmc_tpu_torch.ops.peeling import peel_with_adjoint, wants_grad
 from beast_mcmc_tpu_torch.utils.accum import stable_dot
 
 SMEM_BUDGET = 220 * 1024  # of the 227 KB a block may take
@@ -237,8 +242,23 @@ def _peel_forward_mxu(tip_partials, children, order, p_matrices, freqs, cat_w,
 
 def peel_site_loglik_mxu(tip_partials, children, order, root, p_matrices,
                          freqs, cat_w, schedule=None) -> torch.Tensor:
-    """Per-pattern log-likelihood [P] through the kernel. `root` is kept for
-    interface parity (the level schedule ends at the root)."""
+    """Per-pattern log-likelihood [P] through the kernel, differentiable in
+    p_matrices, freqs and cat_w. `root` is kept for interface parity (the
+    level schedule ends at the root)."""
+    from beast_mcmc_tpu_torch.ops.cuda_stream import level_schedule
+
+    if wants_grad(p_matrices, freqs, cat_w):
+        schedule = schedule or level_schedule(children,
+                                              tip_partials.shape[0])
+
+        def forward(pm, fr, cw):  # [1, ...]: one partition
+            site, post = _peel_forward_mxu(tip_partials, children, order,
+                                           pm[0], fr[0], cw[0], True,
+                                           schedule)
+            return site[None], post[None]
+
+        return peel_with_adjoint(forward, schedule, p_matrices[None],
+                                 freqs[None], cat_w[None])[0]
     return _peel_forward_mxu(tip_partials, children, order, p_matrices, freqs,
                              cat_w, want_post=False, schedule=schedule)[0]
 

@@ -29,6 +29,17 @@ shared memory a Hopper block may use, as the JAX dispatcher does. S >= 16
 where `resident_mxu_fits` accepts it. Every other shape goes to the v1
 streaming kernel (ops/cuda_stream.py), which takes any S up to 64.
 `peel_schedule` builds the schedule each route's kernel reads.
+
+Gradients. Every route's entry point is differentiable in the branch
+matrices, the frequencies and the category weights: where autograd asks for
+a gradient, the route's forward (the kernel, or its plain version for a CPU
+tensor) returns the rescaled partials with the site log-likelihoods, and
+ops/peeling.py::peel_with_adjoint takes the level adjoint over the same
+schedule. The resident kernel's partials are its scratch, gathered by node
+(`resident_positions`, `post_by_node`); the kernel is the same either way. A
+kernel entry called outside that wrapper with inputs that require grad
+raises (`check_kernel_inputs`): its ctypes launch is invisible to autograd
+and would drop the gradient.
 """
 
 from __future__ import annotations
@@ -38,6 +49,11 @@ from typing import NamedTuple
 import torch
 
 from beast_mcmc_tpu_torch.ops import _build
+from beast_mcmc_tpu_torch.ops.peeling import (
+    peel_with_adjoint,
+    post_by_node,
+    wants_grad,
+)
 from beast_mcmc_tpu_torch.utils.accum import stable_dot
 
 # shared memory one block may take on Hopper is 227 KB; keep headroom
@@ -90,10 +106,17 @@ def resident_plan(m: int, c: int, itemsize: int, pw: int | None = None,
 
 def check_kernel_inputs(tips, p_matrices, freqs, cat_w, *int_tensors,
                         states=(4,), max_categories=MAX_CATEGORIES):
-    """Raise unless the tensors are what a peel kernel takes: one CUDA
-    device, float32 or float64 throughout, contiguous, a state count in
-    `states` and at most `max_categories` rate categories (the defaults are
-    those of the two S = 4 kernels)."""
+    """Raise unless the tensors are what a peel kernel takes: no gradient
+    asked of them (a kernel's launch is invisible to autograd; the entry
+    points take gradients through ops/peeling.py::peel_with_adjoint, whose
+    forward runs with autograd off), one CUDA device, float32 or float64
+    throughout, contiguous, a state count in `states` and at most
+    `max_categories` rate categories (the defaults are those of the two
+    S = 4 kernels)."""
+    if wants_grad(tips, p_matrices, freqs, cat_w):
+        raise RuntimeError("a peel kernel's inputs require grad: its launch "
+                           "would drop the gradient; call the route's "
+                           "differentiable entry point instead")
     dt = p_matrices.dtype
     if dt not in (torch.float32, torch.float64):
         raise TypeError(f"peel kernels take float32 or float64, got {dt}")
@@ -124,11 +147,14 @@ def check_kernel_inputs(tips, p_matrices, freqs, cat_w, *int_tensors,
 def prepare_resident(tips, children, order, p_matrices, freqs, cat_w,
                      schedule=None, pw: int | None = None,
                      warps: int | None = None,
-                     tiles: int | None = None) -> _build.KernelCall:
+                     tiles: int | None = None,
+                     want_post: bool = False) -> _build.KernelCall:
     """Check the inputs and allocate the output and scratch of one launch
     of the resident kernel. `schedule` is level_schedule(children, N,
     parent) where the caller has it (the kernel reads it, not `order`);
-    `pw`, `warps` and `tiles` go to `resident_plan`."""
+    `pw`, `warps` and `tiles` go to `resident_plan`. With `want_post` the
+    call's `out` is (site_logl, scratch): the kernel writes every node's
+    rescaled partials there, the root's included (`resident_positions`)."""
     from beast_mcmc_tpu_torch.ops.cuda_stream import level_schedule
 
     check_kernel_inputs(tips, p_matrices, freqs, cat_w, children)
@@ -160,26 +186,42 @@ def prepare_resident(tips, children, order, p_matrices, freqs, cat_w,
         "peel_resident", fn,
         (tips, p_matrices, lr_ids.contiguous(), lr_pos.contiguous(),
          level_start, wcs, scratch, out),
-        (n_tips, m, c, s, p, plan.pw, plan.warps, plan.tiles), out)
+        (n_tips, m, c, s, p, plan.pw, plan.warps, plan.tiles),
+        (out, scratch) if want_post else out)
+
+
+def resident_positions(scratch, p: int):
+    """The resident kernel's scratch [tiles, n_int, S, C, pw] as the
+    rescaled partials by peel position [n_int, C, S, P] (the padded
+    patterns of the last tile cut away)."""
+    t, n_int, s, c, pw = scratch.shape
+    return scratch.permute(1, 3, 2, 0, 4).reshape(n_int, c, s, t * pw)[..., :p]
 
 
 def _resident_plain(tip_partials, lr_ids, lr_pos, level_start, p_matrices,
-                    wcs):
+                    wcs, want_post=False):
     """Plain PyTorch version of the resident kernel: the same level
     schedule, one batched step a level (the deep kernel's plain version
-    with one partition)."""
+    with one partition). With `want_post`, (site_logl, partials by peel
+    position [n_int, C, S, P])."""
     from beast_mcmc_tpu_torch.ops.cuda_stream2 import _deep_plain
 
-    return _deep_plain(tip_partials[None], lr_ids, lr_pos, level_start,
-                       p_matrices[lr_ids.long()][None], wcs[None])[0]
+    out = _deep_plain(tip_partials[None], lr_ids, lr_pos, level_start,
+                      p_matrices[lr_ids.long()][None], wcs[None],
+                      want_post=want_post)
+    return tuple(t[0] for t in out) if want_post else out[0]
 
 
 def _peel_resident_kernel(tips, children, order, p_matrices, freqs, cat_w,
-                          schedule):
+                          schedule, want_post=False):
+    """site_logl [P], and with `want_post` the partials by peel position
+    [n_int, C, S, P], from one launch."""
     global launches
     out = prepare_resident(tips, children, order, p_matrices, freqs, cat_w,
-                           schedule).launch()
+                           schedule, want_post=want_post).launch()
     launches += 1
+    if want_post:
+        return out[0], resident_positions(out[1], tips.shape[-1])
     return out
 
 
@@ -189,9 +231,32 @@ def peel_site_loglik_cuda(tip_partials, children, order, root, p_matrices,
     """Per-pattern log-likelihood [P] through the resident kernel; a CPU
     tensor takes its plain version. Both peel by levels of depth
     (`schedule` = level_schedule(children, N, parent), computed here when
-    not given), so `order` and `root` are kept for interface parity."""
+    not given), so `order` and `root` are kept for interface parity.
+    Differentiable in p_matrices, freqs and category_weights."""
     from beast_mcmc_tpu_torch.ops.cuda_stream import level_schedule
 
+    if wants_grad(p_matrices, freqs, category_weights):
+        schedule = schedule or level_schedule(children,
+                                              tip_partials.shape[0])
+        tips = tip_partials.contiguous()
+
+        def forward(pm, fr, cw):  # [1, ...]: one partition
+            if tips.is_cuda:
+                site, pos = _peel_resident_kernel(
+                    tips, children, order, pm[0], fr[0], cw[0], schedule,
+                    want_post=True)
+            else:
+                _, lr_ids, lr_pos, level_start = schedule
+                site, pos = _resident_plain(tips, lr_ids, lr_pos,
+                                            level_start, pm[0],
+                                            cw[0, :, None] * fr[0, None, :],
+                                            want_post=True)
+            return site[None], post_by_node(pos[None], tips[None],
+                                            schedule[0])
+
+        return peel_with_adjoint(forward, schedule,
+                                 p_matrices.contiguous()[None], freqs[None],
+                                 category_weights[None])[0]
     if not tip_partials.is_cuda:
         _, lr_ids, lr_pos, level_start = schedule or level_schedule(
             children, tip_partials.shape[0])

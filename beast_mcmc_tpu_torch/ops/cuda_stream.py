@@ -29,6 +29,11 @@ matrices fit CHUNK_BYTES, else 0, and the kernel then streams one child's
 one category ([S, S]) at a time. `_pick_bp` takes the widest pattern tile
 (at most 32) that leaves the whole within SMEM_BUDGET, and a narrower one
 while the grid would leave more than half of the 132 SMs without a block.
+
+Gradients: where autograd asks for one, `peel_site_loglik_stream` takes
+`_stream_forward` as the forward of ops/peeling.py::peel_with_adjoint: its
+partials by height-order position go to their nodes through `order`, and
+the adjoint walks `level_schedule` of the same tree.
 """
 
 from __future__ import annotations
@@ -39,7 +44,13 @@ import torch
 
 from beast_mcmc_tpu_torch.ops import _build
 from beast_mcmc_tpu_torch.ops.cuda_peeling import check_kernel_inputs
-from beast_mcmc_tpu_torch.ops.peeling import node_depths
+from beast_mcmc_tpu_torch.ops.peeling import (
+    node_depths,
+    parent_from_children,
+    peel_with_adjoint,
+    post_by_node,
+    wants_grad,
+)
 from beast_mcmc_tpu_torch.utils.accum import stable_dot
 
 SMEM_BUDGET = 220 * 1024  # of the 227 KB a block may take
@@ -129,9 +140,7 @@ def level_schedule(children, n_tips, parent=None):
     n_int = m - n_tips
     dev = children.device
     if parent is None:
-        parent = torch.full((m,), -1, dtype=torch.long, device=dev)
-        parent[children[n_tips:].long().reshape(-1)] = torch.arange(
-            n_tips, m, device=dev).repeat_interleave(2)
+        parent = parent_from_children(children, n_tips)
     d = node_depths(parent)[n_tips:]
     # 0 for the deepest level. An invalid proposal (a cycle, which its
     # operator rejects whatever the likelihood) has depths past n_int: the
@@ -228,8 +237,21 @@ def _stream_forward(tip_partials, children, order, p_matrices, freqs, cat_w,
 def peel_site_loglik_stream(tip_partials, children, order, root, p_matrices,
                             freqs, category_weights,
                             schedule=None) -> torch.Tensor:
-    """Per-pattern log-likelihood [P] through the streaming kernel. `root`
-    is kept for interface parity (the peel order ends at the root)."""
+    """Per-pattern log-likelihood [P] through the streaming kernel,
+    differentiable in p_matrices, freqs and category_weights. `root` is
+    kept for interface parity (the peel order ends at the root)."""
+    if wants_grad(p_matrices, freqs, category_weights):
+        n_tips = tip_partials.shape[0]
+
+        def forward(pm, fr, cw):  # [1, ...]: one partition
+            site, pos = _stream_forward(tip_partials, children, order, pm[0],
+                                        fr[0], cw[0], schedule)
+            return site[None], post_by_node(pos[None], tip_partials[None],
+                                            order)
+
+        return peel_with_adjoint(forward, level_schedule(children, n_tips),
+                                 p_matrices[None], freqs[None],
+                                 category_weights[None])[0]
     return _stream_forward(tip_partials, children, order, p_matrices, freqs,
                            category_weights, schedule)[0]
 

@@ -31,6 +31,13 @@ pw, halved while the grid would leave SMs of the 132 without a block, down
 to one 32-byte sector of a state row (pw = 4 in f64, 8 in f32), and
 WARPS = 16 warps, fewer where their buffers would overflow shared memory
 (C > 16 in f64).
+
+Gradients: where autograd asks for one, `peel_site_loglik_deep` launches
+the kernel with its partials (`want_post`: the scratch, which holds every
+node's rescaled partials by peel position, gathered by `deep_positions`),
+and ops/peeling.py::peel_with_adjoint takes the level adjoint of the K
+partitions over the same schedule. The JAX deep route re-runs the scan peel
+for its residuals; here the one launch gives them.
 """
 
 from __future__ import annotations
@@ -45,6 +52,11 @@ from beast_mcmc_tpu_torch.ops.cuda_peeling import (
     check_kernel_inputs,
 )
 from beast_mcmc_tpu_torch.ops.cuda_stream import level_schedule
+from beast_mcmc_tpu_torch.ops.peeling import (
+    peel_with_adjoint,
+    post_by_node,
+    wants_grad,
+)
 from beast_mcmc_tpu_torch.utils.accum import stable_dot
 
 N_SM = 132  # streaming multiprocessors of an H100
@@ -125,11 +137,14 @@ def _deep_plain(tips, lr_ids, lr_pos, level_start, pm_ord, wcs,
 
 
 def prepare_deep(tips, lr_ids, lr_pos, level_start, pm_ord, freqs, cat_w,
-                 pw: int | None = None,
-                 warps: int | None = None) -> _build.KernelCall:
+                 pw: int | None = None, warps: int | None = None,
+                 want_post: bool = False) -> _build.KernelCall:
     """Check the inputs and allocate the output [K, P] and scratch of one
     launch of the deep kernel: tips [K, N, 4, P], pm_ord [K, n_int, 2, C,
-    4, 4], freqs [K, 4], cat_w [K, C]. `pw` and `warps` go to `deep_plan`."""
+    4, 4], freqs [K, 4], cat_w [K, C]. `pw` and `warps` go to `deep_plan`.
+    With `want_post` the call's `out` is (site_logl, scratch), the kernel
+    writing every node's partials there, the root's included
+    (`deep_positions`)."""
     k_parts, n_tips, s, p = tips.shape
     n_int = lr_ids.shape[0]
     c = pm_ord.shape[3]
@@ -160,15 +175,29 @@ def prepare_deep(tips, lr_ids, lr_pos, level_start, pm_ord, freqs, cat_w,
     return _build.KernelCall(
         "peel_stream", fn,
         (tips, pm_ord, ids32, pos32, ls32, wcs, scratch, out),
-        (n_tips, n_int, c, s, p, k_parts, plan.pw, plan.warps), out)
+        (n_tips, n_int, c, s, p, k_parts, plan.pw, plan.warps),
+        (out, scratch) if want_post else out)
+
+
+def deep_positions(scratch, p: int):
+    """The deep kernel's scratch [K, tiles, n_int, C, S, pw] as the rescaled
+    partials by peel position [K, n_int, C, S, P] (the padded patterns of
+    the last tile cut away)."""
+    k, t, n_int, c, s, pw = scratch.shape
+    return scratch.permute(0, 2, 3, 4, 1, 5).reshape(
+        k, n_int, c, s, t * pw)[..., :p]
 
 
 def _peel_deep_kernel(tips, lr_ids, lr_pos, level_start, pm_ord, freqs,
-                      cat_w):
+                      cat_w, want_post=False):
+    """site_logl [K, P], and with `want_post` the partials by peel position
+    [K, n_int, C, S, P], from one launch."""
     global launches
     out = prepare_deep(tips, lr_ids, lr_pos, level_start, pm_ord, freqs,
-                       cat_w).launch()
+                       cat_w, want_post=want_post).launch()
     launches += 1
+    if want_post:
+        return out[0], deep_positions(out[1], tips.shape[-1])
     return out
 
 
@@ -181,13 +210,32 @@ def peel_site_loglik_deep(tip_partials, children, order, root, p_matrices,
     it: [K, N, S, P], [K, M, C, S, S], [K, S], [K, C] give [K, P], in one
     launch. The peel order comes from depth alone, so `order` and `root`
     are kept for interface parity only. `schedule` is
-    level_schedule(children, N, parent) where the caller already has it."""
+    level_schedule(children, N, parent) where the caller already has it.
+    Differentiable in p_matrices, freqs and category_weights."""
     single = tip_partials.dim() == 3
     if single:
         tip_partials, p_matrices = tip_partials[None], p_matrices[None]
         freqs, category_weights = freqs[None], category_weights[None]
-    _, lr_ids, lr_pos, level_start = schedule or level_schedule(
-        children, tip_partials.shape[1])
+    schedule = schedule or level_schedule(children, tip_partials.shape[1])
+    lvl_order, lr_ids, lr_pos, level_start = schedule
+    if wants_grad(p_matrices, freqs, category_weights):
+        tips = tip_partials.contiguous()
+
+        def forward(pm, fr, cw):
+            pm_ord = pm[:, lr_ids.long()]
+            if tips.is_cuda:
+                site, pos = _peel_deep_kernel(tips, lr_ids, lr_pos,
+                                              level_start, pm_ord, fr, cw,
+                                              want_post=True)
+            else:
+                site, pos = _deep_plain(tips, lr_ids, lr_pos, level_start,
+                                        pm_ord, cw[:, :, None] * fr[:, None],
+                                        want_post=True)
+            return site, post_by_node(pos, tips, lvl_order)
+
+        site = peel_with_adjoint(forward, schedule, p_matrices, freqs,
+                                 category_weights)
+        return site[0] if single else site
     pm_ord = p_matrices[:, lr_ids.long()]
     if not tip_partials.is_cuda:
         wcs = category_weights[:, :, None] * freqs[:, None, :]

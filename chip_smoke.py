@@ -32,6 +32,20 @@ result line):
      patterns, 20 states) and the f64 GY94 codon chain (`codon_analysis`:
      64 taxa, 512 patterns, 61 states): one matrix-product launch a step,
      with the same check;
+  6b. the gradients through each kernel route (ops/peeling.py's level
+     adjoint over the kernel's forward with its partials) against the
+     node-by-node plain peel's on the card, in f64, with each kernel's
+     partials against its plain version's: the resident route at
+     benchmark2, the deep one at Makona and at benchmark1's three
+     partitions, the matrix-product one at the protein and codon shapes,
+     the v1 streaming one on a benchmark1 partition; timed (the forward
+     without and with the partials, and the backward);
+  6c. the GTR+Gamma4 chain at the benchmark2 and Makona shapes with HMC on
+     the node heights (NodeHeightHmcOperator) and on (clock.rate, pop.size)
+     added to its operators: each HMC operator alone first (2 n_leapfrog + 1
+     launches a proposal, wall and device time a proposal), then the mixed
+     chain, with its launches, each HMC operator's acceptance and the same
+     full-evaluation check;
   7. the remaining entry points: tree_site_logliks at the benchmark2 and
      Makona shapes (one resident and one deep launch), a 20-state and an
      8-state likelihood by tree_loglikelihood_pmats (one matrix-product and
@@ -72,6 +86,8 @@ F64_REL_TOL = 1e-10
 F32_ABS_TOL = 5e-5  # per site, absolute (as tests/test_pallas_stream.py)
 F32_ABS_TOL_WIDE = 1e-4  # S >= 16: the j-sum runs in another order
 F32_POST_TOL = 1e-5  # rescaled partials lie in [0, 1]
+GRAD_REL_TOL = 1e-10  # each gradient's max |diff| over its max |entry|, f64
+POST_ABS_TOL = 1e-13  # the gradient's residual, kernel against plain, f64
 FULL_EVAL_TOL = 0.1  # MarkovChain.java:55
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # data sheet: float64 on the FP64 tensor cores (full precision), float32
@@ -103,6 +119,13 @@ MAK_STEPS, MAK_CHECK = 200, 50
 B1_STEPS, B1_CHECK = 300, 50
 PC_STEPS, PC_CHECK = 300, 50  # the protein and the codon chain
 KERNELS = ("peel_resident", "peel_stream", "peel_stream_ring", "peel_mxu")
+# the HMC chains: both operators take HMC_LEAPFROG steps from HMC_STEP (the
+# Robbins-Monro adaptation moves it); weights beside the 48 of build_analysis
+HMC_LEAPFROG, HMC_STEP = 5, 1e-3
+HMC_WEIGHTS = (10.0, 5.0)  # NodeHeightHmcOperator, HmcOperator
+HMC_ALONE = 8  # proposals of each HMC operator alone: launches and times
+HMC_B2_STEPS, HMC_B2_CHECK = 200, 40
+HMC_MAK_STEPS, HMC_MAK_CHECK = 60, 15
 
 
 def log(*a):
@@ -732,6 +755,179 @@ def main():
     if not abs(a - b) <= 1e-10 * abs(b):
         raise AssertionError("card and CPU log posteriors disagree")
 
+    # -- phase 6b: gradients through every kernel route ----------------
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from beast_mcmc_tpu_torch.ops.peeling import post_by_node
+
+    def device_ms(fn, label, n=1, top=6):
+        """(wall ms, device-busy ms) of fn() under the profiler, per one of
+        its `n` repeats, device events only, with the `top` device kernels
+        logged under `label`; busy None where the profiler saw no device
+        time."""
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kern = sorted((e for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA),
+                      key=lambda e: e.self_device_time_total, reverse=True)
+        busy = sum(e.self_device_time_total for e in kern) / 1e3
+        log(f"[profile {label}] wall {1e3 * wall / n:.3f} ms, device busy "
+            f"{busy / n:.3f} ms, {sum(e.count for e in kern) / n:.1f} device "
+            f"events, each of {n}")
+        for e in kern[:top]:
+            log(f"[profile {label}]   {e.self_device_time_total / 1e3 / n:9.4f}"
+                f" ms {e.count / n:7.1f}x  {e.key[:70]}")
+        return 1e3 * wall / n, (busy / n if busy > 0 else None)
+
+    grad_checks = {k: [] for k in KERNELS}
+
+    def grad_check(kname, label, inputs):
+        """The route's gradient of sum(g * site logL) with respect to the
+        matrices, freqs and category weights against the node-by-node plain
+        peel's on the same card; the route's partials against its plain
+        version's; times and bounds."""
+        tips, ch, order, root, pm, fr, cw = inputs
+        k_parts = tips.shape[0] if tips.dim() == 4 else None
+        n_tips = tips.shape[-3]
+        n_int = n_tips - 1
+        c, s, p = pm.shape[-3], pm.shape[-2], tips.shape[-1]
+        lvl = cuda_stream.level_schedule(ch, n_tips)
+        l_order, ids, pos, ls = lvl
+        wcs = cw[..., None] * fr[..., None, :]
+        g = torch.rand(tips.shape[:-3] + (p,), dtype=f64, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(7))
+        if kname == "peel_resident":
+            def entry(*x):
+                return cuda_peeling.peel_site_loglik_cuda(tips, ch, order,
+                                                          root, *x, lvl)
+            site_k, pos_k = cuda_peeling._peel_resident_kernel(
+                tips, ch, order, pm, fr, cw, lvl, want_post=True)
+            _, pos_p = cuda_peeling._resident_plain(tips, ids, pos, ls, pm,
+                                                    wcs, want_post=True)
+            res_k = post_by_node(pos_k[None], tips[None], l_order)
+            res_p = post_by_node(pos_p[None], tips[None], l_order)
+            ins = [tips, pm, ids, pos, ls, fr, cw]
+        elif kname == "peel_stream":
+            def entry(*x):
+                return cuda_stream2.peel_site_loglik_deep(tips, ch, None,
+                                                          root, *x, lvl)
+            t4, pm4, fr4, cw4 = ((tips, pm, fr, cw) if k_parts else
+                                 (tips[None], pm[None], fr[None], cw[None]))
+            pm_ord = pm4[:, ids.long()].contiguous()
+            site_k, pos_k = cuda_stream2._peel_deep_kernel(
+                t4, ids, pos, ls, pm_ord, fr4, cw4, want_post=True)
+            _, pos_p = cuda_stream2._deep_plain(
+                t4, ids, pos, ls, pm_ord, cw4[:, :, None] * fr4[:, None],
+                want_post=True)
+            res_k = post_by_node(pos_k, t4, l_order)
+            res_p = post_by_node(pos_p, t4, l_order)
+            ins = [tips, pm_ord, ids, pos, ls, fr, cw]
+        elif kname == "peel_mxu":
+            def entry(*x):
+                return cuda_mxu.peel_site_loglik_mxu(tips, ch, order, root,
+                                                     *x, lvl)
+            site_k, res_k = cuda_mxu._peel_forward_mxu(tips, ch, order, pm,
+                                                       fr, cw, True, lvl)
+            _, res_p = cuda_mxu._mxu_plain(tips, lvl, pm, wcs)
+            ins = [tips, pm, l_order.to(torch.int32), ids, ls, fr, cw]
+        else:
+            sched = cuda_stream.stream_schedule(ch, order)
+
+            def entry(*x):
+                return cuda_stream.peel_site_loglik_stream(tips, ch, order,
+                                                           root, *x, sched)
+            site_k, pos_k = cuda_stream._stream_forward(tips, ch, order, pm,
+                                                        fr, cw, sched)
+            _, pos_p = cuda_stream._stream_plain(tips, *sched, pm[sched[0]],
+                                                 wcs)
+            res_k = post_by_node(pos_k[None], tips[None], order)
+            res_p = post_by_node(pos_p[None], tips[None], order)
+            ins = [tips, pm[sched[0]], *sched, fr, cw]
+
+        def plain_entry(pm_, fr_, cw_):  # the node-by-node peel, per tree
+            if k_parts is None:
+                return plain.peel_site_loglik(tips, ch, order, root, pm_, fr_,
+                                              cw_)
+            return torch.stack([plain.peel_site_loglik(
+                tips[k], ch, order, root, pm_[k], fr_[k], cw_[k])
+                for k in range(k_parts)])
+
+        leaves = [t.detach().clone().requires_grad_(True) for t in (pm, fr, cw)]
+
+        def grads(fn):
+            return torch.autograd.grad(torch.sum(g * fn(*leaves)), leaves)
+
+        reset_counts()
+        got = grads(entry)
+        torch.cuda.synchronize()
+        launches_per_grad = read_counts()
+        ref = grads(plain_entry)
+        rel = {name: ((a - b).abs().max() / b.abs().max()).item()
+               for name, a, b in zip(("p_matrices", "freqs", "cat_w"), got,
+                                     ref)}
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        post_err = (res_k - res_p).abs().max().item()
+        rec = {"label": label, "shape": [n_tips, c, s, p],
+               "partitions": k_parts or 1, "grad_max_rel_err": rel,
+               "grad_tol": f"rel<{GRAD_REL_TOL}", "post_max_abs_err": post_err,
+               "post_tol": f"abs<{POST_ABS_TOL}",
+               "launches_per_gradient": launches_per_grad}
+        del ref, res_k, res_p
+        rec["ms_forward"] = time_ms(lambda: entry(pm, fr, cw), 20)
+        rec["ms_forward_residual"] = time_ms(lambda: entry(*leaves), 10)
+        times = []
+        for _ in range(11):
+            total = torch.sum(g * entry(*leaves))
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            torch.autograd.grad(total, leaves)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        rec["ms_backward"] = statistics.median(times[1:])
+        total = torch.sum(g * entry(*leaves))
+        torch.cuda.synchronize()
+        _, rec["device_ms_backward"] = device_ms(
+            lambda: torch.autograd.grad(total, leaves),
+            f"backward {kname} {label}")
+        # the bound of the forward, and of the forward with its partials
+        # [n_int, C, S, P] (a partition) counted as an output
+        ints = [t.to(torch.int32) for t in ins if not t.is_floating_point()]
+        floats = [t for t in ins if t.is_floating_point()]
+        b_ms, b_by, _, _ = bound_ms(floats + ints, [site_k], n_int, c, s, p,
+                                    "float64", k_parts or 1)
+        post_out = torch.empty((k_parts or 1, n_int, c, s, p), dtype=f64,
+                               device="meta")  # counted, never written
+        bp_ms, bp_by, _, _ = bound_ms(floats + ints, [site_k, post_out],
+                                      n_int, c, s, p, "float64", k_parts or 1)
+        rec.update({"bound_ms": b_ms, "bound_by": b_by,
+                    "bound_post_ms": bp_ms, "bound_post_by": bp_by})
+        log(f"[grad] {kname} {json.dumps(rec)}")
+        ok = (finite and all(v <= GRAD_REL_TOL for v in rel.values())
+              and post_err <= POST_ABS_TOL
+              and launches_per_grad == {k: int(k == kname) for k in KERNELS})
+        if not ok:
+            raise AssertionError(f"{kname} {label}: the gradient through the "
+                                 f"kernel disagrees with the plain peel's, or "
+                                 f"its partials do: {rec}")
+        grad_checks[kname].append(rec)
+
+    grad_check("peel_resident", "benchmark2 f64", peel_inputs(B2, f64))
+    grad_check("peel_stream", "makona f64", peel_inputs(MAKONA, f64))
+    grad_check("peel_stream", "benchmark1 three partitions f64",
+               peel_inputs(B1, f64, partitions=True))
+    grad_check("peel_mxu", "protein float64", peel_inputs(AMINO, f64))
+    grad_check("peel_mxu", "codon float64", peel_inputs(CODON, f64))
+    grad_check("peel_stream_ring", "benchmark1 partition f64",
+               peel_inputs(B1, f64))
+
     # -- phases 3 to 5: the chains -------------------------------------
     def chain(label, shape, n_steps, n_check, per_step, seed):
         """Run the chain of one analysis; `per_step` is the launches each
@@ -782,9 +978,6 @@ def main():
         "codon", CODON, PC_STEPS, PC_CHECK, {"peel_mxu": 1}, 4)
 
     # where the time of a step goes: a profiler window over the chain
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     def where_time_goes(label, step, state, n_steps):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -817,6 +1010,101 @@ def main():
     where_time_goes("benchmark1", b1_step, b1_state, 50)
     where_time_goes("protein", aa_step, aa_state, 50)
     where_time_goes("codon", cod_step, cod_state, 50)
+
+    # -- phase 6c: HMC on the node heights and on (clock.rate, pop.size) --
+    from beast_mcmc_tpu_torch.inference.hmc import (
+        HmcOperator, NodeHeightHmcOperator)
+
+    def hmc_chain(label, shape, n_steps, n_check, kname, seed):
+        """build_analysis's chain with both HMC operators added: each HMC
+        operator alone first (launches, wall and device time a proposal),
+        then the mixed chain (launches, acceptance, full evaluation)."""
+        log_post, ops, p0, tr0, aux = analyses[shape]
+        lpc = aux["log_post_cached"]
+        hmc = [NodeHeightHmcOperator(weight=HMC_WEIGHTS[0],
+                                     n_leapfrog=HMC_LEAPFROG,
+                                     step_size=HMC_STEP),
+               HmcOperator(parameters=("clock.rate", "pop.size"),
+                           weight=HMC_WEIGHTS[1], n_leapfrog=HMC_LEAPFROG,
+                           step_size=HMC_STEP)]
+        rec = {"label": label, "n_leapfrog": HMC_LEAPFROG,
+               "step_size_start": HMC_STEP, "weights": list(HMC_WEIGHTS),
+               "other_weights": sum(op.weight for op in ops)}
+        for op in hmc:
+            name = type(op).__name__
+            alone = make_mcmc_step(lpc, [op], derived=aux["derived"])
+            st = init_mcmc_state(p0, tr0, torch.Generator(
+                device=dev).manual_seed(seed), [op], lpc)
+            st, _ = run_chain(alone, st, 2)  # warm-up
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            st, _ = run_chain(alone, st, HMC_ALONE)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0) / HMC_ALONE
+            counts = read_counts()
+            _, busy = device_ms(lambda: run_chain(alone, st, 2),
+                                f"hmc {label} {name}", 2, 10)
+            # st's statistics count every proposal made from it: warm-up,
+            # measured and profiled
+            rec[name] = {"ms_per_proposal": wall,
+                         "device_ms_per_proposal": busy or "not measured",
+                         "launches": counts, "proposals": HMC_ALONE,
+                         "accepted_of_all": int(st.op_accept[0]),
+                         "proposed_in_all": int(st.op_accept[0]
+                                                + st.op_reject[0])}
+            expect = {k: HMC_ALONE * (2 * op.n_leapfrog + 1) * (k == kname)
+                      for k in KERNELS}
+            if counts != expect:
+                raise AssertionError(f"{label} {name}: expected launches "
+                                     f"{expect}, got {counts}")
+        all_ops = [*ops, *hmc]
+        step = make_mcmc_step(lpc, all_ops, derived=aux["derived"])
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        state = init_mcmc_state(p0, tr0, gen, all_ops, lpc)
+        state, _ = run_chain(step, state, 20)  # warm-up
+        torch.cuda.synchronize()
+        drawn0 = (state.op_accept + state.op_reject).tolist()
+        reset_counts()
+        t0 = time.perf_counter()
+        state, _ = run_chain(step, state, n_steps)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+        drawn = [a - b for a, b in zip(
+            (state.op_accept + state.op_reject).tolist(), drawn0)]
+        n_hmc = drawn[-2:]
+        acc = state.op_accept.tolist()[-2:]
+        tot = [a + r for a, r in zip(acc, state.op_reject.tolist()[-2:])]
+        expect = {k: (n_steps + sum(2 * op.n_leapfrog * n
+                                    for op, n in zip(hmc, n_hmc)))
+                  * (k == kname) for k in KERNELS}
+        rec.update({"steps": n_steps, "seconds": dt,
+                    "states_per_s": n_steps / dt, "launches": counts,
+                    "hmc_proposals": n_hmc,
+                    "acceptance": [a / max(t, 1) for a, t in zip(acc, tot)],
+                    "step_size_end": [float(op.tuning(state.op_adapt[i]))
+                                      for i, op in zip((-2, -1), hmc)]})
+        state, dev_max = full_evaluation_check(step, log_post, state, n_check,
+                                               derived=aux["derived"])
+        rec["full_eval_max_deviation"] = float(dev_max)
+        log(f"[hmc {label}] {json.dumps(rec)}")
+        log(operator_report(all_ops, state))
+        if counts != expect:
+            raise AssertionError(f"{label}: expected launches {expect} "
+                                 f"(2 n_leapfrog + 1 an HMC proposal), got "
+                                 f"{counts}")
+        if not all(a > 0 for a in acc):
+            raise AssertionError(f"{label}: an HMC operator accepted nothing")
+        if not rec["full_eval_max_deviation"] < FULL_EVAL_TOL:
+            raise AssertionError(f"{label}: full-evaluation deviation "
+                                 f"{rec['full_eval_max_deviation']}")
+        return counts, rec
+
+    b2_hmc_counts, b2_hmc = hmc_chain("benchmark2", B2, HMC_B2_STEPS,
+                                      HMC_B2_CHECK, "peel_resident", 5)
+    mak_hmc_counts, mak_hmc = hmc_chain("makona", MAKONA, HMC_MAK_STEPS,
+                                        HMC_MAK_CHECK, "peel_stream", 6)
 
     # -- phase 7: the remaining entry points ---------------------------
     # per-site log-likelihoods go through the same dispatcher as the chains
@@ -923,11 +1211,13 @@ def main():
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": None,
-                "checks": checks[kname]}
+                "checks": checks[kname], "gradients": grad_checks[kname]}
 
     log(f"[summary] states/s: benchmark2 {b2_rate:.2f}, makona "
         f"{mak_rate:.2f}, benchmark1 {b1_rate:.2f}, protein {aa_rate:.2f}, "
-        f"codon {cod_rate:.2f}, on {smi_line}")
+        f"codon {cod_rate:.2f}; with HMC benchmark2 "
+        f"{b2_hmc['states_per_s']:.2f}, makona {mak_hmc['states_per_s']:.2f}; "
+        f"on {smi_line}")
     log(smi_line)
     print(json.dumps({"kernels": [
         entry("peel_resident", "beast_mcmc_tpu_torch/csrc/peel_resident.cu",
@@ -947,6 +1237,8 @@ def main():
     ], "launches_per_path": {"benchmark2": b2_counts, "makona": mak_counts,
                              "benchmark1": b1_counts, "protein": aa_counts,
                              "codon": cod_counts,
+                             "benchmark2 with HMC": b2_hmc_counts,
+                             "makona with HMC": mak_hmc_counts,
                              "stream entry points": ring_counts}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
