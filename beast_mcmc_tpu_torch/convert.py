@@ -3,7 +3,8 @@ this one.
 
 The JAX side hands over plain numpy: `params` is a dict whose values are
 arrays or scalars, a tuple of them (the "site.rates" (rates, weights)
-cache), or an object with `values`, `U` and `U_inv` attributes (the "eig"
+cache), a dict of them (an AVMVN operator's "_avmvn:..." statistics), or
+an object with `values`, `U` and `U_inv` attributes (the "eig"
 EigenSystem cache, its leaves turned to numpy); the tree is numpy
 parent / children / heights / root. An operator is a dataclass whose
 settings are plain values; `operator_from` builds this package's class of
@@ -30,6 +31,8 @@ def _value(v, dtype, device):
                              for a in ("values", "U", "U_inv")))
     if isinstance(v, tuple):
         return tuple(_value(x, dtype, device) for x in v)
+    if isinstance(v, dict):  # in-chain statistics ("_avmvn:..." entries)
+        return {k: _value(x, dtype, device) for k, x in v.items()}
     a = np.asarray(v)
     return torch.tensor(a, device=device,
                         dtype=None if np.issubdtype(a.dtype, np.integer)
@@ -73,7 +76,9 @@ def _spec(obj, modules):
 def operator_from(op):
     """The JAX package's operator `op` as this package's operator of the
     same class name and settings (weights, tuning, leapfrog steps, mass,
-    preconditioning, transforms). Raises for an operator not ported."""
-    from beast_mcmc_tpu_torch.inference import hmc, operators
+    preconditioning, transforms, bounds, trajectory and adaptation
+    settings). Raises for an operator not ported."""
+    from beast_mcmc_tpu_torch.inference import (
+        geodesic, hmc, nuts, operators, pdmp, samplers)
 
-    return _spec(op, (operators, hmc))
+    return _spec(op, (operators, hmc, nuts, pdmp, geodesic, samplers))

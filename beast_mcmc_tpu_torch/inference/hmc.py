@@ -13,6 +13,12 @@ pi_y(y) = pi_x(e^y) e^y and returns the Hastings term
   logh = (ldj(y') - ldj(y)) + (K_old - K_new)
 so the chain's Metropolis-Hastings step, which compares pi_x, stays exact.
 Momenta come from the state's device generator.
+
+The constrained operators keep their constraint in the integrator instead:
+ReflectiveHmcOperator folds a step back at the bounds, GeodesicHmcOperator
+moves rows along great circles of their unit spheres, SimplexHmcOperator
+runs in additive log-ratio coordinates. Each exposes `trajectory(params,
+tree, y0, p0, eps)`, the integrator from a given start and momentum.
 """
 
 from __future__ import annotations
@@ -28,10 +34,16 @@ from beast_mcmc_tpu_torch.inference.operators import NEG_INF, Operator
 
 def value_grad(fn: Callable, y: torch.Tensor) -> torch.Tensor:
     """d fn(y) / dy at y, whatever the caller's grad mode."""
+    return value_and_grad(fn, y)[1]
+
+
+def value_and_grad(fn: Callable, y: torch.Tensor):
+    """(fn(y), d fn(y) / dy) from one forward and its backward: one kernel
+    launch on a CUDA device."""
     y = y.detach().requires_grad_(True)
     with torch.enable_grad():
         out = fn(y)
-    return torch.autograd.grad(out, y)[0]
+    return out.detach(), torch.autograd.grad(out, y)[0]
 
 
 def leapfrog(grad_fn: Callable, y: torch.Tensor, p: torch.Tensor, eps,
@@ -59,8 +71,37 @@ def _finish(y0, y1, logh):
             torch.where(ok, logh, torch.full_like(logh, NEG_INF)))
 
 
+def _flat(params, names):
+    return torch.cat([torch.atleast_1d(params[n]).reshape(-1) for n in names])
+
+
+def _put(params, names, x):
+    """params with the named entries read back from the packed x."""
+    out, i = dict(params), 0
+    for n in names:
+        v = params[n]
+        k = max(1, v.numel())
+        out[n] = x[i:i + k].reshape(v.shape).to(v.dtype)
+        i += k
+    return out
+
+
+class _Bound:
+    """Binding to the chain's log posterior and a step size adapted in log
+    space, shared by the HMC operators below."""
+
+    def bind_log_posterior(self, log_posterior):
+        self._log_posterior = log_posterior
+
+    def initial_adapt(self) -> float:
+        return math.log(self.step_size)
+
+    def tuning(self, adapt_value):
+        return torch.exp(adapt_value)
+
+
 @dataclasses.dataclass
-class HmcOperator(Operator):
+class HmcOperator(_Bound, Operator):
     """Leapfrog HMC over named continuous parameters (scalars or vectors).
 
     log_transform moves all of them in log space (positivity); `transform`
@@ -87,18 +128,8 @@ class HmcOperator(Operator):
     _log_posterior: Optional[Callable] = dataclasses.field(
         default=None, repr=False, compare=False)
 
-    def bind_log_posterior(self, log_posterior):
-        self._log_posterior = log_posterior
-
-    def initial_adapt(self) -> float:
-        return math.log(self.step_size)
-
-    def tuning(self, adapt_value):
-        return torch.exp(adapt_value)
-
     def _pack(self, params):
-        flat = torch.cat([torch.atleast_1d(params[n])
-                          for n in self.parameters])
+        flat = _flat(params, self.parameters)
         if self.transform is not None:
             return self.transform.forward(flat)
         return torch.log(flat) if self.log_transform else flat
@@ -116,13 +147,7 @@ class HmcOperator(Operator):
             x = self.transform.inverse(y)
         else:
             x = torch.exp(y) if self.log_transform else y
-        out, i = dict(params), 0
-        for n in self.parameters:
-            v = params[n]
-            k = max(1, v.numel())
-            out[n] = x[i:i + k].reshape(v.shape)
-            i += k
-        return out
+        return _put(params, self.parameters, x)
 
     def neg_log_density(self, params, tree):
         """y -> -(log pi_x(x(y)) + ldj(y)): the potential energy."""
@@ -177,7 +202,7 @@ class HmcOperator(Operator):
 
 
 @dataclasses.dataclass
-class NodeHeightHmcOperator(Operator):
+class NodeHeightHmcOperator(_Bound, Operator):
     """HMC over all internal node heights of the current topology.
 
     Unconstrained coordinates (tree/transforms.py): z_i = logit(ratio_i)
@@ -195,15 +220,6 @@ class NodeHeightHmcOperator(Operator):
     modifies_params = ()  # a tree-only proposal
     _log_posterior: Optional[Callable] = dataclasses.field(
         default=None, repr=False, compare=False)
-
-    def bind_log_posterior(self, log_posterior):
-        self._log_posterior = log_posterior
-
-    def initial_adapt(self) -> float:
-        return math.log(self.step_size)
-
-    def tuning(self, adapt_value):
-        return torch.exp(adapt_value)
 
     def coordinates(self, params, tree):
         """(z0, h_of_z, u): the start point, z -> (heights, log|dh/dz|), and
@@ -265,3 +281,176 @@ class NodeHeightHmcOperator(Operator):
         logh = torch.where(ok, logh, torch.full_like(logh, NEG_INF))
         heights = torch.where(ok, h1, tree.heights)
         return params, tree.replace(heights=heights), logh
+
+
+@dataclasses.dataclass
+class ReflectiveHmcOperator(_Bound, Operator):
+    """HMC with the position reflected at fixed bounds
+    (ReflectiveHamiltonianMonteCarloOperator.java:47): leapfrog in the
+    constrained space; a step that crosses a bound folds back and negates
+    that momentum component. Volume-preserving, so the Hastings term is the
+    kinetic-energy difference."""
+
+    parameters: Sequence[str] = ()
+    n_leapfrog: int = 10
+    step_size: float = 0.1
+    mass: float = 1.0
+    lower: float = 0.0
+    upper: float = math.inf
+    adaptable: bool = True
+    target_acceptance: float = 0.8
+    _log_posterior: Optional[Callable] = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    def _reflect(self, y, p):
+        lo, hi = self.lower, self.upper
+        if math.isfinite(lo) and math.isfinite(hi):
+            span = hi - lo
+            # remainder, not fmod: the result takes the divisor's sign, as
+            # the % of the JAX operator does, also for y below lo
+            z = torch.remainder(y - lo, 2 * span)
+            y2 = lo + torch.minimum(z, 2 * span - z)
+            flip = z > span
+        elif math.isfinite(lo):
+            y2, flip = lo + torch.abs(y - lo), y < lo
+        elif math.isfinite(hi):
+            y2, flip = hi - torch.abs(hi - y), y > hi
+        else:
+            return y, p
+        return y2, torch.where(flip, -p, p)
+
+    def trajectory(self, params, tree, y0, p0, eps):
+        """(y, p) after n_leapfrog reflected leapfrog steps from (y0, p0)."""
+        grad = lambda y: value_grad(  # noqa: E731
+            lambda v: -self._log_posterior(_put(params, self.parameters, v),
+                                           tree), y)
+        mass = torch.as_tensor(self.mass, dtype=y0.dtype, device=y0.device)
+        y, p = y0, p0
+        for _ in range(self.n_leapfrog):
+            p = p - 0.5 * eps * grad(y)
+            y, p = self._reflect(y + eps * p / mass, p)
+            p = p - 0.5 * eps * grad(y)
+        return y, p
+
+    def propose(self, params, tree, gen, tuning):
+        assert self._log_posterior is not None, "operator not bound"
+        y0 = _flat(params, self.parameters).to(tree.heights.dtype).detach()
+        mass = torch.as_tensor(self.mass, dtype=y0.dtype, device=y0.device)
+        p0 = _normal(gen, y0) * torch.sqrt(mass)
+        y1, p1 = self.trajectory(params, tree, y0, p0, tuning)
+        y1, logh = _finish(y0, y1, 0.5 * torch.sum((p0 * p0 - p1 * p1) / mass))
+        return _put(params, self.parameters, y1), tree, logh
+
+
+def _tangent(y, v):
+    """v projected on the tangent spaces of the unit spheres of y's rows."""
+    return v - torch.sum(v * y, dim=1, keepdim=True) * y
+
+
+@dataclasses.dataclass
+class GeodesicHmcOperator(_Bound, Operator):
+    """HMC on a product of unit spheres
+    (GeodesicHamiltonianMonteCarloOperator.java): `parameter` read as
+    [n_blocks, block_dim] rows, each of norm 1. Tangent-space kicks
+    alternate with exact great-circle moves, so the constraint holds to
+    round-off at every step."""
+
+    parameter: str = ""
+    block_dim: int = 2
+    n_leapfrog: int = 10
+    step_size: float = 0.1
+    adaptable: bool = True
+    target_acceptance: float = 0.8
+    _log_posterior: Optional[Callable] = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    @staticmethod
+    def _geodesic(y, p, t):
+        """The great-circle flow of each row for time t."""
+        speed = torch.linalg.vector_norm(p, dim=1, keepdim=True)
+        u = p / torch.clamp_min(speed, 1e-30)
+        a = speed * t
+        y2 = y * torch.cos(a) + u * torch.sin(a)
+        p2 = (-y * torch.sin(a) + u * torch.cos(a)) * speed
+        moved = speed > 1e-20
+        return torch.where(moved, y2, y), torch.where(moved, p2, p)
+
+    def trajectory(self, params, tree, y0, p0, eps):
+        x0 = params[self.parameter]
+
+        def neg_lp(y):
+            return -self._log_posterior(
+                {**params, self.parameter: y.reshape(x0.shape).to(x0.dtype)},
+                tree)
+
+        y, p = y0, p0
+        for _ in range(self.n_leapfrog):
+            p = _tangent(y, p - 0.5 * eps * value_grad(neg_lp, y))
+            y, p = self._geodesic(y, p, eps)
+            p = _tangent(y, p - 0.5 * eps * value_grad(neg_lp, y))
+        return y, p
+
+    def propose(self, params, tree, gen, tuning):
+        assert self._log_posterior is not None, "operator not bound"
+        x0 = params[self.parameter]
+        y0 = x0.reshape(-1, self.block_dim).to(tree.heights.dtype)
+        y0 = y0 / torch.linalg.vector_norm(y0, dim=1, keepdim=True)
+        p0 = _tangent(y0, _normal(gen, y0))
+        y1, p1 = self.trajectory(params, tree, y0, p0, tuning)
+        y1, logh = _finish(y0, y1, 0.5 * (torch.sum(p0 * p0)
+                                          - torch.sum(p1 * p1)))
+        return ({**params, self.parameter: y1.reshape(x0.shape).to(x0.dtype)},
+                tree, logh)
+
+
+@dataclasses.dataclass
+class SimplexHmcOperator(_Bound, Operator):
+    """HMC over a simplex-valued parameter in additive log-ratio
+    coordinates (the reference's UnitSimplexTransform path): y_i = log(x_i /
+    x_K), x = softmax([y, 0]), log|J| = sum log x_i."""
+
+    parameter: str = ""
+    n_leapfrog: int = 5
+    step_size: float = 0.01
+    mass: float = 1.0
+    adaptable: bool = True
+    target_acceptance: float = 0.8
+    _log_posterior: Optional[Callable] = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    @staticmethod
+    def x_of(y):
+        return torch.softmax(torch.cat([y, y.new_zeros(1)]), dim=0)
+
+    def trajectory(self, params, tree, y0, p0, eps):
+        old = params[self.parameter]
+
+        def neg_log_py(y):
+            x = self.x_of(y)
+            return -(self._log_posterior(
+                {**params, self.parameter: x.to(old.dtype).reshape(old.shape)},
+                tree) + torch.sum(torch.log(x)))
+
+        y, p = y0, p0
+        for _ in range(self.n_leapfrog):
+            p = p - 0.5 * eps * value_grad(neg_log_py, y)
+            y = y + eps * p / self.mass
+            p = p - 0.5 * eps * value_grad(neg_log_py, y)
+        return y, p
+
+    def propose(self, params, tree, gen, tuning):
+        assert self._log_posterior is not None, "operator not bound"
+        old = params[self.parameter]
+        x0 = old.reshape(-1).to(tree.heights.dtype)
+        y0 = torch.log(x0[:-1]) - torch.log(x0[-1])
+        p0 = math.sqrt(self.mass) * _normal(gen, y0)
+        y1, p1 = self.trajectory(params, tree, y0, p0, tuning)
+        x1 = self.x_of(y1)
+        # the chain compares pi(x); exp(H0 - H1) leaves the log-Jacobian and
+        # kinetic differences
+        logh = (torch.sum(torch.log(x1)) - torch.sum(torch.log(x0))
+                + 0.5 * (torch.sum(p0 * p0) - torch.sum(p1 * p1)) / self.mass)
+        x1, logh = _finish(x0, x1, logh)
+        return ({**params,
+                 self.parameter: x1.to(old.dtype).reshape(old.shape)},
+                tree, logh)

@@ -16,6 +16,12 @@ derived: {name: (fn(params) -> value, depends_on_param_names)} caches of
 parameter-derived values (the eigensystem, the gamma rates). A step
 rebuilds only the entries whose dependencies the chosen operator can
 modify; a tree move never pays for the eigendecomposition.
+
+An operator may return its own acceptance statistic as a fourth value
+(NUTS's mean acceptance along its trajectory); NaN means "adapt on the
+Metropolis probability". post_update(params) -> params runs on the state
+after accept/reject every step: the home of in-chain adaptation statistics
+such as AVMVN's running covariance (samplers.make_post_update).
 """
 
 from __future__ import annotations
@@ -65,12 +71,14 @@ def make_mcmc_step(log_posterior: LogPosteriorFn,
                    operators: Sequence[Operator],
                    adaptation: bool = True,
                    adaptation_delay: int = 0,
-                   derived: Optional[Dict] = None):
+                   derived: Optional[Dict] = None,
+                   post_update: Optional[Callable[[Dict], Dict]] = None):
     """Build `step(state, temperature=1.0) -> state`. Every operator that
-    evaluates the posterior inside its proposal (HMC) is bound to
-    `log_posterior`; such an operator may not move a parameter that a
-    derived entry depends on, since its in-proposal evaluations would read
-    the stale cache."""
+    evaluates the posterior inside its proposal (HMC, NUTS, the PDMPs, the
+    slice samplers) is bound to `log_posterior`; such an operator may not
+    move a parameter that a derived entry depends on, since its in-proposal
+    evaluations would read the stale cache. `post_update` is applied to the
+    params after accept/reject."""
     deps = {d for _, ds in (derived or {}).values() for d in ds}
     for op in operators:
         if hasattr(op, "bind_log_posterior"):
@@ -94,7 +102,8 @@ def make_mcmc_step(log_posterior: LogPosteriorFn,
         op = operators[op_idx]
         gen = state.generator
         tuning = op.tuning(state.op_adapt[op_idx])
-        params, tree, logh = op.propose(state.params, state.tree, gen, tuning)
+        params, tree, logh, *acc_stat = op.propose(state.params, state.tree,
+                                                   gen, tuning)
         for name in stale[op_idx]:
             params = {**params, name: derived[name][0](params)}
 
@@ -112,9 +121,15 @@ def make_mcmc_step(log_posterior: LogPosteriorFn,
         params = _select(accept, params, state.params)
         tree = _select(accept, tree, state.tree)
         lp = torch.where(accept, new_lp, old_lp)
+        if post_update is not None:
+            params = post_update(params)
 
         acc_prob = torch.nan_to_num(torch.exp(torch.clamp_max(logr, 0.0)),
                                     nan=0.0)
+        if acc_stat:  # the operator's own statistic where it is not NaN
+            a = torch.as_tensor(acc_stat[0], dtype=acc_prob.dtype,
+                                device=acc_prob.device)
+            acc_prob = torch.where(torch.isnan(a), acc_prob, a)
         acc_i = accept.long()
         state.op_accept[op_idx] += acc_i
         state.op_reject[op_idx] += 1 - acc_i
@@ -144,7 +159,11 @@ def init_mcmc_state(params: Dict, tree: TreeState,
                     dtype: torch.dtype = torch.float64,
                     derived: Optional[Dict] = None) -> MCMCState:
     """`generator` lives on the tree's device and seeds the chain; the CPU
-    operator-draw generator is seeded from it."""
+    operator-draw generator is seeded from it. Operators with in-chain
+    statistics (AVMVN) seed them into `params`."""
+    for op in operators:
+        if hasattr(op, "init_stats") and op.stats_key not in params:
+            params = op.init_stats(params)
     if derived:
         params = apply_derived(derived, params)
     init_adapt = torch.tensor([op.initial_adapt() for op in operators],

@@ -4,10 +4,15 @@ Counterpart of beast_mcmc_tpu/inference/operators.py, with the same
 proposal laws and Hastings ratios. Every operator is
 
     propose(params, tree, gen, tuning) -> (params', tree', log_hastings)
+                                       or (params', tree', log_hastings,
+                                           acc_stat)
 
 where `gen` is the state's device generator and log_hastings a 0-d tensor,
--inf for an invalid proposal. Tree moves are index rewires on the tree's
-tensors. Node indices are kept as shape-[1] int64 tensors on the device:
+-inf for an invalid proposal, +inf for a Gibbs-style move that is always
+accepted (NUTS, the PDMPs, the slice samplers). acc_stat, where given, is
+the operator's own acceptance statistic for the step-size adaptation
+(NaN: adapt on the Metropolis probability). Tree moves are index rewires
+on the tree's tensors. Node indices are kept as shape-[1] int64 tensors on the device:
 indexing with them never copies to the host (a 0-d integer tensor used as
 an index would), so a proposal never waits on the device.
 

@@ -1,0 +1,295 @@
+"""Slice, elliptical-slice and multivariate-normal proposal operators.
+
+Counterpart of beast_mcmc_tpu/inference/samplers.py (the reference's
+SliceOperator, EllipticalSliceOperator and
+AdaptableVarianceMultivariateNormalOperator):
+
+  - SliceOperator: Neal (2003) stepping out and shrinkage on one random
+    coordinate. JAX's lax.while_loops become host loops with the same
+    iteration caps, one host copy of the loop's test an iteration; each
+    iteration evaluates the posterior (one kernel launch on a CUDA device).
+    Gibbs-style: log-Hastings +inf.
+  - EllipticalSliceOperator: Murray, Adams and MacKay's elliptical slice
+    for a parameter with a Gaussian prior factor in the bound posterior;
+    the operator subtracts that factor to get the "likelihood". Gibbs-style.
+  - MvnOperator: a multivariate-normal random walk with a fixed Cholesky
+    factor and a Robbins-Monro global scale; `empirical_covariance` builds
+    the factor from a window of samples.
+  - AvmvnOperator: the in-chain adaptive form, its running Welford
+    statistics in `params` under `stats_key`, updated after every step by
+    the hook that `make_post_update` returns for make_mcmc_step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from beast_mcmc_tpu_torch.inference.hmc import _flat, _put
+from beast_mcmc_tpu_torch.inference.operators import Operator
+
+_MAX_STEPOUT = 32
+_MAX_SHRINK = 64
+
+
+def _gibbs(params, tree, dt, device):
+    """A Gibbs-style result: always accepted, no acceptance statistic."""
+    return (params, tree, torch.full((), math.inf, dtype=dt, device=device),
+            torch.full((), math.nan, dtype=dt, device=device))
+
+
+def _exponential(gen, dt, device):
+    return torch.empty((), dtype=dt, device=device).exponential_(
+        generator=gen)
+
+
+def _uniform(gen, dt, device):
+    return torch.rand((), generator=gen, dtype=dt, device=device)
+
+
+@dataclasses.dataclass
+class SliceOperator(Operator):
+    """Univariate slice sampler on one random coordinate of `parameter`,
+    from a bracket of `width`. With log_transform the slice runs in log
+    space, the Jacobian folded into its target."""
+
+    parameter: str = ""
+    width: float = 1.0
+    log_transform: bool = False
+    _log_posterior: Optional[Callable] = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    def bind_log_posterior(self, log_posterior):
+        self._log_posterior = log_posterior
+
+    def propose(self, params, tree, gen, tuning):
+        assert self._log_posterior is not None, "SliceOperator not bound"
+        dt, dev = tree.heights.dtype, tree.heights.device
+        x = params[self.parameter]
+        flat = torch.atleast_1d(x).reshape(-1).to(dt)
+        idx = torch.randint(0, flat.shape[0], (1,), generator=gen, device=dev)
+
+        def put(v):
+            val = torch.exp(v) if self.log_transform else v
+            return flat.index_put((idx,), val.reshape(1)).reshape(
+                x.shape).to(x.dtype)
+
+        def logf(v):
+            lp = self._log_posterior({**params, self.parameter: put(v)}, tree)
+            return lp + v if self.log_transform else lp
+
+        v0 = flat[idx][0]
+        v0 = torch.log(v0) if self.log_transform else v0
+        # the vertical level: log u + logf(v0), u ~ U(0, 1)
+        logy = logf(v0) - _exponential(gen, dt, dev)
+        lo = v0 - _uniform(gen, dt, dev) * self.width
+        hi = lo + self.width
+        f_lo, f_hi = logf(lo), logf(hi)
+        for _ in range(_MAX_STEPOUT):  # stepping out
+            out_lo, out_hi = torch.stack([f_lo > logy, f_hi > logy]).tolist()
+            if not (out_lo or out_hi):
+                break
+            if out_lo:
+                lo = lo - self.width
+                f_lo = logf(lo)
+            if out_hi:
+                hi = hi + self.width
+                f_hi = logf(hi)
+        v1 = v0  # where shrinkage finds no point, x stays: also exact
+        for _ in range(_MAX_SHRINK):  # shrinkage
+            v_new = lo + _uniform(gen, dt, dev) * (hi - lo)
+            if bool(logf(v_new) > logy):
+                v1 = v_new
+                break
+            lo = torch.where(v_new >= v0, lo, v_new)
+            hi = torch.where(v_new < v0, hi, v_new)
+        return _gibbs({**params, self.parameter: put(v1)}, tree, dt, dev)
+
+
+@dataclasses.dataclass
+class EllipticalSliceOperator(Operator):
+    """Elliptical slice sampling of `parameter` under its Gaussian prior
+    N(prior_mean, prior_stdev^2 I), a factor of the bound posterior
+    (EllipticalSliceOperator.java; Murray, Adams and MacKay 2010)."""
+
+    parameter: str = ""
+    prior_mean: float = 0.0
+    prior_stdev: float = 1.0
+    _log_posterior: Optional[Callable] = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    def bind_log_posterior(self, log_posterior):
+        self._log_posterior = log_posterior
+
+    def propose(self, params, tree, gen, tuning):
+        assert self._log_posterior is not None, "ESS operator not bound"
+        dt, dev = tree.heights.dtype, tree.heights.device
+        x = params[self.parameter]
+        flat = torch.atleast_1d(x).to(dt)
+        mean, sd = self.prior_mean, self.prior_stdev
+
+        def loglik(v):  # the posterior less the Gaussian prior factor
+            lp = self._log_posterior(
+                {**params, self.parameter: v.reshape(x.shape).to(x.dtype)},
+                tree)
+            return lp - torch.sum(-0.5 * ((v - mean) / sd) ** 2
+                                  - math.log(sd) - 0.5 * math.log(2 * math.pi))
+
+        nu = torch.randn(flat.shape, generator=gen, dtype=dt, device=dev) * sd
+        logy = loglik(flat) - _exponential(gen, dt, dev)
+        theta = _uniform(gen, dt, dev) * 2 * math.pi
+        lo, hi = theta - 2 * math.pi, theta
+
+        def point(t):
+            return (flat - mean) * torch.cos(t) + nu * torch.sin(t) + mean
+
+        v1 = flat  # where no point is found within the cap, x stays
+        for _ in range(_MAX_SHRINK):
+            if bool(loglik(point(theta)) > logy):
+                v1 = point(theta)
+                break
+            lo = torch.where(theta >= 0, lo, theta)
+            hi = torch.where(theta < 0, hi, theta)
+            theta = lo + _uniform(gen, dt, dev) * (hi - lo)
+        return _gibbs({**params, self.parameter: v1.reshape(x.shape).to(
+            x.dtype)}, tree, dt, dev)
+
+
+class _Packed:
+    """Parameters packed into one vector, in log space with log_transform."""
+
+    def _pack(self, params):
+        flat = _flat(params, self.parameters)
+        return torch.log(flat) if self.log_transform else flat
+
+    def _unpack(self, params, y):
+        return _put(params, self.parameters,
+                    torch.exp(y) if self.log_transform else y)
+
+    def initial_adapt(self) -> float:
+        return float(np.log(self.scale))
+
+    def tuning(self, adapt_value):
+        return torch.exp(adapt_value)
+
+    def _step(self, params, tree, y0, y1):
+        """The proposal at y1 with its Jacobian term; y0 kept (and -inf)
+        where y1 is not finite."""
+        logh = (torch.sum(y1) - torch.sum(y0) if self.log_transform
+                else y0.new_zeros(()))
+        ok = torch.all(torch.isfinite(y1))
+        return (self._unpack(params, torch.where(ok, y1, y0)), tree,
+                torch.where(ok, logh, torch.full_like(logh, -math.inf)))
+
+
+@dataclasses.dataclass
+class MvnOperator(_Packed, Operator):
+    """Multivariate-normal random walk y' = y + s L eps over the named
+    parameters (in log space with log_transform). L is the Cholesky factor
+    of the proposal covariance (identity by default); the global scale s
+    adapts by Robbins-Monro."""
+
+    parameters: Sequence[str] = ()
+    scale: float = 0.2
+    chol: Optional[np.ndarray] = None  # [dim, dim] lower-triangular
+    log_transform: bool = True
+    adaptable: bool = True
+
+    def propose(self, params, tree, gen, tuning):
+        dt = tree.heights.dtype
+        y0 = self._pack(params).to(dt)
+        eps = torch.randn(y0.shape, generator=gen, dtype=dt, device=y0.device)
+        if self.chol is not None:
+            eps = torch.as_tensor(self.chol, dtype=dt, device=y0.device) @ eps
+        return self._step(params, tree, y0, y0 + tuning * eps)
+
+
+def empirical_covariance(samples: np.ndarray, log_space: bool = True):
+    """The Cholesky factor of the covariance of samples [n, dim] (in log
+    space with log_space), for MvnOperator's `chol`."""
+    s = np.log(samples) if log_space else np.asarray(samples)
+    cov = np.cov(s, rowvar=False)
+    cov = np.atleast_2d(cov) + 1e-8 * np.eye(s.shape[1])
+    return np.linalg.cholesky(cov)
+
+
+@dataclasses.dataclass
+class AvmvnOperator(_Packed, Operator):
+    """The reference's adaptive-variance multivariate normal operator
+    (AdaptableVarianceMultivariateNormalOperator.java:59): a random walk
+    whose covariance is the chain's own running empirical covariance mixed
+    with an identity ridge,
+
+        Sigma = s^2 ((1 - beta) Cov_emp + beta I / dim),
+
+    the empirical term on from `warmup` updates, s adapted by Robbins-Monro.
+    The Welford statistics (mean, scatter, n) live in `params` under
+    `stats_key`; `make_post_update` updates them after every step."""
+
+    parameters: Sequence[str] = ()
+    scale: float = 0.2
+    beta: float = 0.05
+    warmup: int = 100
+    log_transform: bool = True
+    adaptable: bool = True
+
+    @property
+    def stats_key(self) -> str:
+        return "_avmvn:" + ",".join(self.parameters)
+
+    def init_stats(self, params):
+        """params with zeroed statistics under stats_key."""
+        y = self._pack(params)
+        d = y.shape[0]
+        return {**params, self.stats_key: {
+            "mean": y.new_zeros(d), "scatter": y.new_zeros(d, d),
+            "n": y.new_zeros(())}}
+
+    def update_stats(self, params):
+        """One Welford update from the chain's current state."""
+        st = params[self.stats_key]
+        y = self._pack(params).to(st["mean"].dtype)
+        n1 = st["n"] + 1.0
+        delta = y - st["mean"]
+        mean = st["mean"] + delta / n1
+        return {**params, self.stats_key: {
+            "mean": mean, "scatter": st["scatter"] + torch.outer(delta,
+                                                                 y - mean),
+            "n": n1}}
+
+    def propose(self, params, tree, gen, tuning):
+        dt = tree.heights.dtype
+        st = params[self.stats_key]
+        y0 = self._pack(params).to(dt)
+        d = y0.shape[0]
+        n = st["n"].to(dt)
+        eye = torch.eye(d, dtype=dt, device=y0.device)
+        cov_emp = st["scatter"].to(dt) / torch.clamp_min(n - 1.0, 1.0)
+        use_emp = (n >= self.warmup).to(dt)
+        mix = (1.0 - self.beta) * use_emp
+        cov = mix * cov_emp + ((1.0 - mix) + self.beta * use_emp) / d * eye
+        # cholesky_ex: no host sync; a failed factor shows as a non-finite
+        # proposal, kept at y0 and rejected
+        chol = torch.linalg.cholesky_ex(cov + 1e-10 * eye)[0]
+        eps = torch.randn((d,), generator=gen, dtype=dt, device=y0.device)
+        return self._step(params, tree, y0, y0 + tuning * (chol @ eps))
+
+
+def make_post_update(operators):
+    """The hook for make_mcmc_step(post_update=...) that updates the
+    statistics of every operator that keeps them (AVMVN); None when none
+    does."""
+    stateful = [op for op in operators if hasattr(op, "update_stats")]
+    if not stateful:
+        return None
+
+    def post_update(params):
+        for op in stateful:
+            params = op.update_stats(params)
+        return params
+
+    return post_update

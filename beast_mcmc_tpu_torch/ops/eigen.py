@@ -9,11 +9,22 @@ Where the JAX package maps these functions over K partitions with jax.vmap,
 here the axis is written out: a leading K on the rates and frequencies gives
 an EigenSystem with a leading K on every field, from one eigh call (each
 call synchronises with the host on a CUDA device).
+
+Gradients of P(t) with respect to the rates and frequencies do not go
+through the eigensolver's backward, which divides by eigenvalue gaps: HKY
+with purine and pyrimidine frequencies equal has a double eigenvalue at
+every kappa, GTR at equal rates a triple one, and that backward gives NaN
+or rounding noise there. P(t) = D^-1 exp(A t) D (A the symmetrised Q, D =
+diag(sqrt pi)) instead takes the Daleckii-Krein form, exact at any
+spectrum: `reversible_eigen` under autograd keeps (A, sqrt pi, its
+eigensystem) on the EigenSystem and `transition_probs` differentiates
+through `_SymmetricExpm`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -25,6 +36,63 @@ class EigenSystem:
     values: torch.Tensor  # [..., S]
     U: torch.Tensor  # [..., S, S]
     U_inv: torch.Tensor  # [..., S, S]
+    # (A, sqrt pi, values, V) of a decomposition made under autograd, for
+    # transition_probs' exact gradient; None otherwise
+    sym: Optional[tuple] = dataclasses.field(default=None, repr=False,
+                                             compare=False)
+
+
+# below this |x|, sinh(x) / x is 1 + x^2 / 6 to within float64 rounding
+_SINHC_SERIES = 1e-4
+
+
+class _SymmetricExpm(torch.autograd.Function):
+    """P = D^-1 exp(A t) D for symmetric A = V diag(w) V^T and D =
+    diag(d), batched as transition_probs is. w and v are the caller's
+    eigh(A), taken as constants. The backward is the Daleckii-Krein
+    formula, grad A = V ((V^T G' V) o Phi) V^T with G' = D G D^-1 and
+    Phi_ij = (e^{w_i t} - e^{w_j t}) / (w_i - w_j), t e^{w_i t} where the
+    two are equal (written through sinh(x) / x so that close pairs lose
+    nothing); no division by an eigenvalue gap."""
+
+    @staticmethod
+    def forward(ctx, a, d, t, w, v):
+        k_shape = w.shape[:-1]
+        s = w.shape[-1]
+        ones = (1,) * (t.dim() - len(k_shape))
+        w = w.reshape(*k_shape, *ones, s)
+        v = v.reshape(*k_shape, *ones, s, s)
+        ratio = d.reshape(*k_shape, *ones, 1, s) / d.reshape(
+            *k_shape, *ones, s, 1)  # d_j / d_i
+        e = torch.exp(w * t[..., None])
+        p = ((v * e[..., None, :]) @ v.transpose(-1, -2)) * ratio
+        ctx.save_for_backward(t, w, v, ratio, e, p, d)
+        ctx.n_rest = len(ones)
+        return p
+
+    @staticmethod
+    def backward(ctx, g):
+        t, w, v, ratio, e, p, d = ctx.saved_tensors
+        rest = tuple(range(-2 - ctx.n_rest, -2))  # t's axes after the batch
+        vt = v.transpose(-1, -2)
+        m = vt @ (g * ratio) @ v
+        tt = t[..., None, None]
+        wi, wj = w[..., :, None], w[..., None, :]
+        x = 0.5 * (wi - wj) * tt
+        close = x.abs() < _SINHC_SERIES
+        gap = torch.where(close, 1.0, wi - wj)
+        phi = torch.where(close,
+                          tt * torch.exp(0.5 * (wi + wj) * tt) * (1 + x * x
+                                                                  / 6.0),
+                          (e[..., :, None] - e[..., None, :]) / gap)
+        ga = v @ (m * phi) @ vt
+        ga = torch.sum(ga, dim=rest) if rest else ga
+        ga = 0.5 * (ga + ga.transpose(-1, -2))
+        gt = torch.sum(torch.diagonal(m, dim1=-2, dim2=-1) * w * e, dim=-1)
+        gp = g * p  # P = D^-1 F D: d P_ij / d d_k through the two D's
+        gd = torch.sum(gp, dim=-2) - torch.sum(gp, dim=-1)
+        gd = torch.sum(gd, dim=tuple(r + 1 for r in rest)) if rest else gd
+        return ga, gd / d, gt, None, None
 
 
 def normalized_q(rates_symmetric: torch.Tensor,
@@ -54,14 +122,23 @@ def reversible_eigen(rates_symmetric: torch.Tensor,
     w, v = torch.linalg.eigh(a)
     u = v / sqrt_pi[..., :, None]
     u_inv = v.transpose(-1, -2) * sqrt_pi[..., None, :]
+    sym = None
+    if torch.is_grad_enabled() and (a.requires_grad or sqrt_pi.requires_grad):
+        sym = (a, sqrt_pi, w.detach(), v.detach())
     return EigenSystem(values=w.to(out_dt), U=u.to(out_dt),
-                       U_inv=u_inv.to(out_dt))
+                       U_inv=u_inv.to(out_dt), sym=sym)
 
 
 def transition_probs(eig: EigenSystem, t: torch.Tensor) -> torch.Tensor:
     """P(t) = U exp(values t) U_inv, batched over t's shape: [..., S, S].
     With a batched eigensystem (values [K, S]) t is [K, ...] and row k of t
-    goes with system k. Negative round-off entries are clamped to 0."""
+    goes with system k. Negative round-off entries are clamped to 0. A
+    decomposition made under autograd differentiates through
+    _SymmetricExpm."""
+    if eig.sym is not None and torch.is_grad_enabled():
+        p = _SymmetricExpm.apply(*eig.sym[:2], t.to(torch.float64),
+                                 *eig.sym[2:])
+        return torch.clamp_min(p.to(eig.values.dtype), 0.0)
     k_shape = eig.values.shape[:-1]
     s = eig.values.shape[-1]
     ones = (1,) * (t.dim() - len(k_shape))  # t's axes after the batch

@@ -46,6 +46,20 @@ result line):
      launches a proposal, wall and device time a proposal), then the mixed
      chain, with its launches, each HMC operator's acceptance and the same
      full-evaluation check;
+  6d. the samplers, from the states the chains of phases 3 to 6 reached:
+     P7a, the benchmark2 chain with NUTS on (clock.rate, pop.size), the
+     slice sampler on pop.size and AVMVN on (gtr.rates, alpha) added (its
+     statistics by make_mcmc_step's post_update); P7b, the benchmark1 chain
+     with reflective HMC on the three kappas (lower bound 0) and MVN on
+     (clock.rate, pop.size); P7c, the protein chain with Zig-Zag and BPS on
+     (clock.rate, pop.size), their bounds from the gradients of a warm-up;
+     P7d, NUTS alone at Makona. Each operator that evaluates the posterior
+     in its proposal runs alone first, each step's launches held exactly to
+     what it reports (NUTS n_lf + 1 and the chain's evaluation, reflective
+     HMC 2 n_leapfrog + 1, a PDMP events + 1); then the mixed chain with the
+     same full-evaluation check. P7e: the sphere, Stiefel and simplex HMC
+     operators and elliptical slice on toy targets on the card, each
+     constraint held to its tolerance;
   7. the remaining entry points: tree_site_logliks at the benchmark2 and
      Makona shapes (one resident and one deep launch), a 20-state and an
      8-state likelihood by tree_loglikelihood_pmats (one matrix-product and
@@ -302,6 +316,302 @@ def codon_analysis(n_taxa=64, n_patterns=512, seed=0, dtype=None,
         {"eig": (eigen, ("kappa", "omega"))}, model,
         [ScaleOperator(parameter="kappa", weight=1.0),
          ScaleOperator(parameter="omega", weight=1.0)])
+
+
+# phase 6d, the samplers: starting step sizes in log space (NUTS from the
+# HMC step of phase 6c; the Robbins-Monro adaptation moves them), the
+# expected candidate events of a PDMP proposal (its travel time follows from
+# the bounds), and the constraint tolerances of the toy targets
+P7_WARM = 20  # warm-up steps before each measured chain
+P7_ALONE = 4  # proposals of each chain operator alone: launches and times
+P7_STEPS = {"benchmark2": (200, 40), "benchmark1": (100, 25),
+            "protein": (100, 25)}  # steps, full-evaluation steps
+P7_TOY_STEPS = 500
+NUTS_STEP, NUTS_DEPTH = 1e-3, 6
+PDMP_EVENTS = 35.0
+SPHERE_TOL, STIEFEL_TOL, SIMPLEX_TOL = 1e-12, 1e-10, 1e-12
+
+
+def sampler_paths(paths, reset_counts, read_counts, device_ms, dev):
+    """Phase 6d: the samplers of `inference/{nuts,pdmp,samplers,geodesic}.py`
+    and the reflective HMC operator on the chains, and the constrained
+    operators on toy targets.
+
+    paths: {label: ((log_post, operators, params0, tree0, aux), (params,
+    tree) to start from, the route's kernel)} for "benchmark2",
+    "benchmark1", "protein" and "makona". Each operator that evaluates the
+    posterior in its proposal first runs alone, P7_ALONE proposals, each
+    step's launches held exactly to what the operator reports (NUTS n_lf + 1
+    and the chain's evaluation, reflective HMC 2 n_leapfrog + 1, a PDMP
+    events + 1); then the mixed chain with the full-evaluation check.
+    Returns ({path: record}, {path: launches of its measured chain})."""
+    import numpy as np
+    import torch
+
+    from beast_mcmc_tpu_torch.inference.geodesic import (
+        StiefelGeodesicHmcOperator)
+    from beast_mcmc_tpu_torch.inference.hmc import (
+        GeodesicHmcOperator, HmcOperator, ReflectiveHmcOperator,
+        SimplexHmcOperator, value_grad)
+    from beast_mcmc_tpu_torch.inference.mcmc import (
+        full_evaluation_check, init_mcmc_state, make_mcmc_step,
+        operator_report, run_chain)
+    from beast_mcmc_tpu_torch.inference.nuts import NutsOperator
+    from beast_mcmc_tpu_torch.inference.pdmp import (
+        BouncyParticleOperator, ZigZagOperator)
+    from beast_mcmc_tpu_torch.inference.samplers import (
+        AvmvnOperator, EllipticalSliceOperator, MvnOperator, SliceOperator,
+        make_post_update)
+    from beast_mcmc_tpu_torch.tree.topology import make_tree_state
+
+    f64 = torch.float64
+    rate_size = ("clock.rate", "pop.size")
+    pdmp = (ZigZagOperator, BouncyParticleOperator)
+    records, launches = {}, {}
+
+    def sync():
+        if dev != "cpu":
+            torch.cuda.synchronize()
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def step_launches(op):
+        """A chain step's launches with op's proposal, from its report."""
+        if isinstance(op, NutsOperator):
+            return op.last_n_leapfrog + 2
+        if isinstance(op, pdmp):
+            return op.last_n_events + 1
+        return 2 * op.n_leapfrog + 1
+
+    def alone(label, op, seed):
+        (_, _, _, _, aux), (p0, t0), kname = paths[label]
+        name = type(op).__name__
+        lpc = aux["log_post_cached"]
+        step = make_mcmc_step(lpc, [op], derived=aux["derived"])
+        st = init_mcmc_state(p0, t0, gen(seed), [op], lpc)
+        rows = []
+        for _ in range(P7_ALONE):
+            sync()
+            reset_counts()
+            t0_ = time.perf_counter()
+            st = step(st)
+            sync()
+            row = {"ms": 1e3 * (time.perf_counter() - t0_)}
+            counts = read_counts()
+            want = step_launches(op)
+            row["launches_in_step"] = counts[kname]
+            if isinstance(op, NutsOperator):
+                row["n_leapfrog"] = op.last_n_leapfrog
+            if isinstance(op, pdmp):
+                row["events"] = op.last_n_events
+            rows.append(row)
+            if counts != {k: want * (k == kname) for k in counts}:
+                raise AssertionError(f"{label} {name} alone: expected {want} "
+                                     f"launches of {kname} in a step, got "
+                                     f"{counts}")
+        _, busy = device_ms(lambda: step(st), f"p7 {label} {name}", 1, 6)
+        rec = {"proposals": rows, "device_ms_one_more": busy or
+               "not measured", "accepted": int(st.op_accept[0])}
+        if op.adaptable:
+            rec["step_size_end"] = float(op.tuning(st.op_adapt[0]))
+        log(f"[p7 {label}] {name} alone {json.dumps(rec)}")
+        return rec
+
+    def mixed(label, added, seed, metropolis):
+        (log_post, ops, _, _, aux), (p0, t0), kname = paths[label]
+        n_steps, n_check = P7_STEPS[label]
+        lpc = aux["log_post_cached"]
+        all_ops = [*ops, *added]
+        step = make_mcmc_step(lpc, all_ops, derived=aux["derived"],
+                              post_update=make_post_update(all_ops))
+        st = init_mcmc_state(p0, t0, gen(seed), all_ops, lpc)
+        st, _ = run_chain(step, st, P7_WARM)
+        sync()
+        drawn0 = (st.op_accept + st.op_reject).tolist()
+        acc0 = st.op_accept.tolist()
+        reset_counts()
+        t0_ = time.perf_counter()
+        st, _ = run_chain(step, st, n_steps)
+        sync()
+        secs = time.perf_counter() - t0_
+        counts = read_counts()
+        drawn = [a - b for a, b in zip((st.op_accept + st.op_reject).tolist(),
+                                       drawn0)]
+        acc = [a - b for a, b in zip(st.op_accept.tolist(), acc0)]
+        k = len(ops)
+        rec = {"steps": n_steps, "seconds": secs,
+               "states_per_s": n_steps / secs, "launches": counts,
+               "operators": {f"{type(op).__name__}": {
+                   "weight": op.weight, "proposals": drawn[k + i],
+                   "accepted": acc[k + i]} for i, op in enumerate(added)}}
+        st, dev_max = full_evaluation_check(step, log_post, st, n_check,
+                                            derived=aux["derived"])
+        rec["full_eval_max_deviation"] = float(dev_max)
+        log(f"[p7 {label}] chain {json.dumps(rec)}")
+        log(operator_report(all_ops, st))
+        if not (counts[kname] > n_steps
+                and all(v == 0 for n, v in counts.items() if n != kname)):
+            raise AssertionError(f"{label}: the chain did not go through "
+                                 f"{kname} alone: {counts}")
+        if not all(drawn[k + i] > 0 for i in range(len(added))):
+            raise AssertionError(f"{label}: an added operator never ran")
+        if not all(acc[k + i] > 0 for i, op in enumerate(added)
+                   if isinstance(op, metropolis)):
+            raise AssertionError(f"{label}: a Metropolis operator accepted "
+                                 f"nothing")
+        if not rec["full_eval_max_deviation"] < FULL_EVAL_TOL:
+            raise AssertionError(f"{label}: full-evaluation deviation "
+                                 f"{rec['full_eval_max_deviation']}")
+        launches[label] = counts
+        return rec
+
+    # P7a: benchmark2, NUTS, slice and AVMVN with its post-update hook
+    t_phase = time.perf_counter()
+    nuts = NutsOperator(parameters=rate_size, max_depth=NUTS_DEPTH,
+                        step_size=NUTS_STEP, weight=5.0)
+    records["benchmark2"] = {
+        "NutsOperator alone": alone("benchmark2", NutsOperator(
+            parameters=rate_size, max_depth=NUTS_DEPTH, step_size=NUTS_STEP),
+            11),
+        "chain": mixed("benchmark2", [
+            nuts, SliceOperator(parameter="pop.size", log_transform=True,
+                                weight=3.0),
+            AvmvnOperator(parameters=("gtr.rates", "alpha"), scale=0.05,
+                          weight=3.0)], 12, (AvmvnOperator,))}
+    records["benchmark2"]["seconds"] = time.perf_counter() - t_phase
+    log(f"[p7 benchmark2] phase {records['benchmark2']['seconds']:.2f} s")
+
+    # P7b: benchmark1, reflective HMC on the three kappas and MVN
+    t_phase = time.perf_counter()
+    refl = dict(parameters=("kappa",), lower=0.0, n_leapfrog=5,
+                step_size=0.01)
+    records["benchmark1"] = {
+        "ReflectiveHmcOperator alone": alone(
+            "benchmark1", ReflectiveHmcOperator(**refl), 13),
+        "chain": mixed("benchmark1", [
+            ReflectiveHmcOperator(**refl, weight=5.0),
+            MvnOperator(parameters=rate_size, scale=0.05, weight=3.0)], 14,
+            (ReflectiveHmcOperator, MvnOperator))}
+    records["benchmark1"]["seconds"] = time.perf_counter() - t_phase
+    log(f"[p7 benchmark1] phase {records['benchmark1']['seconds']:.2f} s")
+
+    # P7c: protein, Zig-Zag and BPS. The bounds come from the gradients of
+    # the potential seen over a warm-up of the plain chain: Zig-Zag's, twice
+    # each coordinate's largest |dU/dy|; BPS's, thrice the largest |grad U|
+    # (|v| of a 2-d standard normal velocity is under 3 in 99% of draws).
+    # Each travel time makes PDMP_EVENTS candidate events expected.
+    t_phase = time.perf_counter()
+    (_, ops, _, _, aux), (p0, t0), kname = paths["protein"]
+    lpc = aux["log_post_cached"]
+    probe = HmcOperator(parameters=rate_size)
+    probe.bind_log_posterior(lpc)
+    base = make_mcmc_step(lpc, ops, derived=aux["derived"])
+    st = init_mcmc_state(p0, t0, gen(15), ops, lpc)
+    grads = []
+    for _ in range(P7_WARM):
+        st = base(st)
+        grads.append(value_grad(probe.neg_log_density(st.params, st.tree),
+                                probe._pack(st.params).detach()))
+    grads = torch.stack(grads)
+    zz_bound = (2.0 * grads.abs().max(0).values).tolist()
+    bps_bound = 3.0 * float(torch.linalg.vector_norm(grads, dim=1).max())
+    pdmp_kw = [dict(grad_bound=zz_bound,
+                    travel_time=PDMP_EVENTS / sum(zz_bound)),
+               dict(grad_bound=bps_bound,
+                    travel_time=PDMP_EVENTS / (bps_bound + 1.0))]
+    paths["protein"] = (paths["protein"][0], (st.params, st.tree), kname)
+    rec = {"warmup_max_abs_grad": grads.abs().max(0).values.tolist(),
+           "settings": {"ZigZagOperator": pdmp_kw[0],
+                        "BouncyParticleOperator": pdmp_kw[1]}}
+    for i, (cls, kw) in enumerate(zip(pdmp, pdmp_kw)):
+        rec[f"{cls.__name__} alone"] = alone(
+            "protein", cls(parameters=rate_size, **kw), 16 + i)
+    rec["chain"] = mixed("protein", [
+        cls(parameters=rate_size, weight=3.0, **kw)
+        for cls, kw in zip(pdmp, pdmp_kw)], 18, ())
+    records["protein"] = rec
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"[p7 protein] phase {rec['seconds']:.2f} s")
+
+    # P7d: Makona, NUTS alone
+    t_phase = time.perf_counter()
+    records["makona"] = {"NutsOperator alone": alone("makona", NutsOperator(
+        parameters=rate_size, max_depth=NUTS_DEPTH, step_size=NUTS_STEP),
+        19)}
+    launches["makona"] = {
+        k: sum(r["launches_in_step"] for r in
+               records["makona"]["NutsOperator alone"]["proposals"])
+        * (k == paths["makona"][2]) for k in read_counts()}
+    records["makona"]["seconds"] = time.perf_counter() - t_phase
+    log(f"[p7 makona] phase {records['makona']['seconds']:.2f} s")
+
+    # P7e: the constrained operators and elliptical slice on toy targets
+    t_phase = time.perf_counter()
+    tree = make_tree_state(np.array([2, 2, -1]),
+                           np.array([[-1, -1], [-1, -1], [0, 1]]),
+                           np.array([0.0, 0.0, 1.0]), 2, f64, dev)
+    rng = np.random.default_rng(20)
+    t = lambda a: torch.tensor(a, dtype=f64, device=dev)  # noqa: E731
+    mu = t([[0.0, 0.0, 1.0], [0.0, 1.0, 0.0], [0.6, 0.0, 0.8]])
+    c_mat = t(rng.normal(size=(5, 2)))
+    alpha = t([2.0, 3.0, 4.0, 5.0])
+    x_st = np.linalg.qr(rng.normal(size=(5, 2)))[0]
+    eye2 = torch.eye(2, dtype=f64, device=dev)
+
+    def stiefel(out):
+        x = torch.stack([out["a"], out["b"]], -1)
+        return float((x.transpose(1, 2) @ x - eye2).abs().max())
+
+    toys = [
+        ("sphere", GeodesicHmcOperator(parameter="x", block_dim=3,
+                                       n_leapfrog=8, step_size=0.3),
+         {"x": t([1.0, 0.0, 0.0] * 3)},
+         lambda p, tr: 4.0 * torch.sum(p["x"].reshape(3, 3) * mu),
+         lambda out: float((torch.linalg.vector_norm(
+             out["x"].reshape(-1, 3, 3), dim=-1) - 1.0).abs().max()),
+         SPHERE_TOL),
+        ("stiefel", StiefelGeodesicHmcOperator(parameters=("a", "b"),
+                                               step_size=0.1),
+         {"a": t(x_st[:, 0]), "b": t(x_st[:, 1])},
+         lambda p, tr: torch.sum(c_mat * torch.stack([p["a"], p["b"]], 1)),
+         stiefel, STIEFEL_TOL),
+        ("simplex", SimplexHmcOperator(parameter="x", step_size=0.3),
+         {"x": t([0.25] * 4)},
+         lambda p, tr: torch.sum((alpha - 1.0) * torch.log(p["x"])),
+         lambda out: float((out["x"].sum(-1) - 1.0).abs().max())
+         if bool((out["x"] > 0).all()) else float("inf"), SIMPLEX_TOL),
+        ("elliptical slice", EllipticalSliceOperator(parameter="x"),
+         {"x": t([0.0] * 3)},
+         lambda p, tr: torch.sum(-0.5 * p["x"] ** 2
+                                 - 2.0 * (p["x"] - 2.0) ** 2), None, None),
+    ]
+    rec = {}
+    for i, (label, op, params, log_post, err_fn, tol) in enumerate(toys):
+        step = make_mcmc_step(log_post, [op])
+        st = init_mcmc_state(params, tree, gen(21 + i), [op], log_post)
+        sync()
+        t0_ = time.perf_counter()
+        st, out = run_chain(step, st, P7_TOY_STEPS, 1, lambda s: {
+            k: v.clone() for k, v in s.params.items()})
+        sync()
+        secs = time.perf_counter() - t0_
+        finite = all(bool(torch.isfinite(v).all()) for v in out.values())
+        r = {"operator": type(op).__name__, "steps": P7_TOY_STEPS,
+             "steps_per_s": P7_TOY_STEPS / secs, "finite": finite,
+             "accepted": int(st.op_accept[0]),
+             "mean": {k: v.mean(0).tolist() for k, v in out.items()}}
+        if err_fn is not None:
+            r.update({"constraint_max_err": err_fn(out), "tol": tol})
+        rec[label] = r
+        log(f"[p7 toy] {label} {json.dumps(r)}")
+        if not finite or (err_fn is not None and not (
+                r["constraint_max_err"] <= tol and r["accepted"] > 0)):
+            raise AssertionError(f"toy {label}: {r}")
+    records["toys"] = rec
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"[p7 toys] phase {rec['seconds']:.2f} s")
+    return records, launches
 
 
 def main():
@@ -1106,6 +1416,19 @@ def main():
     mak_hmc_counts, mak_hmc = hmc_chain("makona", MAKONA, HMC_MAK_STEPS,
                                         HMC_MAK_CHECK, "peel_stream", 6)
 
+    # -- phase 6d: NUTS, the PDMPs, slice, AVMVN and the constrained HMC --
+    t0 = time.perf_counter()
+    p7, p7_launches = sampler_paths({
+        "benchmark2": (analyses[B2], (b2_state.params, b2_state.tree),
+                       "peel_resident"),
+        "benchmark1": (analyses[B1], (b1_state.params, b1_state.tree),
+                       "peel_stream"),
+        "protein": (analyses[AMINO], (aa_state.params, aa_state.tree),
+                    "peel_mxu"),
+        "makona": (analyses[MAKONA], (mak_state.params, mak_state.tree),
+                   "peel_stream")}, reset_counts, read_counts, device_ms, dev)
+    log(f"[p7] phase 6d in {time.perf_counter() - t0:.2f} s")
+
     # -- phase 7: the remaining entry points ---------------------------
     # per-site log-likelihoods go through the same dispatcher as the chains
     for label, shape, kname in (("benchmark2", B2, "peel_resident"),
@@ -1218,6 +1541,25 @@ def main():
         f"codon {cod_rate:.2f}; with HMC benchmark2 "
         f"{b2_hmc['states_per_s']:.2f}, makona {mak_hmc['states_per_s']:.2f}; "
         f"on {smi_line}")
+    def per_proposal(rec, key, less=0):
+        return [r[key] - less for r in rec["proposals"]]
+
+    nuts_b2 = p7["benchmark2"]["NutsOperator alone"]
+    nuts_mak = p7["makona"]["NutsOperator alone"]
+    zz, bps = (p7["protein"][f"{name} alone"]
+               for name in ("ZigZagOperator", "BouncyParticleOperator"))
+    log(f"[summary p7] states/s: benchmark2 with NUTS, slice and AVMVN "
+        f"{p7['benchmark2']['chain']['states_per_s']:.2f}, benchmark1 with "
+        f"reflective HMC and MVN "
+        f"{p7['benchmark1']['chain']['states_per_s']:.2f}, protein with "
+        f"Zig-Zag and BPS {p7['protein']['chain']['states_per_s']:.2f}; NUTS "
+        f"n_lf a proposal benchmark2 {per_proposal(nuts_b2, 'n_leapfrog')} "
+        f"makona {per_proposal(nuts_mak, 'n_leapfrog')}, launches a proposal "
+        f"(n_lf + 1) benchmark2 "
+        f"{per_proposal(nuts_b2, 'launches_in_step', 1)} makona "
+        f"{per_proposal(nuts_mak, 'launches_in_step', 1)}; PDMP events a "
+        f"proposal Zig-Zag {per_proposal(zz, 'events')} BPS "
+        f"{per_proposal(bps, 'events')}; on {smi_line}")
     log(smi_line)
     print(json.dumps({"kernels": [
         entry("peel_resident", "beast_mcmc_tpu_torch/csrc/peel_resident.cu",
@@ -1239,6 +1581,10 @@ def main():
                              "codon": cod_counts,
                              "benchmark2 with HMC": b2_hmc_counts,
                              "makona with HMC": mak_hmc_counts,
+                             "benchmark2 P7a": p7_launches["benchmark2"],
+                             "benchmark1 P7b": p7_launches["benchmark1"],
+                             "protein P7c": p7_launches["protein"],
+                             "makona P7d": p7_launches["makona"],
                              "stream entry points": ring_counts}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

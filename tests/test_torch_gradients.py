@@ -282,9 +282,11 @@ def test_posterior_gradient_matches_jax():
 def test_eigen_gradient_is_nan_at_equal_rates_in_both_packages():
     """At rates ones(6) and freqs [0.3, 0.2, 0.2, 0.3] the spectrum is
     F81's, with a triple eigenvalue: the eigensolver's backward divides by
-    eigenvalue gaps, and P(t)'s gradient with respect to the rates is NaN
-    in both packages. (build_analysis starts there, so no HMC operator
-    moves gtr.rates.) At rates 1..6 both are finite and equal."""
+    eigenvalue gaps, and JAX's gradient of P(t) with respect to the rates
+    is NaN. The port's no longer is (it was before P(t) took the
+    Daleckii-Krein backward of ops/eigen.py): it is finite and agrees with
+    central differences (1e-6 relative). At rates 1..6 the two packages
+    are finite and equal."""
     freqs = [0.3, 0.2, 0.2, 0.3]
 
     def jax_grad(rates):
@@ -304,7 +306,20 @@ def test_eigen_gradient_is_nan_at_equal_rates_in_both_packages():
         return torch.autograd.grad(total, r)[0].numpy()
 
     ones = np.ones(6)
-    assert np.isnan(jax_grad(ones)).any() and np.isnan(torch_grad(ones)).any()
+    assert np.isnan(jax_grad(ones)).any()
+
+    def total(rates):
+        eig = tsub.gtr_eigen(torch.tensor(rates),
+                             torch.tensor(freqs, dtype=torch.float64))
+        return float(torch.sum(teigen.transition_probs(
+            eig, torch.tensor(0.3, dtype=torch.float64))
+            * torch.arange(16.0, dtype=torch.float64).reshape(4, 4)))
+
+    h = 1e-6
+    diffs = [(total(ones + h * e) - total(ones - h * e)) / (2 * h)
+             for e in np.eye(6)]
+    np.testing.assert_allclose(torch_grad(ones), diffs, rtol=1e-6,
+                               atol=1e-8)
     distinct = np.arange(1.0, 7.0)
     ref = jax_grad(distinct)
     assert np.all(np.isfinite(ref))
@@ -408,3 +423,42 @@ def test_multipartition_posterior_gradient_matches_jax():
     diffs = np.array([(lp_at(k0 + h * e) - lp_at(k0 - h * e)) / (2 * h)
                       for e in np.eye(3)])
     np.testing.assert_allclose(got[1], diffs, rtol=1e-6)
+
+
+@pytest.mark.parametrize("kappa", [[1.9996839432925457, 1.8441266117500663,
+                                    2.0056277909770017],
+                                   [1.0, 1.000001, 0.5]])
+def test_kappa_gradient_at_degenerate_spectra(kappa):
+    """build_analysis(9, 40, "hky_codon3")'s log posterior with respect to
+    kappa [3] against central differences. HKY's spectrum has a double
+    eigenvalue at every kappa here (purine and pyrimidine frequencies 0.5
+    each) and a triple one at kappa 1; the first kappa is
+    one a reflective HMC trajectory reached, where the eigensolver's own
+    backward gives NaN. Then build_analysis(9, 40)'s log posterior with
+    respect to the GTR rates at ones(6) (a triple eigenvalue) and at an
+    HKY-like (1, 2, 1, 1, 2, 1), whose double eigenvalue the GTR
+    directions split: finite, and equal to fourth-order central
+    differences (h = 1e-4) to 1e-6 of the largest entry."""
+    lp, _, p0, t0, _ = build_analysis(9, 40, "hky_codon3", device="cpu",
+                                      dtype=torch.float64)
+    glp, _, g0, gt0, _ = build_analysis(9, 40, device="cpu",
+                                        dtype=torch.float64)
+    h = 1e-4
+
+    def check(f, x0):
+        x = x0.clone().requires_grad_(True)
+        got = torch.autograd.grad(f(x), x)[0].numpy()
+        eye = torch.eye(x0.shape[0], dtype=torch.float64)
+        diffs = np.array([(8 * (float(f(x0 + h * e)) - float(f(x0 - h * e)))
+                           - float(f(x0 + 2 * h * e))
+                           + float(f(x0 - 2 * h * e))) / (12 * h)
+                          for e in eye])
+        assert np.all(np.isfinite(got))
+        assert np.abs(got - diffs).max() <= 1e-6 * np.abs(diffs).max(), (
+            got, diffs)
+
+    check(lambda k: lp({**p0, "kappa": k}, t0),
+          torch.tensor(kappa, dtype=torch.float64))
+    for rates in ([1.0] * 6, [1.0, 2.0, 1.0, 1.0, 2.0, 1.0]):
+        check(lambda r: glp({**g0, "gtr.rates": r}, gt0),
+              torch.tensor(rates, dtype=torch.float64))

@@ -20,7 +20,8 @@ def _modules():
 
 
 def test_import_every_module_without_jax():
-    # every kernel's wrapper and the data modules are among the modules found
+    # every kernel's wrapper, the data modules and the samplers are among
+    # the modules found
     assert {"beast_mcmc_tpu_torch.ops.cuda_stream",
             "beast_mcmc_tpu_torch.ops.cuda_stream2",
             "beast_mcmc_tpu_torch.ops.cuda_mxu",
@@ -28,6 +29,10 @@ def test_import_every_module_without_jax():
             "beast_mcmc_tpu_torch.data.alignment",
             "beast_mcmc_tpu_torch.data.codons",
             "beast_mcmc_tpu_torch.data.datatype",
+            "beast_mcmc_tpu_torch.inference.geodesic",
+            "beast_mcmc_tpu_torch.inference.nuts",
+            "beast_mcmc_tpu_torch.inference.pdmp",
+            "beast_mcmc_tpu_torch.inference.samplers",
             "beast_mcmc_tpu_torch.models.data.aa_matrices"} <= set(_modules())
     code = (
         "import importlib, json, sys\n"
