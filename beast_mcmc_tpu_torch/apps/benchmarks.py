@@ -67,7 +67,16 @@ def build_analysis(n_taxa: int = 62, n_patterns: int = 5565,
     make_mcmc_step(derived=...), used with aux["log_post_cached"]; the plain
     log_post always recomputes both. For "hky_codon3" n_patterns is the
     count per partition, aux["tips"] is [3, N, 4, P] and aux["weights"]
-    [3, P]."""
+    [3, P].
+
+    aux["log_post_chains"] and aux["log_post_cached_chains"] are the same
+    posteriors over a chain batch (params and tree with a leading chain
+    axis, as inference/mc3.py::replicate_state makes them): [B] from one
+    peel launch for all B chains, the port's form of jax.vmap(log_post).
+    aux["components"] is the posterior as the addends of
+    inference/component_cache.py (`make_components`): the likelihood (from
+    the derived cache where there is one), the coalescent and the two
+    priors."""
     # float32 products on the card stay full precision (no TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -135,7 +144,7 @@ def build_analysis(n_taxa: int = 62, n_patterns: int = 5565,
         def log_lik(params, tree):
             # no derived cache: one batched eigh of [3, 4, 4] per evaluation
             eigs = hky_eigen(params["kappa"], freqs3)
-            cat_rates = params["mu"][:, None] * base_rates[None, :]
+            cat_rates = params["mu"][..., None] * base_rates
             return multipartition_loglikelihood(
                 tips, weights, tree.parent, tree.children, tree.heights,
                 tree.root, eigs, freqs3, cat_rates, cat_w,
@@ -168,21 +177,32 @@ def build_analysis(n_taxa: int = 62, n_patterns: int = 5565,
     else:
         raise ValueError(model)
 
-    def log_prior(params, tree):
-        return (one_on_x_logpdf(params["pop.size"])
-                + lognormal_logpdf(params["clock.rate"], 0.0, 1.0)
+    def log_prior(params, tree, chains=False):
+        return (one_on_x_logpdf(params["pop.size"], chains)
+                + lognormal_logpdf(params["clock.rate"], 0.0, 1.0, chains)
                 + constant_coalescent_loglik(tree.heights, n_taxa,
                                              params["pop.size"]))
 
     def log_post(params, tree):
         return log_lik(params, tree) + log_prior(params, tree)
 
+    def log_post_chains(params, tree):
+        return log_lik(params, tree) + log_prior(params, tree, True)
+
     if derived:
         def log_post_cached(params, tree):
             return log_lik(params, tree, cached=True) + log_prior(params, tree)
+
+        def log_post_cached_chains(params, tree):
+            return (log_lik(params, tree, cached=True)
+                    + log_prior(params, tree, True))
+
+        def lik_component(params, tree):
+            return log_lik(params, tree, cached=True)
         params0 = apply_derived(derived, params0)
     else:
-        log_post_cached = log_post
+        log_post_cached, log_post_cached_chains = log_post, log_post_chains
+        lik_component = log_lik
 
     operators = [
         *extra_ops,
@@ -198,5 +218,16 @@ def build_analysis(n_taxa: int = 62, n_patterns: int = 5565,
         "tips": tips, "weights": weights, "freqs": freqs,
         "log_lik": log_lik, "derived": derived,
         "log_post_cached": log_post_cached,
+        "log_post_chains": log_post_chains,
+        "log_post_cached_chains": log_post_cached_chains,
+        "components": [
+            (lik_component, "likelihood"),
+            (lambda p, t: constant_coalescent_loglik(t.heights, n_taxa,
+                                                     p["pop.size"]),
+             "coalescent"),
+            (lambda p, t: one_on_x_logpdf(p["pop.size"]), "pop.size prior"),
+            (lambda p, t: lognormal_logpdf(p["clock.rate"], 0.0, 1.0),
+             "clock.rate prior"),
+        ],
     }
     return log_post, operators, params0, tree0, aux

@@ -6,7 +6,9 @@ arrays or scalars, a tuple of them (the "site.rates" (rates, weights)
 cache), a dict of them (an AVMVN operator's "_avmvn:..." statistics), or
 an object with `values`, `U` and `U_inv` attributes (the "eig"
 EigenSystem cache, its leaves turned to numpy); the tree is numpy
-parent / children / heights / root. An operator is a dataclass whose
+parent / children / heights / root; a vmapped MCMCState (numpy leaves
+with a leading chain axis) becomes a chain batch (`states_from_numpy`).
+An operator is a dataclass whose
 settings are plain values; `operator_from` builds this package's class of
 the same name from them (the HMC operators' transforms too). Nothing here
 imports JAX.
@@ -48,6 +50,41 @@ def params_from_numpy(params: Dict[str, Any], dtype=DEFAULT_FLOAT,
 def tree_from_numpy(parent, children, heights, root, dtype=DEFAULT_FLOAT,
                     device=DEFAULT_DEVICE) -> TreeState:
     return make_tree_state(parent, children, heights, root, dtype, device)
+
+
+def states_from_numpy(state, generator: torch.Generator,
+                      dtype=DEFAULT_FLOAT, device=DEFAULT_DEVICE):
+    """The JAX package's vmapped MCMCState, its leaves turned to numpy with
+    a leading chain axis B, as this package's chain batch
+    (inference/state.py): params, tree, log posterior and the operator
+    statistics carried over; `generator` (on `device`) becomes the batch's
+    one device generator, and the JAX keys are dropped."""
+    from beast_mcmc_tpu_torch.inference.state import MCMCState, init_state
+
+    tree = state.tree
+    parts = {f: torch.tensor(np.asarray(getattr(tree, f)), device=device,
+                             dtype=dtype if f == "heights" else torch.long)
+             for f in ("parent", "children", "heights", "root")}
+    adapt = torch.tensor(np.asarray(state.op_adapt), dtype=torch.float64,
+                         device=device)
+    fresh = init_state({}, TreeState(**parts), generator, adapt.shape[-1],
+                       adapt)
+
+    def ints(x):
+        return torch.tensor(np.asarray(x), dtype=torch.long, device=device)
+
+    step = np.asarray(state.step)
+    return MCMCState(
+        params=params_from_numpy(state.params, dtype, device),
+        tree=TreeState(**parts),
+        log_posterior=torch.tensor(np.asarray(state.log_posterior),
+                                   dtype=torch.float64, device=device),
+        generator=generator, op_generator=fresh.op_generator,
+        step=int(step.reshape(-1)[0]) if step.size else 0,
+        op_adapt=adapt, op_adapt_count=ints(state.op_adapt_count),
+        op_accept=ints(state.op_accept), op_reject=ints(state.op_reject),
+        op_sum_accept=torch.tensor(np.asarray(state.op_sum_accept),
+                                   dtype=torch.float64, device=device))
 
 
 def _spec(obj, modules):

@@ -75,6 +75,11 @@
 //    reciprocal a pattern; the teams add their sums at the end.
 //  - The ragged last block recomputes pattern P-1 in its idle lanes and
 //    never stores them; padded rows are never stored.
+//  - A chain batch is the grid's second axis: block (x, b) peels pattern
+//    block x of chain b, offsetting to its padded matrices [B, M, C, mp,
+//    lda], schedule, `wcs` [B, C, S], `post` [B, M, C, S, P] and output
+//    [B, P]; the tips [N, S, P] are shared by every chain. Each block stops
+//    at its own chain's `level_start` sentinel. A single tree is B = 1.
 
 #include <cuda_runtime.h>
 
@@ -233,17 +238,27 @@ __host__ __device__ inline size_t head_bytes(int n_int, int teams) {
 template <typename T, int UNITS>
 __global__ void __launch_bounds__(MAX_THREADS) peel_mxu_kernel(
     const T* __restrict__ tips,      // [N,S,P]
-    const T* __restrict__ pm,        // [M,C,mp,lda], by node, zero-padded
-    const int* __restrict__ order,   // [n_int], node of each position
-    const int* __restrict__ lr_ids,  // [n_int,2]
-    const int* __restrict__ ls,      // [n_int+1]
-    const T* __restrict__ wcs,       // [C,S]
-    T* post,                         // [M,C,S,P], internal nodes written and read back
-    T* __restrict__ out,             // [P]
+    const T* __restrict__ pm,        // [B,M,C,mp,lda], by node, zero-padded
+    const int* __restrict__ order,   // [B,n_int], node of each position
+    const int* __restrict__ lr_ids,  // [B,n_int,2]
+    const int* __restrict__ ls,      // [B,n_int+1]
+    const T* __restrict__ wcs,       // [B,C,S]
+    T* post,                         // [B,M,C,S,P], internal nodes written and read back
+    T* __restrict__ out,             // [B,P]
     int n_tips, int c_n, int s_n, int p_n, int teams, int tw, int g_n) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Layout L(c_n, s_n, g_n);
   const int n_int = n_tips - 1;
+  {  // this block's chain
+    const size_t b = blockIdx.y, nodes = 2 * (size_t)n_tips - 1;
+    pm += b * nodes * c_n * L.piece;
+    order += b * n_int;
+    lr_ids += b * 2 * n_int;
+    ls += b * (n_int + 1);
+    wcs += b * c_n * s_n;
+    post += b * nodes * c_n * s_n * p_n;
+    out += b * p_n;
+  }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int team = warp / tw, wj = warp - team * tw;
   const int tt = wj * 32 + lane, nthr = 32 * tw;  // thread within the team
@@ -482,7 +497,7 @@ __global__ void __launch_bounds__(MAX_THREADS) peel_mxu_kernel(
 struct Args {
   const void *tips, *pm, *order, *lr_ids, *ls, *wcs;
   void *post, *out;
-  int n_tips, c_n, s_n, p_n, teams, tw, g_n;
+  int n_tips, c_n, s_n, p_n, teams, tw, g_n, b_n;
   void* stream;
 };
 
@@ -499,7 +514,8 @@ int launch_as(const Args& a, size_t smem) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kern<<<(a.p_n + W - 1) / W, 32 * a.teams * a.tw, smem, (cudaStream_t)a.stream>>>(
+  kern<<<dim3((a.p_n + W - 1) / W, a.b_n), 32 * a.teams * a.tw, smem,
+         (cudaStream_t)a.stream>>>(
       (const T*)a.tips, (const T*)a.pm, (const int*)a.order, (const int*)a.lr_ids,
       (const int*)a.ls, (const T*)a.wcs, (T*)a.post, (T*)a.out, a.n_tips, a.c_n, a.s_n,
       a.p_n, a.teams, a.tw, a.g_n);
@@ -511,7 +527,7 @@ int launch(const Args& a) {
   if (a.s_n < 2 || a.s_n > 64 || a.c_n < 1 || a.c_n > 8 || a.n_tips < 2 || a.p_n < 1 ||
       a.teams < 1 || a.teams > 15 ||  // named barriers 1..15
       a.tw < 1 || 32 * a.teams * a.tw > MAX_THREADS || a.g_n < 1 ||
-      (2 * a.c_n) % a.g_n != 0 ||
+      (2 * a.c_n) % a.g_n != 0 || a.b_n < 1 || a.b_n > 65535 ||
       (size_t)a.c_n * a.s_n * a.p_n > 0x7fffffffu)  // offsets within a node are int
     return (int)cudaErrorInvalidValue;
   const int units = a.c_n * ((a.s_n + 7) / 8);
@@ -530,9 +546,9 @@ int launch(const Args& a) {
   extern "C" int NAME(const void* tips, const void* pm, const void* order,             \
                       const void* lr_ids, const void* ls, const void* wcs, void* post,  \
                       void* out, int n_tips, int c_n, int s_n, int p_n, int teams,     \
-                      int tw, int g_n, void* stream) {                                 \
+                      int tw, int g_n, int b_n, void* stream) {                        \
     return launch<T>(Args{tips, pm, order, lr_ids, ls, wcs, post, out, n_tips, c_n,     \
-                          s_n, p_n, teams, tw, g_n, stream});                          \
+                          s_n, p_n, teams, tw, g_n, b_n, stream});                     \
   }
 
 PEEL_MXU_ENTRY(peel_mxu_f64, double)

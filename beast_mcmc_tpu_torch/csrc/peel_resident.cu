@@ -48,6 +48,12 @@
 //   double (take_scale); the slots of a tile add their sums once, at the
 //   end. The rescaling multiplies by one reciprocal a pattern.
 // - Ragged pattern edges are clamped on load and never stored.
+// - A chain batch is the grid's second axis: block (x, b) peels pattern
+//   block x of chain b, whose matrices [B, M, C, 4, 4], schedule, `wcs`
+//   [B, C, 4], scratch and output [B, P] it offsets to; the tips [N, 4, P]
+//   are shared by every chain, read through one pointer. Chains reach
+//   different trees, so each block stops at its own chain's `level_start`
+//   sentinel. A single tree is B = 1. Shared memory is that of one chain.
 
 #include <cuda_runtime.h>
 
@@ -62,17 +68,27 @@ using peel::take_scale;
 template <typename T, int S>
 __global__ void __launch_bounds__(1024)
     peel_resident_kernel(const T* __restrict__ tips,      // [N,S,P]
-                         const T* __restrict__ pmats,     // [M,C,S,S]
-                         const int* __restrict__ lr_ids,  // [n_int,2]
-                         const int* __restrict__ lr_pos,  // [n_int,2]
-                         const int* __restrict__ ls,      // [n_int+1]
-                         const T* __restrict__ wcs,       // [C,S]
-                         T* scratch,  // [tiles_total,n_int,S,C,pw]
-                         T* __restrict__ out,             // [P]
+                         const T* __restrict__ pmats,     // [B,M,C,S,S]
+                         const int* __restrict__ lr_ids,  // [B,n_int,2]
+                         const int* __restrict__ lr_pos,  // [B,n_int,2]
+                         const int* __restrict__ ls,      // [B,n_int+1]
+                         const T* __restrict__ wcs,       // [B,C,S]
+                         T* scratch,  // [B,tiles_total,n_int,S,C,pw]
+                         T* __restrict__ out,             // [B,P]
                          int n_tips, int m, int c_n, int p_n, int pw,
                          int tiles) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int n_int = n_tips - 1;
+  {  // this block's chain
+    const size_t b = blockIdx.y;
+    pmats += b * m * c_n * S * S;
+    lr_ids += b * 2 * n_int;
+    lr_pos += b * 2 * n_int;
+    ls += b * (n_int + 1);
+    wcs += b * c_n * S;
+    scratch += b * gridDim.x * tiles * n_int * S * c_n * pw;
+    out += b * p_n;
+  }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gs = pw * c_n, groups = 32 / gs;
   const int g = lane / gs, r = lane - g * gs;
@@ -177,11 +193,11 @@ template <typename T>
 int launch(const void* tips, const void* pmats, const void* lr_ids,
            const void* lr_pos, const void* level_start, const void* wcs,
            void* scratch, void* out, int n_tips, int m, int c_n, int s_n,
-           int p_n, int pw, int warps, int tiles, void* stream) {
+           int p_n, int pw, int warps, int tiles, int b_n, void* stream) {
   const int gs = pw * c_n;
   if (s_n != 4 || c_n < 1 || pw < 1 || (pw & (pw - 1)) != 0 || gs > 32 ||
       warps < 1 || warps > 32 || tiles < 1 || (warps * (32 / gs)) % tiles != 0 ||
-      n_tips < 2 || m != 2 * n_tips - 1 || p_n < 1)
+      n_tips < 2 || m != 2 * n_tips - 1 || p_n < 1 || b_n < 1 || b_n > 65535)
     return (int)cudaErrorInvalidValue;
   constexpr int S = 4;
   const int slots = warps * (32 / gs);
@@ -192,7 +208,7 @@ int launch(const void* tips, const void* pmats, const void* lr_ids,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int n_tiles = (p_n + pw - 1) / pw;
-  dim3 grid((n_tiles + tiles - 1) / tiles);
+  dim3 grid((n_tiles + tiles - 1) / tiles, b_n);
   kern<<<grid, 32 * warps, smem, (cudaStream_t)stream>>>(
       (const T*)tips, (const T*)pmats, (const int*)lr_ids, (const int*)lr_pos,
       (const int*)level_start, (const T*)wcs, (T*)scratch, (T*)out, n_tips, m,
@@ -207,9 +223,9 @@ int launch(const void* tips, const void* pmats, const void* lr_ids,
                       const void* lr_pos, const void* level_start,            \
                       const void* wcs, void* scratch, void* out, int n_tips,  \
                       int m, int c_n, int s_n, int p_n, int pw, int warps,    \
-                      int tiles, void* stream) {                              \
+                      int tiles, int b_n, void* stream) {                     \
     return launch<T>(tips, pmats, lr_ids, lr_pos, level_start, wcs, scratch,  \
-                     out, n_tips, m, c_n, s_n, p_n, pw, warps, tiles,         \
+                     out, n_tips, m, c_n, s_n, p_n, pw, warps, tiles, b_n,    \
                      stream);                                                 \
   }
 

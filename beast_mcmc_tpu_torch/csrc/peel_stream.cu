@@ -54,9 +54,14 @@
 //   cp.async, one node ahead, so copies of the next level's first nodes are
 //   in flight across the barrier. A whole level's matrices (up to ~200 KB)
 //   would not fit twice in shared memory, so the look-ahead is per slot.
-// - The grid is (pattern tiles of pw, partitions). Blocks never share
-//   patterns, so no synchronisation crosses blocks. Ragged pattern edges are
-//   clamped on load and never written to the output.
+// - The grid is (pattern tiles of pw, partitions, chains). Blocks never
+//   share patterns, so no synchronisation crosses blocks. Ragged pattern
+//   edges are clamped on load and never written to the output.
+// - A chain batch is the grid's third axis: block (x, k, b) offsets to chain
+//   b's matrices, schedule, `wcs`, scratch and output; the tips [K, N, 4, P]
+//   are shared by every chain. Chains reach different trees, so each block
+//   walks its own chain's levels to its own `level_start` sentinel. A single
+//   tree is B = 1.
 
 #include <cuda_runtime.h>
 
@@ -100,15 +105,25 @@ __device__ __forceinline__ int next_node(const int* __restrict__ ls, int n_int,
 template <typename T, int S>
 __global__ void __launch_bounds__(1024)
     peel_levels_kernel(const T* __restrict__ tips,     // [K,N,S,P]
-                       const T* __restrict__ pm_ord,   // [K,n_int,2,C,S,S]
-                       const int* __restrict__ lr_ids, // [n_int,2]
-                       const int* __restrict__ lr_pos, // [n_int,2]
-                       const int* __restrict__ ls,     // [n_int+1]
-                       const T* __restrict__ wcs,      // [K,C,S]
-                       T* scratch,  // [K,tiles,n_int,C,S,pw]
-                       T* __restrict__ out,            // [K,P]
+                       const T* __restrict__ pm_ord,   // [B,K,n_int,2,C,S,S]
+                       const int* __restrict__ lr_ids, // [B,n_int,2]
+                       const int* __restrict__ lr_pos, // [B,n_int,2]
+                       const int* __restrict__ ls,     // [B,n_int+1]
+                       const T* __restrict__ wcs,      // [B,K,C,S]
+                       T* scratch,  // [B,K,tiles,n_int,C,S,pw]
+                       T* __restrict__ out,            // [B,K,P]
                        int n_tips, int n_int, int c_n, int p_n, int pw) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  {  // this block's chain: [K] slabs of it precede it
+    const size_t b = blockIdx.z, kb = b * gridDim.y;
+    pm_ord += kb * n_int * 2 * c_n * S * S;
+    lr_ids += b * 2 * n_int;
+    lr_pos += b * 2 * n_int;
+    ls += b * (n_int + 1);
+    wcs += kb * c_n * S;
+    scratch += kb * gridDim.x * n_int * c_n * S * pw;
+    out += kb * p_n;
+  }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gs = pw * c_n, groups = 32 / gs;
   const int g = lane / gs, r = lane - g * gs;
@@ -224,10 +239,11 @@ template <typename T>
 int launch(const void* tips, const void* pm_ord, const void* lr_ids,
            const void* lr_pos, const void* level_start, const void* wcs,
            void* scratch, void* out, int n_tips, int n_int, int c_n, int s_n,
-           int p_n, int k_n, int pw, int warps, void* stream) {
+           int p_n, int k_n, int pw, int warps, int b_n, void* stream) {
   if (s_n != 4 || c_n < 1 || pw < 1 || (pw & (pw - 1)) != 0 || pw * c_n > 32 ||
       pw * c_n < 2 || warps < 1 || warps > 32 || n_int < 1 ||
-      n_tips != n_int + 1 || p_n < 1 || k_n < 1 || k_n > 65535)
+      n_tips != n_int + 1 || p_n < 1 || k_n < 1 || k_n > 65535 || b_n < 1 ||
+      b_n > 65535)
     return (int)cudaErrorInvalidValue;
   constexpr int S = 4;
   const int slots = warps * (32 / (pw * c_n));
@@ -238,7 +254,7 @@ int launch(const void* tips, const void* pm_ord, const void* lr_ids,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((p_n + pw - 1) / pw, k_n);
+  dim3 grid((p_n + pw - 1) / pw, k_n, b_n);
   kern<<<grid, 32 * warps, smem, (cudaStream_t)stream>>>(
       (const T*)tips, (const T*)pm_ord, (const int*)lr_ids, (const int*)lr_pos,
       (const int*)level_start, (const T*)wcs, (T*)scratch, (T*)out, n_tips,
@@ -254,10 +270,10 @@ int launch(const void* tips, const void* pm_ord, const void* lr_ids,
                       const void* level_start, const void* wcs,              \
                       void* scratch, void* out, int n_tips, int n_int,       \
                       int c_n, int s_n, int p_n, int k_n, int pw, int warps, \
-                      void* stream) {                                        \
+                      int b_n, void* stream) {                               \
     return launch<T>(tips, pm_ord, lr_ids, lr_pos, level_start, wcs,         \
                      scratch, out, n_tips, n_int, c_n, s_n, p_n, k_n, pw,    \
-                     warps, stream);                                         \
+                     warps, b_n, stream);                                    \
   }
 
 PEEL_STREAM_ENTRY(peel_stream_f64, double)

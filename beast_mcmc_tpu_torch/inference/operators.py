@@ -164,6 +164,42 @@ class ScaleOperator(_ScaleTuned, Operator):
 
 
 @dataclasses.dataclass
+class RandomWalkOperator(Operator):
+    """RandomWalkOperator.java: x_i += U(-w, w) on one random dimension,
+    reflected into [lower, upper] where `reflect` and both bounds are
+    finite (which keeps it symmetric); adapt value log(w)."""
+
+    parameter: str = ""
+    window: float = 1.0
+    lower: float = -math.inf
+    upper: float = math.inf
+    reflect: bool = False
+    adaptable: bool = True
+
+    def initial_adapt(self) -> float:
+        return math.log(self.window)
+
+    def tuning(self, adapt_value):
+        return torch.exp(adapt_value)
+
+    def propose(self, params, tree, gen, tuning):
+        x = params[self.parameter]
+        flat = torch.atleast_1d(x)
+        idx = _randint(gen, 0, flat.shape[0], flat.device)
+        delta = (_uniform(gen, flat) * 2.0 - 1.0) * tuning
+        v = flat[idx] + delta
+        if (self.reflect and math.isfinite(self.lower)
+                and math.isfinite(self.upper)):
+            span = self.upper - self.lower
+            v = torch.abs((v - self.lower) % (2 * span) - span) + self.lower
+        new = flat.index_put((idx,), v)
+        logh = _valid_or_reject(_in_bounds(new, self.lower, self.upper),
+                                torch.zeros((), dtype=flat.dtype,
+                                            device=flat.device))
+        return {**params, self.parameter: new.reshape(x.shape)}, tree, logh
+
+
+@dataclasses.dataclass
 class DeltaExchangeOperator(Operator):
     """DeltaExchangeOperator.java: move d ~ U(0, delta) from one random
     dimension to another; keeps the sum; symmetric."""

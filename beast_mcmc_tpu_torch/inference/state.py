@@ -7,6 +7,13 @@ tensors that the step updates in place. Randomness comes from two explicit
 generators in place of a JAX key: `generator` on the state's device for
 proposals and acceptance, `op_generator` on the CPU for the operator draw,
 so that choosing an operator never waits on the device.
+
+A chain batch is one MCMCState whose tensors carry a leading chain axis B:
+params [B, ...], the tree's fields [B, M], [B, M, 2] and [B],
+log_posterior [B] and the operator statistics [B, n_ops], with the one
+pair of generators (inference/mc3.py::replicate_state builds it;
+inference/mcmc.py::make_multichain_step steps it). `step` counts the
+batch's steps. init_state and init_mcmc_state build one chain.
 """
 
 from __future__ import annotations
@@ -28,11 +35,11 @@ _OP_SEED_OFFSET = 0x9E3779B9
 class MCMCState:
     params: Dict[str, Any]
     tree: TreeState
-    log_posterior: torch.Tensor  # 0-d, accum_dtype
+    log_posterior: torch.Tensor  # 0-d ([B] for a chain batch), accum_dtype
     generator: torch.Generator  # on the device: proposals, acceptance
     op_generator: torch.Generator  # on the CPU: operator draw
     step: int
-    op_adapt: torch.Tensor  # [n_ops] transformed adaptable tuning values
+    op_adapt: torch.Tensor  # [(B,) n_ops] transformed adaptable tuning values
     op_adapt_count: torch.Tensor  # int64[n_ops]
     op_accept: torch.Tensor  # int64[n_ops]
     op_reject: torch.Tensor  # int64[n_ops]

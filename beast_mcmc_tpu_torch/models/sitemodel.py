@@ -29,21 +29,27 @@ def discrete_gamma_rates(alpha: torch.Tensor, n_categories: int,
     The scale 1/alpha cancels in the mean normalisation, which is taken in
     log space so it stays exact where raw quantiles underflow. With
     `p_invariant` the result has C + 1 entries: category 0 is the invariant
-    one (rate exactly 0, weight pInv)."""
+    one (rate exactly 0, weight pInv). alpha [B] (a chain batch, with
+    p_invariant and mu 0-d or [B]) gives rates and weights [B, C]: the
+    quantiles are normalised over the last axis."""
     alpha = torch.as_tensor(alpha).to(torch.float64)
     k = n_categories
     lq = log_gamma_category_quantiles(alpha, k)
-    lnorm = torch.logsumexp(lq, dim=0) - math.log(k)
+    lnorm = torch.logsumexp(lq, dim=-1, keepdim=True) - math.log(k)
     rates = torch.exp(lq - lnorm)
-    weights = torch.full((k,), 1.0 / k, dtype=torch.float64,
+    weights = torch.full((*alpha.shape, k), 1.0 / k, dtype=torch.float64,
                          device=alpha.device)
     if p_invariant is not None:
         p_inv = torch.as_tensor(p_invariant, dtype=torch.float64,
-                                device=alpha.device).reshape(())
-        rates = torch.cat([rates.new_zeros(1), rates / (1.0 - p_inv)])
-        weights = torch.cat([p_inv[None], weights * (1.0 - p_inv)])
+                                device=alpha.device)
+        p_inv = p_inv.reshape(()) if alpha.dim() == 0 else p_inv[..., None]
+        rates = torch.cat([rates.new_zeros((*alpha.shape, 1)),
+                           rates / (1.0 - p_inv)], dim=-1)
+        weights = torch.cat([p_inv.expand(*alpha.shape, 1),
+                             weights * (1.0 - p_inv)], dim=-1)
     if mu is not None:
-        rates = rates * mu
+        mu = torch.as_tensor(mu)
+        rates = rates * (mu[..., None] if alpha.dim() and mu.dim() else mu)
     return rates.to(dtype), weights.to(dtype)
 
 

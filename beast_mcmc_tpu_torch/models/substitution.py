@@ -23,12 +23,15 @@ from beast_mcmc_tpu_torch.utils.dtypes import DEFAULT_DEVICE, DEFAULT_FLOAT
 
 def symmetric_rates_from_vector(rates: torch.Tensor,
                                 state_count: int) -> torch.Tensor:
-    """Upper-triangle exchange-rate vector -> symmetric [S,S] matrix."""
+    """Upper-triangle exchange-rate vector -> symmetric [S,S] matrix;
+    [..., S(S-1)/2] rates (a chain batch) give [..., S, S]."""
     s = state_count
+    lead = rates.shape[:-1]
     iu = torch.triu_indices(s, s, 1, device=rates.device)
-    r = torch.zeros((s, s), dtype=rates.dtype, device=rates.device)
-    r = r.index_put((iu[0], iu[1]), rates)
-    return r + r.T
+    r = torch.zeros((s, s, *lead), dtype=rates.dtype, device=rates.device)
+    r = r.index_put((iu[0], iu[1]), rates.movedim(-1, 0))
+    r = r.movedim((0, 1), (-2, -1))
+    return r + r.transpose(-1, -2)
 
 
 def jc_eigen(freqs: Optional[torch.Tensor] = None, dtype=DEFAULT_FLOAT,
@@ -42,7 +45,8 @@ def jc_eigen(freqs: Optional[torch.Tensor] = None, dtype=DEFAULT_FLOAT,
 
 def hky_eigen(kappa, freqs: torch.Tensor) -> EigenSystem:
     """HKY85: kappa on the transitions A<->G and C<->T, 1 elsewhere. A
-    kappa of shape [K] with freqs [K, 4] gives K systems at once."""
+    kappa of shape [K] with freqs [K, 4] gives K systems at once; a chain
+    batch's kappa [B] or [B, K] gives [B] or [B, K] (freqs broadcast)."""
     kappa = torch.as_tensor(kappa, dtype=freqs.dtype, device=freqs.device)
     transition = torch.zeros((4, 4), dtype=torch.bool, device=freqs.device)
     transition[0, 2] = transition[2, 0] = transition[1, 3] = transition[3, 1] = True
@@ -52,7 +56,8 @@ def hky_eigen(kappa, freqs: torch.Tensor) -> EigenSystem:
 
 
 def gtr_eigen(rates6: torch.Tensor, freqs: torch.Tensor) -> EigenSystem:
-    """GTR with 6 exchangeabilities in reference order."""
+    """GTR with 6 exchangeabilities in reference order; rates6 [B, 6] (a
+    chain batch) gives B systems from one batched eigh."""
     return reversible_eigen(symmetric_rates_from_vector(rates6, 4), freqs)
 
 

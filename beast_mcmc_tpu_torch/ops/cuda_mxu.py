@@ -22,6 +22,10 @@ per child. The TPU kernel keeps the [M, C*S, BP] partials on chip; here they
 go to device memory by node, and a team of warps copies a node's matrices
 and its children's tiles into its own shared-memory slot.
 
+A chain batch is the grid's second axis: `prepare_mxu` with [B, ...]
+matrices, children and schedule pads all the chains' matrices in one op and
+launches once; the tips are shared.
+
 The planner. A block of 8 patterns holds `teams` teams of `tw` warps; a team
 computes whole nodes in its own shared-memory slot, its warps sharing the
 node's C * ceil(S / 8) output tiles, at most MAX_UNITS a warp (the register
@@ -148,9 +152,15 @@ def _mxu_plain(tip_partials, schedule, p_matrices, wcs):
     """Plain PyTorch version of the kernel: the same level schedule, one
     batched step a level (ops/cuda_stream2.py::_deep_plain). Returns
     (site_logl [P], post [M, C, S, P]) with the partials by node and the
-    tips' rows holding the tip partials for every category."""
+    tips' rows holding the tip partials for every category. With a chain
+    axis (a chain-axis schedule, p_matrices [B, M, C, S, S], wcs [B, C, S])
+    it peels chain by chain: ([B, P], [B, M, C, S, P])."""
     from beast_mcmc_tpu_torch.ops.cuda_stream2 import _deep_plain
 
+    if p_matrices.dim() == 5:
+        outs = [_mxu_plain(tip_partials, sched, pm, w)
+                for sched, pm, w in zip(zip(*schedule), p_matrices, wcs)]
+        return tuple(torch.stack(t) for t in zip(*outs))
     order, lr_ids, lr_pos, level_start = schedule
     n_tips = tip_partials.shape[0]
     m, c, s = p_matrices.shape[:3]
@@ -172,37 +182,54 @@ def prepare_mxu(tips, children, order, p_matrices, freqs, cat_w,
     kernel. The call's `out` is (site_logl, post); the kernel writes the
     internal nodes' rows of `post` only. `schedule` is
     level_schedule(children, N, parent) where the caller has it (the kernel
-    reads it, not `order`); `teams` and `tw` go to `mxu_plan`."""
+    reads it, not `order`); `teams` and `tw` go to `mxu_plan`.
+
+    A chain batch is one launch: children [B, M, 2], p_matrices [B, M, C,
+    S, S], freqs [B, S], cat_w [B, C] and a chain-axis schedule give
+    (site_logl [B, P], post [B, M, C, S, P]); the tips are shared, and the
+    padding copy of the matrices is one op for every chain. One tree is the
+    B = 1 case of the same launch."""
+    from beast_mcmc_tpu_torch.ops.cuda_peeling import _chain_lead
     from beast_mcmc_tpu_torch.ops.cuda_stream import level_schedule
 
+    chains = p_matrices.dim() == 5
+    children, p_matrices, freqs, cat_w = _chain_lead(
+        chains, children, p_matrices, freqs, cat_w)
     n_tips, s, p = tips.shape
-    check_kernel_inputs(tips, p_matrices, freqs, cat_w, children,
+    check_kernel_inputs(tips, p_matrices[0], freqs[0], cat_w[0], children,
                         states=STATES, max_categories=MAX_CATEGORIES)
-    m, c = p_matrices.shape[:2]
+    b_n, m, c = p_matrices.shape[:3]
     dt = p_matrices.dtype
-    if m != 2 * n_tips - 1 or children.shape != (m, 2):
+    if m != 2 * n_tips - 1 or children.shape != (b_n, m, 2):
         raise ValueError("p_matrices must be [2N-1,C,S,S] and children "
-                         "[2N-1,2]")
+                         "[2N-1,2], each with the chain axis where there is "
+                         "one")
+    if freqs.shape[0] != b_n or cat_w.shape[0] != b_n:
+        raise ValueError("freqs and cat_w must share the chain axis")
     plan = mxu_plan(n_tips - 1, c, s, p_matrices.element_size(), teams, tw)
-    lvl_order, lr_ids, _, level_start = schedule or level_schedule(children,
-                                                                   n_tips)
-    lib = _build.load("peel_mxu", ["peel_mxu_f64", "peel_mxu_f32"], 7,
+    if schedule is None:
+        schedule = level_schedule(children, n_tips)
+    elif not chains:
+        schedule = tuple(t[None] for t in schedule)
+    lvl_order, lr_ids, _, level_start = schedule
+    lib = _build.load("peel_mxu", ["peel_mxu_f64", "peel_mxu_f32"], 8,
                       n_ptrs=8)
     fn = lib.peel_mxu_f64 if dt == torch.float64 else lib.peel_mxu_f32
-    wcs = (cat_w[:, None] * freqs[None, :]).contiguous()
+    wcs = (cat_w[:, :, None] * freqs[:, None, :]).contiguous()
     # the matrices padded as the kernel's shared memory holds them, [mp, lda]
     # (zeros beyond S), so that one bulk copy moves one of them
     kp, mp = -(-s // 4) * 4, -(-s // 8) * 8
     pm_pad = torch.nn.functional.pad(p_matrices,
                                      (0, kp + (4 - kp) % 8 - s, 0, mp - s))
-    post = torch.empty((m, c, s, p), dtype=dt, device=tips.device)
-    site = torch.empty(p, dtype=dt, device=tips.device)
+    post = torch.empty((b_n, m, c, s, p), dtype=dt, device=tips.device)
+    site = torch.empty((b_n, p), dtype=dt, device=tips.device)
     return _build.KernelCall(
         "peel_mxu", fn,
-        (tips, pm_pad, lvl_order.to(torch.int32), lr_ids.contiguous(),
-         level_start, wcs, post, site),
-        (n_tips, c, s, p, plan.teams, plan.tw, plan.g),
-        (site, post))
+        (tips, pm_pad, lvl_order.to(torch.int32).contiguous(),
+         lr_ids.to(torch.int32).contiguous(),
+         level_start.to(torch.int32).contiguous(), wcs, post, site),
+        (n_tips, c, s, p, plan.teams, plan.tw, plan.g, b_n),
+        (site, post) if chains else (site[0], post[0]))
 
 
 def _peel_mxu_kernel(tips, children, order, p_matrices, freqs, cat_w,

@@ -21,6 +21,11 @@ at C categories, WARPS warps and TILES tiles (fewer where the slots do not
 divide among them). The defaults are the fastest of the sweep
 `chip_smoke.py --tiles` at the benchmark2 shape.
 
+A chain batch is the kernel's second grid axis: B chains' matrices,
+schedules and outputs beside one another, the tips shared, one launch
+(`prepare_resident` with [B, ...] inputs); `peel_site_loglik_auto` with
+[B, M, 2] children dispatches a chain batch on every route (`_peel_chains`).
+
 `peel_route` names the kernel a shape goes to. For S = 4,
 `resident_plan_fits` decides between this kernel and the deep streaming one
 (ops/cuda_stream2.py) from the bytes of the branch matrices against the
@@ -144,6 +149,12 @@ def check_kernel_inputs(tips, p_matrices, freqs, cat_w, *int_tensors,
                              f"device, got {t.device} and {dev}")
 
 
+def _chain_lead(chains: bool, *tensors):
+    """The tensors with a leading chain axis of 1 unless `chains`: a single
+    tree is the B = 1 case of a chain-axis kernel."""
+    return tensors if chains else tuple(t[None] for t in tensors)
+
+
 def prepare_resident(tips, children, order, p_matrices, freqs, cat_w,
                      schedule=None, pw: int | None = None,
                      warps: int | None = None,
@@ -154,40 +165,58 @@ def prepare_resident(tips, children, order, p_matrices, freqs, cat_w,
     parent) where the caller has it (the kernel reads it, not `order`);
     `pw`, `warps` and `tiles` go to `resident_plan`. With `want_post` the
     call's `out` is (site_logl, scratch): the kernel writes every node's
-    rescaled partials there, the root's included (`resident_positions`)."""
+    rescaled partials there, the root's included (`resident_positions`).
+
+    A chain batch is one launch: children [B, M, 2], p_matrices [B, M, C,
+    4, 4], freqs [B, 4], cat_w [B, C] and a chain-axis schedule give
+    site_logl [B, P] (and scratch [B, ...]); the tips [N, 4, P] are shared.
+    One tree is the B = 1 case of the same launch."""
     from beast_mcmc_tpu_torch.ops.cuda_stream import level_schedule
 
-    check_kernel_inputs(tips, p_matrices, freqs, cat_w, children)
+    chains = p_matrices.dim() == 5
+    children, p_matrices, freqs, cat_w = _chain_lead(
+        chains, children, p_matrices, freqs, cat_w)
+    check_kernel_inputs(tips, p_matrices[0], freqs[0], cat_w[0], children)
     n_tips, s, p = tips.shape
-    m, c = p_matrices.shape[:2]
+    b_n, m, c = p_matrices.shape[:3]
     dt = p_matrices.dtype
-    if children.shape != (m, 2) or m != 2 * n_tips - 1:
+    if children.shape != (b_n, m, 2) or m != 2 * n_tips - 1:
         raise ValueError("p_matrices must be [2N-1,C,S,S] and children "
-                         "[2N-1,2]")
+                         "[2N-1,2], each with the chain axis where there is "
+                         "one")
+    if freqs.shape[0] != b_n or cat_w.shape[0] != b_n:
+        raise ValueError("freqs and cat_w must share the chain axis")
+    if not p_matrices.is_contiguous():
+        raise ValueError("p_matrices must be contiguous")
     if not resident_plan_fits(m, c, s, p_matrices.element_size()):
         raise ValueError("branch matrices exceed the resident kernel's "
                          "shared memory; use the streaming peel")
     plan = resident_plan(m, c, p_matrices.element_size(), pw, warps, tiles)
-    _, lr_ids, lr_pos, level_start = schedule or level_schedule(children,
-                                                                n_tips)
+    if schedule is None:
+        schedule = level_schedule(children, n_tips)
+    elif not chains:
+        schedule = tuple(t[None] for t in schedule)
+    _, lr_ids, lr_pos, level_start = schedule
     lib = _build.load("peel_resident",
-                      ["peel_resident_f64", "peel_resident_f32"], 8,
+                      ["peel_resident_f64", "peel_resident_f32"], 9,
                       n_ptrs=8)
     fn = (lib.peel_resident_f64 if dt == torch.float64
           else lib.peel_resident_f32)
-    wcs = (cat_w[:, None] * freqs[None, :]).contiguous()
+    wcs = (cat_w[:, :, None] * freqs[:, None, :]).contiguous()
     if p_matrices.data_ptr() % 16:
         p_matrices = p_matrices.clone()  # staged 16 bytes at a time
     blocks = -(-p // (plan.pw * plan.tiles))
-    scratch = torch.empty((blocks * plan.tiles, n_tips - 1, s, c, plan.pw),
-                          dtype=dt, device=tips.device)
-    out = torch.empty(p, dtype=dt, device=tips.device)
+    scratch = torch.empty((b_n, blocks * plan.tiles, n_tips - 1, s, c,
+                           plan.pw), dtype=dt, device=tips.device)
+    out = torch.empty((b_n, p), dtype=dt, device=tips.device)
+    out_ret, scr_ret = (out, scratch) if chains else (out[0], scratch[0])
     return _build.KernelCall(
         "peel_resident", fn,
-        (tips, p_matrices, lr_ids.contiguous(), lr_pos.contiguous(),
-         level_start, wcs, scratch, out),
-        (n_tips, m, c, s, p, plan.pw, plan.warps, plan.tiles),
-        (out, scratch) if want_post else out)
+        (tips, p_matrices, lr_ids.to(torch.int32).contiguous(),
+         lr_pos.to(torch.int32).contiguous(),
+         level_start.to(torch.int32).contiguous(), wcs, scratch, out),
+        (n_tips, m, c, s, p, plan.pw, plan.warps, plan.tiles, b_n),
+        (out_ret, scr_ret) if want_post else out_ret)
 
 
 def resident_positions(scratch, p: int):
@@ -203,9 +232,17 @@ def _resident_plain(tip_partials, lr_ids, lr_pos, level_start, p_matrices,
     """Plain PyTorch version of the resident kernel: the same level
     schedule, one batched step a level (the deep kernel's plain version
     with one partition). With `want_post`, (site_logl, partials by peel
-    position [n_int, C, S, P])."""
+    position [n_int, C, S, P]). With a chain axis (a [B, n_int, 2]
+    schedule, p_matrices [B, M, C, S, S], wcs [B, C, S]) it peels chain by
+    chain and stacks: [B, P] (and [B, n_int, C, S, P])."""
     from beast_mcmc_tpu_torch.ops.cuda_stream2 import _deep_plain
 
+    if lr_ids.dim() == 3:
+        outs = [_resident_plain(tip_partials, *a, want_post)
+                for a in zip(lr_ids, lr_pos, level_start, p_matrices, wcs)]
+        if want_post:
+            return tuple(torch.stack(t) for t in zip(*outs))
+        return torch.stack(outs)
     out = _deep_plain(tip_partials[None], lr_ids, lr_pos, level_start,
                       p_matrices[lr_ids.long()][None], wcs[None],
                       want_post=want_post)
@@ -292,13 +329,25 @@ def peel_site_loglik_auto(tip_partials, children, order, root, p_matrices,
     (`peel_schedule` builds it): level_schedule(children, N, parent) for
     the deep, the resident and the matrix-product kernels, which order by
     depth and do not read `order`; stream_schedule(children, order) for the
-    v1 streaming one (several partitions on one tree)."""
+    v1 streaming one (several partitions on one tree).
+
+    A chain batch (children [B, M, 2], p_matrices [B, M, C, S, S], freqs
+    [B, S], category_weights [B, C], `order` and `schedule` with the chain
+    axis) gives [B, P] from one launch of the route's kernel for all B
+    chains; on the v1 streaming route, whose kernel has no chain axis yet,
+    one launch a chain. On the deep route tip_partials [K, N, S, P] with
+    p_matrices [B, K, M, C, S, S] gives [B, K, P] in one launch. A CPU
+    tensor takes the route's plain chain-axis version. The chain batch
+    takes no gradient: inputs that require grad raise."""
     from beast_mcmc_tpu_torch.ops.cuda_mxu import peel_site_loglik_mxu
     from beast_mcmc_tpu_torch.ops.cuda_stream import peel_site_loglik_stream
     from beast_mcmc_tpu_torch.ops.cuda_stream2 import peel_site_loglik_deep
 
-    m, c, s = p_matrices.shape[:3]
+    m, c, s = p_matrices.shape[-4:-1]
     route = peel_route(m, c, s, p_matrices.element_size())
+    if children.dim() == 3:
+        return _peel_chains(route, tip_partials, children, order, p_matrices,
+                            freqs, category_weights, schedule)
     args = (tip_partials, children, order, root, p_matrices, freqs,
             category_weights)
     if route == "resident":
@@ -310,25 +359,65 @@ def peel_site_loglik_auto(tip_partials, children, order, root, p_matrices,
     return peel_site_loglik_stream(*args, schedule)
 
 
+def _peel_chains(route, tips, children, order, p_matrices, freqs, cat_w,
+                 schedule):
+    """`peel_site_loglik_auto` of a chain batch on `route`."""
+    from beast_mcmc_tpu_torch.ops import cuda_mxu
+    from beast_mcmc_tpu_torch.ops.cuda_stream import (
+        _stream_forward,
+        level_schedule,
+        stream_schedule,
+    )
+    from beast_mcmc_tpu_torch.ops.cuda_stream2 import peel_deep_chains
+
+    if wants_grad(p_matrices, freqs, cat_w):
+        raise RuntimeError("a chain-axis peel takes no gradient: its inputs "
+                           "require grad")
+    if route == "deep":
+        return peel_deep_chains(tips, children, p_matrices, freqs, cat_w,
+                                schedule)
+    if route == "stream":  # one launch a chain
+        lr_ids, lr_pos = schedule or stream_schedule(children, order)
+        return torch.stack([
+            _stream_forward(tips, children[b], order[b], p_matrices[b],
+                            freqs[b], cat_w[b], (lr_ids[b], lr_pos[b]))[0]
+            for b in range(p_matrices.shape[0])])
+    if schedule is None:
+        schedule = level_schedule(children, tips.shape[0])
+    if not tips.is_cuda:
+        wcs = cat_w[:, :, None] * freqs[:, None, :]
+        if route == "resident":
+            return _resident_plain(tips, *schedule[1:], p_matrices, wcs)
+        return cuda_mxu._mxu_plain(tips, schedule, p_matrices, wcs)[0]
+    tips, p_matrices = tips.contiguous(), p_matrices.contiguous()
+    if route == "resident":
+        return _peel_resident_kernel(tips, children, None, p_matrices, freqs,
+                                     cat_w, schedule)
+    return cuda_mxu._peel_mxu_kernel(tips, children, None, p_matrices, freqs,
+                                     cat_w, schedule)[0]
+
 
 def peel_schedule(route: str, children, heights, parent):
     """(order, schedule) of a CUDA peel on `route` (`peel_route`): the
     schedule its kernel reads. The deep, resident and matrix-product kernels
     read level_schedule(children, N, parent), whose order is by depth (one
     sort); the v1 streaming kernel reads stream_schedule of the height
-    order (two sorts)."""
+    order (two sorts). A chain batch (children [B, M, 2], heights and
+    parent [B, M]) gets every chain's schedule, row by row, in the same
+    sorts."""
     from beast_mcmc_tpu_torch.ops.cuda_stream import (
         level_schedule,
         stream_schedule,
     )
     from beast_mcmc_tpu_torch.ops.peeling import peel_order_from_heights
 
-    n_tips = (children.shape[0] + 1) // 2
+    n_tips = (children.shape[-2] + 1) // 2
     if route == "stream":
         order = peel_order_from_heights(heights, n_tips, parent)
         return order, stream_schedule(children, order)
     schedule = level_schedule(children, n_tips, parent)
     return schedule[0], schedule
+
 
 def peel_loglikelihood_auto(tip_partials, children, order, root, p_matrices,
                             freqs, category_weights, pattern_weights,

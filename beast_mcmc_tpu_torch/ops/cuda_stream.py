@@ -115,16 +115,21 @@ def stream_plan(p: int, c: int, s: int, itemsize: int,
 
 def stream_schedule(children, order):
     """(lr_ids, lr_pos), int32 [n_int, 2]: each peel step's children and
-    their positions in the order (-1 for tips)."""
-    m = children.shape[0]
-    n_int = order.shape[0]
+    their positions in the order (-1 for tips). With a leading chain axis,
+    children [B, M, 2] and order [B, n_int] give [B, n_int, 2], row by
+    row."""
+    m = children.shape[-2]
+    n_int = order.shape[-1]
+    lead = order.shape[:-1]
     order = order.long()
-    pos_of = torch.full((m,), -1, dtype=torch.int32, device=children.device)
-    pos_of = pos_of.index_put(
-        (order,), torch.arange(n_int, dtype=torch.int32,
-                               device=children.device))
-    lr_ids = children.long()[order]
-    return lr_ids.to(torch.int32), pos_of[lr_ids]
+    pos_of = torch.full((*lead, m), -1, dtype=torch.int32,
+                        device=children.device)
+    pos_of = pos_of.scatter(-1, order, torch.arange(
+        n_int, dtype=torch.int32, device=children.device).expand(order.shape))
+    lr_ids = torch.gather(children.long(), -2,
+                          order[..., None].expand(*lead, n_int, 2))
+    lr_pos = torch.gather(pos_of, -1, lr_ids.reshape(*lead, 2 * n_int))
+    return lr_ids.to(torch.int32), lr_pos.reshape(lr_ids.shape)
 
 
 def level_schedule(children, n_tips, parent=None):
@@ -135,22 +140,27 @@ def level_schedule(children, n_tips, parent=None):
     the nodes of a level are independent. `level_start` int32 [n_int + 1]
     holds each level's first position; every entry past the last level is
     n_int. All on the device, with no host synchronisation; `parent` is
-    derived from `children` when not given."""
-    m = children.shape[0]
+    derived from `children` when not given. With a leading chain axis
+    (children [B, M, 2], parent [B, M]) every array gains it, and row b is
+    the schedule of chain b's tree: a row-wise stable sort, scatter-add and
+    cumulative sum."""
+    m = children.shape[-2]
+    lead = children.shape[:-2]
     n_int = m - n_tips
     dev = children.device
     if parent is None:
         parent = parent_from_children(children, n_tips)
-    d = node_depths(parent)[n_tips:]
+    d = node_depths(parent)[..., n_tips:]
     # 0 for the deepest level. An invalid proposal (a cycle, which its
     # operator rejects whatever the likelihood) has depths past n_int: the
     # clamp keeps its schedule in range, and is a no-op on a tree.
-    lvl = (d.max() - d).clamp_(0, n_int - 1)
-    order = torch.sort(lvl, stable=True).indices + n_tips
-    counts = torch.zeros(n_int, dtype=torch.int32, device=dev)
-    counts.index_add_(0, lvl, torch.ones_like(counts))
-    level_start = torch.zeros(n_int + 1, dtype=torch.int32, device=dev)
-    level_start[1:] = torch.cumsum(counts, 0, dtype=torch.int32)
+    lvl = (d.amax(-1, keepdim=True) - d).clamp_(0, n_int - 1)
+    order = torch.sort(lvl, dim=-1, stable=True).indices + n_tips
+    counts = torch.zeros((*lead, n_int), dtype=torch.int32, device=dev)
+    counts.scatter_add_(-1, lvl, torch.ones_like(counts))
+    level_start = torch.zeros((*lead, n_int + 1), dtype=torch.int32,
+                              device=dev)
+    level_start[..., 1:] = torch.cumsum(counts, -1, dtype=torch.int32)
     return (order, *stream_schedule(children, order), level_start)
 
 

@@ -18,6 +18,11 @@ all K partitions. The plain version `_deep_plain` peels from the same
 arrays, level by level, batched over the nodes of a level and over the
 partitions, so a CPU tensor checks the gather as well as the arithmetic.
 
+A chain batch is the grid's third axis, (tiles, K, B): pm_ord [B, K,
+n_int, 2, C, S, S] gathered by `chains_pm_ord`, a chain-axis schedule,
+the tips shared; `peel_deep_chains` is its entry, `_deep_plain` its plain
+version chain by chain.
+
 Both take the logarithms of the scales in float64 and sum them in float64
 whatever the working type, the kernel slot by slot (as a running product)
 and the plain version level by level: float32 sums over ~1,600 nodes in
@@ -49,6 +54,7 @@ import torch
 from beast_mcmc_tpu_torch.ops import _build
 from beast_mcmc_tpu_torch.ops.cuda_peeling import (
     MAX_CATEGORIES,
+    _chain_lead,
     check_kernel_inputs,
 )
 from beast_mcmc_tpu_torch.ops.cuda_stream import level_schedule
@@ -107,7 +113,15 @@ def _deep_plain(tips, lr_ids, lr_pos, level_start, pm_ord, wcs,
     log-likelihood [K, P], and with `want_post` the rescaled partials by
     peel position [K, n_int, C, S, P] too. One batched step a level. It is
     the plain version of the resident and the matrix-product kernels as well
-    (K = 1), which peel the same schedule."""
+    (K = 1), which peel the same schedule. With a chain axis (a [B, n_int,
+    2] schedule, pm_ord [B, K, ...], wcs [B, K, C, S]; the tips shared) it
+    peels chain by chain, each at its own levels, and stacks: [B, K, P]."""
+    if lr_ids.dim() == 3:
+        outs = [_deep_plain(tips, *a, want_post)
+                for a in zip(lr_ids, lr_pos, level_start, pm_ord, wcs)]
+        if want_post:
+            return tuple(torch.stack(t) for t in zip(*outs))
+        return torch.stack(outs)
     k_parts, n_tips, s, p = tips.shape
     n_int = lr_ids.shape[0]
     c = pm_ord.shape[3]
@@ -144,39 +158,50 @@ def prepare_deep(tips, lr_ids, lr_pos, level_start, pm_ord, freqs, cat_w,
     4, 4], freqs [K, 4], cat_w [K, C]. `pw` and `warps` go to `deep_plan`.
     With `want_post` the call's `out` is (site_logl, scratch), the kernel
     writing every node's partials there, the root's included
-    (`deep_positions`)."""
+    (`deep_positions`).
+
+    A chain batch is one launch: a chain-axis schedule ([B, n_int, 2],
+    [B, n_int + 1]), pm_ord [B, K, n_int, 2, C, 4, 4], freqs [B, K, 4] and
+    cat_w [B, K, C] give [B, K, P]; the tips are shared. One tree is the
+    B = 1 case of the same launch."""
+    chains = pm_ord.dim() == 7
+    lr_ids, lr_pos, level_start, pm_ord, freqs, cat_w = _chain_lead(
+        chains, lr_ids, lr_pos, level_start, pm_ord, freqs, cat_w)
     k_parts, n_tips, s, p = tips.shape
-    n_int = lr_ids.shape[0]
-    c = pm_ord.shape[3]
+    b_n, _, n_int = pm_ord.shape[:3]
+    c = pm_ord.shape[4]
     dt = pm_ord.dtype
-    check_kernel_inputs(tips[0], pm_ord[0].reshape(-1, c, s, s), freqs[0],
-                        cat_w[0], lr_ids, lr_pos, level_start,
-                        max_categories=MAX_CATEGORIES)
-    if (pm_ord.shape != (k_parts, n_int, 2, c, s, s)
-            or freqs.shape != (k_parts, s) or cat_w.shape != (k_parts, c)):
+    check_kernel_inputs(tips[0], pm_ord[0, 0].reshape(-1, c, s, s),
+                        freqs[0, 0], cat_w[0, 0], lr_ids, lr_pos,
+                        level_start, max_categories=MAX_CATEGORIES)
+    if (pm_ord.shape != (b_n, k_parts, n_int, 2, c, s, s)
+            or freqs.shape != (b_n, k_parts, s)
+            or cat_w.shape != (b_n, k_parts, c)):
         raise ValueError("tips, pm_ord, freqs and cat_w must share the "
-                         "partition axis K")
-    if n_int != n_tips - 1 or level_start.shape != (n_int + 1,):
+                         "partition axis K (and the chain axis)")
+    if (n_int != n_tips - 1 or lr_ids.shape != (b_n, n_int, 2)
+            or level_start.shape != (b_n, n_int + 1)):
         raise ValueError("the schedule must cover the N-1 internal nodes")
-    plan = deep_plan(p, k_parts, c, pm_ord.element_size(), pw, warps)
+    plan = deep_plan(p, k_parts * b_n, c, pm_ord.element_size(), pw, warps)
     lib = _build.load("peel_stream", ["peel_stream_f64", "peel_stream_f32"],
-                      8, n_ptrs=8)
+                      9, n_ptrs=8)
     fn = lib.peel_stream_f64 if dt == torch.float64 else lib.peel_stream_f32
-    wcs = (cat_w[:, :, None] * freqs[:, None, :]).contiguous()
+    wcs = (cat_w[..., None] * freqs[..., None, :]).contiguous()
     ids32 = lr_ids.to(torch.int32).contiguous()
     pos32 = lr_pos.to(torch.int32).contiguous()
     ls32 = level_start.to(torch.int32).contiguous()
     if not pm_ord.is_contiguous() or pm_ord.data_ptr() % 16:
-        pm_ord = pm_ord.clone()  # the kernel copies it 16 bytes at a time
+        pm_ord = pm_ord.contiguous().clone()  # copied 16 bytes at a time
     tiles = -(-p // plan.pw)
-    scratch = torch.empty((k_parts, tiles, n_int, c, s, plan.pw), dtype=dt,
-                          device=tips.device)
-    out = torch.empty((k_parts, p), dtype=dt, device=tips.device)
+    scratch = torch.empty((b_n, k_parts, tiles, n_int, c, s, plan.pw),
+                          dtype=dt, device=tips.device)
+    out = torch.empty((b_n, k_parts, p), dtype=dt, device=tips.device)
+    out_ret, scr_ret = (out, scratch) if chains else (out[0], scratch[0])
     return _build.KernelCall(
         "peel_stream", fn,
         (tips, pm_ord, ids32, pos32, ls32, wcs, scratch, out),
-        (n_tips, n_int, c, s, p, k_parts, plan.pw, plan.warps),
-        (out, scratch) if want_post else out)
+        (n_tips, n_int, c, s, p, k_parts, plan.pw, plan.warps, b_n),
+        (out_ret, scr_ret) if want_post else out_ret)
 
 
 def deep_positions(scratch, p: int):
@@ -199,6 +224,48 @@ def _peel_deep_kernel(tips, lr_ids, lr_pos, level_start, pm_ord, freqs,
     if want_post:
         return out[0], deep_positions(out[1], tips.shape[-1])
     return out
+
+
+def chains_pm_ord(p_matrices, lr_ids):
+    """The chains' branch matrices in their peel orders: p_matrices [B, K,
+    M, C, S, S] and a chain-axis schedule lr_ids [B, n_int, 2] give pm_ord
+    [B, K, n_int, 2, C, S, S], one gather for every chain and partition."""
+    b_n = p_matrices.shape[0]
+    rows = torch.arange(b_n, device=p_matrices.device)[:, None, None]
+    return p_matrices.transpose(1, 2)[rows, lr_ids.long()].permute(
+        0, 3, 1, 2, 4, 5, 6).contiguous()
+
+
+def peel_deep_chains(tip_partials, children, p_matrices, freqs,
+                     category_weights, schedule=None) -> torch.Tensor:
+    """The deep peel of a chain batch, in one launch: children [B, M, 2];
+    one partition, tip_partials [N, S, P], p_matrices [B, M, C, S, S],
+    freqs [B, S] and category_weights [B, C], gives [B, P]; K partitions on
+    each chain's tree, [K, N, S, P], [B, K, M, C, S, S], [B, K, S] and
+    [B, K, C], give [B, K, P]. `schedule` is the chain-axis
+    level_schedule(children, N, parent) where the caller has it. A CPU
+    tensor takes the plain version. No gradient: the chain batch's adjoint
+    is not written yet, so inputs that require grad raise."""
+    if wants_grad(p_matrices, freqs, category_weights):
+        raise RuntimeError("a chain-axis peel takes no gradient: its "
+                           "inputs require grad")
+    one = tip_partials.dim() == 3
+    if one:
+        tip_partials, p_matrices = tip_partials[None], p_matrices[:, None]
+        freqs, category_weights = freqs[:, None], category_weights[:, None]
+    if schedule is None:
+        schedule = level_schedule(children, tip_partials.shape[1])
+    _, lr_ids, lr_pos, level_start = schedule
+    pm_ord = chains_pm_ord(p_matrices, lr_ids)
+    if not tip_partials.is_cuda:
+        wcs = category_weights[..., None] * freqs[..., None, :]
+        site = _deep_plain(tip_partials, lr_ids, lr_pos, level_start, pm_ord,
+                           wcs)
+    else:
+        site = _peel_deep_kernel(tip_partials.contiguous(), lr_ids, lr_pos,
+                                 level_start, pm_ord, freqs,
+                                 category_weights)
+    return site[:, 0] if one else site
 
 
 def peel_site_loglik_deep(tip_partials, children, order, root, p_matrices,

@@ -37,20 +37,21 @@ from beast_mcmc_tpu_torch.utils.accum import stable_dot
 
 
 def _stable_argsort(key: torch.Tensor) -> torch.Tensor:
-    return torch.sort(key, stable=True).indices
+    return torch.sort(key, dim=-1, stable=True).indices
 
 
 def node_depths(parent: torch.Tensor) -> torch.Tensor:
-    """int64[M] edge count from the root of every node (`parent` -1 at the
-    root), by pointer doubling on the device: ceil(log2 M) rounds of
-    gathers, whatever the tree's depth, so the host learns nothing."""
-    m = parent.shape[0]
-    jump = torch.where(parent >= 0, parent.long(),
-                       torch.arange(m, device=parent.device))
+    """int64[..., M] edge count from the root of every node (`parent` -1 at
+    the root), by pointer doubling on the device: ceil(log2 M) rounds of
+    gathers, whatever the tree's depth, so the host learns nothing. A
+    leading chain axis [B, M] gives each row its own tree's depths."""
+    m = parent.shape[-1]
+    ar = torch.arange(m, device=parent.device).expand(parent.shape)
+    jump = torch.where(parent >= 0, parent.long(), ar)
     d = (parent >= 0).long()
     for _ in range(max(1, math.ceil(math.log2(max(m, 2))))):
-        d = d + d[jump]
-        jump = jump[jump]
+        d = d + torch.gather(d, -1, jump)
+        jump = torch.gather(jump, -1, jump)
     return d
 
 
@@ -60,16 +61,17 @@ def peel_order_from_heights(heights: torch.Tensor, n_taxa: int,
     """Child-before-parent order over the internal nodes: int64[N-1] node
     indices sorted by height. With `parent`, ties (zero-length internal
     branches) break by depth from the root, deeper first. Runs on the
-    tensors' device, with no host copy."""
-    h = heights[n_taxa:]
+    tensors' device, with no host copy. A leading chain axis ([B, M]
+    heights and parent) gives [B, N-1], row by row."""
+    h = heights[..., n_taxa:]
     if parent is None:
         return _stable_argsort(h) + n_taxa
     d = node_depths(parent)
     # lexsort from two stable sorts: secondary key (depth, descending)
     # first, then the primary key (height, ascending)
-    sec = _stable_argsort(-d[n_taxa:])
-    prim = _stable_argsort(h[sec])
-    return sec[prim] + n_taxa
+    sec = _stable_argsort(-d[..., n_taxa:])
+    prim = _stable_argsort(torch.gather(h, -1, sec))
+    return torch.gather(sec, -1, prim) + n_taxa
 
 
 def _node_op(p_l, p_r, post_l, post_r):
@@ -110,12 +112,16 @@ def _level_form(c: int, p: int) -> bool:
 
 
 def parent_from_children(children: torch.Tensor, n_tips: int) -> torch.Tensor:
-    """int64[M] parent of every node (-1 at the root), by scatter."""
-    m = children.shape[0]
-    parent = torch.full((m,), -1, dtype=torch.long, device=children.device)
-    parent[children[n_tips:].long().reshape(-1)] = torch.arange(
-        n_tips, m, device=children.device).repeat_interleave(2)
-    return parent
+    """int64[M] parent of every node (-1 at the root), by scatter; children
+    [B, M, 2] with a leading chain axis give [B, M]."""
+    m = children.shape[-2]
+    lead = children.shape[:-2]
+    kids = children[..., n_tips:, :].long().reshape(*lead, -1)
+    parent = torch.full((*lead, m), -1, dtype=torch.long,
+                        device=children.device)
+    return parent.scatter_(-1, kids, torch.arange(
+        n_tips, m, device=children.device).repeat_interleave(2).expand(
+            kids.shape))
 
 
 def _internal_depths(children: torch.Tensor, n_tips: int) -> torch.Tensor:

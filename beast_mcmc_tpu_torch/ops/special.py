@@ -39,8 +39,8 @@ def _fit_category_quantile_coeffs(k: int) -> np.ndarray:
 
 def log_gamma_category_quantiles(alpha: torch.Tensor,
                                  n_categories: int) -> torch.Tensor:
-    """log q_i(alpha), scale 1, [K]. alpha is clamped to the fitted range
-    [1e-3, 1e3]."""
+    """log q_i(alpha), scale 1, [K]; alpha [B] (a chain batch) gives [B, K].
+    alpha is clamped to the fitted range [1e-3, 1e3]."""
     dt, dev = alpha.dtype, alpha.device
     # cached per device: a host-to-device copy on every call would stall
     # the chain
@@ -54,5 +54,6 @@ def log_gamma_category_quantiles(alpha: torch.Tensor,
     x = torch.clamp(2.0 * (la - _CHEB_LO) / (_CHEB_HI - _CHEB_LO) - 1.0,
                     -1.0, 1.0)
     theta = torch.arccos(x)
-    basis = torch.cos(torch.arange(_CHEB_DEG + 1, dtype=dt, device=dev) * theta)
-    return coeffs @ basis
+    basis = torch.cos(torch.arange(_CHEB_DEG + 1, dtype=dt, device=dev)
+                      * theta[..., None])
+    return coeffs @ basis if theta.dim() == 0 else basis @ coeffs.T

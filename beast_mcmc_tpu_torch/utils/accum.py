@@ -20,6 +20,13 @@ def stable_dot(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
                      x.reshape(-1).to(torch.float64))
 
 
+def chain_dot(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """stable_dot of each chain: x [B, ...] against w of x's trailing shape,
+    in float64; returns [B]."""
+    x = x.to(torch.float64)
+    return x.reshape(x.shape[0], -1) @ w.reshape(-1).to(torch.float64)
+
+
 def stable_sum(x: torch.Tensor) -> torch.Tensor:
     """sum(x) in float64."""
     return torch.sum(x.to(torch.float64))

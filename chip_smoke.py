@@ -67,6 +67,19 @@ result line):
      Alignment to tree_loglikelihood against the CPU, and the benchmark1
      likelihood partition by partition by peel_loglikelihood_stream (the v1
      streaming kernel) against the chain's route (one deep launch).
+  8. chain batches and MC3 (`chain_paths`): P8a, the benchmark2 chain as a
+     batch of 8 chains (inference/mcmc.py::make_multichain_step), P8b
+     Makona with 4, P8d protein with 4, each one kernel launch a step for
+     the whole batch and the full-evaluation check on every chain; P8c, MC3
+     (inference/mc3.py) on 4 chains at benchmark1, each chain its own
+     operator draw, one launch a step for 4 chains and 3 partitions, the
+     swap acceptance inside [0.05, 0.95]; P8e, one benchmark2 chain through
+     the component cache (inference/component_cache.py), a launch exactly
+     on each step whose operator refreshes the likelihood. Phase 2 also
+     holds each chain-axis kernel (peel_resident at B = 8, peel_stream at
+     B = 4 and at B = 4 x K = 3, peel_mxu at B = 4, the chains' trees from
+     their own seeds) against its plain chain-axis version and B single
+     launches, and times the one launch against the B.
 
 `python3 chip_smoke.py --tiles` instead builds the v1 streaming kernel and
 times it at every pattern-tile width its planner could pick (32, 16, 8, 4
@@ -81,8 +94,8 @@ patterns a slot) and 4, 8, 16 and 32 warps a block, and last the resident
 kernel at the benchmark2 shape at 8 and 4 patterns a slot, 4 to 32 warps
 and 1 to 8 pattern tiles a block.
 
-It prints the card's name and power limit, one {"kernels": [...]} line,
-and last {"ok": true, "device": {...}}. It imports nothing of JAX and
+It prints each phase's seconds, the card's name and power limit, one
+{"kernels": [...]} line, and last {"ok": true, "device": {...}}. It imports nothing of JAX and
 nothing of the JAX package.
 """
 
@@ -181,9 +194,10 @@ def bound_ms(tensors_in, tensors_out, n_int, c, s, p, dtype_name, k=1):
 def _strict_clock_analysis(tips_np, weights_np, freqs, seed, dtype, device,
                            params0, derived, model, extra_ops):
     """The five-tuple of `build_analysis` for a one-partition analysis under
-    a strict clock and a constant coalescent. `model(params, cached)` gives
-    (eigensystem, category rates, category weights), from the derived
-    entries of `params` when `cached`."""
+    a strict clock and a constant coalescent, aux["log_post_chains"] and
+    aux["log_post_cached_chains"] (the chain-axis forms) included.
+    `model(params, cached)` gives (eigensystem, category rates, category
+    weights), from the derived entries of `params` when `cached`."""
     import numpy as np
     import torch
 
@@ -213,9 +227,9 @@ def _strict_clock_analysis(tips_np, weights_np, freqs, seed, dtype, device,
             tips, weights, tree.parent, tree.children, tree.heights,
             tree.root, eig, freqs, rates, cat_w, params["clock.rate"])
 
-    def log_prior(params, tree):
-        return (one_on_x_logpdf(params["pop.size"])
-                + lognormal_logpdf(params["clock.rate"], 0.0, 1.0)
+    def log_prior(params, tree, chains=False):
+        return (one_on_x_logpdf(params["pop.size"], chains)
+                + lognormal_logpdf(params["clock.rate"], 0.0, 1.0, chains)
                 + constant_coalescent_loglik(tree.heights, n_taxa,
                                              params["pop.size"]))
 
@@ -224,6 +238,14 @@ def _strict_clock_analysis(tips_np, weights_np, freqs, seed, dtype, device,
 
     def log_post_cached(params, tree):
         return log_lik(params, tree, cached=True) + log_prior(params, tree)
+
+    # the same posteriors over a chain batch: [B] from one launch
+    def log_post_chains(params, tree):
+        return log_lik(params, tree) + log_prior(params, tree, True)
+
+    def log_post_cached_chains(params, tree):
+        return (log_lik(params, tree, cached=True)
+                + log_prior(params, tree, True))
 
     params0 = {k: torch.tensor(v, dtype=dtype, device=device)
                for k, v in {**params0, "clock.rate": 1.0,
@@ -240,7 +262,9 @@ def _strict_clock_analysis(tips_np, weights_np, freqs, seed, dtype, device,
     ]
     aux = {"tips": tips, "weights": weights, "freqs": freqs,
            "log_lik": log_lik, "derived": derived,
-           "log_post_cached": log_post_cached}
+           "log_post_cached": log_post_cached,
+           "log_post_chains": log_post_chains,
+           "log_post_cached_chains": log_post_cached_chains}
     return log_post, operators, apply_derived(derived, params0), tree0, aux
 
 
@@ -614,6 +638,208 @@ def sampler_paths(paths, reset_counts, read_counts, device_ms, dev):
     return records, launches
 
 
+# phase 8, chain batches and MC3: chains, steps and full-evaluation steps
+# of the make_multichain_step paths; MC3 at benchmark1; the component cache
+P8_WARM = 20
+P8_PATHS = {"benchmark2": (8, 200, 40), "makona": (4, 60, 15),
+            "protein": (4, 100, 25)}
+P8C_CHAINS, P8C_ROUNDS, P8C_SWAP_EVERY, P8C_WARM = 4, 20, 12, 24
+P8E_STEPS = 200
+SWAP_BAND = (0.05, 0.95)  # __graft_entry__.py:118-122
+
+
+def chain_paths(paths, reset_counts, read_counts, device_ms, dev):
+    """Phase 8: chain batches (inference/mcmc.py::make_multichain_step),
+    MC3 (inference/mc3.py) and the component cache
+    (inference/component_cache.py) on the card.
+
+    paths: {label: ((log_post, operators, params0, tree0, aux), the route's
+    kernel, the single chain's states/s measured in this run)} for
+    "benchmark2", "makona", "protein" and "benchmark1". P8a, P8b, P8d: a
+    batch of P8_PATHS[label] chains replicated from the analysis's start,
+    one operator drawn a step for all chains, exactly one launch of the
+    route's kernel a step, the full-evaluation check over every chain. P8c:
+    MC3 at benchmark1, each chain its own operator draw and still one
+    launch a step; the ladder's delta from the adjacent log-posterior gaps
+    after a warm-up at temperature 1, so that (dT)(dL) ~ 1 as
+    __graft_entry__.py:90-94 reasons; the swap acceptance inside
+    SWAP_BAND. P8e: one benchmark2 chain through make_mcmc_step's component
+    cache (likelihood, coalescent and two priors): its launches equal its
+    steps whose operator refreshes the likelihood. Returns ({path: record},
+    {path: launches})."""
+    import bisect
+
+    import numpy as np
+    import torch
+
+    from beast_mcmc_tpu_torch.inference.component_cache import (
+        component_lp_fn, full_lp_fn, make_components, seed_components)
+    from beast_mcmc_tpu_torch.inference.mc3 import (
+        make_mc3_runner, replicate_state)
+    from beast_mcmc_tpu_torch.inference.mcmc import (
+        apply_derived, full_evaluation_check, init_mcmc_state,
+        make_mcmc_step, make_multichain_step, operator_report, run_chain)
+    from beast_mcmc_tpu_torch.inference.operators import TREE_HEIGHTS
+
+    records, launches = {}, {}
+
+    def sync():
+        if dev != "cpu":
+            torch.cuda.synchronize()
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def only(kname, n):
+        return lambda counts: counts == {k: n * (k == kname) for k in counts}
+
+    def batch(label, seed):
+        (_, ops, p0, t0, aux), kname, _ = paths[label]
+        lpc = aux["log_post_cached"]
+        st = init_mcmc_state(p0, t0, gen(seed), ops, lpc)
+        return replicate_state(st, P8_PATHS.get(label, (P8C_CHAINS,))[0],
+                               gen(seed + 1))
+
+    for p_name, label, seed in (("P8a", "benchmark2", 80),
+                                ("P8b", "makona", 81),
+                                ("P8d", "protein", 83)):
+        t_phase = time.perf_counter()
+        (log_post, ops, _, _, aux), kname, single = paths[label]
+        b_n, n_steps, n_check = P8_PATHS[label]
+        mstep = make_multichain_step(aux["log_post_cached_chains"], ops,
+                                     derived=aux["derived"])
+        states = batch(label, seed)
+        states, _ = run_chain(mstep, states, P8_WARM)
+        sync()
+        reset_counts()
+        t0_ = time.perf_counter()
+        states, _ = run_chain(mstep, states, n_steps)
+        sync()
+        secs = time.perf_counter() - t0_
+        counts = read_counts()
+        lps = states.log_posterior.tolist()
+        rec = {"chains": b_n, "steps": n_steps, "seconds": secs,
+               "aggregate_states_per_s": b_n * n_steps / secs,
+               "single_chain_states_per_s": single, "launches": counts,
+               "log_posterior": lps}
+        if dev != "cpu":
+            wall, busy = device_ms(lambda: run_chain(mstep, states, 20),
+                                   f"{p_name} {label}", 20, 8)
+            rec.update({"profiled_ms_per_step": wall,
+                        "device_busy_ms_per_step": busy or "not measured",
+                        "device_busy_share": (busy / wall if busy
+                                              else "not measured")})
+        states, dev_max = full_evaluation_check(
+            mstep, aux["log_post_chains"], states, n_check,
+            derived=aux["derived"])
+        rec["full_eval_max_deviation"] = float(dev_max)
+        rec["seconds_in_phase"] = time.perf_counter() - t_phase
+        log(f"[{p_name} {label}] {json.dumps(rec)}")
+        log(operator_report(ops, states))
+        if not only(kname, n_steps)(counts):
+            raise AssertionError(f"{p_name}: expected one {kname} launch a "
+                                 f"step for all {b_n} chains, got {counts}")
+        if not all(np.isfinite(lps)):
+            raise AssertionError(f"{p_name}: a chain's posterior is not "
+                                 f"finite: {lps}")
+        if not rec["full_eval_max_deviation"] < FULL_EVAL_TOL:
+            raise AssertionError(f"{p_name}: full-evaluation deviation "
+                                 f"{rec['full_eval_max_deviation']}")
+        records[p_name], launches[f"{label} {p_name}"] = rec, counts
+
+    # P8c: MC3 at benchmark1
+    t_phase = time.perf_counter()
+    (_, ops, _, _, aux), kname, single = paths["benchmark1"]
+    lp_chains = aux["log_post_chains"]
+    states = batch("benchmark1", 82)
+    warm = make_multichain_step(lp_chains, ops)
+    states, _ = run_chain(warm, states, P8C_WARM)
+    lp = states.log_posterior.tolist()
+    gap = float(np.mean(np.abs(np.diff(lp))))
+    delta = 1.0 / gap if gap > 0 else 1.0
+    run, temps = make_mc3_runner(lp_chains, ops, P8C_CHAINS,
+                                 swap_every=P8C_SWAP_EVERY, delta=delta)
+    sync()
+    reset_counts()
+    t0_ = time.perf_counter()
+    states, out = run(states, torch.Generator().manual_seed(84), P8C_ROUNDS,
+                      collector=lambda c: {"lp": c.log_posterior})
+    sync()
+    secs = time.perf_counter() - t0_
+    counts = read_counts()
+    n_steps = P8C_ROUNDS * P8C_SWAP_EVERY
+    swap_rate = float(out["swap_accepted"].double().mean())
+    cold = out["lp"].tolist()
+    rec = {"chains": P8C_CHAINS, "rounds": P8C_ROUNDS,
+           "swap_every": P8C_SWAP_EVERY, "warm_up_gap": gap, "delta": delta,
+           "temperatures": temps.tolist(), "seconds": secs,
+           "aggregate_states_per_s": P8C_CHAINS * n_steps / secs,
+           "single_chain_states_per_s": single, "launches": counts,
+           "swap_acceptance": swap_rate,
+           "swaps_accepted": out["swap_accepted"].tolist(),
+           "cold_log_posterior_last": cold[-1],
+           "seconds_in_phase": time.perf_counter() - t_phase}
+    log(f"[P8c benchmark1] {json.dumps(rec)}")
+    log(operator_report(ops, states))
+    if not only(kname, n_steps)(counts):
+        raise AssertionError(f"P8c: expected one {kname} launch a step for "
+                             f"the {P8C_CHAINS} chains, got {counts}")
+    if not SWAP_BAND[0] <= swap_rate <= SWAP_BAND[1]:
+        raise AssertionError(f"P8c: swap acceptance {swap_rate} outside "
+                             f"{SWAP_BAND} (delta {delta})")
+    if not all(np.isfinite(cold)):
+        raise AssertionError(f"P8c: the cold chain's posterior is not finite")
+    records["P8c"], launches["benchmark1 P8c"] = rec, counts
+
+    # P8e: the component cache on one benchmark2 chain
+    t_phase = time.perf_counter()
+    (log_post, ops, p0, t0, aux), kname, single = paths["benchmark2"]
+    comps = make_components(aux["components"], p0, t0)
+    # the tree operators (modifies_params == ()) and up/down on the heights
+    tree_flags = [op.modifies_params == () or TREE_HEIGHTS in (
+        *getattr(op, "up", ()), *getattr(op, "down", ())) for op in ops]
+    step = make_mcmc_step(log_post, ops, derived=aux["derived"],
+                          components=comps, op_tree_flags=tree_flags)
+    state = init_mcmc_state(seed_components(p0, t0, comps), t0, gen(85), ops,
+                            component_lp_fn(comps))
+    lik = next(i for i, c in enumerate(comps) if c.name == "likelihood")
+    cum = np.cumsum(torch.exp(step.log_probs).numpy()).tolist()
+    sync()
+    reset_counts()
+    touching = 0
+    t0_ = time.perf_counter()
+    for _ in range(P8E_STEPS):  # the step's own draw, made here to count
+        u = float(torch.rand((), generator=state.op_generator,
+                             dtype=torch.float64))
+        i = min(bisect.bisect_right(cum, u), len(cum) - 1)
+        touching += lik in step.refreshed[i]
+        state = step.given_op(state, i)
+    sync()
+    secs = time.perf_counter() - t0_
+    counts = read_counts()
+    fresh = full_lp_fn(comps)(apply_derived(aux["derived"], state.params),
+                              state.tree)
+    dev_sum = abs(float(fresh) - float(state.log_posterior))
+    rec = {"steps": P8E_STEPS, "likelihood_steps": touching,
+           "launches": counts, "seconds": secs,
+           "states_per_s": P8E_STEPS / secs,
+           "single_chain_states_per_s": single,
+           "components": [{"name": c.name, "deps": sorted(c.deps),
+                           "uses_tree": c.uses_tree} for c in comps],
+           "tree_flags": tree_flags, "refreshed": step.refreshed,
+           "carried_vs_full_deviation": dev_sum,
+           "seconds_in_phase": time.perf_counter() - t_phase}
+    log(f"[P8e benchmark2] {json.dumps(rec)}")
+    if not only(kname, touching)(counts) or touching >= P8E_STEPS:
+        raise AssertionError(f"P8e: expected {touching} {kname} launches of "
+                             f"{P8E_STEPS} steps, got {counts}")
+    if not dev_sum < FULL_EVAL_TOL:
+        raise AssertionError(f"P8e: carried sum off the full posterior by "
+                             f"{dev_sum}")
+    records["P8e"], launches["benchmark2 P8e"] = rec, counts
+    return records, launches
+
+
 def main():
     import numpy as np
     import torch
@@ -796,6 +1022,15 @@ def main():
             log(line)
         return 0
 
+    phases = {}  # seconds of each phase
+    t_mark = [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        phases[name] = now - t_mark[0]
+        t_mark[0] = now
+        log(f"[phase] {name} {phases[name]:.2f} s")
+
     # -- phase 1: build ------------------------------------------------
     t0 = time.perf_counter()
     built = _build.build_all(KERNELS)
@@ -818,6 +1053,7 @@ def main():
     analyses[CODON] = codon_analysis(CODON[0], CODON[3], 0, torch.float64, dev)
     torch.cuda.synchronize()
     log(f"[setup] analyses built in {time.perf_counter() - t0:.2f} s")
+    mark("1 build and set-up")
 
     def peel_inputs(shape, dtype, partitions=False):
         """(tips, children, order, root, p_matrices, freqs, cat_w) of an
@@ -825,13 +1061,30 @@ def main():
         `partitions` all three ([K, ...] tips, matrices, freqs, weights)."""
         _, _, p0, t0_, aux = analyses[shape]
         tips, freqs = aux["tips"], aux["freqs"]
+        eig, rates = model_of(shape, partitions)
+        pm = branch_transition_matrices(eig, t0_.parent, t0_.heights,
+                                        p0["clock.rate"], rates)
+        cw = model_of(shape, partitions, weights=True)
+        if shape == B1:
+            tips = tips if partitions else tips[0]
+            freqs = freqs.expand(3, 4) if partitions else freqs
+        order = peel_order_from_heights(t0_.heights, shape[0], t0_.parent)
+        return (tips.to(dtype).contiguous(), t0_.children, order,
+                t0_.root, pm.to(dtype).contiguous(), freqs.to(dtype),
+                cw.to(dtype))
+
+    def model_of(shape, partitions=False, weights=False):
+        """(eigensystem, category rates) of an analysis at its start, or
+        with `weights` its category weights; partition 0 of benchmark1, or
+        with `partitions` all three."""
+        _, _, p0, _, aux = analyses[shape]
+        freqs = aux["freqs"]
         if shape == B1 and partitions:
             freqs = freqs.expand(3, 4)
             eig = hky_eigen(p0["kappa"], freqs)
             rates, cw = single_rate(dtype=torch.float64, device=dev)
             rates, cw = p0["mu"][:, None] * rates, cw.expand(3, 1)
         elif shape == B1:
-            tips = tips[0]
             eig = hky_eigen(p0["kappa"][0], freqs)
             rates, cw = single_rate(dtype=torch.float64, device=dev)
             rates = p0["mu"][0] * rates
@@ -844,12 +1097,7 @@ def main():
         else:
             eig = p0["eig"]
             rates, cw = p0["site.rates"]
-        pm = branch_transition_matrices(eig, t0_.parent, t0_.heights,
-                                        p0["clock.rate"], rates)
-        order = peel_order_from_heights(t0_.heights, shape[0], t0_.parent)
-        return (tips.to(dtype).contiguous(), t0_.children, order,
-                t0_.root, pm.to(dtype).contiguous(), freqs.to(dtype),
-                cw.to(dtype))
+        return cw if weights else (eig, rates)
 
     # -- phase 2: kernel vs plain on the card -------------------------
     checks = {k: [] for k in KERNELS}
@@ -1056,6 +1304,120 @@ def main():
         check("peel_mxu", f"caterpillar {name}", random_inputs(
             *CATERPILLAR_MXU, 8, dtype, caterpillar=True)[0], 10, 1)
 
+    mark("2 kernel vs plain")
+
+    # -- phase 2, chain axis: B chains' trees, each from its own seed, in
+    # one launch against the plain chain-axis version and B single launches
+    def chain_inputs(shape, b_n, seed, partitions=False):
+        """The analysis's tips with B chains' trees drawn from seeds seed,
+        seed + 1, ... and their branch matrices from the analysis's model:
+        (tips, children [B, M, 2], parent [B, M], p_matrices [B, (K,) M, C,
+        S, S], freqs [B, (K,) S], cat_w [B, (K,) C])."""
+        tips, ch0, _, _, _, fr, cw = peel_inputs(shape, f64, partitions)
+        eig, rates = model_of(shape, partitions)
+        _, _, p0, _, _ = analyses[shape]
+        trees = [make_tree_state(*simulate_coalescent_tree(
+            np.random.default_rng(seed + b), np.zeros(shape[0]), 0.5),
+            dtype=f64, device=dev) for b in range(b_n)]
+        pms = [branch_transition_matrices(eig, t.parent, t.heights,
+                                          p0["clock.rate"], rates)
+               for t in trees]
+        return (tips, torch.stack([t.children for t in trees]),
+                torch.stack([t.parent for t in trees]),
+                torch.stack(pms).contiguous(),
+                fr.expand(b_n, *fr.shape).contiguous(),
+                cw.expand(b_n, *cw.shape).contiguous())
+
+    def chain_check(kname, label, shape, b_n, seed, reps, plain_reps,
+                    partitions=False):
+        tips, ch, par, pm, fr, cw = chain_inputs(shape, b_n, seed, partitions)
+        n_tips = tips.shape[-3]
+        n_int = n_tips - 1
+        c, s, p = pm.shape[-3], pm.shape[-2], tips.shape[-1]
+        sched = cuda_stream.level_schedule(ch, n_tips, par)
+        lvl_order, ids, pos, ls = sched
+        wcs = cw[..., None] * fr[..., None, :]
+        k_parts = 1
+        if kname == "peel_resident":
+            call = cuda_peeling.prepare_resident(tips, ch, None, pm, fr, cw,
+                                                 sched)
+            singles = [cuda_peeling.prepare_resident(
+                tips, ch[b], None, pm[b], fr[b], cw[b],
+                tuple(t[b] for t in sched)) for b in range(b_n)]
+            plain_fn = lambda: (cuda_peeling._resident_plain(  # noqa: E731
+                tips, ids, pos, ls, pm, wcs),)
+            ins = [tips, pm, ids, pos, ls, fr, cw]
+        elif kname == "peel_mxu":
+            call = cuda_mxu.prepare_mxu(tips, ch, None, pm, fr, cw, sched)
+            singles = [cuda_mxu.prepare_mxu(
+                tips, ch[b], None, pm[b], fr[b], cw[b],
+                tuple(t[b] for t in sched)) for b in range(b_n)]
+            plain_fn = lambda: cuda_mxu._mxu_plain(  # noqa: E731
+                tips, sched, pm, wcs)
+            ins = [tips, pm, lvl_order.to(torch.int32), ids, ls, fr, cw]
+        else:  # peel_stream: one partition, or K on each chain's tree
+            if not partitions:
+                tips, pm, fr, cw = tips[None], pm[:, None], fr[:, None], \
+                    cw[:, None]
+                wcs = wcs[:, None]
+            k_parts = tips.shape[0]
+            pm_ord = cuda_stream2.chains_pm_ord(pm, ids)
+            call = cuda_stream2.prepare_deep(tips, ids, pos, ls, pm_ord, fr,
+                                             cw)
+            singles = [cuda_stream2.prepare_deep(
+                tips, ids[b], pos[b], ls[b], pm_ord[b], fr[b], cw[b])
+                for b in range(b_n)]
+            plain_fn = lambda: (cuda_stream2._deep_plain(  # noqa: E731
+                tips, ids, pos, ls, pm_ord, wcs),)
+            ins = [tips, pm_ord, ids, pos, ls, fr, cw]
+        got = call.launch()
+        got = tuple(t.clone() for t in (got if isinstance(got, tuple)
+                                        else (got,)))
+        if kname == "peel_mxu":  # the tips' rows are the wrapper's
+            got[1][:, :n_tips] = tips[None, :, None]
+        ref = plain_fn()
+        one = torch.stack([
+            (lambda o: o[0] if isinstance(o, tuple) else o)(c_.launch())
+            for c_ in singles])
+        torch.cuda.synchronize()
+        max_abs, max_rel, finite = deviation(got[0], ref[0])
+        _, rel_single, _ = deviation(got[0], one)
+        ok = max_rel < F64_REL_TOL and rel_single < F64_REL_TOL and finite
+        rec = {"label": label, "chains": b_n,
+               "shape": [k_parts, n_tips, c, s, p], "dtype": "float64",
+               "levels": [int((ls[b] < n_int).sum()) for b in range(b_n)],
+               "max_abs_err": max_abs, "max_rel_err": max_rel,
+               "max_rel_err_vs_single_launches": rel_single,
+               "tol": f"rel<{F64_REL_TOL}"}
+        if len(got) == 2:
+            post_abs, _, post_finite = deviation(got[1], ref[1])
+            ok = ok and post_abs < F64_REL_TOL and post_finite
+            rec["post_max_abs_err"] = post_abs
+        del ref, one
+        rec["ms"] = time_ms(call.launch, reps)
+        rec["single_launches_ms"] = time_ms(
+            lambda: [c_.launch() for c_ in singles], reps)
+        rec["ms_over_single_launches"] = rec["ms"] / rec["single_launches_ms"]
+        rec["plain_ms"] = time_ms(plain_fn, plain_reps)
+        b_ms, b_by, nbytes, flops = bound_ms(
+            [t for t in ins if t.is_floating_point()]
+            + [t.to(torch.int32) for t in ins if not t.is_floating_point()],
+            got[:1], n_int, c, s, p, "float64", k_parts * b_n)
+        rec.update({"bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                    "flops": flops})
+        log(f"[kernel] {kname} chain axis {json.dumps(rec)}")
+        if not ok:
+            raise AssertionError(f"{kname} {label}: the chain-axis launch "
+                                 f"disagrees ({rec['tol']}): {rec}")
+        checks[kname].append(rec)
+
+    chain_check("peel_resident", "benchmark2 B=8 f64", B2, 8, 100, 20, 1)
+    chain_check("peel_stream", "makona B=4 f64", MAKONA, 4, 110, 10, 1)
+    chain_check("peel_stream", "benchmark1 K=3 B=4 f64", B1, 4, 120, 10, 1,
+                partitions=True)
+    chain_check("peel_mxu", "protein B=4 f64", AMINO, 4, 130, 10, 1)
+    mark("2 chain axis")
+
     # the card's log posterior against the CPU's plain path, small input
     lp_s, _, p_s, t_s, _ = analyses[SMALL]
     lp_cpu, _, p_c, t_c, _ = build_analysis(*SMALL, model="gtr_gamma",
@@ -1064,6 +1426,8 @@ def main():
     log(f"[logpost] card {a!r} cpu {b!r} rel {abs(a - b) / abs(b):.3e}")
     if not abs(a - b) <= 1e-10 * abs(b):
         raise AssertionError("card and CPU log posteriors disagree")
+
+    mark("2 log posterior")
 
     # -- phase 6b: gradients through every kernel route ----------------
     from torch.autograd import DeviceType
@@ -1238,6 +1602,8 @@ def main():
     grad_check("peel_stream_ring", "benchmark1 partition f64",
                peel_inputs(B1, f64))
 
+    mark("6b gradients")
+
     # -- phases 3 to 5: the chains -------------------------------------
     def chain(label, shape, n_steps, n_check, per_step, seed):
         """Run the chain of one analysis; `per_step` is the launches each
@@ -1320,6 +1686,7 @@ def main():
     where_time_goes("benchmark1", b1_step, b1_state, 50)
     where_time_goes("protein", aa_step, aa_state, 50)
     where_time_goes("codon", cod_step, cod_state, 50)
+    mark("3 to 6 chains and profiles")
 
     # -- phase 6c: HMC on the node heights and on (clock.rate, pop.size) --
     from beast_mcmc_tpu_torch.inference.hmc import (
@@ -1416,6 +1783,8 @@ def main():
     mak_hmc_counts, mak_hmc = hmc_chain("makona", MAKONA, HMC_MAK_STEPS,
                                         HMC_MAK_CHECK, "peel_stream", 6)
 
+    mark("6c HMC")
+
     # -- phase 6d: NUTS, the PDMPs, slice, AVMVN and the constrained HMC --
     t0 = time.perf_counter()
     p7, p7_launches = sampler_paths({
@@ -1428,6 +1797,8 @@ def main():
         "makona": (analyses[MAKONA], (mak_state.params, mak_state.tree),
                    "peel_stream")}, reset_counts, read_counts, device_ms, dev)
     log(f"[p7] phase 6d in {time.perf_counter() - t0:.2f} s")
+
+    mark("6d samplers")
 
     # -- phase 7: the remaining entry points ---------------------------
     # per-site log-likelihoods go through the same dispatcher as the chains
@@ -1526,7 +1897,18 @@ def main():
     if not abs(via_chain - via_ring) <= F64_REL_TOL * abs(via_chain):
         raise AssertionError("the two routes disagree at benchmark1")
 
-    # -- phase 8: summary ---------------------------------------------
+    mark("7 entry points")
+
+    # -- phase 8: chain batches, MC3 and the component cache -----------
+    p8, p8_launches = chain_paths({
+        "benchmark2": (analyses[B2], "peel_resident", b2_rate),
+        "makona": (analyses[MAKONA], "peel_stream", mak_rate),
+        "benchmark1": (analyses[B1], "peel_stream", b1_rate),
+        "protein": (analyses[AMINO], "peel_mxu", aa_rate)},
+        reset_counts, read_counts, device_ms, dev)
+    mark("8 chain batches")
+
+    # -- phase 9: summary ---------------------------------------------
     def entry(kname, source, replaces, launches, label):
         rec = next(r for r in checks[kname] if r["label"] == label)
         return {"name": kname, "route": "cuda", "source": source,
@@ -1560,6 +1942,18 @@ def main():
         f"{per_proposal(nuts_mak, 'launches_in_step', 1)}; PDMP events a "
         f"proposal Zig-Zag {per_proposal(zz, 'events')} BPS "
         f"{per_proposal(bps, 'events')}; on {smi_line}")
+    log(f"[summary p8] aggregate states/s: benchmark2 B=8 "
+        f"{p8['P8a']['aggregate_states_per_s']:.2f} (one chain "
+        f"{b2_rate:.2f}), makona B=4 "
+        f"{p8['P8b']['aggregate_states_per_s']:.2f} ({mak_rate:.2f}), "
+        f"protein B=4 {p8['P8d']['aggregate_states_per_s']:.2f} "
+        f"({aa_rate:.2f}), MC3 benchmark1 B=4 "
+        f"{p8['P8c']['aggregate_states_per_s']:.2f} ({b1_rate:.2f}), swap "
+        f"acceptance {p8['P8c']['swap_acceptance']:.3f} at delta "
+        f"{p8['P8c']['delta']:.6g}; components at benchmark2 "
+        f"{p8['P8e']['likelihood_steps']} launches in "
+        f"{p8['P8e']['steps']} steps; on {smi_line}")
+    log(f"[phases] {json.dumps(phases)}")
     log(smi_line)
     print(json.dumps({"kernels": [
         entry("peel_resident", "beast_mcmc_tpu_torch/csrc/peel_resident.cu",
@@ -1585,7 +1979,8 @@ def main():
                              "benchmark1 P7b": p7_launches["benchmark1"],
                              "protein P7c": p7_launches["protein"],
                              "makona P7d": p7_launches["makona"],
-                             "stream entry points": ring_counts}}), flush=True)
+                             "stream entry points": ring_counts,
+                             **p8_launches}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -20,8 +20,8 @@ def _modules():
 
 
 def test_import_every_module_without_jax():
-    # every kernel's wrapper, the data modules and the samplers are among
-    # the modules found
+    # every kernel's wrapper, the data modules, the samplers, MC3 and the
+    # component cache are among the modules found
     assert {"beast_mcmc_tpu_torch.ops.cuda_stream",
             "beast_mcmc_tpu_torch.ops.cuda_stream2",
             "beast_mcmc_tpu_torch.ops.cuda_mxu",
@@ -29,7 +29,9 @@ def test_import_every_module_without_jax():
             "beast_mcmc_tpu_torch.data.alignment",
             "beast_mcmc_tpu_torch.data.codons",
             "beast_mcmc_tpu_torch.data.datatype",
+            "beast_mcmc_tpu_torch.inference.component_cache",
             "beast_mcmc_tpu_torch.inference.geodesic",
+            "beast_mcmc_tpu_torch.inference.mc3",
             "beast_mcmc_tpu_torch.inference.nuts",
             "beast_mcmc_tpu_torch.inference.pdmp",
             "beast_mcmc_tpu_torch.inference.samplers",
