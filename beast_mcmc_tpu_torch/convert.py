@@ -10,8 +10,9 @@ parent / children / heights / root; a vmapped MCMCState (numpy leaves
 with a leading chain axis) becomes a chain batch (`states_from_numpy`).
 An operator is a dataclass whose
 settings are plain values; `operator_from` builds this package's class of
-the same name from them (the HMC operators' transforms too). Nothing here
-imports JAX.
+the same name from them (the HMC operators' transforms too). A joint
+analysis's parameters (`joint_params_from_numpy`) keep their XML ids, the
+anonymous ones renamed by their role. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -45,6 +46,25 @@ def params_from_numpy(params: Dict[str, Any], dtype=DEFAULT_FLOAT,
                       device=DEFAULT_DEVICE) -> Dict[str, Any]:
     """The JAX package's params dict (numpy leaves) as this package's."""
     return {k: _value(v, dtype, device) for k, v in params.items()}
+
+
+# the ids the JAX package's XML layer gives the two anonymous <parameter>s
+# of examples/makona_joint.xml (the skygrid's numGridPoints and cutOff, in
+# document order), and this package's names for them
+JOINT_RENAMES = {"param2": "skygrid.numGridPoints",
+                 "param3": "skygrid.cutOff"}
+
+
+def joint_params_from_numpy(params: Dict[str, Any], dtype=DEFAULT_FLOAT,
+                            device=DEFAULT_DEVICE) -> Dict[str, Any]:
+    """The params of the JAX package's XmlAnalysis of the Makona joint
+    document (initial_eval_state, or a chain's state; numpy leaves) as
+    apps/benchmarks.py::build_joint_analysis names them: the XML ids, the
+    anonymous ones renamed by JOINT_RENAMES; the relaxed clock's integer
+    categories stay integers."""
+    return params_from_numpy(
+        {JOINT_RENAMES.get(k, k): v for k, v in params.items()}, dtype,
+        device)
 
 
 def tree_from_numpy(parent, children, heights, root, dtype=DEFAULT_FLOAT,
@@ -116,6 +136,7 @@ def operator_from(op):
     preconditioning, transforms, bounds, trajectory and adaptation
     settings). Raises for an operator not ported."""
     from beast_mcmc_tpu_torch.inference import (
-        geodesic, hmc, nuts, operators, pdmp, samplers)
+        geodesic, hmc, nuts, operators, pdmp, samplers, tree_operators)
 
-    return _spec(op, (operators, hmc, nuts, pdmp, geodesic, samplers))
+    return _spec(op, (operators, tree_operators, hmc, nuts, pdmp, geodesic,
+                      samplers))

@@ -120,6 +120,20 @@ class SitePatterns:
             n_sites=n_sites,
         )
 
+    @classmethod
+    def from_attribute(cls, taxa: Sequence[str], values: Sequence[str],
+                       datatype: DataType) -> "SitePatterns":
+        """One-column patterns from a taxon attribute, one value a taxon,
+        over a general data type of named states: the discrete-trait data
+        of <attributePatterns> (AttributePatternsParser;
+        beast_mcmc_tpu/config/xml_geo.py:89). An unknown value is the
+        fully ambiguous code."""
+        states = np.array([[datatype.char_map.get(v.strip().upper(),
+                                                  datatype.unknown_code)]
+                           for v in values], np.int16)
+        return cls(taxa=list(taxa), states=states, weights=np.ones(1),
+                   datatype=datatype, n_sites=1)
+
     @property
     def n_taxa(self) -> int:
         return self.states.shape[0]

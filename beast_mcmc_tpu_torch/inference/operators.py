@@ -144,10 +144,14 @@ class _ScaleTuned:
 
 @dataclasses.dataclass
 class ScaleOperator(_ScaleTuned, Operator):
-    """ScaleOperator.java, one random dimension: x_i *= s, logq = -log s."""
+    """ScaleOperator.java. mode "random": one random dimension, x_i *= s,
+    logq = -log s; "all": the same s on every dimension, logq = (dim - 2)
+    log s; "independent" (scaleAllIndependently): a factor of its own on
+    each dimension, logq = -sum log s_i."""
 
     parameter: str = ""
     scale_factor: float = 0.75
+    mode: str = "random"
     lower: float = 0.0
     upper: float = math.inf
     adaptable: bool = True
@@ -155,11 +159,21 @@ class ScaleOperator(_ScaleTuned, Operator):
     def propose(self, params, tree, gen, tuning):
         x = params[self.parameter]
         flat = torch.atleast_1d(x)
-        s = _scale_draw(gen, tuning.to(flat.dtype))
-        idx = _randint(gen, 0, flat.shape[0], flat.device)
-        new = flat.index_put((idx,), flat[idx] * s)
-        logh = _valid_or_reject(_in_bounds(new, self.lower, self.upper),
-                                -torch.log(s))
+        dim = flat.shape[0]
+        sf = tuning.to(flat.dtype)
+        if self.mode == "independent":
+            u = torch.rand(dim, generator=gen, dtype=flat.dtype,
+                           device=flat.device)
+            s = sf + u * (1.0 / sf - sf)
+            new, logq = flat * s, -torch.sum(torch.log(s))
+        elif self.mode == "all":
+            s = _scale_draw(gen, sf)
+            new, logq = flat * s, (dim - 2) * torch.log(s)
+        else:
+            s = _scale_draw(gen, sf)
+            idx = _randint(gen, 0, dim, flat.device)
+            new, logq = flat.index_put((idx,), flat[idx] * s), -torch.log(s)
+        logh = _valid_or_reject(_in_bounds(new, self.lower, self.upper), logq)
         return {**params, self.parameter: new.reshape(x.shape)}, tree, logh
 
 
@@ -229,6 +243,36 @@ class DeltaExchangeOperator(Operator):
                                 torch.zeros((), dtype=flat.dtype,
                                             device=flat.device))
         return {**params, self.parameter: new.reshape(x.shape)}, tree, logh
+
+
+@dataclasses.dataclass
+class BitFlipOperator(Operator):
+    """BitFlipOperator.java: flip one random bit of a 0/1 indicator vector
+    (BSSVS). With usesPriorOnSum the Hastings ratio makes the move
+    symmetric in the number of ones s of dim:
+      0 -> 1: logq = -log((dim - s) / (s + 1))
+      1 -> 0: logq = -log(s / (dim - s + 1))"""
+
+    parameter: str = ""
+    uses_prior_on_sum: bool = True
+
+    def propose(self, params, tree, gen, tuning):
+        x0 = params[self.parameter]
+        x = torch.atleast_1d(x0)
+        dim = x.shape[0]
+        fdt = tree.heights.dtype
+        pos = _randint(gen, 0, dim, x.device)
+        value = x[pos]
+        flipped = x.index_put((pos,), 1 - value)
+        if self.uses_prior_on_sum:
+            s = torch.sum(x).to(fdt)
+            logq = torch.where(value.reshape(()) == 0,
+                               -torch.log((dim - s) / (s + 1.0)),
+                               -torch.log(s / (dim - s + 1.0)))
+        else:
+            logq = torch.zeros((), dtype=fdt, device=x.device)
+        return ({**params, self.parameter: flipped.reshape(x0.shape)}, tree,
+                logq)
 
 
 @dataclasses.dataclass

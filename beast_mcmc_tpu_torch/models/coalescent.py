@@ -1,16 +1,19 @@
-"""Constant-size coalescent tree prior.
+"""Coalescent tree priors: constant size, and the skygrid with its GMRF
+smoothing prior.
 
-Counterpart of beast_mcmc_tpu/models/coalescent.py:28-74. Intervals come
-from a device-side sort of node heights with lineage deltas (+1 at tips,
--1 at coalescences); lineage counts are their prefix sum.
+Counterpart of beast_mcmc_tpu/models/coalescent.py:28-74,138-194.
+Intervals come from a device-side sort of node heights with lineage deltas
+(+1 at tips, -1 at coalescences); lineage counts are their prefix sum.
 logL = sum_coal -log N(t_i) - sum_intervals C(k,2) [L(t_end) - L(t_start)]
 with intensity L(t) = int 1/N.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable
 
+import numpy as np
 import torch
 
 from beast_mcmc_tpu_torch.utils.accum import prefix_sum
@@ -60,3 +63,51 @@ def constant_coalescent_loglik(heights: torch.Tensor, n_taxa: int,
         log_pop=lambda t: torch.log(pop).expand(t.shape),
         intensity=lambda t: t / pop,
     )
+
+
+def skygrid_cut_points(n_grid: int, cutoff: float, dtype=torch.float64,
+                       device=None) -> torch.Tensor:
+    """The [n_grid] interior boundaries that <gmrfSkyGridLikelihood> makes
+    from numGridPoints and cutOff: linspace(cutoff / n, cutoff, n)
+    (beast_mcmc_tpu/config/xml_ext.py:194-230), numpy's, so that an event
+    on a boundary falls in the same cell."""
+    return torch.tensor(np.linspace(cutoff / n_grid, cutoff, n_grid),
+                        dtype=dtype, device=device)
+
+
+def skygrid_loglik(heights: torch.Tensor, n_taxa: int,
+                   log_pop_sizes: torch.Tensor,
+                   cut_points: torch.Tensor) -> torch.Tensor:
+    """Coalescent density under a piecewise-constant N(t): cell k covers
+    [cut_{k-1}, cut_k) with cut_{-1} = 0 and cut_{K-1} = inf, gamma[k] =
+    log N there. The interval term is a masked interval-by-cell overlap
+    sum; an event exactly at a grid point belongs to the cell below it
+    (searchsorted, side left), as in the JAX package."""
+    dt = heights.dtype
+    times, lineages, is_coal = coalescent_intervals(heights, n_taxa)
+    zero = torch.zeros(1, dtype=dt, device=heights.device)
+    lo = torch.cat([zero, cut_points])
+    hi = torch.cat([cut_points, torch.full_like(zero, float("inf"))])
+    t0, t1 = times[:-1, None], times[1:, None]
+    overlap = torch.clamp(torch.minimum(t1, hi) - torch.maximum(t0, lo),
+                          min=0.0)
+    k = lineages[:-1]
+    choose2 = (k * (k - 1) / 2.0).to(dt)
+    interval_term = -torch.sum(choose2[:, None] * overlap
+                               * torch.exp(-log_pop_sizes)[None, :])
+    cell = torch.searchsorted(cut_points, times, side="left")
+    event_term = -torch.sum(torch.where(is_coal, log_pop_sizes[cell],
+                                        torch.zeros_like(times)))
+    return interval_term + event_term
+
+
+def gmrf_log_prior(log_pop_sizes: torch.Tensor, precision) -> torch.Tensor:
+    """First-order GMRF (RW1) smoothing prior on the skygrid's log
+    populations (GMRFSkyrideLikelihood calculateLogFieldLikelihood):
+    (K-1)/2 log(tau / 2 pi) - tau / 2 sum (g_{k+1} - g_k)^2."""
+    tau = torch.as_tensor(precision, dtype=log_pop_sizes.dtype,
+                          device=log_pop_sizes.device)
+    diffs = torch.diff(log_pop_sizes)
+    k1 = diffs.shape[0]
+    return (0.5 * k1 * (torch.log(tau) - math.log(2 * math.pi))
+            - 0.5 * tau * torch.sum(diffs * diffs))

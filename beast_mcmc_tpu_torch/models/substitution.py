@@ -5,12 +5,15 @@ A,C,G,T = 0..3; Q normalised to mean rate 1; GTR takes 6 exchangeabilities
 in the reference order AC, AG, AT, CG, CT, GT. The amino-acid models take
 their 190 exchangeabilities and 20 frequencies from models/data/
 aa_matrices.py (order ACDEFGHIKLMNPQRSTVWY); the codon models run over the
-61 sense codons of data/codons.py. Only the reversible models are here: the
-generators that need a matrix exponential are not ported yet.
+61 sense codons of data/codons.py. The non-reversible generators of the
+discrete-trait models (`complex_q`, `general_complex_q`) return a
+normalised Q for ops/expm.py instead of an EigenSystem, and
+`svs_connectivity_logprior` is the BSSVS indicator graph's prior.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -134,3 +137,57 @@ def mg94_eigen(alpha, beta, kappa, codon_freqs: torch.Tensor,
     return reversible_eigen(
         single * kappa ** is_ts * torch.where(is_nonsyn > 0, beta, alpha),
         codon_freqs)
+
+
+def complex_q(rates_full: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
+    """Non-reversible generator from all S(S-1) off-diagonal rates in
+    row-major order (the diagonal skipped): Q_ij = r_ij pi_j, rows summing
+    to 0, unit expected rate (ComplexSubstitutionModel.java setupMatrix;
+    beast_mcmc_tpu/models/substitution.py:159)."""
+    s = freqs.shape[-1]
+    off = ~torch.eye(s, dtype=torch.bool, device=freqs.device)
+    r = torch.zeros((s, s), dtype=freqs.dtype, device=freqs.device)
+    q = r.masked_scatter(off, rates_full.to(freqs.dtype)) * freqs[None, :]
+    q = q - torch.diag(torch.sum(q, dim=1))
+    return q / -torch.sum(freqs * torch.diagonal(q))
+
+
+def general_complex_q(rates: torch.Tensor,
+                      freqs: torch.Tensor) -> torch.Tensor:
+    """The generator of <svsGeneralSubstitutionModel> with K(K-1) rates in
+    the reference's complex order: the upper triangle row-major, then the
+    lower triangle in transposed (column-major) order
+    (ComplexSubstitutionModel.setupQMatrix:211-230); Q_ij = r_ij pi_j with
+    freqs normalised here, scaled to unit expected rate. Counterpart of
+    beast_mcmc_tpu/config/xml_geo.py:139 (_complex_q_fn, its defaults)."""
+    k = freqs.shape[-1]
+    pi = freqs / torch.sum(freqs)
+    iu = torch.triu_indices(k, k, 1, device=freqs.device)
+    n_half = k * (k - 1) // 2
+    r = rates.to(pi.dtype)
+    q = torch.zeros((k, k), dtype=pi.dtype, device=pi.device)
+    q = q.index_put((iu[0], iu[1]), r[:n_half] * pi[iu[1]])
+    q = q.index_put((iu[1], iu[0]), r[n_half:] * pi[iu[0]])
+    q = q - torch.diag(torch.sum(q, dim=1))
+    return q / -torch.sum(pi * torch.diagonal(q))
+
+
+def svs_connectivity_logprior(indicators: torch.Tensor,
+                              k: int) -> torch.Tensor:
+    """0 where the BSSVS indicators [K(K-1)], in general_complex_q's order,
+    leave the directed rate graph strongly connected, else -inf
+    (SVSGeneralSubstitutionModel.getLogLikelihood():111-115;
+    beast_mcmc_tpu/config/xml_geo.py:230-260). All-pairs reachability by
+    ceil(log2 K) squarings of the boolean adjacency with self-loops."""
+    ind = indicators.reshape(-1) > 0.5
+    n_half = k * (k - 1) // 2
+    iu = torch.triu_indices(k, k, 1, device=ind.device)
+    adj = torch.eye(k, dtype=torch.bool, device=ind.device)
+    adj = adj.index_put((iu[0], iu[1]), ind[:n_half])
+    adj = adj.index_put((iu[1], iu[0]), ind[n_half:])
+    # float products: the counts stay far below 2^24, so > 0 is exact
+    a = adj.to(torch.float32)
+    for _ in range(math.ceil(math.log2(max(k, 2)))):
+        a = ((a @ a) > 0).to(torch.float32)
+    zero = torch.zeros((), dtype=torch.float64, device=ind.device)
+    return torch.where(torch.all(a > 0), zero, zero - math.inf)

@@ -11,6 +11,11 @@ ops/cuda_peeling.py::peel_site_loglik_auto, with the schedule that
 and matrix-product kernels too, the height order only for the v1 streaming
 one); CPU tensors to the height-ordered plain peel.
 
+`tree_loglikelihood_q`, the non-reversible route of the discrete traits,
+builds its matrices by ops/expm.py and peels with the plain PyTorch peel on
+both devices, as the JAX package does: a one-column trait (C * P = 1) takes
+its level form, and no kernel is launched.
+
 Every function here is differentiable on every route and both devices, in
 the heights, the branch rates, the eigensystem, the category rates and
 weights and the frequencies: each peel is an autograd Function over the
@@ -38,6 +43,7 @@ from beast_mcmc_tpu_torch.ops.cuda_peeling import (
 from beast_mcmc_tpu_torch.ops.cuda_stream import level_schedule
 from beast_mcmc_tpu_torch.ops.cuda_stream2 import peel_site_loglik_deep
 from beast_mcmc_tpu_torch.ops.eigen import EigenSystem, transition_probs
+from beast_mcmc_tpu_torch.ops.expm import transition_probs_expm
 from beast_mcmc_tpu_torch.ops.peeling import (
     peel_loglikelihood,
     peel_order_from_heights,
@@ -206,6 +212,22 @@ def multipartition_loglikelihood(tip_partials, pattern_weights, parent,
         peel(tip_partials[k], children, order, root, p_mats[k], freqs[k],
              category_weights[k], pattern_weights[k])
         for k in range(k_parts)]))
+
+
+def tree_loglikelihood_q(tip_partials, pattern_weights, parent, children,
+                         heights, root, q: torch.Tensor, freqs,
+                         category_rates, category_weights,
+                         branch_rates) -> torch.Tensor:
+    """Pattern-weighted log-likelihood, float64 0-d, through the expm
+    transition path for a generator q [S, S] that may be non-reversible
+    (beast_mcmc_tpu/models/treelikelihood.py:124-150): branch lengths times
+    the clock rates, expm matrices [M, C, S, S], then the plain peel
+    (ops/peeling.py; its level form where C * P <= 8), never a kernel."""
+    bl = branch_lengths(parent, heights) * branch_rates
+    p_mats = transition_probs_expm(q, bl[:, None] * category_rates[None, :])
+    order = peel_order_from_heights(heights, tip_partials.shape[0], parent)
+    return peel_loglikelihood(tip_partials, children, order, root, p_mats,
+                              freqs, category_weights, pattern_weights)
 
 
 def tree_loglikelihood_pmats(tip_partials, pattern_weights, children, heights,

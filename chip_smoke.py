@@ -80,6 +80,17 @@ result line):
      B = 4 and at B = 4 x K = 3, peel_mxu at B = 4, the chains' trees from
      their own seeds) against its plain chain-axis version and B single
      launches, and times the one launch against the B.
+  9. the Makona-1610 joint analysis (`joint_path`), the north-star model of
+     examples/makona_joint.xml, built at full size by
+     apps/makona.py::build_makona_joint: 1,610 dated taxa, the document's
+     18,996 sites simulated under GTR+Gamma4 and the relaxed clock and
+     compressed to patterns, a skygrid of 50 cells, 56 locations under an
+     asymmetric CTMC with 3,080 rates and 3,080 BSSVS indicators, f64, the
+     component-cached posterior and the document's 14 operators. peel_stream
+     is held against its plain version on the joint's inputs; the chain's
+     peel_stream launches must equal its steps whose operator refreshes
+     treeLikelihood (the 56-state trait peels by the plain level peel and
+     launches nothing); the full-evaluation check; a profiler window.
 
 `python3 chip_smoke.py --tiles` instead builds the v1 streaming kernel and
 times it at every pattern-tile width its planner could pick (32, 16, 8, 4
@@ -838,6 +849,88 @@ def chain_paths(paths, reset_counts, read_counts, device_ms, dev):
                              f"{dev_sum}")
     records["P8e"], launches["benchmark2 P8e"] = rec, counts
     return records, launches
+
+
+# phase 9, the Makona-1610 joint analysis: warm-up, measured and
+# full-evaluation steps of its chain, and the steps of its profiler window
+JOINT_WARM, JOINT_STEPS, JOINT_CHECK, JOINT_PROFILE = 20, 300, 50, 30
+JOINT_SEED = 666  # the starting tree's (the JAX package's) and alignment's
+
+
+def joint_path(analysis, reset_counts, read_counts, dev, n_steps=JOINT_STEPS,
+               n_check=JOINT_CHECK, n_warm=JOINT_WARM):
+    """Phase 9: the joint analysis's component-cached chain
+    (apps/makona.py::build_makona_joint's five-tuple), through
+    make_mcmc_step(components=, op_tree_flags=) and run_chain, as
+    bench.py::measure_makona_joint steps it. After n_warm steps, n_steps
+    are timed with the launch counts set to 0 just before them; peel_stream
+    must have launched exactly on the steps whose operator refreshes
+    treeLikelihood (each operator's steps from its accept and reject
+    counts), and no other kernel at all (the trait peels by the plain level
+    peel). Then the full-evaluation check over n_check steps. Returns
+    (record, launches, step, state)."""
+    import torch
+
+    from beast_mcmc_tpu_torch.inference.mcmc import (
+        full_evaluation_check, init_mcmc_state, make_mcmc_step,
+        operator_report, run_chain)
+
+    log_post, ops, p0, t0, aux = analysis
+    names = [c.name for c in aux["components"]]
+    step = make_mcmc_step(log_post, ops, components=aux["components"],
+                          op_tree_flags=aux["op_tree_flags"])
+    gen = torch.Generator(device=dev).manual_seed(9)
+    state = init_mcmc_state(p0, t0, gen, ops, log_post)
+    state, _ = run_chain(step, state, n_warm)
+
+    def sync():
+        if dev != "cpu":
+            torch.cuda.synchronize()
+
+    sync()
+    before = (state.op_accept + state.op_reject).tolist()
+    reset_counts()
+    t_start = time.perf_counter()
+    state, _ = run_chain(step, state, n_steps)
+    sync()
+    dt = time.perf_counter() - t_start
+    counts = read_counts()
+    per_op = [a - b for a, b in zip(
+        (state.op_accept + state.op_reject).tolist(), before)]
+
+    def steps_refreshing(name):
+        i = names.index(name)
+        return sum(n for n, idxs in zip(per_op, step.refreshed) if i in idxs)
+
+    rec = {"steps": n_steps, "seconds": dt, "states_per_s": n_steps / dt,
+           "log_posterior": float(state.log_posterior), "launches": counts,
+           "tree_likelihood_steps": steps_refreshing("treeLikelihood"),
+           "geo_likelihood_steps": steps_refreshing("geoLikelihood"),
+           "steps_per_operator": per_op}
+    log(f"[joint] {n_steps} steps in {dt:.3f} s = {rec['states_per_s']:.2f} "
+        f"states/s; log posterior {rec['log_posterior']!r}; launches "
+        f"{json.dumps(counts)}; steps refreshing treeLikelihood "
+        f"{rec['tree_likelihood_steps']}, geoLikelihood "
+        f"{rec['geo_likelihood_steps']}")
+    log(operator_report(ops, state))
+    expect = {k: rec["tree_likelihood_steps"] * (k == "peel_stream")
+              for k in counts}
+    if counts != expect:
+        raise AssertionError(f"joint: expected launches {expect}, got "
+                             f"{counts}")
+    lp = rec["log_posterior"]
+    if lp != lp or abs(lp) == float("inf"):
+        raise AssertionError(f"joint: posterior not finite: {lp}")
+    t_start = time.perf_counter()
+    state, dev_max = full_evaluation_check(step, log_post, state, n_check)
+    rec["full_evaluation_deviation"] = float(dev_max)
+    log(f"[joint] full-evaluation max deviation over {n_check} steps: "
+        f"{rec['full_evaluation_deviation']!r} (tolerance {FULL_EVAL_TOL}) "
+        f"in {time.perf_counter() - t_start:.2f} s")
+    if not rec["full_evaluation_deviation"] <= FULL_EVAL_TOL:
+        raise AssertionError("joint: full-evaluation deviation "
+                             f"{rec['full_evaluation_deviation']}")
+    return rec, counts, step, state
 
 
 def main():
@@ -1680,6 +1773,13 @@ def main():
         for e in kern[:8]:
             log(f"[profile {label}]   {e.self_device_time_total / 1e3:9.3f} ms"
                 f"  {e.count:6d}x  {e.key[:70]}")
+        # the host side: the operators and launches with most own CPU time
+        host = sorted((e for e in prof.key_averages()
+                       if e.device_type != DeviceType.CUDA),
+                      key=lambda e: e.self_cpu_time_total, reverse=True)
+        for e in host[:5]:
+            log(f"[profile {label}]   host {e.self_cpu_time_total / 1e3:9.3f}"
+                f" ms  {e.count:6d}x  {e.key[:70]}")
 
     where_time_goes("benchmark2", b2_step, b2_state, 200)
     where_time_goes("makona", mak_step, mak_state, 50)
@@ -1908,7 +2008,40 @@ def main():
         reset_counts, read_counts, device_ms, dev)
     mark("8 chain batches")
 
-    # -- phase 9: summary ---------------------------------------------
+    # -- phase 9: the Makona-1610 joint analysis -----------------------
+    from beast_mcmc_tpu_torch.apps.benchmarks import (
+        clock_rates, gtr_site_model)
+    from beast_mcmc_tpu_torch.apps.makona import build_makona_joint
+
+    t0 = time.perf_counter()
+    joint = build_makona_joint(seed=JOINT_SEED, device=dev)
+    torch.cuda.synchronize()
+    _, _, j_p0, j_t0, j_aux = joint
+    n_taxa = j_aux["tips"].shape[0]
+    j_rec = {"build_seconds": time.perf_counter() - t0,
+             "taxa": n_taxa, "sites": j_aux["config"]["n_sites"],
+             "patterns": j_aux["n_patterns"],
+             "patterns_padded": j_aux["tips"].shape[-1],
+             "locations": j_aux["geo_tips"].shape[1],
+             "rates": int(j_p0["geo.rates"].numel())}
+    log(f"[joint] built in {j_rec['build_seconds']:.2f} s: {json.dumps(j_rec)}")
+    # peel_stream against its plain version on the joint's own inputs:
+    # dated tips, relaxed-clock branch lengths, the simulated patterns
+    eig, freqs, rates, cw = gtr_site_model(j_p0, 4)
+    pm = branch_transition_matrices(eig, j_t0.parent, j_t0.heights,
+                                    clock_rates(j_p0), rates)
+    check("peel_stream", "makona joint f64", (
+        j_aux["tips"], j_t0.children,
+        peel_order_from_heights(j_t0.heights, n_taxa, j_t0.parent),
+        j_t0.root, pm.contiguous(), freqs, cw), 20, 2)
+    del pm
+    j_chain, j_launches, j_step, j_state = joint_path(
+        joint, reset_counts, read_counts, dev)
+    j_rec.update(j_chain)
+    where_time_goes("makona joint", j_step, j_state, JOINT_PROFILE)
+    mark("9 makona joint")
+
+    # -- phase 10: summary --------------------------------------------
     def entry(kname, source, replaces, launches, label):
         rec = next(r for r in checks[kname] if r["label"] == label)
         return {"name": kname, "route": "cuda", "source": source,
@@ -1953,6 +2086,14 @@ def main():
         f"{p8['P8c']['delta']:.6g}; components at benchmark2 "
         f"{p8['P8e']['likelihood_steps']} launches in "
         f"{p8['P8e']['steps']} steps; on {smi_line}")
+    log(f"[summary p9] makona joint: {j_rec['taxa']} taxa, "
+        f"{j_rec['patterns']} patterns ({j_rec['patterns_padded']} padded), "
+        f"{j_rec['locations']} locations, {j_rec['rates']} rates; "
+        f"{j_rec['states_per_s']:.2f} states/s; peel_stream launches "
+        f"{j_launches['peel_stream']} = steps refreshing treeLikelihood "
+        f"{j_rec['tree_likelihood_steps']} of {j_rec['steps']}; "
+        f"full-evaluation deviation {j_rec['full_evaluation_deviation']!r}; "
+        f"on {smi_line}")
     log(f"[phases] {json.dumps(phases)}")
     log(smi_line)
     print(json.dumps({"kernels": [
@@ -1980,7 +2121,8 @@ def main():
                              "protein P7c": p7_launches["protein"],
                              "makona P7d": p7_launches["makona"],
                              "stream entry points": ring_counts,
-                             **p8_launches}}), flush=True)
+                             **p8_launches,
+                             "makona joint": j_launches}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

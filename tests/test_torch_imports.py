@@ -20,9 +20,15 @@ def _modules():
 
 
 def test_import_every_module_without_jax():
-    # every kernel's wrapper, the data modules, the samplers, MC3 and the
-    # component cache are among the modules found
-    assert {"beast_mcmc_tpu_torch.ops.cuda_stream",
+    # every kernel's wrapper, the data modules, the samplers, MC3, the
+    # component cache and the joint analysis's modules are among the
+    # modules found
+    assert {"beast_mcmc_tpu_torch.apps.makona",
+            "beast_mcmc_tpu_torch.apps.seqgen",
+            "beast_mcmc_tpu_torch.inference.tree_operators",
+            "beast_mcmc_tpu_torch.models.clock",
+            "beast_mcmc_tpu_torch.ops.expm",
+            "beast_mcmc_tpu_torch.ops.cuda_stream",
             "beast_mcmc_tpu_torch.ops.cuda_stream2",
             "beast_mcmc_tpu_torch.ops.cuda_mxu",
             "beast_mcmc_tpu_torch.data",
