@@ -109,7 +109,10 @@ def build_analysis(n_taxa: int = 62, n_patterns: int = 5565,
     aux["log_post_chains"] and aux["log_post_cached_chains"] are the same
     posteriors over a chain batch (params and tree with a leading chain
     axis, as inference/mc3.py::replicate_state makes them): [B] from one
-    peel launch for all B chains, the port's form of jax.vmap(log_post).
+    peel launch for all B chains, the port's form of jax.vmap(log_post);
+    differentiable in every chain's heights and parameters (one backward
+    of their sum gives each chain's gradient: one launch and one level
+    adjoint), the port's form of jax.vmap(jax.grad(log_post)).
     aux["components"] is the posterior as the addends of
     inference/component_cache.py (`make_components`): the likelihood (from
     the derived cache where there is one), the coalescent and the two

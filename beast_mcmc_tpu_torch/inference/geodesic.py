@@ -25,7 +25,14 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from beast_mcmc_tpu_torch.inference.hmc import _Bound, _finish, value_grad
+from beast_mcmc_tpu_torch.inference.hmc import (
+    _Bound,
+    _finish,
+    _normal,
+    _sum_rows,
+    per_chain,
+    value_grad,
+)
 from beast_mcmc_tpu_torch.inference.operators import Operator
 
 # ---------------------------------------------------------------------------
@@ -164,30 +171,36 @@ def deterministic_momentum(p: int, k: int) -> np.ndarray:
 
 
 def project_momentum(X, M):
-    A = X.T @ M
-    return M - X @ ((A + A.T) / 2.0)
+    A = X.transpose(-1, -2) @ M
+    return M - X @ ((A + A.transpose(-1, -2)) / 2.0)
 
 
 def update_position(X, M, eps):
-    """The geodesic flow of (X, M) for time eps, then X re-orthonormalised."""
-    k = X.shape[1]
-    A = X.T @ M
-    eye, zero = torch.eye(k, dtype=X.dtype, device=X.device), X.new_zeros(k, k)
-    vtv = torch.cat([torch.cat([A, -M.T @ M], 1), torch.cat([eye, A], 1)], 0)
+    """The geodesic flow of (X, M) for time eps, then X re-orthonormalised;
+    X and M may carry a leading chain axis, eps then [B, 1, 1]."""
+    k = X.shape[-1]
+    A = X.transpose(-1, -2) @ M
+    eye = torch.eye(k, dtype=X.dtype, device=X.device).expand(A.shape)
+    zero = X.new_zeros(A.shape)
+    vtv = torch.cat([torch.cat([A, -M.transpose(-1, -2) @ M], -1),
+                     torch.cat([eye, A], -1)], -2)
     e1 = torch.linalg.matrix_exp(-eps * A)
     z = torch.linalg.matrix_exp(eps * vtv) @ torch.cat(
-        [torch.cat([e1, zero], 1), torch.cat([zero, e1], 1)], 0)
-    w = torch.cat([X, M], 1) @ z
-    xn, mn = w[:, :k], w[:, k:]
-    L = torch.linalg.cholesky_ex(xn.T @ xn)[0]  # a failure shows as NaN
-    return torch.linalg.solve_triangular(L, xn.T, upper=False).T, mn
+        [torch.cat([e1, zero], -1), torch.cat([zero, e1], -1)], -2)
+    w = torch.cat([X, M], -1) @ z
+    xn, mn = w[..., :k], w[..., k:]
+    # a failure shows as NaN
+    L = torch.linalg.cholesky_ex(xn.transpose(-1, -2) @ xn)[0]
+    return torch.linalg.solve_triangular(
+        L, xn.transpose(-1, -2), upper=False).transpose(-1, -2), mn
 
 
 @dataclasses.dataclass
 class StiefelGeodesicHmcOperator(_Bound, Operator):
     """In-chain geodesic HMC over column parameters that form a (p, k)
     matrix with orthonormal columns; momentum N(0, draw_variance) in the
-    tangent space."""
+    tangent space. Over a chain batch X is [B, p, k], each chain its own
+    step size."""
 
     parameters: Tuple[str, ...] = ()  # column parameters, each of length p
     n_leapfrog: int = 5
@@ -201,12 +214,12 @@ class StiefelGeodesicHmcOperator(_Bound, Operator):
     def _put(self, params, X):
         out = dict(params)
         for j, n in enumerate(self.parameters):
-            out[n] = X[:, j].to(params[n].dtype).reshape(params[n].shape)
+            out[n] = X[..., :, j].to(params[n].dtype).reshape(params[n].shape)
         return out
 
-    def trajectory(self, params, tree, X0, M0, eps):
+    def trajectory(self, lp, params, tree, X0, M0, eps):
         grad = lambda X: value_grad(  # noqa: E731
-            lambda x: self._log_posterior(self._put(params, x), tree), X)
+            lambda x: lp(self._put(params, x), tree), X)
         X, M = X0, M0
         for _ in range(self.n_leapfrog):
             M = project_momentum(X, M + 0.5 * eps * grad(X))
@@ -214,14 +227,15 @@ class StiefelGeodesicHmcOperator(_Bound, Operator):
             M = project_momentum(X, M + 0.5 * eps * grad(X))
         return X, M
 
-    def propose(self, params, tree, gen, tuning):
-        assert self._log_posterior is not None, "operator not bound"
-        X0 = torch.stack([params[n].reshape(-1).to(tree.heights.dtype)
-                          for n in self.parameters], dim=1)
-        M0 = project_momentum(X0, math.sqrt(self.draw_variance) * torch.randn(
-            X0.shape, generator=gen, dtype=X0.dtype, device=X0.device))
-        X1, M1 = self.trajectory(params, tree, X0, M0, tuning)
-        X1, logh = _finish(X0, X1, 0.5 * (torch.sum(M0 * M0)
-                                          - torch.sum(M1 * M1))
+    def _propose(self, lp, params, tree, gen, tuning):
+        b_n = params[self.parameters[0]].shape[0]
+        X0 = torch.stack([params[n].reshape(b_n, -1).to(tree.heights.dtype)
+                          for n in self.parameters], dim=-1)
+        M0 = project_momentum(X0, math.sqrt(self.draw_variance)
+                              * _normal(gen, X0))
+        X1, M1 = self.trajectory(lp, params, tree, X0, M0,
+                                 per_chain(tuning, X0))
+        X1, logh = _finish(X0, X1, 0.5 * (_sum_rows(M0 * M0)
+                                          - _sum_rows(M1 * M1))
                            / self.draw_variance)
         return self._put(params, X1), tree, logh

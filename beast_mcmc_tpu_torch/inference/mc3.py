@@ -24,8 +24,11 @@ Differences from the JAX package, by design:
     arithmetic given them, so that the tests can feed it JAX's draws;
   - the batch has one device generator where JAX gives each chain its own
     key: the chains' draws are different elements of one stream.
-Operators that evaluate the posterior inside their proposal are refused
-(ValueError), as in make_multichain_step.
+An operator that evaluates the posterior inside its proposal (HMC, NUTS,
+the PDMPs, the slice samplers) drawn by a subset of the chains proposes
+over that subset alone, its in-proposal posterior the chain-axis one of
+those chains (their params and trees gathered, the proposal scattered
+back), as in make_multichain_step.
 """
 
 from __future__ import annotations

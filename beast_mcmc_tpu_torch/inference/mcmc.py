@@ -40,9 +40,15 @@ its operator index (or each chain's) on the CPU, runs each drawn
 operator's proposal over its chains with torch.func.vmap (randomness
 "different"), rebuilds the stale derived entries over the chain axis,
 evaluates the chain-axis posterior of all B chains once (one kernel
-launch), and accepts or rejects each chain with torch.where. Operators
-that evaluate the posterior inside their proposal (HMC, NUTS, the PDMPs,
-slice) are refused: their chain batch needs a chain-axis gradient.
+launch), and accepts or rejects each chain with torch.where. An operator
+that evaluates the posterior inside its proposal (HMC, NUTS, the PDMPs,
+the slice samplers, the constrained HMC) cannot be vmapped (a ctypes
+launch and torch.autograd.grad do not cross torch.func.vmap): it is bound
+to the chain-axis posterior and runs its own chain-axis proposal
+(`propose_chains`), a gradient of all its chains one launch and one level
+adjoint. Acceptance stays JAX's, (new - old) * T + log Hastings, each
+chain with its own, and an operator's own acceptance statistic (NUTS's)
+replaces the Metropolis probability of its chains.
 """
 
 from __future__ import annotations
@@ -128,6 +134,24 @@ def _draw(cum, u: float) -> int:
     return min(bisect.bisect_right(cum, u), len(cum) - 1)
 
 
+def _bind_operators(operators, log_posterior, derived, chains=False):
+    """Bind every operator that evaluates the posterior inside its proposal
+    to `log_posterior` (the chain-axis one where `chains`); raise where
+    such an operator moves a parameter that a derived entry depends on,
+    since its in-proposal evaluations would read the stale cache."""
+    deps = {d for _, ds in (derived or {}).values() for d in ds}
+    for op in operators:
+        if hasattr(op, "bind_log_posterior"):
+            if chains:
+                op.bind_log_posterior_chains(log_posterior)
+            else:
+                op.bind_log_posterior(log_posterior)
+            moved = sorted(set(op.modified_params() or ()) & deps)
+            if moved:
+                raise ValueError(f"{type(op).__name__} moves {moved}, on "
+                                 "which a derived cache depends")
+
+
 def make_mcmc_step(log_posterior: LogPosteriorFn,
                    operators: Sequence[Operator],
                    adaptation: bool = True,
@@ -151,14 +175,7 @@ def make_mcmc_step(log_posterior: LogPosteriorFn,
     temperature)`, the step with the operator chosen by the caller,
     `log_probs`, the operators' log draw probabilities, and `refreshed`,
     each operator's component indices (None without components)."""
-    deps = {d for _, ds in (derived or {}).values() for d in ds}
-    for op in operators:
-        if hasattr(op, "bind_log_posterior"):
-            op.bind_log_posterior(log_posterior)
-            moved = sorted(set(op.modified_params() or ()) & deps)
-            if moved:
-                raise ValueError(f"{type(op).__name__} moves {moved}, on "
-                                 "which a derived cache depends")
+    _bind_operators(operators, log_posterior, derived)
     probs, cum = _operator_cdf(operators)
     stale = _stale_sets(operators, derived)
     if components is not None:
@@ -242,20 +259,11 @@ def make_mcmc_step(log_posterior: LogPosteriorFn,
     return step
 
 
-def _refuse_bound_operators(operators):
-    for op in operators:
-        if hasattr(op, "bind_log_posterior"):
-            raise ValueError(
-                f"{type(op).__name__} evaluates the posterior inside its "
-                "proposal: a chain batch does not take it (its chain-axis "
-                "gradient is not written yet)")
-
-
 def _propose_chains(op, params, tree, gen, tuning):
     """op.propose over the chain axis of params and tree, vmapped with
     randomness "different": each chain draws its own numbers from the one
     generator. Returns (the params entries the proposal replaced, the tree
-    or None where it kept it, log Hastings [B])."""
+    or None where it kept it, log Hastings [B], None)."""
     touched = {}
 
     def one(p, t, tun):
@@ -272,7 +280,16 @@ def _propose_chains(op, params, tree, gen, tuning):
         randomness="different")(params,
                                 tuple(getattr(tree, f) for f in TREE_FIELDS),
                                 tuning)
-    return p2, (TreeState(*t2) if touched["tree"] else None), logh
+    return p2, (TreeState(*t2) if touched["tree"] else None), logh, None
+
+
+def _propose_bound(op, params, tree, gen, tuning):
+    """The chain-axis proposal of an operator bound to the chain-axis
+    posterior, in _propose_chains's form, with its acceptance statistic
+    [B] (NaN where it has none) or None."""
+    p2, t2, logh, *acc = op.propose_chains(params, tree, gen, tuning)
+    return ({k: v for k, v in p2.items() if v is not params.get(k)},
+            None if t2 is tree else t2, logh, acc[0] if acc else None)
 
 
 def _chain_batch_core(log_posterior_chains, operators, derived, adaptation):
@@ -280,8 +297,12 @@ def _chain_batch_core(log_posterior_chains, operators, derived, adaptation):
     of a chain batch. `groups` is [(operator index, chain indices as an
     int64 device tensor, or None for every chain)]; `op_of_chain` the
     operator index of each chain on the device, or None where one operator
-    serves all. See the module docstring."""
-    _refuse_bound_operators(operators)
+    serves all. An operator that evaluates the posterior in its proposal
+    is bound to `log_posterior_chains` and proposes over its chains
+    itself, the posterior of those chains alone (gathered, and scattered
+    back). See the module docstring."""
+    _bind_operators(operators, log_posterior_chains, derived, chains=True)
+    bound = [hasattr(op, "bind_log_posterior") for op in operators]
     stale = _stale_sets(operators, derived)
     derived = derived or {}
     n_ops = len(operators)
@@ -302,29 +323,37 @@ def _chain_batch_core(log_posterior_chains, operators, derived, adaptation):
         raw = {k: v for k, v in states.params.items() if k not in derived}
         params, tree = dict(states.params), states.tree
         logh = torch.zeros(b_n, dtype=old_lp.dtype, device=dev)
+        acc_stat = None
         rebuild = set()
         for op_idx, idx in groups:
             op = operators[op_idx]
             rebuild.update(stale[op_idx])
             adapt = states.op_adapt[:, op_idx]
+            # a bound operator reads the derived entries with the rest
+            given = states.params if bound[op_idx] else raw
+            propose = _propose_bound if bound[op_idx] else _propose_chains
             if idx is None:
-                p2, t2, lh = _propose_chains(op, raw, states.tree, gen,
-                                             op.tuning(adapt))
+                p2, t2, lh, a = propose(op, given, states.tree, gen,
+                                        op.tuning(adapt))
                 params.update(p2)
                 tree = tree if t2 is None else t2
                 logh = lh.to(logh.dtype)
+                acc_stat = a
                 continue
-            sub = TreeState(*(getattr(states.tree, f)[idx]
-                              for f in TREE_FIELDS))
-            p2, t2, lh = _propose_chains(
-                op, {k: v[idx] for k, v in raw.items()}, sub, gen,
-                op.tuning(adapt[idx]))
+            sub = map_tensors(lambda v: v[idx], states.tree)
+            p2, t2, lh, a = propose(op, map_tensors(lambda v: v[idx], given),
+                                    sub, gen, op.tuning(adapt[idx]))
             for k, v in p2.items():
                 params[k] = params[k].index_copy(0, idx, v)
             if t2 is not None:
                 tree = TreeState(*(getattr(tree, f).index_copy(
                     0, idx, getattr(t2, f)) for f in TREE_FIELDS))
             logh = logh.index_copy(0, idx, lh.to(logh.dtype))
+            if a is not None:
+                if acc_stat is None:
+                    acc_stat = torch.full((b_n,), math.nan, dtype=a.dtype,
+                                          device=dev)
+                acc_stat = acc_stat.index_copy(0, idx, a)
         for name in derived:
             if name in rebuild:
                 params[name] = derived[name][0](params)
@@ -342,6 +371,9 @@ def _chain_batch_core(log_posterior_chains, operators, derived, adaptation):
 
         acc_prob = torch.nan_to_num(torch.exp(torch.clamp_max(logr, 0.0)),
                                     nan=0.0)
+        if acc_stat is not None:  # an operator's own, where it is not NaN
+            acc_prob = torch.where(torch.isnan(acc_stat), acc_prob,
+                                   acc_stat.to(acc_prob.dtype))
         if op_of_chain is None:  # one operator for every chain
             hit = torch.zeros((b_n, n_ops), dtype=torch.bool, device=dev)
             hit[:, groups[0][0]] = True
@@ -377,8 +409,11 @@ def make_multichain_step(log_posterior_chains, operators: Sequence[Operator],
     B chains. Each chain keeps its own proposal and acceptance draws.
     `temperatures` is a float or a [B] tensor. The composite kernel applies
     the same randomly chosen component kernel to every chain, each of which
-    leaves the product distribution invariant. Raises ValueError for an
-    operator that evaluates the posterior inside its proposal."""
+    leaves the product distribution invariant. An operator that evaluates
+    the posterior inside its proposal is bound to log_posterior_chains and
+    proposes over all chains at once (`propose_chains`); as in
+    make_mcmc_step, it may not move a parameter a derived entry depends
+    on."""
     core = _chain_batch_core(log_posterior_chains, operators, derived,
                              adaptation)
     _, cum = _operator_cdf(operators)

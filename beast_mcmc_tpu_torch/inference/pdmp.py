@@ -13,6 +13,10 @@ last_n_events + 1 posterior evaluations.
 
 Both are Gibbs-style (the flow leaves the target invariant; velocities are
 drawn anew each proposal): log-Hastings +inf, acceptance statistic NaN.
+Over a chain batch (`propose_chains`) each chain has its own velocity and
+event times; the batch runs to its largest event count, a chain past its
+own masked, one evaluation of all chains an event; `last_n_events` is
+then a list, one count a chain.
 Exactness needs `grad_bound` to dominate the rate along the trajectory;
 where it does not, the flip probability is clipped at 1, as in JAX.
 Positive parameters move in log space as in HmcOperator.
@@ -25,40 +29,71 @@ import math
 
 import torch
 
-from beast_mcmc_tpu_torch.inference.hmc import HmcOperator, value_grad
+from beast_mcmc_tpu_torch.inference.hmc import (
+    HmcOperator,
+    _normal,
+    per_chain,
+    value_grad,
+)
 from beast_mcmc_tpu_torch.inference.nuts import _no_ignored_settings
+
+
+def _exponentials(gen, shape, like):
+    return torch.empty(shape, dtype=like.dtype, device=like.device
+                       ).exponential_(generator=gen)
+
+
+def _uniforms(gen, shape, like):
+    return torch.rand(shape, generator=gen, dtype=like.dtype,
+                      device=like.device)
+
+
+def _coordinates(gen, bounds, n):
+    """n coordinates of each row of bounds [..., dim], each with
+    probability bound / sum of the bounds: [..., n]."""
+    return torch.multinomial(bounds, n, replacement=True, generator=gen)
 
 
 class _Pdmp(HmcOperator):
     last_n_events = 0
+    _reports = ("last_n_events",)
 
     def __post_init__(self):
         _no_ignored_settings(self)
 
-    def _start(self, params, tree, gen, lam_total):
+    def _start(self, lp, params, tree, gen, lam_total):
         """(y0, dU/dy as a function of y, the candidate event times inside
-        the horizon [n], n). The max_events exponential gaps are drawn at
-        once; their running sum, clamped at the horizon, gives the times,
-        and one host copy gives their count."""
+        the horizon [B, n], the counts n [B] a list, and n's largest). The
+        max_events exponential gaps are drawn at once; their running sum,
+        clamped at the horizon, gives the times, and one host copy gives
+        their counts."""
         y0 = self._pack(params).to(tree.heights.dtype).detach()
-        u = self.neg_log_density(params, tree)
-        gaps = torch.empty(self.max_events, dtype=y0.dtype, device=y0.device
-                           ).exponential_(generator=gen) / lam_total
-        times = torch.clamp_max(torch.cumsum(gaps, 0), self.travel_time)
-        n = int(torch.count_nonzero(times < self.travel_time))
-        return y0, lambda y: value_grad(u, y), times[:n], n
+        u = self.neg_log_density(lp, params, tree)
+        lead = y0.shape[:-1]
+        gaps = _exponentials(gen, (*lead, self.max_events), y0) / lam_total
+        times = torch.clamp_max(torch.cumsum(gaps, -1), self.travel_time)
+        n = torch.count_nonzero(times < self.travel_time, dim=-1).tolist()
+        n_max = max(n)
+        return y0, lambda y: value_grad(u, y), times[..., :n_max], n, n_max
+
+    def _active(self, n, n_max, y0):
+        """[..., n_max] bool: whether the chain has its i-th event."""
+        return (torch.arange(n_max, device=y0.device)
+                < torch.as_tensor(n, device=y0.device)[..., None])
 
     def _finish(self, params, tree, y0, y, v, t, n):
         """The last leg, to the horizon unless max_events stopped the flow
         first, and the Gibbs-style result."""
-        if n < self.max_events:
-            y = y + v * (self.travel_time - t)
+        short = torch.as_tensor(n, device=y0.device) < self.max_events
+        y = torch.where(per_chain(short, y),
+                        y + v * per_chain(self.travel_time - t, y), y)
         self.last_n_events = n
-        y = torch.where(torch.all(torch.isfinite(y)), y, y0)
+        y = torch.where(per_chain(torch.isfinite(y).all(-1), y), y, y0)
         dt = y0.dtype
+        lead = y0.shape[:-1]
         return (self._unpack(params, y), tree,
-                torch.full((), math.inf, dtype=dt, device=y0.device),
-                torch.full((), math.nan, dtype=dt, device=y0.device))
+                torch.full(lead, math.inf, dtype=dt, device=y0.device),
+                torch.full(lead, math.nan, dtype=dt, device=y0.device))
 
 
 @dataclasses.dataclass
@@ -72,29 +107,37 @@ class ZigZagOperator(_Pdmp):
     max_events: int = 256
     adaptable: bool = False
 
-    def propose(self, params, tree, gen, tuning):
-        assert self._log_posterior is not None, "ZigZagOperator not bound"
+    def _propose(self, lp, params, tree, gen, tuning):
         dt, dev = tree.heights.dtype, tree.heights.device
-        dim = self._pack(params).shape[0]
+        probe = self._pack(params)
+        dim = probe.shape[-1]
         bounds = torch.as_tensor(self.grad_bound, dtype=dt, device=dev
                                  ).expand(dim).contiguous()
-        v = torch.where(torch.rand(dim, generator=gen, dtype=dt, device=dev)
-                        < 0.5, -1.0, 1.0).to(dt)
-        y0, grad, times, n = self._start(params, tree, gen, torch.sum(bounds))
+        v = torch.where(_uniforms(gen, probe.shape, probe) < 0.5, -1.0,
+                        1.0).to(dt)
+        y0, grad, times, n, n_max = self._start(lp, params, tree, gen,
+                                                torch.sum(bounds))
         # each candidate's coordinate ~ bounds / their sum, thinned by the
         # true rate over its bound
-        coords = (torch.multinomial(bounds, n, replacement=True,
-                                    generator=gen).tolist() if n else [])
-        us = torch.rand(n, generator=gen, dtype=dt, device=dev)
-        y, t = y0, 0.0
-        for i, c in enumerate(coords):
-            y = y + v * (times[i] - t)
-            t = times[i]
+        lead = probe.shape[:-1]
+        coords = (_coordinates(gen, bounds.expand(*lead, dim), n_max)
+                  if n_max else torch.zeros((*lead, 0), dtype=torch.long,
+                                            device=dev))
+        us = _uniforms(gen, (*lead, n_max), y0)
+        active = self._active(n, n_max, y0)
+        y, t = y0, torch.zeros(lead, dtype=dt, device=dev)
+        for i in range(n_max):
+            act = active[..., i]
+            y = torch.where(per_chain(act, y),
+                            y + v * per_chain(times[..., i] - t, y), y)
+            t = torch.where(act, times[..., i], t)
             g = grad(y)
-            rate = torch.clamp_min(v[c] * g[c], 0.0)
-            flip = us[i] < torch.clamp_max(rate / bounds[c], 1.0)
-            v = v.clone()
-            v[c] = torch.where(flip, -v[c], v[c])
+            c = coords[..., i:i + 1]
+            vc = torch.gather(v, -1, c)[..., 0]
+            rate = torch.clamp_min(vc * torch.gather(g, -1, c)[..., 0], 0.0)
+            flip = act & (us[..., i] < torch.clamp_max(
+                rate / bounds[c[..., 0]], 1.0))
+            v = v.scatter(-1, c, torch.where(flip, -vc, vc)[..., None])
         return self._finish(params, tree, y0, y, v, t, n)
 
 
@@ -110,26 +153,32 @@ class BouncyParticleOperator(_Pdmp):
     max_events: int = 256
     adaptable: bool = False
 
-    def propose(self, params, tree, gen, tuning):
-        assert self._log_posterior is not None, "BPS operator not bound"
+    def _propose(self, lp, params, tree, gen, tuning):
         dt, dev = tree.heights.dtype, tree.heights.device
-        dim = self._pack(params).shape[0]
+        probe = self._pack(params)
+        lead, dim = probe.shape[:-1], probe.shape[-1]
         lam_total = self.grad_bound + self.refresh_rate
-        v = torch.randn(dim, generator=gen, dtype=dt, device=dev)
-        y0, grad, times, n = self._start(params, tree, gen, lam_total)
-        us = torch.rand((n, 2), generator=gen, dtype=dt, device=dev)
-        v_refresh = torch.randn((n, dim), generator=gen, dtype=dt, device=dev)
-        refresh = us[:, 0] < self.refresh_rate / lam_total
-        y, t = y0, 0.0
-        for i in range(n):
-            y = y + v * (times[i] - t)
-            t = times[i]
+        v = _normal(gen, probe)
+        y0, grad, times, n, n_max = self._start(lp, params, tree, gen,
+                                                lam_total)
+        us = _uniforms(gen, (*lead, n_max, 2), y0)
+        v_refresh = _normal(gen, y0.new_empty((*lead, n_max, dim)))
+        refresh = us[..., 0] < self.refresh_rate / lam_total
+        active = self._active(n, n_max, y0)
+        y, t = y0, torch.zeros(lead, dtype=dt, device=dev)
+        for i in range(n_max):
+            act = active[..., i]
+            y = torch.where(per_chain(act, y),
+                            y + v * per_chain(times[..., i] - t, y), y)
+            t = torch.where(act, times[..., i], t)
             g = grad(y)
-            vg = torch.dot(v, g)
-            bounce = us[i, 1] < torch.clamp_max(
+            vg = torch.sum(v * g, dim=-1)
+            bounce = us[..., i, 1] < torch.clamp_max(
                 torch.clamp_min(vg, 0.0) / self.grad_bound, 1.0)
-            v_bounce = v - 2.0 * vg / torch.clamp_min(torch.dot(g, g),
-                                                      1e-30) * g
-            v = torch.where(refresh[i], v_refresh[i],
-                            torch.where(bounce, v_bounce, v))
+            v_bounce = v - per_chain(2.0 * vg / torch.clamp_min(
+                torch.sum(g * g, dim=-1), 1e-30), g) * g
+            v_new = torch.where(per_chain(refresh[..., i], v),
+                                v_refresh[..., i, :],
+                                torch.where(per_chain(bounce, v), v_bounce, v))
+            v = torch.where(per_chain(act, v), v_new, v)
         return self._finish(params, tree, y0, y, v, t, n)

@@ -8,7 +8,9 @@ AdaptableVarianceMultivariateNormalOperator):
     coordinate. JAX's lax.while_loops become host loops with the same
     iteration caps, one host copy of the loop's test an iteration; each
     iteration evaluates the posterior (one kernel launch on a CUDA device).
-    Gibbs-style: log-Hastings +inf.
+    Gibbs-style: log-Hastings +inf. Both slice samplers also propose over a
+    chain batch (`propose_chains`), the loops in step until every chain
+    has its point.
   - EllipticalSliceOperator: Murray, Adams and MacKay's elliptical slice
     for a parameter with a Gaussian prior factor in the bound posterior;
     the operator subtracts that factor to get the "likelihood". Gibbs-style.
@@ -29,146 +31,183 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from beast_mcmc_tpu_torch.inference.hmc import _flat, _put
+from beast_mcmc_tpu_torch.inference.hmc import _Binds, _normal
 from beast_mcmc_tpu_torch.inference.operators import Operator
 
 _MAX_STEPOUT = 32
 _MAX_SHRINK = 64
 
 
-def _gibbs(params, tree, dt, device):
+def _gibbs(params, tree, lead, dt, device):
     """A Gibbs-style result: always accepted, no acceptance statistic."""
-    return (params, tree, torch.full((), math.inf, dtype=dt, device=device),
-            torch.full((), math.nan, dtype=dt, device=device))
+    return (params, tree, torch.full(lead, math.inf, dtype=dt, device=device),
+            torch.full(lead, math.nan, dtype=dt, device=device))
 
 
-def _exponential(gen, dt, device):
-    return torch.empty((), dtype=dt, device=device).exponential_(
+def _exponential(gen, lead, dt, device):
+    return torch.empty(lead, dtype=dt, device=device).exponential_(
         generator=gen)
 
 
-def _uniform(gen, dt, device):
-    return torch.rand((), generator=gen, dtype=dt, device=device)
+def _uniform(gen, lead, dt, device):
+    return torch.rand(lead, generator=gen, dtype=dt, device=device)
+
+
+def _coordinate(gen, n, lead, device):
+    return torch.randint(0, n, (*lead, 1), generator=gen, device=device)
+
+
+def _any(flags) -> bool:
+    """One host copy of a [B] flag: whether any chain holds it."""
+    return any(flags.tolist())
 
 
 @dataclasses.dataclass
-class SliceOperator(Operator):
+class SliceOperator(_Binds, Operator):
     """Univariate slice sampler on one random coordinate of `parameter`,
     from a bracket of `width`. With log_transform the slice runs in log
-    space, the Jacobian folded into its target."""
+    space, the Jacobian folded into its target. Over a chain batch each
+    chain slices its own coordinate: the stepping-out and shrinkage loops
+    go on, in step, until every chain has its point, a chain that is done
+    masked; each pass evaluates the posterior once over the chain axis.
+    `last_n_evaluations` holds the evaluations of the last proposal."""
 
     parameter: str = ""
     width: float = 1.0
     log_transform: bool = False
+    last_n_evaluations = 0
     _log_posterior: Optional[Callable] = dataclasses.field(
         default=None, repr=False, compare=False)
 
-    def bind_log_posterior(self, log_posterior):
-        self._log_posterior = log_posterior
-
-    def propose(self, params, tree, gen, tuning):
-        assert self._log_posterior is not None, "SliceOperator not bound"
+    def _propose(self, lp, params, tree, gen, tuning):
         dt, dev = tree.heights.dtype, tree.heights.device
         x = params[self.parameter]
-        flat = torch.atleast_1d(x).reshape(-1).to(dt)
-        idx = torch.randint(0, flat.shape[0], (1,), generator=gen, device=dev)
+        lead = x.shape[:1]
+        flat = x.reshape(*lead, -1).to(dt)
+        idx = _coordinate(gen, flat.shape[-1], lead, dev)
 
         def put(v):
             val = torch.exp(v) if self.log_transform else v
-            return flat.index_put((idx,), val.reshape(1)).reshape(
+            return flat.scatter(-1, idx, val[..., None]).reshape(
                 x.shape).to(x.dtype)
 
-        def logf(v):
-            lp = self._log_posterior({**params, self.parameter: put(v)}, tree)
-            return lp + v if self.log_transform else lp
+        n_eval = [0]
 
-        v0 = flat[idx][0]
+        def logf(v):
+            n_eval[0] += 1
+            out = lp({**params, self.parameter: put(v)}, tree)
+            return out + v if self.log_transform else out
+
+        v0 = torch.gather(flat, -1, idx)[..., 0]
         v0 = torch.log(v0) if self.log_transform else v0
         # the vertical level: log u + logf(v0), u ~ U(0, 1)
-        logy = logf(v0) - _exponential(gen, dt, dev)
-        lo = v0 - _uniform(gen, dt, dev) * self.width
+        logy = logf(v0) - _exponential(gen, lead, dt, dev)
+        lo = v0 - _uniform(gen, lead, dt, dev) * self.width
         hi = lo + self.width
         f_lo, f_hi = logf(lo), logf(hi)
         for _ in range(_MAX_STEPOUT):  # stepping out
-            out_lo, out_hi = torch.stack([f_lo > logy, f_hi > logy]).tolist()
-            if not (out_lo or out_hi):
+            out_lo, out_hi = f_lo > logy, f_hi > logy
+            step_lo, step_hi = (any(f) for f in torch.stack(
+                [out_lo, out_hi]).tolist())
+            if not (step_lo or step_hi):
                 break
-            if out_lo:
-                lo = lo - self.width
-                f_lo = logf(lo)
-            if out_hi:
-                hi = hi + self.width
-                f_hi = logf(hi)
+            if step_lo:
+                lo = torch.where(out_lo, lo - self.width, lo)
+                f_lo = torch.where(out_lo, logf(lo), f_lo)
+            if step_hi:
+                hi = torch.where(out_hi, hi + self.width, hi)
+                f_hi = torch.where(out_hi, logf(hi), f_hi)
         v1 = v0  # where shrinkage finds no point, x stays: also exact
+        found = torch.zeros(lead, dtype=torch.bool, device=dev)
         for _ in range(_MAX_SHRINK):  # shrinkage
-            v_new = lo + _uniform(gen, dt, dev) * (hi - lo)
-            if bool(logf(v_new) > logy):
-                v1 = v_new
+            v_new = lo + _uniform(gen, lead, dt, dev) * (hi - lo)
+            hit = ~found & (logf(v_new) > logy)
+            v1 = torch.where(hit, v_new, v1)
+            found = found | hit
+            if not _any(~found):
                 break
             lo = torch.where(v_new >= v0, lo, v_new)
             hi = torch.where(v_new < v0, hi, v_new)
-        return _gibbs({**params, self.parameter: put(v1)}, tree, dt, dev)
+        self.last_n_evaluations = n_eval[0]
+        return _gibbs({**params, self.parameter: put(v1)}, tree, lead, dt,
+                      dev)
 
 
 @dataclasses.dataclass
-class EllipticalSliceOperator(Operator):
+class EllipticalSliceOperator(_Binds, Operator):
     """Elliptical slice sampling of `parameter` under its Gaussian prior
     N(prior_mean, prior_stdev^2 I), a factor of the bound posterior
-    (EllipticalSliceOperator.java; Murray, Adams and MacKay 2010)."""
+    (EllipticalSliceOperator.java; Murray, Adams and MacKay 2010). Over a
+    chain batch each chain has its own ellipse and bracket; the shrinkage
+    goes on, in step, until every chain has its point.
+    `last_n_evaluations` holds the evaluations of the last proposal."""
 
     parameter: str = ""
     prior_mean: float = 0.0
     prior_stdev: float = 1.0
+    last_n_evaluations = 0
     _log_posterior: Optional[Callable] = dataclasses.field(
         default=None, repr=False, compare=False)
 
-    def bind_log_posterior(self, log_posterior):
-        self._log_posterior = log_posterior
-
-    def propose(self, params, tree, gen, tuning):
-        assert self._log_posterior is not None, "ESS operator not bound"
+    def _propose(self, lp, params, tree, gen, tuning):
         dt, dev = tree.heights.dtype, tree.heights.device
         x = params[self.parameter]
-        flat = torch.atleast_1d(x).to(dt)
+        lead = x.shape[:1]
+        flat = x.reshape(*lead, -1).to(dt)
         mean, sd = self.prior_mean, self.prior_stdev
 
-        def loglik(v):  # the posterior less the Gaussian prior factor
-            lp = self._log_posterior(
-                {**params, self.parameter: v.reshape(x.shape).to(x.dtype)},
-                tree)
-            return lp - torch.sum(-0.5 * ((v - mean) / sd) ** 2
-                                  - math.log(sd) - 0.5 * math.log(2 * math.pi))
+        n_eval = [0]
 
-        nu = torch.randn(flat.shape, generator=gen, dtype=dt, device=dev) * sd
-        logy = loglik(flat) - _exponential(gen, dt, dev)
-        theta = _uniform(gen, dt, dev) * 2 * math.pi
+        def loglik(v):  # the posterior less the Gaussian prior factor
+            n_eval[0] += 1
+            out = lp({**params, self.parameter: v.reshape(x.shape).to(
+                x.dtype)}, tree)
+            return out - torch.sum(-0.5 * ((v - mean) / sd) ** 2
+                                   - math.log(sd)
+                                   - 0.5 * math.log(2 * math.pi), dim=-1)
+
+        nu = _normal(gen, flat) * sd
+        logy = loglik(flat) - _exponential(gen, lead, dt, dev)
+        theta = _uniform(gen, lead, dt, dev) * 2 * math.pi
         lo, hi = theta - 2 * math.pi, theta
 
         def point(t):
+            t = t[..., None]
             return (flat - mean) * torch.cos(t) + nu * torch.sin(t) + mean
 
         v1 = flat  # where no point is found within the cap, x stays
+        found = torch.zeros(lead, dtype=torch.bool, device=dev)
         for _ in range(_MAX_SHRINK):
-            if bool(loglik(point(theta)) > logy):
-                v1 = point(theta)
+            hit = ~found & (loglik(point(theta)) > logy)
+            v1 = torch.where(hit[..., None], point(theta), v1)
+            found = found | hit
+            if not _any(~found):
                 break
             lo = torch.where(theta >= 0, lo, theta)
             hi = torch.where(theta < 0, hi, theta)
-            theta = lo + _uniform(gen, dt, dev) * (hi - lo)
+            theta = lo + _uniform(gen, lead, dt, dev) * (hi - lo)
+        self.last_n_evaluations = n_eval[0]
         return _gibbs({**params, self.parameter: v1.reshape(x.shape).to(
-            x.dtype)}, tree, dt, dev)
+            x.dtype)}, tree, lead, dt, dev)
 
 
 class _Packed:
-    """Parameters packed into one vector, in log space with log_transform."""
+    """One chain's parameters packed into one vector, in log space with
+    log_transform (a chain batch vmaps these operators)."""
 
     def _pack(self, params):
-        flat = _flat(params, self.parameters)
+        flat = torch.cat([torch.atleast_1d(params[n]).reshape(-1)
+                          for n in self.parameters])
         return torch.log(flat) if self.log_transform else flat
 
     def _unpack(self, params, y):
-        return _put(params, self.parameters,
-                    torch.exp(y) if self.log_transform else y)
+        x = torch.exp(y) if self.log_transform else y
+        out, i = dict(params), 0
+        for n in self.parameters:
+            v = params[n]
+            out[n] = x[i:i + v.numel()].reshape(v.shape).to(v.dtype)
+            i += v.numel()
+        return out
 
     def initial_adapt(self) -> float:
         return float(np.log(self.scale))

@@ -26,8 +26,10 @@ heights [B, M], root [B]) carries a leading chain axis through every
 function here, with the eigensystem batched over B (or shared), branch
 rates [B] and category rates and weights [B, C] (or shared); the totals
 are [B]. The whole batch is one peel: one launch of the route's kernel for
-all B chains (ops/cuda_peeling.py::peel_site_loglik_auto). It takes no
-gradient.
+all B chains (ops/cuda_peeling.py::peel_site_loglik_auto). It is
+differentiable in every chain's heights and parameters, the chains
+independent: one backward of the sum of the [B] totals gives each chain's
+gradient in its own rows, through one level adjoint for all B chains.
 """
 
 from __future__ import annotations

@@ -52,9 +52,10 @@ two [S, S] matrix pieces and the schedule). The kernel no longer stages
 them, but the rule is kept as it was, so that no shape changes route;
 outside it the dispatcher keeps the v1 streaming kernel.
 
-Gradients: where autograd asks for one, `peel_site_loglik_mxu` takes
-`_peel_forward_mxu(want_post=True)` as the forward of
-ops/peeling.py::peel_with_adjoint, the level adjoint over the same schedule.
+Gradients: where autograd asks for one, `peel_mxu_chains` (and
+`peel_site_loglik_mxu`, its batch of one) takes `_mxu_chains(want_post=True)`
+as the forward of ops/peeling.py::peel_with_adjoint, the level adjoint over
+the same schedule.
 """
 
 from __future__ import annotations
@@ -65,7 +66,7 @@ import torch
 
 from beast_mcmc_tpu_torch.ops import _build
 from beast_mcmc_tpu_torch.ops.cuda_peeling import check_kernel_inputs
-from beast_mcmc_tpu_torch.ops.peeling import peel_with_adjoint, wants_grad
+from beast_mcmc_tpu_torch.ops.peeling import one_chain, peel_with_adjoint
 from beast_mcmc_tpu_torch.utils.accum import stable_dot
 
 SMEM_BUDGET = 220 * 1024  # of the 227 KB a block may take
@@ -241,53 +242,74 @@ def _peel_mxu_kernel(tips, children, order, p_matrices, freqs, cat_w,
     return out
 
 
-def _peel_forward_mxu(tip_partials, children, order, p_matrices, freqs, cat_w,
-                      want_post=True, schedule=None):
-    """(site_logl [P], post [M, C, S, P] or None) through the kernel; CPU
-    tensors take the plain version. Both peel by levels of depth
-    (`schedule` = level_schedule(children, N, parent), computed here when
-    not given), so `order` is kept for interface parity. `post` is the
-    layout the pre-order adjoint takes: rescaled partials by node, the tips'
-    rows holding the tip partials."""
-    from beast_mcmc_tpu_torch.ops.cuda_stream import level_schedule
-
-    if not tip_partials.is_cuda:
-        wcs = cat_w[:, None] * freqs[None, :]
-        site, post = _mxu_plain(
-            tip_partials,
-            schedule or level_schedule(children, tip_partials.shape[0]),
-            p_matrices, wcs)
+def _mxu_chains(tips, children, p_matrices, freqs, cat_w, schedule,
+                want_post):
+    """(site_logl [B, P], post [B, M, C, S, P] or None) of a chain batch
+    through the kernel (children [B, M, 2], p_matrices [B, M, C, S, S],
+    freqs [B, S], cat_w [B, C], the chain-axis level_schedule(children, N,
+    parent)); CPU tensors take the plain version. `post` is the layout the
+    adjoint takes: rescaled partials by node, the tips' rows holding the tip
+    partials."""
+    if not tips.is_cuda:
+        site, post = _mxu_plain(tips, schedule, p_matrices,
+                                cat_w[:, :, None] * freqs[:, None, :])
         return site, (post if want_post else None)
-    site, post = _peel_mxu_kernel(tip_partials.contiguous(), children, order,
+    site, post = _peel_mxu_kernel(tips.contiguous(), children, None,
                                   p_matrices.contiguous(), freqs, cat_w,
                                   schedule)
     if not want_post:
         return site, None
-    post[:tip_partials.shape[0]] = tip_partials[:, None]
+    post[:, :tips.shape[0]] = tips[None, :, None]  # the kernel leaves them
     return site, post
+
+
+def _peel_forward_mxu(tip_partials, children, order, p_matrices, freqs, cat_w,
+                      want_post=True, schedule=None):
+    """(site_logl [P], post [M, C, S, P] or None) of one tree: `_mxu_chains`'
+    batch of one. Both the kernel and its plain version peel by levels of
+    depth (`schedule` = level_schedule(children, N, parent), computed here
+    when not given), so `order` is kept for interface parity."""
+    from beast_mcmc_tpu_torch.ops.cuda_stream import level_schedule
+
+    children = children[None]
+    schedule = one_chain(schedule) or level_schedule(children,
+                                                     tip_partials.shape[0])
+    site, post = _mxu_chains(tip_partials, children, p_matrices[None],
+                             freqs[None], cat_w[None], schedule, want_post)
+    return site[0], (post[0] if want_post else None)
+
+
+def peel_mxu_chains(tip_partials, children, p_matrices, freqs, cat_w,
+                    schedule=None) -> torch.Tensor:
+    """The matrix-product peel of a chain batch in one launch: children [B,
+    M, 2], p_matrices [B, M, C, S, S], freqs [B, S] and cat_w [B, C] give
+    [B, P]; the tips [N, S, P] are shared. `schedule` is the chain-axis
+    level_schedule(children, N, parent), computed here when not given. A
+    CPU tensor takes the plain version. Differentiable in every chain's
+    p_matrices, freqs and cat_w: the one launch returns every chain's
+    partials, and one level adjoint takes all B chains."""
+    from beast_mcmc_tpu_torch.ops.cuda_stream import level_schedule
+
+    if schedule is None:
+        schedule = level_schedule(children, tip_partials.shape[0])
+
+    def forward(pm, fr, cw, want_post):  # [B, 1, ...]: one partition
+        site, post = _mxu_chains(tip_partials, children, pm[:, 0], fr[:, 0],
+                                 cw[:, 0], schedule, want_post)
+        return (site[:, None], post[:, None]) if want_post else site[:, None]
+
+    return peel_with_adjoint(forward, schedule, p_matrices[:, None],
+                             freqs[:, None], cat_w[:, None])[:, 0]
 
 
 def peel_site_loglik_mxu(tip_partials, children, order, root, p_matrices,
                          freqs, cat_w, schedule=None) -> torch.Tensor:
     """Per-pattern log-likelihood [P] through the kernel, differentiable in
-    p_matrices, freqs and cat_w. `root` is kept for interface parity (the
-    level schedule ends at the root)."""
-    from beast_mcmc_tpu_torch.ops.cuda_stream import level_schedule
-
-    if wants_grad(p_matrices, freqs, cat_w):
-        schedule = schedule or level_schedule(children,
-                                              tip_partials.shape[0])
-
-        def forward(pm, fr, cw):  # [1, ...]: one partition
-            site, post = _peel_forward_mxu(tip_partials, children, order,
-                                           pm[0], fr[0], cw[0], True,
-                                           schedule)
-            return site[None], post[None]
-
-        return peel_with_adjoint(forward, schedule, p_matrices[None],
-                                 freqs[None], cat_w[None])[0]
-    return _peel_forward_mxu(tip_partials, children, order, p_matrices, freqs,
-                             cat_w, want_post=False, schedule=schedule)[0]
+    p_matrices, freqs and cat_w: `peel_mxu_chains`' batch of one. `order`
+    and `root` are kept for interface parity (the level schedule ends at
+    the root)."""
+    return peel_mxu_chains(tip_partials, children[None], p_matrices[None],
+                           freqs[None], cat_w[None], one_chain(schedule))[0]
 
 
 def peel_loglikelihood_mxu(tip_partials, children, order, root, p_matrices,

@@ -24,7 +24,8 @@ divide among them). The defaults are the fastest of the sweep
 A chain batch is the kernel's second grid axis: B chains' matrices,
 schedules and outputs beside one another, the tips shared, one launch
 (`prepare_resident` with [B, ...] inputs); `peel_site_loglik_auto` with
-[B, M, 2] children dispatches a chain batch on every route (`_peel_chains`).
+[B, M, 2] children dispatches a chain batch on every route, and one tree as
+the batch of one (`peel_resident_chains` and its counterparts).
 
 `peel_route` names the kernel a shape goes to. For S = 4,
 `resident_plan_fits` decides between this kernel and the deep streaming one
@@ -55,6 +56,7 @@ import torch
 
 from beast_mcmc_tpu_torch.ops import _build
 from beast_mcmc_tpu_torch.ops.peeling import (
+    one_chain,
     peel_with_adjoint,
     post_by_node,
     wants_grad,
@@ -222,9 +224,12 @@ def prepare_resident(tips, children, order, p_matrices, freqs, cat_w,
 def resident_positions(scratch, p: int):
     """The resident kernel's scratch [tiles, n_int, S, C, pw] as the
     rescaled partials by peel position [n_int, C, S, P] (the padded
-    patterns of the last tile cut away)."""
-    t, n_int, s, c, pw = scratch.shape
-    return scratch.permute(1, 3, 2, 0, 4).reshape(n_int, c, s, t * pw)[..., :p]
+    patterns of the last tile cut away); a chain batch's [B, tiles, ...]
+    gives [B, n_int, C, S, P]."""
+    *lead, t, n_int, s, c, pw = scratch.shape
+    d = len(lead)
+    return scratch.permute(*range(d), d + 1, d + 3, d + 2, d, d + 4).reshape(
+        *lead, n_int, c, s, t * pw)[..., :p]
 
 
 def _resident_plain(tip_partials, lr_ids, lr_pos, level_start, p_matrices,
@@ -262,47 +267,54 @@ def _peel_resident_kernel(tips, children, order, p_matrices, freqs, cat_w,
     return out
 
 
+def peel_resident_chains(tip_partials, children, p_matrices, freqs,
+                         category_weights, schedule=None) -> torch.Tensor:
+    """The resident peel of a chain batch in one launch: children [B, M,
+    2], p_matrices [B, M, C, 4, 4], freqs [B, 4] and category_weights [B,
+    C] give [B, P]; the tips [N, 4, P] are shared. `schedule` is the
+    chain-axis level_schedule(children, N, parent), computed here when not
+    given. A CPU tensor takes the plain version. Differentiable in every
+    chain's p_matrices, freqs and category_weights: the one launch returns
+    every chain's partials, and one level adjoint takes all B chains."""
+    from beast_mcmc_tpu_torch.ops.cuda_stream import level_schedule
+
+    if schedule is None:
+        schedule = level_schedule(children, tip_partials.shape[0])
+    lvl_order, lr_ids, lr_pos, level_start = schedule
+    tips = tip_partials.contiguous()
+
+    def forward(pm, fr, cw, want_post):  # [B, 1, ...]: one partition
+        pm, fr, cw = pm[:, 0], fr[:, 0], cw[:, 0]
+        if tips.is_cuda:
+            out = _peel_resident_kernel(tips, children, None,
+                                        pm.contiguous(), fr, cw, schedule,
+                                        want_post)
+        else:
+            out = _resident_plain(tips, lr_ids, lr_pos, level_start, pm,
+                                  cw[:, :, None] * fr[:, None, :],
+                                  want_post)
+        if not want_post:
+            return out[:, None]
+        return out[0][:, None], post_by_node(out[1][:, None], tips[None],
+                                             lvl_order)
+
+    return peel_with_adjoint(forward, schedule, p_matrices[:, None],
+                             freqs[:, None], category_weights[:, None])[:, 0]
+
+
 def peel_site_loglik_cuda(tip_partials, children, order, root, p_matrices,
                           freqs, category_weights,
                           schedule=None) -> torch.Tensor:
     """Per-pattern log-likelihood [P] through the resident kernel; a CPU
-    tensor takes its plain version. Both peel by levels of depth
-    (`schedule` = level_schedule(children, N, parent), computed here when
-    not given), so `order` and `root` are kept for interface parity.
-    Differentiable in p_matrices, freqs and category_weights."""
-    from beast_mcmc_tpu_torch.ops.cuda_stream import level_schedule
-
-    if wants_grad(p_matrices, freqs, category_weights):
-        schedule = schedule or level_schedule(children,
-                                              tip_partials.shape[0])
-        tips = tip_partials.contiguous()
-
-        def forward(pm, fr, cw):  # [1, ...]: one partition
-            if tips.is_cuda:
-                site, pos = _peel_resident_kernel(
-                    tips, children, order, pm[0], fr[0], cw[0], schedule,
-                    want_post=True)
-            else:
-                _, lr_ids, lr_pos, level_start = schedule
-                site, pos = _resident_plain(tips, lr_ids, lr_pos,
-                                            level_start, pm[0],
-                                            cw[0, :, None] * fr[0, None, :],
-                                            want_post=True)
-            return site[None], post_by_node(pos[None], tips[None],
-                                            schedule[0])
-
-        return peel_with_adjoint(forward, schedule,
-                                 p_matrices.contiguous()[None], freqs[None],
-                                 category_weights[None])[0]
-    if not tip_partials.is_cuda:
-        _, lr_ids, lr_pos, level_start = schedule or level_schedule(
-            children, tip_partials.shape[0])
-        wcs = category_weights[:, None] * freqs[None, :]
-        return _resident_plain(tip_partials, lr_ids, lr_pos, level_start,
-                               p_matrices, wcs)
-    return _peel_resident_kernel(tip_partials.contiguous(), children, order,
-                                 p_matrices.contiguous(), freqs,
-                                 category_weights, schedule)
+    tensor takes its plain version: `peel_resident_chains`' batch of one.
+    Both peel by levels of depth (`schedule` = level_schedule(children, N,
+    parent), computed when not given), so `order` and `root` are kept for
+    interface parity. Differentiable in p_matrices, freqs and
+    category_weights."""
+    return peel_resident_chains(tip_partials, children[None],
+                                p_matrices[None], freqs[None],
+                                category_weights[None],
+                                one_chain(schedule))[0]
 
 
 MXU_MIN_STATES = 16  # from here a node's products fill 8 x 8 tiles
@@ -336,65 +348,35 @@ def peel_site_loglik_auto(tip_partials, children, order, root, p_matrices,
     axis) gives [B, P] from one launch of the route's kernel for all B
     chains; on the v1 streaming route, whose kernel has no chain axis yet,
     one launch a chain. On the deep route tip_partials [K, N, S, P] with
-    p_matrices [B, K, M, C, S, S] gives [B, K, P] in one launch. A CPU
-    tensor takes the route's plain chain-axis version. The chain batch
-    takes no gradient: inputs that require grad raise."""
-    from beast_mcmc_tpu_torch.ops.cuda_mxu import peel_site_loglik_mxu
-    from beast_mcmc_tpu_torch.ops.cuda_stream import peel_site_loglik_stream
-    from beast_mcmc_tpu_torch.ops.cuda_stream2 import peel_site_loglik_deep
+    p_matrices [B, K, M, C, S, S] gives [B, K, P] in one launch. One tree
+    is the batch of one. A CPU tensor takes the route's plain chain-axis
+    version. Differentiable in every chain's p_matrices, freqs and
+    category_weights: one forward with the partials and one level adjoint
+    for all B chains."""
+    from beast_mcmc_tpu_torch.ops.cuda_mxu import peel_mxu_chains
+    from beast_mcmc_tpu_torch.ops.cuda_stream import peel_stream_chains
+    from beast_mcmc_tpu_torch.ops.cuda_stream2 import peel_deep_chains
 
     m, c, s = p_matrices.shape[-4:-1]
     route = peel_route(m, c, s, p_matrices.element_size())
-    if children.dim() == 3:
-        return _peel_chains(route, tip_partials, children, order, p_matrices,
-                            freqs, category_weights, schedule)
-    args = (tip_partials, children, order, root, p_matrices, freqs,
-            category_weights)
+    one = children.dim() == 2
+    if one:
+        children, p_matrices = children[None], p_matrices[None]
+        freqs, category_weights = freqs[None], category_weights[None]
+        order = None if order is None else order[None]
+        schedule = one_chain(schedule)
+    args = (tip_partials, children, p_matrices, freqs, category_weights,
+            schedule)
     if route == "resident":
-        return peel_site_loglik_cuda(*args, schedule)
-    if route == "deep":
-        return peel_site_loglik_deep(*args, schedule)
-    if route == "mxu":
-        return peel_site_loglik_mxu(*args, schedule)
-    return peel_site_loglik_stream(*args, schedule)
-
-
-def _peel_chains(route, tips, children, order, p_matrices, freqs, cat_w,
-                 schedule):
-    """`peel_site_loglik_auto` of a chain batch on `route`."""
-    from beast_mcmc_tpu_torch.ops import cuda_mxu
-    from beast_mcmc_tpu_torch.ops.cuda_stream import (
-        _stream_forward,
-        level_schedule,
-        stream_schedule,
-    )
-    from beast_mcmc_tpu_torch.ops.cuda_stream2 import peel_deep_chains
-
-    if wants_grad(p_matrices, freqs, cat_w):
-        raise RuntimeError("a chain-axis peel takes no gradient: its inputs "
-                           "require grad")
-    if route == "deep":
-        return peel_deep_chains(tips, children, p_matrices, freqs, cat_w,
-                                schedule)
-    if route == "stream":  # one launch a chain
-        lr_ids, lr_pos = schedule or stream_schedule(children, order)
-        return torch.stack([
-            _stream_forward(tips, children[b], order[b], p_matrices[b],
-                            freqs[b], cat_w[b], (lr_ids[b], lr_pos[b]))[0]
-            for b in range(p_matrices.shape[0])])
-    if schedule is None:
-        schedule = level_schedule(children, tips.shape[0])
-    if not tips.is_cuda:
-        wcs = cat_w[:, :, None] * freqs[:, None, :]
-        if route == "resident":
-            return _resident_plain(tips, *schedule[1:], p_matrices, wcs)
-        return cuda_mxu._mxu_plain(tips, schedule, p_matrices, wcs)[0]
-    tips, p_matrices = tips.contiguous(), p_matrices.contiguous()
-    if route == "resident":
-        return _peel_resident_kernel(tips, children, None, p_matrices, freqs,
-                                     cat_w, schedule)
-    return cuda_mxu._peel_mxu_kernel(tips, children, None, p_matrices, freqs,
-                                     cat_w, schedule)[0]
+        site = peel_resident_chains(*args)
+    elif route == "deep":
+        site = peel_deep_chains(*args)
+    elif route == "mxu":
+        site = peel_mxu_chains(*args)
+    else:
+        site = peel_stream_chains(tip_partials, children, order,
+                                  *args[2:])
+    return site[0] if one else site
 
 
 def peel_schedule(route: str, children, heights, parent):

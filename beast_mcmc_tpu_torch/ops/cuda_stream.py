@@ -30,8 +30,9 @@ one category ([S, S]) at a time. `_pick_bp` takes the widest pattern tile
 (at most 32) that leaves the whole within SMEM_BUDGET, and a narrower one
 while the grid would leave more than half of the 132 SMs without a block.
 
-Gradients: where autograd asks for one, `peel_site_loglik_stream` takes
-`_stream_forward` as the forward of ops/peeling.py::peel_with_adjoint: its
+Gradients: where autograd asks for one, `peel_stream_chains` (and
+`peel_site_loglik_stream`, its batch of one) takes `_stream_forward`, chain
+by chain, as the forward of ops/peeling.py::peel_with_adjoint: its
 partials by height-order position go to their nodes through `order`, and
 the adjoint walks `level_schedule` of the same tree.
 """
@@ -46,6 +47,7 @@ from beast_mcmc_tpu_torch.ops import _build
 from beast_mcmc_tpu_torch.ops.cuda_peeling import check_kernel_inputs
 from beast_mcmc_tpu_torch.ops.peeling import (
     node_depths,
+    one_chain,
     parent_from_children,
     peel_with_adjoint,
     post_by_node,
@@ -244,26 +246,46 @@ def _stream_forward(tip_partials, children, order, p_matrices, freqs, cat_w,
                                     pm_ord, freqs, cat_w)
 
 
+def peel_stream_chains(tip_partials, children, order, p_matrices, freqs,
+                       cat_w, schedule=None) -> torch.Tensor:
+    """The v1 streaming peel of a chain batch, one launch a chain (the
+    kernel has no chain axis yet): children [B, M, 2], `order` [B, n_int]
+    each chain's peel order, p_matrices [B, M, C, S, S], freqs [B, S] and
+    cat_w [B, C] give [B, P]. `schedule` is the chain-axis
+    stream_schedule(children, order) where the caller has it. A CPU tensor
+    takes the plain version. Differentiable in every chain's p_matrices,
+    freqs and cat_w: each launch returns its chain's partials by position,
+    `post_by_node` puts them at their nodes, and one level adjoint over
+    level_schedule takes all B chains."""
+    lr_ids, lr_pos = schedule or stream_schedule(children, order)
+
+    def forward(pm, fr, cw, want_post):  # [B, 1, ...]: one partition
+        outs = [_stream_forward(tip_partials, children[b], order[b],
+                                pm[b, 0], fr[b, 0], cw[b, 0],
+                                (lr_ids[b], lr_pos[b]))
+                for b in range(pm.shape[0])]
+        site = torch.stack([o[0] for o in outs])[:, None]
+        if not want_post:
+            return site
+        pos = torch.stack([o[1] for o in outs])[:, None]
+        return site, post_by_node(pos, tip_partials[None], order)
+
+    levels = (level_schedule(children, tip_partials.shape[0])
+              if wants_grad(p_matrices, freqs, cat_w) else None)
+    return peel_with_adjoint(forward, levels, p_matrices[:, None],
+                             freqs[:, None], cat_w[:, None])[:, 0]
+
+
 def peel_site_loglik_stream(tip_partials, children, order, root, p_matrices,
                             freqs, category_weights,
                             schedule=None) -> torch.Tensor:
     """Per-pattern log-likelihood [P] through the streaming kernel,
-    differentiable in p_matrices, freqs and category_weights. `root` is
-    kept for interface parity (the peel order ends at the root)."""
-    if wants_grad(p_matrices, freqs, category_weights):
-        n_tips = tip_partials.shape[0]
-
-        def forward(pm, fr, cw):  # [1, ...]: one partition
-            site, pos = _stream_forward(tip_partials, children, order, pm[0],
-                                        fr[0], cw[0], schedule)
-            return site[None], post_by_node(pos[None], tip_partials[None],
-                                            order)
-
-        return peel_with_adjoint(forward, level_schedule(children, n_tips),
-                                 p_matrices[None], freqs[None],
-                                 category_weights[None])[0]
-    return _stream_forward(tip_partials, children, order, p_matrices, freqs,
-                           category_weights, schedule)[0]
+    differentiable in p_matrices, freqs and category_weights:
+    `peel_stream_chains`' batch of one. `root` is kept for interface parity
+    (the peel order ends at the root)."""
+    return peel_stream_chains(tip_partials, children[None], order[None],
+                              p_matrices[None], freqs[None],
+                              category_weights[None], one_chain(schedule))[0]
 
 
 def peel_loglikelihood_stream(tip_partials, children, order, root, p_matrices,

@@ -21,7 +21,8 @@ partitions, so a CPU tensor checks the gather as well as the arithmetic.
 A chain batch is the grid's third axis, (tiles, K, B): pm_ord [B, K,
 n_int, 2, C, S, S] gathered by `chains_pm_ord`, a chain-axis schedule,
 the tips shared; `peel_deep_chains` is its entry, `_deep_plain` its plain
-version chain by chain.
+version chain by chain. The chain batch's gradient is one launch with
+every chain's partials and one level adjoint for all B chains.
 
 Both take the logarithms of the scales in float64 and sum them in float64
 whatever the working type, the kernel slot by slot (as a running product)
@@ -37,10 +38,11 @@ to one 32-byte sector of a state row (pw = 4 in f64, 8 in f32), and
 WARPS = 16 warps, fewer where their buffers would overflow shared memory
 (C > 16 in f64).
 
-Gradients: where autograd asks for one, `peel_site_loglik_deep` launches
-the kernel with its partials (`want_post`: the scratch, which holds every
-node's rescaled partials by peel position, gathered by `deep_positions`),
-and ops/peeling.py::peel_with_adjoint takes the level adjoint of the K
+Gradients: where autograd asks for one, `peel_deep_chains` (and
+`peel_site_loglik_deep`, its batch of one) launches the kernel with its
+partials (`want_post`: the scratch, which holds every node's rescaled
+partials by peel position, gathered by `deep_positions`), and
+ops/peeling.py::peel_with_adjoint takes the level adjoint of the K
 partitions over the same schedule. The JAX deep route re-runs the scan peel
 for its residuals; here the one launch gives them.
 """
@@ -59,9 +61,9 @@ from beast_mcmc_tpu_torch.ops.cuda_peeling import (
 )
 from beast_mcmc_tpu_torch.ops.cuda_stream import level_schedule
 from beast_mcmc_tpu_torch.ops.peeling import (
+    one_chain,
     peel_with_adjoint,
     post_by_node,
-    wants_grad,
 )
 from beast_mcmc_tpu_torch.utils.accum import stable_dot
 
@@ -116,12 +118,19 @@ def _deep_plain(tips, lr_ids, lr_pos, level_start, pm_ord, wcs,
     (K = 1), which peel the same schedule. With a chain axis (a [B, n_int,
     2] schedule, pm_ord [B, K, ...], wcs [B, K, C, S]; the tips shared) it
     peels chain by chain, each at its own levels, and stacks: [B, K, P]."""
-    if lr_ids.dim() == 3:
-        outs = [_deep_plain(tips, *a, want_post)
-                for a in zip(lr_ids, lr_pos, level_start, pm_ord, wcs)]
-        if want_post:
-            return tuple(torch.stack(t) for t in zip(*outs))
-        return torch.stack(outs)
+    if lr_ids.dim() == 2:
+        return _deep_plain_tree(tips, lr_ids, lr_pos, level_start, pm_ord,
+                                wcs, want_post)
+    outs = [_deep_plain_tree(tips, *a, want_post)
+            for a in zip(lr_ids, lr_pos, level_start, pm_ord, wcs)]
+    if want_post:
+        return tuple(torch.stack(t) for t in zip(*outs))
+    return torch.stack(outs)
+
+
+def _deep_plain_tree(tips, lr_ids, lr_pos, level_start, pm_ord, wcs,
+                     want_post):
+    """`_deep_plain` of one tree."""
     k_parts, n_tips, s, p = tips.shape
     n_int = lr_ids.shape[0]
     c = pm_ord.shape[3]
@@ -207,10 +216,12 @@ def prepare_deep(tips, lr_ids, lr_pos, level_start, pm_ord, freqs, cat_w,
 def deep_positions(scratch, p: int):
     """The deep kernel's scratch [K, tiles, n_int, C, S, pw] as the rescaled
     partials by peel position [K, n_int, C, S, P] (the padded patterns of
-    the last tile cut away)."""
-    k, t, n_int, c, s, pw = scratch.shape
-    return scratch.permute(0, 2, 3, 4, 1, 5).reshape(
-        k, n_int, c, s, t * pw)[..., :p]
+    the last tile cut away); a chain batch's [B, K, tiles, ...] gives [B,
+    K, n_int, C, S, P]."""
+    *lead, t, n_int, c, s, pw = scratch.shape
+    d = len(lead)
+    return scratch.permute(*range(d), d + 1, d + 2, d + 3, d, d + 4).reshape(
+        *lead, n_int, c, s, t * pw)[..., :p]
 
 
 def _peel_deep_kernel(tips, lr_ids, lr_pos, level_start, pm_ord, freqs,
@@ -244,27 +255,32 @@ def peel_deep_chains(tip_partials, children, p_matrices, freqs,
     each chain's tree, [K, N, S, P], [B, K, M, C, S, S], [B, K, S] and
     [B, K, C], give [B, K, P]. `schedule` is the chain-axis
     level_schedule(children, N, parent) where the caller has it. A CPU
-    tensor takes the plain version. No gradient: the chain batch's adjoint
-    is not written yet, so inputs that require grad raise."""
-    if wants_grad(p_matrices, freqs, category_weights):
-        raise RuntimeError("a chain-axis peel takes no gradient: its "
-                           "inputs require grad")
+    tensor takes the plain version. Differentiable in every chain's
+    p_matrices, freqs and category_weights: the one launch returns every
+    chain's partials, and one level adjoint takes all B chains."""
     one = tip_partials.dim() == 3
     if one:
         tip_partials, p_matrices = tip_partials[None], p_matrices[:, None]
         freqs, category_weights = freqs[:, None], category_weights[:, None]
     if schedule is None:
         schedule = level_schedule(children, tip_partials.shape[1])
-    _, lr_ids, lr_pos, level_start = schedule
-    pm_ord = chains_pm_ord(p_matrices, lr_ids)
-    if not tip_partials.is_cuda:
-        wcs = category_weights[..., None] * freqs[..., None, :]
-        site = _deep_plain(tip_partials, lr_ids, lr_pos, level_start, pm_ord,
-                           wcs)
-    else:
-        site = _peel_deep_kernel(tip_partials.contiguous(), lr_ids, lr_pos,
-                                 level_start, pm_ord, freqs,
-                                 category_weights)
+    lvl_order, lr_ids, lr_pos, level_start = schedule
+    tips = tip_partials.contiguous()
+
+    def forward(pm, fr, cw, want_post):
+        pm_ord = chains_pm_ord(pm, lr_ids)
+        if not tips.is_cuda:
+            out = _deep_plain(tips, lr_ids, lr_pos, level_start, pm_ord,
+                              cw[..., None] * fr[..., None, :], want_post)
+        else:
+            out = _peel_deep_kernel(tips, lr_ids, lr_pos, level_start,
+                                    pm_ord, fr, cw, want_post)
+        if not want_post:
+            return out
+        return out[0], post_by_node(out[1], tips, lvl_order)
+
+    site = peel_with_adjoint(forward, schedule, p_matrices, freqs,
+                             category_weights)
     return site[:, 0] if one else site
 
 
@@ -272,46 +288,17 @@ def peel_site_loglik_deep(tip_partials, children, order, root, p_matrices,
                           freqs, category_weights,
                           schedule=None) -> torch.Tensor:
     """Per-pattern log-likelihood through the deep kernel; a CPU tensor
-    takes the plain version. One tree: tip_partials [N, S, P], p_matrices
-    [M, C, S, S], freqs [S], category_weights [C] give [P]; K partitions on
-    it: [K, N, S, P], [K, M, C, S, S], [K, S], [K, C] give [K, P], in one
-    launch. The peel order comes from depth alone, so `order` and `root`
-    are kept for interface parity only. `schedule` is
-    level_schedule(children, N, parent) where the caller already has it.
-    Differentiable in p_matrices, freqs and category_weights."""
-    single = tip_partials.dim() == 3
-    if single:
-        tip_partials, p_matrices = tip_partials[None], p_matrices[None]
-        freqs, category_weights = freqs[None], category_weights[None]
-    schedule = schedule or level_schedule(children, tip_partials.shape[1])
-    lvl_order, lr_ids, lr_pos, level_start = schedule
-    if wants_grad(p_matrices, freqs, category_weights):
-        tips = tip_partials.contiguous()
-
-        def forward(pm, fr, cw):
-            pm_ord = pm[:, lr_ids.long()]
-            if tips.is_cuda:
-                site, pos = _peel_deep_kernel(tips, lr_ids, lr_pos,
-                                              level_start, pm_ord, fr, cw,
-                                              want_post=True)
-            else:
-                site, pos = _deep_plain(tips, lr_ids, lr_pos, level_start,
-                                        pm_ord, cw[:, :, None] * fr[:, None],
-                                        want_post=True)
-            return site, post_by_node(pos, tips, lvl_order)
-
-        site = peel_with_adjoint(forward, schedule, p_matrices, freqs,
-                                 category_weights)
-        return site[0] if single else site
-    pm_ord = p_matrices[:, lr_ids.long()]
-    if not tip_partials.is_cuda:
-        wcs = category_weights[:, :, None] * freqs[:, None, :]
-        site = _deep_plain(tip_partials, lr_ids, lr_pos, level_start, pm_ord,
-                           wcs)
-    else:
-        site = _peel_deep_kernel(tip_partials.contiguous(), lr_ids, lr_pos,
-                                 level_start, pm_ord, freqs, category_weights)
-    return site[0] if single else site
+    takes the plain version: `peel_deep_chains`' batch of one. One tree:
+    tip_partials [N, S, P], p_matrices [M, C, S, S], freqs [S],
+    category_weights [C] give [P]; K partitions on it: [K, N, S, P], [K, M,
+    C, S, S], [K, S], [K, C] give [K, P], in one launch. The peel order
+    comes from depth alone, so `order` and `root` are kept for interface
+    parity only. `schedule` is level_schedule(children, N, parent) where
+    the caller already has it. Differentiable in p_matrices, freqs and
+    category_weights."""
+    return peel_deep_chains(tip_partials, children[None], p_matrices[None],
+                            freqs[None], category_weights[None],
+                            one_chain(schedule))[0]
 
 
 def peel_loglikelihood_deep(tip_partials, children, order, root, p_matrices,

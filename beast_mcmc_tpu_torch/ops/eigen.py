@@ -62,6 +62,8 @@ class _SymmetricExpm(torch.autograd.Function):
         ones = (1,) * (t.dim() - len(k_shape))
         w = w.reshape(*k_shape, *ones, s)
         v = v.reshape(*k_shape, *ones, s, s)
+        ctx.d_shape = d.shape  # shared by a chain batch's systems
+        d = d.expand(*k_shape, s)
         ratio = d.reshape(*k_shape, *ones, 1, s) / d.reshape(
             *k_shape, *ones, s, 1)  # d_j / d_i
         e = torch.exp(w * t[..., None])
@@ -92,7 +94,7 @@ class _SymmetricExpm(torch.autograd.Function):
         gp = g * p  # P = D^-1 F D: d P_ij / d d_k through the two D's
         gd = torch.sum(gp, dim=-2) - torch.sum(gp, dim=-1)
         gd = torch.sum(gd, dim=tuple(r + 1 for r in rest)) if rest else gd
-        return ga, gd / d, gt, None, None
+        return ga, (gd / d).sum_to_size(ctx.d_shape), gt, None, None
 
 
 def normalized_q(rates_symmetric: torch.Tensor,

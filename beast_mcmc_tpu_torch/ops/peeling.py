@@ -19,7 +19,10 @@ on them. Where C * P <= 8 both take the level form (`_peel_forward_levels`,
 route's forward, kernel or plain version, returns `post` by node with the
 residual, and `peel_adjoint_levels` walks the kernels' level schedule
 (ops/cuda_stream.py::level_schedule) from the root down, one batched step
-a level, for K partitions at once. The node form stays as its oracle.
+a level, for K partitions at once, and for a chain batch for all B
+chains' trees at once: (chain, partition, node) flattened into one row
+index, the chains' levels aligned at their roots (`schedule_levels`). The
+node form stays as its oracle.
 
 This is also the plain version of the CUDA kernels: CPU tensors take it,
 and the tests and chip_smoke.py hold the kernels against it.
@@ -30,6 +33,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
@@ -133,9 +137,16 @@ def _internal_depths(children: torch.Tensor, n_tips: int) -> torch.Tensor:
 def internal_levels(parent: torch.Tensor, n_tips: int):
     """The internal nodes of each depth, the root's level first, ties by
     node index: int64 tensors on the tree's device, from one host copy of
-    the level sizes."""
-    depth = node_depths(parent)[n_tips:]
-    top_down = n_tips + torch.sort(depth, stable=True).indices
+    the level sizes. B chains' trees ([B, M] parent) give their nodes as
+    rows b M + node of one flat node axis, the l-th level below every
+    chain's root in the l-th step (chain by chain within it)."""
+    m = parent.shape[-1]
+    rows = torch.arange(n_tips, m, device=parent.device)
+    if parent.dim() == 2:
+        rows = rows + m * torch.arange(parent.shape[0],
+                                       device=parent.device)[:, None]
+    depth = node_depths(parent)[..., n_tips:].reshape(-1)
+    top_down = rows.reshape(-1)[torch.sort(depth, stable=True).indices]
     return list(torch.split(top_down, torch.bincount(depth).tolist()))
 
 
@@ -253,51 +264,93 @@ def _peel_bwd_levels(residuals, g):
     n_tips = (post.shape[0] + 1) // 2
     levels = internal_levels(parent_from_children(children, n_tips), n_tips)
     d_p, d_wcs = _adjoint_over_levels(
-        post[None], (g / site_lik)[None], p_matrices[None],
+        post, (g / site_lik)[None], p_matrices,
         (cat_w[:, None] * freqs[None, :])[None], root.reshape(1),
         [(nodes, children.long()[nodes]) for nodes in levels])
-    return (d_p[0], torch.einsum("cs,c->s", d_wcs[0], cat_w),
+    return (d_p, torch.einsum("cs,c->s", d_wcs[0], cat_w),
             torch.einsum("cs,s->c", d_wcs[0], freqs))
 
 
-def _adjoint_over_levels(post, g_over_lik, p_matrices, wcs, root, levels):
-    """The pre-order adjoint of K peels on one tree, one batched step a
-    level: post [K,M,C,S,P] by node (tips' rows holding the tips),
-    g_over_lik [K,P], p_matrices [K,M,C,S,S], wcs [K,C,S], `root` the root
-    node as an int64[1] tensor (no host copy), `levels` [(nodes [L], their
-    children [L, 2])] from the root down. Returns (d_p [K,M,C,S,S], d_wcs
-    [K,C,S]). The scale is recomputed from the children's partials, as the
-    forward took it."""
+def _adjoint_over_levels(post, g_over_lik, p_matrices, wcs, roots, levels):
+    """The pre-order adjoint of R peels over one flat node axis, one batched
+    step a level: post [N, C, S, P] the rescaled partials of every peel's
+    nodes (tips' rows holding the tips), p_matrices [N, C, S, S] their
+    branch matrices, `roots` int64[R] the rows of the R roots (no host
+    copy), g_over_lik [R, P], wcs [R, C, S], `levels` [(rows [L], their
+    children's rows [L, 2])] from the roots down, a level of every peel at
+    once. Returns (d_p [N, C, S, S], d_wcs [R, C, S]). The scale is
+    recomputed from the children's partials, as the forward took it."""
     adj = torch.zeros_like(post)
-    adj[:, root] = (wcs[..., None] * g_over_lik[:, None, None, :])[:, None]
+    adj[roots] = wcs[..., None] * g_over_lik[:, None, None, :]
     d_p = torch.zeros_like(p_matrices)
     for nodes, ch in levels:
-        pm = p_matrices[:, ch]  # [K, L, 2, C, S, S]
-        child = post[:, ch]  # [K, L, 2, C, S, P]
+        pm = p_matrices[ch]  # [L, 2, C, S, S]
+        child = post[ch]  # [L, 2, C, S, P]
         v = pm @ child
-        scale = _rescale(v[:, :, 0] * v[:, :, 1], (2, 3))  # [K, L, P]
-        b = adj[:, nodes] / scale[:, :, None, None]  # [K, L, C, S, P]
-        bb = b[:, :, None] * v.flip(2)  # left: b * xr; right: b * xl
-        adj[:, ch] = pm.transpose(-1, -2) @ bb
-        d_p[:, ch] = bb @ child.transpose(-1, -2)
-    d_wcs = torch.einsum("kcsp,kp->kcs", post[:, root][:, 0], g_over_lik)
+        scale = _rescale(v[:, 0] * v[:, 1], (1, 2))  # [L, P]
+        b = adj[nodes] / scale[:, None, None]  # [L, C, S, P]
+        bb = b[:, None] * v.flip(1)  # left: b * xr; right: b * xl
+        adj[ch] = pm.transpose(-1, -2) @ bb
+        d_p[ch] = bb @ child.transpose(-1, -2)
+    d_wcs = torch.einsum("rcsp,rp->rcs", post[roots], g_over_lik)
     return d_p, d_wcs
 
 
-def peel_adjoint_levels(post, site_lik, g, p_matrices, wcs, schedule):
-    """The adjoint behind the CUDA kernels, on either device: K peels on one
-    tree, post [K,M,C,S,P] by node, site_lik and the cotangent g [K,P],
-    p_matrices [K,M,C,S,S], wcs [K,C,S]; `schedule` is
-    level_schedule(children, N, parent), whose order ends at the root and
-    whose `level_start` is the one copy to the host. Each level's own nodes
-    only, from the root down. Returns (d_p, d_wcs)."""
+def schedule_levels(schedule, k_parts: int, m: int):
+    """The flat rows of `_adjoint_over_levels` for B chains' trees, K peels
+    on each: (roots int64[B K], levels). Row (b K + k) M + node is node of
+    partition k on chain b. `schedule` is the chain-axis
+    level_schedule(children, N, parent), whose rows count each chain's
+    levels from its deepest; a child lies exactly one level below its
+    parent, so the l-th level below every chain's root is one batched step,
+    the chains' level counts aligned at their roots. Its `level_start` [B,
+    n_int + 1] is the one copy to the host."""
     order, lr_ids, _, level_start = schedule
-    bounds = level_start.tolist()[::-1]
-    order, lr_ids = order.long(), lr_ids.long()
-    levels = [(order[a:b], lr_ids[a:b])
-              for a, b in zip(bounds[1:], bounds) if a < b]
-    return _adjoint_over_levels(post, g / site_lik, p_matrices, wcs,
-                                order[-1:], levels)
+    b_n, n_int = order.shape
+    dev = order.device
+    counts = np.diff(level_start.cpu().numpy().astype(np.int64), axis=1)
+    n_lv = (counts > 0).sum(1)
+    # each position's level counted from its chain's root
+    depth = np.concatenate([n_lv[b] - 1 - np.repeat(np.arange(n_int),
+                                                    counts[b])
+                            for b in range(b_n)])
+    perm = torch.from_numpy(np.argsort(depth, kind="stable")).to(dev)
+    sizes = (np.bincount(depth) * k_parts).tolist()
+    off = torch.arange(b_n, device=dev)[:, None] * (k_parts * m)
+    parts = torch.arange(k_parts, device=dev) * m
+    nodes = (order.long() + off).reshape(-1)[perm]
+    kids = (lr_ids.long() + off[..., None]).reshape(-1, 2)[perm]
+    nodes = (nodes[:, None] + parts).reshape(-1)
+    kids = (kids[:, None, :] + parts[:, None]).reshape(-1, 2)
+    roots = (order[:, -1:].long() + off + parts).reshape(-1)
+    return roots, list(zip(torch.split(nodes, sizes),
+                           torch.split(kids, sizes)))
+
+
+def peel_adjoint_levels(post, g, p_matrices, wcs, schedule):
+    """The adjoint behind the CUDA kernels, on either device, for K peels
+    on each of B chains' trees (one tree is the case B = 1): post [B, K,
+    M, C, S, P] by node, the cotangent g [B, K, P], p_matrices [B, K, M, C,
+    S, S], wcs [B, K, C, S], `schedule` the chain-axis
+    level_schedule(children, N, parent). Each level's own nodes only, from
+    the roots down, every chain's in one step (`schedule_levels`). Returns
+    (d_p, d_wcs) in the shapes of p_matrices and wcs."""
+    b_n, k_parts, m = post.shape[:3]
+    roots, levels = schedule_levels(schedule, k_parts, m)
+    post = post.reshape(-1, *post.shape[3:])
+    wcs = wcs.reshape(-1, *wcs.shape[2:])
+    site_lik = torch.einsum("rcs,rcsp->rp", wcs, post[roots])
+    d_p, d_wcs = _adjoint_over_levels(
+        post, g.reshape(-1, g.shape[-1]) / site_lik,
+        p_matrices.reshape(-1, *p_matrices.shape[3:]), wcs, roots, levels)
+    return (d_p.reshape(b_n, k_parts, m, *d_p.shape[1:]),
+            d_wcs.reshape(b_n, k_parts, *d_wcs.shape[1:]))
+
+
+def one_chain(schedule):
+    """One tree's schedule (any route's tuple of tensors) as the chain-axis
+    schedule of a batch of one; None stays None."""
+    return None if schedule is None else tuple(t[None] for t in schedule)
 
 
 class _PeelSiteLoglik(torch.autograd.Function):
@@ -337,25 +390,31 @@ def post_by_node(post_pos, tip_partials, order):
     """Rescaled partials by peel position [K, n_int, C, S, P] as the
     adjoint takes them, by node [K, M, C, S, P], with the tips' rows holding
     the tip partials [K, N, S, P] for every category. `order` [n_int] is
-    the node at each position."""
-    k, n_int, c, s, p = post_pos.shape
-    n_tips = tip_partials.shape[1]
-    post = torch.empty((k, n_tips + n_int, c, s, p), dtype=post_pos.dtype,
-                       device=post_pos.device)
-    post[:, :n_tips] = tip_partials.to(post_pos.dtype)[:, :, None]
-    post[:, order.long()] = post_pos
+    the node at each position. B chains' trees (post_pos [B, K, n_int, C,
+    S, P], `order` [B, n_int], the tips shared) give [B, K, M, C, S, P]."""
+    *lead, n_int, c, s, p = post_pos.shape
+    n_tips = tip_partials.shape[-3]
+    post = torch.empty((*lead, n_tips + n_int, c, s, p),
+                       dtype=post_pos.dtype, device=post_pos.device)
+    post[..., :n_tips, :, :, :] = tip_partials.to(post_pos.dtype)[
+        ..., None, :, :]
+    if order.dim() == 1:
+        post[:, order.long()] = post_pos
+    else:
+        rows = torch.arange(order.shape[0], device=order.device)[:, None]
+        post[rows, :, order.long()] = post_pos.transpose(1, 2)
     return post
 
 
 class _PeelWithAdjoint(torch.autograd.Function):
-    """K peels on one tree through a route's forward, with the level
-    adjoint. `forward(p_matrices, freqs, cat_w)` returns (site_logl [K,P],
-    post [K,M,C,S,P] by node); it runs with autograd off, so a kernel
-    wrapper's guard passes inside it."""
+    """K peels on each of B chains' trees through a route's forward, with
+    the level adjoint. `forward(p_matrices, freqs, cat_w, True)` returns
+    (site_logl [B, K, P], post [B, K, M, C, S, P] by node); it runs with
+    autograd off, so a kernel wrapper's guard passes inside it."""
 
     @staticmethod
     def forward(ctx, forward, schedule, p_matrices, freqs, cat_w):
-        site, post = forward(p_matrices, freqs, cat_w)
+        site, post = forward(p_matrices, freqs, cat_w, True)
         ctx.schedule = schedule
         ctx.save_for_backward(post, p_matrices, freqs, cat_w)
         return site
@@ -364,22 +423,26 @@ class _PeelWithAdjoint(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         post, p_matrices, freqs, cat_w = ctx.saved_tensors
-        wcs = cat_w[:, :, None] * freqs[:, None, :]
-        root = ctx.schedule[0][-1:]  # int64[1]: indexing it stays on the device
-        site_lik = torch.einsum("kcs,kcsp->kp", wcs, post[:, root][:, 0])
-        d_p, d_wcs = peel_adjoint_levels(post, site_lik, g.to(post.dtype),
-                                         p_matrices, wcs, ctx.schedule)
-        d_freqs = torch.einsum("kcs,kc->ks", d_wcs, cat_w)
-        d_cat_w = torch.einsum("kcs,ks->kc", d_wcs, freqs)
+        wcs = cat_w[..., :, None] * freqs[..., None, :]
+        d_p, d_wcs = peel_adjoint_levels(post, g.to(post.dtype), p_matrices,
+                                         wcs, ctx.schedule)
+        d_freqs = torch.einsum("...cs,...c->...s", d_wcs, cat_w)
+        d_cat_w = torch.einsum("...cs,...s->...c", d_wcs, freqs)
         return None, None, d_p, d_freqs, d_cat_w
 
 
 def peel_with_adjoint(forward, schedule, p_matrices, freqs, cat_w):
-    """site_logl [K, P] of `forward` (see _PeelWithAdjoint), differentiable
-    in p_matrices [K,M,C,S,S], freqs [K,S] and cat_w [K,C] through
-    `peel_adjoint_levels` over `schedule` (level_schedule)."""
-    return _PeelWithAdjoint.apply(forward, schedule, p_matrices, freqs,
-                                  cat_w)
+    """site_logl [B, K, P] of a route's chain-axis peel
+    `forward(p_matrices, freqs, cat_w, want_post)`: where autograd asks for
+    a gradient, differentiable in p_matrices [B, K, M, C, S, S], freqs [B,
+    K, S] and cat_w [B, K, C] through one forward with the partials and
+    `peel_adjoint_levels` over `schedule` (the chain-axis level_schedule),
+    for all B chains at once; else the forward alone, without the
+    partials."""
+    if wants_grad(p_matrices, freqs, cat_w):
+        return _PeelWithAdjoint.apply(forward, schedule, p_matrices, freqs,
+                                      cat_w)
+    return forward(p_matrices, freqs, cat_w, False)
 
 
 def peel_loglikelihood(tip_partials, children, order, root, p_matrices, freqs,

@@ -10,6 +10,10 @@ so a density over x becomes, in y-space,
 the correction an HMC operator adds when it samples y. Gradients come from
 autograd. The default log-Jacobian is the log-determinant of the autograd
 Jacobian; subclasses override it with closed forms.
+
+A transform acts on one chain's vector; `over_chains` maps one of its
+methods over a chain batch's rows ([B, n] -> [B, ...], the log-Jacobian
+[B], each chain's own).
 """
 
 from __future__ import annotations
@@ -23,6 +27,12 @@ import torch
 import torch.nn.functional as F
 
 from beast_mcmc_tpu_torch.utils.accum import prefix_sum
+
+
+def over_chains(fn, y):
+    """fn (a transform's forward, inverse or log_det_jacobian_inverse) of
+    each chain's row of y [B, n], stacked."""
+    return torch.stack([fn(row) for row in y])
 
 
 def _zero_like(y):

@@ -91,6 +91,25 @@ result line):
      peel_stream launches must equal its steps whose operator refreshes
      treeLikelihood (the 56-state trait peels by the plain level peel and
      launches nothing); the full-evaluation check; a profiler window.
+  10. chain batches and MC3 with the operators that bind the posterior
+     (`chain_gradient_checks`, `bound_chain_paths`). P10g: each chain-axis
+     route's gradient (B chains' trees from their own seeds: resident at
+     benchmark2 x 8, deep at Makona x 4 and benchmark1 K = 3 x 4,
+     matrix-product at protein x 4) against the same level adjoint over the
+     route's plain chain-axis forward and against each chain's
+     single-chain kernel gradient, its partials against the plain ones,
+     one launch a gradient, the backward timed beside B single backwards;
+     log_post_chains' gradient in every chain's heights and rates against
+     each chain's log_post's. P10a benchmark2 x 8 with node-height HMC and
+     HMC on (clock.rate, pop.size), P10b Makona x 4 with node-height HMC
+     and NUTS, P10c protein x 4 with Zig-Zag and BPS, P10d MC3 at
+     benchmark1 on 4 chains with reflective HMC on the kappas and slice on
+     pop.size: each bound operator alone over the batch (its report + 1
+     launches a step), then the mixed batch, its launches the steps plus
+     every bound proposal's own (the single chain's count for the whole
+     batch), aggregate states/s beside one chain's with the same operators,
+     a profiler window, the full-evaluation check on every chain, and
+     P10d's swap acceptance inside [0.05, 0.95].
 
 `python3 chip_smoke.py --tiles` instead builds the v1 streaming kernel and
 times it at every pattern-tile width its planner could pick (32, 16, 8, 4
@@ -387,7 +406,7 @@ def sampler_paths(paths, reset_counts, read_counts, device_ms, dev):
         StiefelGeodesicHmcOperator)
     from beast_mcmc_tpu_torch.inference.hmc import (
         GeodesicHmcOperator, HmcOperator, ReflectiveHmcOperator,
-        SimplexHmcOperator, value_grad)
+        SimplexHmcOperator, batch_of_one, value_grad)
     from beast_mcmc_tpu_torch.inference.mcmc import (
         full_evaluation_check, init_mcmc_state, make_mcmc_step,
         operator_report, run_chain)
@@ -546,9 +565,10 @@ def sampler_paths(paths, reset_counts, read_counts, device_ms, dev):
     grads = []
     for _ in range(P7_WARM):
         st = base(st)
-        grads.append(value_grad(probe.neg_log_density(st.params, st.tree),
-                                probe._pack(st.params).detach()))
-    grads = torch.stack(grads)
+        one = batch_of_one((st.params, st.tree))
+        grads.append(value_grad(probe.neg_log_density(
+            probe.one_chain_posterior(), *one), probe._pack(one[0]).detach()))
+    grads = torch.cat(grads)
     zz_bound = (2.0 * grads.abs().max(0).values).tolist()
     bps_bound = 3.0 * float(torch.linalg.vector_norm(grads, dim=1).max())
     pdmp_kw = [dict(grad_bound=zz_bound,
@@ -931,6 +951,545 @@ def joint_path(analysis, reset_counts, read_counts, dev, n_steps=JOINT_STEPS,
         raise AssertionError("joint: full-evaluation deviation "
                              f"{rec['full_evaluation_deviation']}")
     return rec, counts, step, state
+
+
+def chain_gradient_checks(peel_cases, post_cases, chain_inputs, analyses,
+                          reset_counts, read_counts, dev):
+    """Phase 10g: the chain-axis gradients. peel_cases: [(kernel, label,
+    chain_inputs's arguments)]: B chains' trees from their own seeds (phase
+    2's chain axis), each route's chain-axis gradient (one forward with
+    every chain's partials, one level adjoint) against the same adjoint
+    over the route's plain chain-axis forward, and against each chain's
+    single-chain kernel gradient (its own tree), GRAD_REL_TOL; the partials
+    against the plain ones, POST_ABS_TOL; one launch a gradient; the
+    backward's CUDA-event ms beside B single backwards'. post_cases:
+    [(label, analysis shape, B, seed, kernel)]: log_post_chains' gradient
+    in every chain's heights, clock.rate and pop.size against each chain's
+    log_post's. Returns the records."""
+    import numpy as np
+    import torch
+
+    from beast_mcmc_tpu_torch.inference.mc3 import replicate_state
+    from beast_mcmc_tpu_torch.inference.mcmc import (
+        init_mcmc_state, map_tensors)
+    from beast_mcmc_tpu_torch.ops import (
+        cuda_mxu, cuda_peeling, cuda_stream, cuda_stream2)
+    from beast_mcmc_tpu_torch.ops import peeling as plain
+    from beast_mcmc_tpu_torch.ops.peeling import peel_with_adjoint
+    from beast_mcmc_tpu_torch.tree.topology import (
+        TreeState, make_tree_state, simulate_coalescent_tree)
+
+    f64 = torch.float64
+
+    def sync():
+        if dev != "cpu":
+            torch.cuda.synchronize()
+
+    def rel_err(got, ref):
+        return max(((a - b).abs().max() / b.abs().max()).item()
+                   for a, b in zip(got, ref))
+
+    def event_ms(fn, reps):
+        """Median CUDA-event ms of fn() (a backward) over reps calls, each
+        prepared by fn.prepare(); "not measured" off the card."""
+        if dev == "cpu":
+            return "not measured"
+        times = []
+        for _ in range(reps + 1):
+            arg = fn.prepare()
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn(arg)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times[1:])
+
+    p10_grads = []
+
+    def chain_grad_check(kname, label, shape, b_n, seed, partitions=False):
+        tips, ch, par, pm, fr, cw = chain_inputs(shape, b_n, seed, partitions)
+        n_tips = tips.shape[-3]
+        sched = cuda_stream.level_schedule(ch, n_tips, par)
+        lvl_order, ids, pos, ls = sched
+        one = [tuple(t[b] for t in sched) for b in range(b_n)]
+        g = torch.rand(pm.shape[:-4] + (tips.shape[-1],), dtype=f64,
+                       device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(9))
+        k = (lambda x: x) if partitions else (lambda x: x[:, None])
+        t4 = tips if partitions else tips[None]
+
+        def wcs_of(fr_, cw_):
+            return cw_[..., None] * fr_[..., None, :]
+
+        if kname == "peel_resident":
+            def entry(*x):
+                return cuda_peeling.peel_site_loglik_auto(
+                    tips, ch, lvl_order, None, *x, sched)
+
+            def single(b, *x):
+                return cuda_peeling.peel_site_loglik_cuda(
+                    tips, ch[b], None, None, *x, one[b])
+
+            def plain_fwd(pm_, fr_, cw_, want_post):  # True: autograd
+                site, pp = cuda_peeling._resident_plain(
+                    tips, ids, pos, ls, pm_[:, 0], wcs_of(fr_, cw_)[:, 0],
+                    want_post=True)
+                return site[:, None], plain.post_by_node(
+                    pp[:, None], tips[None], lvl_order)
+
+            _, post_k = cuda_peeling._peel_resident_kernel(
+                tips, ch, None, pm, fr, cw, sched, want_post=True)
+            _, post_p = cuda_peeling._resident_plain(
+                tips, ids, pos, ls, pm, wcs_of(fr, cw), want_post=True)
+        elif kname == "peel_stream":
+            def entry(*x):
+                return cuda_stream2.peel_deep_chains(tips, ch, *x, sched)
+
+            def single(b, *x):
+                return cuda_stream2.peel_site_loglik_deep(
+                    tips, ch[b], None, None, *x, one[b])
+
+            def plain_fwd(pm_, fr_, cw_, want_post):  # True: autograd
+                site, pp = cuda_stream2._deep_plain(
+                    t4, ids, pos, ls, cuda_stream2.chains_pm_ord(pm_, ids),
+                    wcs_of(fr_, cw_), want_post=True)
+                return site, plain.post_by_node(pp, t4, lvl_order)
+
+            pm_ord = cuda_stream2.chains_pm_ord(k(pm), ids)
+            _, post_k = cuda_stream2._peel_deep_kernel(
+                t4, ids, pos, ls, pm_ord, k(fr), k(cw), want_post=True)
+            _, post_p = cuda_stream2._deep_plain(
+                t4, ids, pos, ls, pm_ord, wcs_of(k(fr), k(cw)),
+                want_post=True)
+        else:
+            def entry(*x):
+                return cuda_peeling.peel_site_loglik_auto(
+                    tips, ch, lvl_order, None, *x, sched)
+
+            def single(b, *x):
+                return cuda_mxu.peel_site_loglik_mxu(
+                    tips, ch[b], None, None, *x, one[b])
+
+            def plain_fwd(pm_, fr_, cw_, want_post):  # True: autograd
+                site, post = cuda_mxu._mxu_plain(tips, sched, pm_[:, 0],
+                                                 wcs_of(fr_, cw_)[:, 0])
+                return site[:, None], post[:, None]
+
+            _, post_k = cuda_mxu._peel_mxu_kernel(tips, ch, None, pm, fr, cw,
+                                                  sched)
+            _, post_p = cuda_mxu._mxu_plain(tips, sched, pm, wcs_of(fr, cw))
+            post_k, post_p = post_k[:, n_tips:], post_p[:, n_tips:]
+
+        def plain_entry(*x):
+            out = peel_with_adjoint(plain_fwd, sched, *(k(t) for t in x))
+            return out if partitions else out[:, 0]
+
+        leaves = [t.detach().clone().requires_grad_(True) for t in (pm, fr, cw)]
+
+        def grads(fn):
+            return torch.autograd.grad(torch.sum(g * fn(*leaves)), leaves)
+
+        reset_counts()
+        got = grads(entry)
+        sync()
+        per_grad = read_counts()
+        ref_plain = grads(plain_entry)
+        # each chain's single gradient fills its own rows of the leaves
+        ref_single = [torch.zeros_like(x) for x in leaves]
+        for b in range(b_n):
+            ref_single = [r + d for r, d in zip(ref_single, torch.autograd.grad(
+                torch.sum(g[b] * single(b, *(t[b] for t in leaves))),
+                leaves))]
+        post_err = (post_k - post_p).abs().max().item()
+        rec = {"label": label, "chains": b_n, "shape": [
+            tips.shape[0] if partitions else 1, n_tips, *pm.shape[-3:-1],
+            tips.shape[-1]],
+            "grad_max_rel_err_vs_plain": rel_err(got, ref_plain),
+            "grad_max_rel_err_vs_single": rel_err(got, ref_single),
+            "grad_tol": f"rel<{GRAD_REL_TOL}", "post_max_abs_err": post_err,
+            "post_tol": f"abs<{POST_ABS_TOL}",
+            "launches_per_gradient": per_grad,
+            "finite": all(bool(torch.isfinite(a).all()) for a in got)}
+        del ref_plain, ref_single, post_k, post_p
+
+        class Chain:
+            @staticmethod
+            def prepare():
+                return torch.sum(g * entry(*leaves))
+
+            def __call__(self, total):
+                torch.autograd.grad(total, leaves)
+
+        class Singles:
+            @staticmethod
+            def prepare():
+                return [torch.sum(g[b] * single(b, *(t[b] for t in leaves)))
+                        for b in range(b_n)]
+
+            def __call__(self, totals):
+                for total in totals:
+                    torch.autograd.grad(total, leaves)
+
+        rec["ms_backward"] = event_ms(Chain(), 5)
+        rec["ms_single_backwards"] = event_ms(Singles(), 5)
+        if dev != "cpu":
+            rec["backward_over_single_backwards"] = (
+                rec["ms_backward"] / rec["ms_single_backwards"])
+        log(f"[P10g] {kname} {json.dumps(rec)}")
+        ok = (rec["finite"] and post_err <= POST_ABS_TOL
+              and rec["grad_max_rel_err_vs_plain"] <= GRAD_REL_TOL
+              and rec["grad_max_rel_err_vs_single"] <= GRAD_REL_TOL
+              and per_grad == {n: int(n == kname) for n in KERNELS})
+        if not ok:
+            raise AssertionError(f"P10g {kname} {label}: the chain-axis "
+                                 f"gradient disagrees: {rec}")
+        p10_grads.append(rec)
+
+    def posterior_grad_check(label, shape, b_n, seed, kname):
+        """log_post_chains' gradient in every chain's heights, clock.rate
+        and pop.size (each chain its own tree and rates) against each
+        chain's log_post's, through the single-chain kernel path."""
+        _, _, p0, _, aux = analyses[shape]
+        n_taxa = aux["tips"].shape[-3]
+        trees = [make_tree_state(*simulate_coalescent_tree(
+            np.random.default_rng(seed + b), np.zeros(n_taxa), 0.5),
+            dtype=f64, device=dev) for b in range(b_n)]
+        tree = TreeState(*(torch.stack([getattr(t, f) for t in trees])
+                           for f in ("parent", "children", "heights",
+                                     "root")))
+        st = init_mcmc_state(p0, trees[0], torch.Generator(
+            device=dev).manual_seed(seed), [])
+        params = replicate_state(st, b_n, torch.Generator(
+            device=dev).manual_seed(seed)).params
+        scale = 1.0 + 0.05 * torch.arange(b_n, dtype=f64, device=dev)
+        names = ("clock.rate", "pop.size")
+        leaves = [tree.heights.clone().requires_grad_(True)] + [
+            (params[n] * scale).requires_grad_(True) for n in names]
+
+        def chain_lp(h, *xs):
+            return aux["log_post_cached_chains"](
+                {**params, **dict(zip(names, xs))}, tree.replace(heights=h))
+
+        reset_counts()
+        got = torch.autograd.grad(chain_lp(*leaves).sum(), leaves)
+        sync()
+        per_grad = read_counts()
+        ref = []
+        for b in range(b_n):
+            lb = [x[b].detach().clone().requires_grad_(True) for x in leaves]
+            pb = map_tensors(lambda v: v[b], params)
+            lp_b = aux["log_post_cached"](
+                {**pb, **dict(zip(names, lb[1:]))},
+                trees[b].replace(heights=lb[0]))
+            ref.append(torch.autograd.grad(lp_b, lb))
+        ref = [torch.stack(t) for t in zip(*ref)]
+        rec = {"label": label, "chains": b_n,
+               "grad_max_rel_err_vs_single": rel_err(got, ref),
+               "grad_tol": f"rel<{GRAD_REL_TOL}",
+               "launches_per_gradient": per_grad}
+        log(f"[P10g] log_post_chains {json.dumps(rec)}")
+        if not (rec["grad_max_rel_err_vs_single"] <= GRAD_REL_TOL
+                and per_grad == {n: int(n == kname) for n in KERNELS}):
+            raise AssertionError(f"P10g log_post_chains {label}: {rec}")
+        p10_grads.append(rec)
+
+    for kname, label, args in peel_cases:
+        chain_grad_check(kname, label, *args)
+    for case in post_cases:
+        posterior_grad_check(*case)
+    return p10_grads
+
+
+# phase 10, chain batches and MC3 with the operators that bind the
+# posterior: chains, warm-up, measured and full-evaluation steps of each
+# path, the steps of its single chain with the same operators, and the
+# proposals of each bound operator alone over the batch
+P10_PATHS = {"benchmark2": (8, 10, 100, 10), "makona": (4, 5, 40, 6),
+             "protein": (4, 5, 40, 8)}
+P10D_CHAINS, P10D_ROUNDS, P10D_SWAP_EVERY, P10D_WARM = 4, 20, 8, 16
+P10_ALONE = 2
+
+
+def bound_chain_paths(paths, reset_counts, read_counts, device_ms, dev):
+    """Phase 10: chain batches (make_multichain_step) and MC3 with the
+    operators that evaluate the posterior inside their proposal, each
+    bound to the chain-axis posterior and proposing over its chains at
+    once (`propose_chains`).
+
+    paths: {label: ((log_post, operators, params0, tree0, aux), the route's
+    kernel, the operators to add)} for "benchmark2" (P10a),
+    "makona" (P10b), "protein" (P10c) and "benchmark1" (P10d, MC3). Every
+    bound operator's proposal is watched: its launches must be what it
+    reports (2 n_leapfrog for HMC, NUTS's largest n_lf + 1, a PDMP's
+    largest event count, the slice samplers' evaluations), and a path's
+    launches must be its steps plus its proposals', all of the route's
+    kernel: the single chain's count for the whole batch. Each bound
+    operator alone over the batch first (P10_ALONE proposals), then the
+    mixed batch: aggregate states/s beside one chain's with the same
+    operators, start and operator sequence (its draws seeded as the
+    batch's; MC3's chains draw their own), a profiler window, the
+    full-evaluation check over
+    every chain. MC3 (P10d): delta from the adjacent log-posterior gaps
+    after a warm-up at temperature 1, as P8c; the swap acceptance inside
+    SWAP_BAND. Returns ({path: record}, {path: launches})."""
+    import numpy as np
+    import torch
+
+    from beast_mcmc_tpu_torch.inference.mc3 import (
+        make_mc3_runner, replicate_state)
+    from beast_mcmc_tpu_torch.inference.mcmc import (
+        full_evaluation_check, init_mcmc_state, make_mcmc_step,
+        make_multichain_step, operator_report, run_chain)
+    from beast_mcmc_tpu_torch.inference.nuts import NutsOperator
+    from beast_mcmc_tpu_torch.inference.pdmp import (
+        BouncyParticleOperator, ZigZagOperator)
+    from beast_mcmc_tpu_torch.inference.samplers import (
+        EllipticalSliceOperator, SliceOperator)
+
+    records, launches = {}, {}
+
+    def sync():
+        if dev != "cpu":
+            torch.cuda.synchronize()
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def reported(op):
+        """The launches a bound operator's last batch proposal reports."""
+        if isinstance(op, NutsOperator):
+            return max(op.last_n_leapfrog) + 1
+        if isinstance(op, (ZigZagOperator, BouncyParticleOperator)):
+            return max(op.last_n_events)
+        if isinstance(op, (SliceOperator, EllipticalSliceOperator)):
+            return op.last_n_evaluations
+        return 2 * op.n_leapfrog
+
+    def watch(ops, kname, seen):
+        """Wrap each bound operator's propose_chains: its launches against
+        its report, appended to `seen` as (name, launches, reported)."""
+        def wrap(op):
+            inner = type(op).propose_chains.__get__(op)
+
+            def propose_chains(*a):
+                before = read_counts()[kname]
+                out = inner(*a)
+                seen.append((type(op).__name__,
+                             read_counts()[kname] - before, reported(op)))
+                return out
+            op.propose_chains = propose_chains
+
+        for op in ops:
+            if hasattr(op, "bind_log_posterior"):
+                wrap(op)
+
+    def held(label, kname, counts, n_steps, seen):
+        """The path's launches against its steps and proposals."""
+        bad = [x for x in seen if x[1] != x[2]]
+        want = n_steps + sum(x[1] for x in seen)
+        if bad or counts != {k: want * (k == kname) for k in counts}:
+            raise AssertionError(
+                f"{label}: launches {counts}, expected {want} of {kname} "
+                f"({n_steps} steps and the proposals' own); proposals off "
+                f"their reports: {bad}")
+        return want
+
+    def batch(analysis, b_n, seed, ops):
+        _, _, p0, t0, aux = analysis
+        lpc = aux["log_post_cached"]
+        st = init_mcmc_state(p0, t0, gen(seed), ops, lpc)
+        return replicate_state(st, b_n, gen(seed + 1))
+
+    def alone(label, analysis, kname, op, b_n, seed):
+        """op alone over the batch: each proposal's launches its report,
+        plus one evaluation a step."""
+        aux = analysis[4]
+        seen = []
+        watch([op], kname, seen)
+        mstep = make_multichain_step(aux["log_post_cached_chains"], [op],
+                                     derived=aux["derived"])
+        states = batch(analysis, b_n, seed, [op])
+        rows = []
+        for _ in range(P10_ALONE):
+            sync()
+            reset_counts()
+            t0_ = time.perf_counter()
+            states = mstep(states)
+            sync()
+            rows.append({"ms": 1e3 * (time.perf_counter() - t0_),
+                         "launches": read_counts()[kname],
+                         "reported": seen[-1][2]})
+            if rows[-1]["launches"] != rows[-1]["reported"] + 1:
+                raise AssertionError(f"{label} {type(op).__name__} alone: "
+                                     f"{rows[-1]}, expected its report + 1")
+        del op.propose_chains  # the class's again
+        return rows
+
+    def one_chain(analysis, ops, n_warm, n_steps, seed):
+        """(states/s, each operator's draws) of one chain with the same
+        operators, start and operator draws as the batch of `batch(...,
+        seed - 1, ...)`: its CPU operator-draw generator is seeded as the
+        batch's, so that both draw the same operator sequence."""
+        _, _, p0, t0, aux = analysis
+        lpc = aux["log_post_cached"]
+        step = make_mcmc_step(lpc, ops, derived=aux["derived"])
+        st = init_mcmc_state(p0, t0, gen(seed), ops, lpc)
+        st, _ = run_chain(step, st, n_warm)
+        sync()
+        drawn0 = st.op_accept + st.op_reject
+        t0_ = time.perf_counter()
+        st, _ = run_chain(step, st, n_steps)
+        sync()
+        rate = n_steps / (time.perf_counter() - t0_)
+        return rate, (st.op_accept + st.op_reject - drawn0).tolist()
+
+    def drawn_of(states, before):
+        """Each operator's draws by chain 0 since `before`."""
+        return (states.op_accept[0] + states.op_reject[0] - before).tolist()
+
+    for p_name, label, seed in (("P10a", "benchmark2", 100),
+                                ("P10b", "makona", 110),
+                                ("P10c", "protein", 120)):
+        t_phase = time.perf_counter()
+        analysis, kname, added = paths[label]
+        _, base_ops, _, _, aux = analysis
+        b_n, n_warm, n_steps, n_check = P10_PATHS[label]
+        ops = [*base_ops, *added]
+        rec = {"chains": b_n, "steps": n_steps, "added": [
+            {"operator": type(op).__name__, "weight": op.weight}
+            for op in added]}
+        for i, op in enumerate(added):
+            rec[f"{type(op).__name__} alone"] = alone(
+                label, analysis, kname, op, b_n, seed + 2 + i)
+        single, single_drawn = one_chain(analysis, ops, n_warm, n_steps,
+                                         seed + 1)
+        seen = []
+        watch(added, kname, seen)
+        mstep = make_multichain_step(aux["log_post_cached_chains"], ops,
+                                     derived=aux["derived"])
+        states = batch(analysis, b_n, seed, ops)
+        states, _ = run_chain(mstep, states, n_warm)
+        sync()
+        seen.clear()
+        drawn0 = states.op_accept[0] + states.op_reject[0]
+        reset_counts()
+        t0_ = time.perf_counter()
+        states, _ = run_chain(mstep, states, n_steps)
+        sync()
+        secs = time.perf_counter() - t0_
+        counts = read_counts()
+        want = held(p_name, kname, counts, n_steps, seen)
+        lps = states.log_posterior.tolist()
+        rec.update({"seconds": secs,
+                    "aggregate_states_per_s": b_n * n_steps / secs,
+                    "single_chain_states_per_s": single,
+                    "drawn": drawn_of(states, drawn0),
+                    "single_chain_drawn": single_drawn,
+                    "launches": counts, "launches_expected": want,
+                    "launches_per_step": counts[kname] / n_steps,
+                    "bound_proposals": [list(x) for x in seen],
+                    "log_posterior": lps})
+        if dev != "cpu":
+            wall, busy = device_ms(lambda: run_chain(mstep, states, 5),
+                                   f"{p_name} {label}", 5, 8)
+            rec.update({"profiled_ms_per_step": wall,
+                        "device_busy_ms_per_step": busy or "not measured",
+                        "device_busy_share": (busy / wall if busy
+                                              else "not measured")})
+        states, dev_max = full_evaluation_check(
+            mstep, aux["log_post_chains"], states, n_check,
+            derived=aux["derived"])
+        rec["full_eval_max_deviation"] = float(dev_max)
+        rec["seconds_in_phase"] = time.perf_counter() - t_phase
+        log(f"[{p_name} {label}] {json.dumps(rec)}")
+        log(operator_report(ops, states))
+        for op in added:
+            del op.propose_chains
+        if not all(np.isfinite(lps)):
+            raise AssertionError(f"{p_name}: a chain's posterior is not "
+                                 f"finite: {lps}")
+        if not rec["full_eval_max_deviation"] < FULL_EVAL_TOL:
+            raise AssertionError(f"{p_name}: full-evaluation deviation "
+                                 f"{rec['full_eval_max_deviation']}")
+        if not any(x[0] == type(op).__name__ for op in added for x in seen):
+            raise AssertionError(f"{p_name}: no bound operator was drawn")
+        records[p_name], launches[f"{label} {p_name}"] = rec, counts
+
+    # P10d: MC3 at benchmark1 with reflective HMC and slice
+    t_phase = time.perf_counter()
+    analysis, kname, added = paths["benchmark1"]
+    _, base_ops, _, _, aux = analysis
+    ops = [*base_ops, *added]
+    lp_chains = aux["log_post_chains"]
+    n_steps = P10D_ROUNDS * P10D_SWAP_EVERY
+    single, single_drawn = one_chain(analysis, ops, P10D_WARM, n_steps, 132)
+    states = batch(analysis, P10D_CHAINS, 131, ops)
+    warm = make_multichain_step(lp_chains, ops)
+    states, _ = run_chain(warm, states, P10D_WARM)
+    lp = states.log_posterior.tolist()
+    gap = float(np.mean(np.abs(np.diff(lp))))
+    delta = 1.0 / gap if gap > 0 else 1.0
+    run, temps = make_mc3_runner(lp_chains, ops, P10D_CHAINS,
+                                 swap_every=P10D_SWAP_EVERY, delta=delta)
+    seen = []
+    watch(added, kname, seen)
+    sync()
+    reset_counts()
+    t0_ = time.perf_counter()
+    states, out = run(states, torch.Generator().manual_seed(132), P10D_ROUNDS,
+                      collector=lambda c: {"lp": c.log_posterior})
+    sync()
+    secs = time.perf_counter() - t0_
+    counts = read_counts()
+    want = held("P10d", kname, counts, n_steps, seen)
+    swap_rate = float(out["swap_accepted"].double().mean())
+    cold = out["lp"].tolist()
+    rec = {"chains": P10D_CHAINS, "rounds": P10D_ROUNDS,
+           "swap_every": P10D_SWAP_EVERY, "warm_up_gap": gap, "delta": delta,
+           "temperatures": temps.tolist(), "seconds": secs,
+           "added": [{"operator": type(op).__name__, "weight": op.weight}
+                     for op in added],
+           "aggregate_states_per_s": P10D_CHAINS * n_steps / secs,
+           "single_chain_states_per_s": single,
+           "single_chain_drawn": single_drawn, "launches": counts,
+           "launches_expected": want,
+           "launches_per_step": counts[kname] / n_steps,
+           "bound_proposals": [list(x) for x in seen],
+           "swap_acceptance": swap_rate,
+           "swaps_accepted": out["swap_accepted"].tolist(),
+           "cold_log_posterior_last": cold[-1]}
+    if dev != "cpu":
+        wall, busy = device_ms(lambda: run(
+            states, torch.Generator().manual_seed(133), 1),
+            "P10d benchmark1", P10D_SWAP_EVERY, 8)
+        rec.update({"profiled_ms_per_step": wall,
+                    "device_busy_ms_per_step": busy or "not measured",
+                    "device_busy_share": (busy / wall if busy
+                                          else "not measured")})
+    for op in added:
+        del op.propose_chains
+    # every chain at its own temperature, its carried posterior against a
+    # fresh one after each step
+    tstep = make_multichain_step(lp_chains, ops, adaptation=False)
+    _, dev_max = full_evaluation_check(tstep, lp_chains, states, 6,
+                                       temperature=temps.to(dev))
+    rec["full_eval_max_deviation"] = float(dev_max)
+    rec["seconds_in_phase"] = time.perf_counter() - t_phase
+    log(f"[P10d benchmark1] {json.dumps(rec)}")
+    log(operator_report(ops, states))
+    if not SWAP_BAND[0] <= swap_rate <= SWAP_BAND[1]:
+        raise AssertionError(f"P10d: swap acceptance {swap_rate} outside "
+                             f"{SWAP_BAND} (delta {delta})")
+    if not all(np.isfinite(cold)):
+        raise AssertionError("P10d: the cold chain's posterior is not finite")
+    if not rec["full_eval_max_deviation"] < FULL_EVAL_TOL:
+        raise AssertionError(f"P10d: full-evaluation deviation "
+                             f"{rec['full_eval_max_deviation']}")
+    records["P10d"], launches["benchmark1 P10d"] = rec, counts
+    return records, launches
 
 
 def main():
@@ -2041,7 +2600,59 @@ def main():
     where_time_goes("makona joint", j_step, j_state, JOINT_PROFILE)
     mark("9 makona joint")
 
-    # -- phase 10: summary --------------------------------------------
+    # -- phase 10g: chain-axis gradients -------------------------------
+    p10_grads = chain_gradient_checks(
+        [("peel_resident", "benchmark2 B=8 f64", (B2, 8, 100)),
+         ("peel_stream", "makona B=4 f64", (MAKONA, 4, 110)),
+         ("peel_stream", "benchmark1 K=3 B=4 f64", (B1, 4, 120, True)),
+         ("peel_mxu", "protein B=4 f64", (AMINO, 4, 130))],
+        [("benchmark2 B=8", B2, 8, 140, "peel_resident"),
+         ("makona B=4", MAKONA, 4, 141, "peel_stream"),
+         ("benchmark1 B=4", B1, 4, 142, "peel_stream"),
+         ("protein B=4", AMINO, 4, 143, "peel_mxu")],
+        chain_inputs, analyses, reset_counts, read_counts, dev)
+    mark("10g chain gradients")
+
+    # -- phase 10: chain batches and MC3 with the bound operators -------
+    from beast_mcmc_tpu_torch.inference.nuts import NutsOperator
+    from beast_mcmc_tpu_torch.inference.pdmp import (
+        BouncyParticleOperator, ZigZagOperator)
+    from beast_mcmc_tpu_torch.inference.hmc import ReflectiveHmcOperator
+    from beast_mcmc_tpu_torch.inference.samplers import SliceOperator
+
+    rate_size = ("clock.rate", "pop.size")
+
+    def hmc_pair():
+        return [NodeHeightHmcOperator(weight=HMC_WEIGHTS[0],
+                                      n_leapfrog=HMC_LEAPFROG,
+                                      step_size=HMC_STEP),
+                HmcOperator(parameters=rate_size, weight=HMC_WEIGHTS[1],
+                            n_leapfrog=HMC_LEAPFROG, step_size=HMC_STEP)]
+
+    pdmp_kw = p7["protein"]["settings"]
+    p10, p10_launches = bound_chain_paths({
+        "benchmark2": (analyses[B2], "peel_resident", hmc_pair()),
+        "makona": (analyses[MAKONA], "peel_stream", [
+            NodeHeightHmcOperator(weight=HMC_WEIGHTS[0],
+                                  n_leapfrog=HMC_LEAPFROG,
+                                  step_size=HMC_STEP),
+            NutsOperator(parameters=rate_size, weight=HMC_WEIGHTS[1],
+                         max_depth=NUTS_DEPTH, step_size=NUTS_STEP)]),
+        "protein": (analyses[AMINO], "peel_mxu", [
+            ZigZagOperator(parameters=rate_size, weight=3.0,
+                           **pdmp_kw["ZigZagOperator"]),
+            BouncyParticleOperator(parameters=rate_size, weight=3.0,
+                                   **pdmp_kw["BouncyParticleOperator"])]),
+        "benchmark1": (analyses[B1], "peel_stream", [
+            ReflectiveHmcOperator(parameters=("kappa",), lower=0.0,
+                                  n_leapfrog=HMC_LEAPFROG, step_size=0.01,
+                                  weight=5.0),
+            SliceOperator(parameter="pop.size", log_transform=True,
+                          weight=3.0)])},
+        reset_counts, read_counts, device_ms, dev)
+    mark("10 bound chain batches")
+
+    # -- summary ------------------------------------------------------
     def entry(kname, source, replaces, launches, label):
         rec = next(r for r in checks[kname] if r["label"] == label)
         return {"name": kname, "route": "cuda", "source": source,
@@ -2094,6 +2705,17 @@ def main():
         f"{j_rec['tree_likelihood_steps']} of {j_rec['steps']}; "
         f"full-evaluation deviation {j_rec['full_evaluation_deviation']!r}; "
         f"on {smi_line}")
+    log(f"[summary p10] aggregate states/s with the bound operators: "
+        + ", ".join(f"{k} B={r['chains']} "
+                    f"{r['aggregate_states_per_s']:.2f} (one chain "
+                    f"{r['single_chain_states_per_s']:.2f}, launches a step "
+                    f"{r['launches_per_step']:.3f}, deviation "
+                    f"{r['full_eval_max_deviation']!r})"
+                    for k, r in p10.items())
+        + f"; MC3 swap acceptance {p10['P10d']['swap_acceptance']:.3f}; "
+        f"chain backward over B single backwards " + ", ".join(
+            f"{r['label']} {r['backward_over_single_backwards']:.3f}"
+            for r in p10_grads if "ms_backward" in r) + f"; on {smi_line}")
     log(f"[phases] {json.dumps(phases)}")
     log(smi_line)
     print(json.dumps({"kernels": [
@@ -2122,7 +2744,8 @@ def main():
                              "makona P7d": p7_launches["makona"],
                              "stream entry points": ring_counts,
                              **p8_launches,
-                             "makona joint": j_launches}}), flush=True)
+                             "makona joint": j_launches,
+                             **p10_launches}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -26,7 +26,6 @@ from beast_mcmc_tpu.tree.topology import make_tree_state as jax_tree_state
 
 from beast_mcmc_tpu_torch.apps.benchmarks import build_analysis
 from beast_mcmc_tpu_torch.convert import states_from_numpy
-from beast_mcmc_tpu_torch.inference.hmc import HmcOperator
 from beast_mcmc_tpu_torch.inference.mc3 import replicate_state
 from beast_mcmc_tpu_torch.inference.mcmc import (
     full_evaluation_check,
@@ -400,42 +399,52 @@ def test_parameter_operator_laws_on_a_batch():
     assert (states.op_accept > 0).all()
 
 
-def test_chain_batch_refuses_posterior_bound_operators():
-    """An operator that evaluates the posterior in its proposal (HMC here)
-    has no chain batch yet: make_multichain_step raises, naming it."""
-    _, ops, aux, _ = _analysis_batch()
-    with pytest.raises(ValueError, match="HmcOperator"):
-        make_multichain_step(aux["log_post_chains"],
-                             [*ops, HmcOperator(parameters=("pop.size",))])
-
-
 @pytest.mark.parametrize("kernel", ["peel_resident", "peel_stream",
                                     "peel_mxu"])
 def test_chain_entry_with_grad_raises(monkeypatch, kernel):
-    """A chain-axis entry whose matrices require grad raises before any
-    peel runs (the plain versions are replaced by a failure), and so does
-    a chain-axis kernel entry (prepare_*)."""
-    n_taxa, c, s = {"peel_resident": (12, 4, 4), "peel_stream": (220, 4, 4),
-                    "peel_mxu": (10, 2, 20)}[kernel]
+    """A chain-axis entry whose matrices require grad returns the gradient
+    of every chain, equal to each chain's single-tree gradient, with the
+    route's plain version run with autograd off (the plain versions are
+    replaced by a check of that): the level adjoint gives the gradient, no
+    plain peel is differentiated. A chain-axis kernel entry (prepare_*)
+    still raises."""
+    n_taxa, c, s, p = {"peel_resident": (12, 4, 4, 8),
+                       "peel_stream": (220, 4, 4, 8),
+                       "peel_mxu": (10, 2, 20, 8)}[kernel]
     tips_np, pm_np, fr_np, cw_np, tree, _ = _peel_problem(n_taxa, 2, 0, c, s,
-                                                          8, seed=23)
+                                                          p, seed=23)
     t = lambda x: torch.tensor(x, dtype=F64)  # noqa: E731
     tips, fr, cw = t(tips_np), t(fr_np), t(cw_np)
     pm = t(pm_np).requires_grad_(True)
+    ran = []
 
-    def never(*a, **kw):
-        raise AssertionError("a peel ran")
+    def untraced(fn):
+        def call(*a, **kw):
+            if torch.is_grad_enabled():
+                raise AssertionError("a plain peel ran under autograd")
+            ran.append(fn.__name__)
+            return fn(*a, **kw)
+        return call
 
     for mod, name in ((cuda_peeling, "_resident_plain"),
                       (cuda_stream2, "_deep_plain"),
                       (cuda_mxu, "_mxu_plain")):
-        monkeypatch.setattr(mod, name, never)
+        monkeypatch.setattr(mod, name, untraced(getattr(mod, name)))
     route = cuda_peeling.peel_route(2 * n_taxa - 1, c, s, 8)
     order, sched = cuda_peeling.peel_schedule(route, tree.children,
                                               tree.heights, tree.parent)
-    with pytest.raises(RuntimeError, match="grad"):
-        cuda_peeling.peel_site_loglik_auto(tips, tree.children, order,
-                                           tree.root, pm, fr, cw, sched)
+    g = t(np.random.default_rng(4).random((2, p)))
+    site = cuda_peeling.peel_site_loglik_auto(tips, tree.children, order,
+                                              tree.root, pm, fr, cw, sched)
+    got = torch.autograd.grad(torch.sum(g * site), pm)[0]
+    assert ran and got.shape == pm.shape
+    for b in range(2):
+        leaf = pm[b].detach().requires_grad_(True)
+        one = cuda_peeling.peel_site_loglik_auto(
+            tips, tree.children[b], order[b], tree.root[b], leaf, fr[b],
+            cw[b], tuple(x[b] for x in sched))
+        ref = torch.autograd.grad(torch.sum(g[b] * one), leaf)[0]
+        torch.testing.assert_close(got[b], ref, rtol=1e-12, atol=1e-13)
     _, ids, pos, ls = sched
     with pytest.raises(RuntimeError, match="grad"):
         if kernel == "peel_resident":

@@ -377,7 +377,7 @@ def test_kernel_entries_raise_on_inputs_that_require_grad(monkeypatch):
         _, lr_ids, lr_pos, level_start = schedule
         return cuda_peeling._resident_plain(
             tips_.as_subclass(torch.Tensor), lr_ids, lr_pos, level_start,
-            pm_, cw_[:, None] * freqs_[None], want_post=want_post)
+            pm_, cw_[..., None] * freqs_[..., None, :], want_post=want_post)
 
     monkeypatch.setattr(cuda_peeling, "_peel_resident_kernel", resident)
     got = _torch_grads(

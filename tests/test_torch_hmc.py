@@ -30,6 +30,7 @@ from beast_mcmc_tpu_torch.apps.benchmarks import build_analysis
 from beast_mcmc_tpu_torch.inference.hmc import (
     HmcOperator,
     NodeHeightHmcOperator,
+    batch_of_one,
     leapfrog,
     value_grad,
 )
@@ -208,7 +209,9 @@ def test_node_height_potential_and_gradient_match_jax():
     (lp, _, p0, t0, aux), (jlp, _, jp0, jt0, jaux) = _analyses()
     op = NodeHeightHmcOperator()
     op.bind_log_posterior(aux["log_post_cached"])
-    z0, _, u = op.coordinates(p0, t0)
+    z0, _, u1 = op.coordinates(op.one_chain_posterior(), batch_of_one(p0),
+                               batch_of_one(t0))
+    z0, u = z0[0], (lambda z: u1(z[None])[0])  # the batch of one's chain
     jz0, ju = _jax_node_height_potential(jaux["log_post_cached"], jp0, jt0)
     np.testing.assert_allclose(z0.numpy(), np.asarray(jz0), rtol=1e-12)
     z = z0 + torch.tensor(np.random.default_rng(2).normal(0, 0.1,
@@ -231,10 +234,12 @@ def test_leapfrog_trajectory_matches_jax():
     names = ("clock.rate", "pop.size")
     op = HmcOperator(parameters=names)
     op.bind_log_posterior(aux["log_post_cached"])
-    y0 = op._pack(p0)
+    y0 = op._pack(batch_of_one(p0))[0]
     pm0 = torch.tensor([0.7, -1.3], dtype=F64)
     eps, n = 0.002, 6  # the start's gradient in log clock rate is ~ -1,800
-    y1, pm1 = leapfrog(lambda y: value_grad(op.neg_log_density(p0, t0), y),
+    u = op.neg_log_density(op.one_chain_posterior(), batch_of_one(p0),
+                           batch_of_one(t0))
+    y1, pm1 = leapfrog(lambda y: value_grad(lambda v: u(v[None])[0], y),
                        y0, pm0, eps, n, lambda p: p)
 
     def ju(y):
@@ -316,13 +321,14 @@ def test_diag_preconditioning_mass_is_hessian_diagonal():
                      log_transform=False)
     op.bind_log_posterior(lambda p, t: -0.5 * torch.sum(
         (p["x"] / torch.tensor(scales)) ** 2 + p["x"][0] * p["x"][1]))
-    params = {"x": torch.tensor([0.3, -0.2, 0.5], dtype=F64)}
-    u = op.neg_log_density(params, _dummy_tree())
+    params = batch_of_one({"x": torch.tensor([0.3, -0.2, 0.5], dtype=F64)})
+    u = op.neg_log_density(op.one_chain_posterior(), params,
+                           batch_of_one(_dummy_tree()))
     velocity, _, _ = op._mass(u, op._pack(params))
     ref = np.diag(np.asarray(jax.hessian(lambda x: 0.5 * jnp.sum(
         (x / scales) ** 2 + x[0] * x[1]))(jnp.asarray([0.3, -0.2, 0.5]))))
     np.testing.assert_allclose(
-        velocity(torch.ones(3, dtype=F64)).numpy(), 1.0 / np.abs(ref),
+        velocity(torch.ones(1, 3, dtype=F64))[0].numpy(), 1.0 / np.abs(ref),
         rtol=1e-12)
 
 

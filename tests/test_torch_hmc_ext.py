@@ -30,6 +30,7 @@ from beast_mcmc_tpu_torch.inference.hmc import (
     GeodesicHmcOperator,
     ReflectiveHmcOperator,
     SimplexHmcOperator,
+    batch_of_one,
 )
 from beast_mcmc_tpu_torch.inference.mcmc import (
     init_mcmc_state,
@@ -57,6 +58,14 @@ def _dummy_tree():
     return make_tree_state(np.array([2, 2, -1]),
                            np.array([[-1, -1], [-1, -1], [0, 1]]),
                            np.array([0.0, 0.0, 1.0]), 2, F64, "cpu")
+
+
+def _one_chain_trajectory(op, params, tree, y0, p0, eps):
+    """op.trajectory of one chain under its bound posterior: the batch of
+    one's."""
+    y, p = op.trajectory(op.one_chain_posterior(), batch_of_one(params),
+                         batch_of_one(tree), y0[None], p0[None], eps)
+    return y[0], p[0]
 
 
 def _close(got, ref, rel=REL):
@@ -160,7 +169,7 @@ def test_reflective_trajectory_matches_jax():
     y0 = torch.stack([p0[n] for n in names])
     pm0 = torch.tensor([0.3, -150.0], dtype=F64)
     eps = 0.002
-    y1, pm1 = op.trajectory(p0, t0, y0, pm0, eps)
+    y1, pm1 = _one_chain_trajectory(op, p0, t0, y0, pm0, eps)
 
     def ju(y):
         return -jaux["log_post_cached"]({**jp0, names[0]: y[0],
@@ -205,8 +214,8 @@ def test_sphere_trajectory_matches_jax():
     p0 = v - np.sum(v * y0, 1, keepdims=True) * y0
     eps = 0.2
     params = {"x": torch.tensor(y0.reshape(-1))}
-    y1, p1 = op.trajectory(params, _dummy_tree(), torch.tensor(y0),
-                           torch.tensor(p0), eps)
+    y1, p1 = _one_chain_trajectory(op, params, _dummy_tree(),
+                                   torch.tensor(y0), torch.tensor(p0), eps)
 
     g = jax.jit(jax.grad(lambda y: -jlp(y.reshape(-1))))
     tan = lambda y, v: v - jnp.sum(v * y, 1, keepdims=True) * y  # noqa: E731
@@ -254,8 +263,9 @@ def test_simplex_trajectory_matches_jax():
     y0 = np.log(x0[:-1]) - np.log(x0[-1])
     p0 = np.array([0.5, -1.1, 0.7])
     eps = 0.15
-    y1, p1 = op.trajectory({"x": torch.tensor(x0)}, _dummy_tree(),
-                           torch.tensor(y0), torch.tensor(p0), eps)
+    y1, p1 = _one_chain_trajectory(op, {"x": torch.tensor(x0)},
+                                   _dummy_tree(), torch.tensor(y0),
+                                   torch.tensor(p0), eps)
     g = jax.jit(jax.grad(jneg))
     y, p = jnp.asarray(y0), jnp.asarray(p0)
     for _ in range(5):
@@ -290,8 +300,8 @@ def test_stiefel_trajectory_matches_jax():
     jgeo._project_momentum_np(X0, M0, jgeo.blocks_from_mask(5, 2, None))
     eps = 0.05
     params = {"a": torch.tensor(X0[:, 0]), "b": torch.tensor(X0[:, 1])}
-    X1, M1 = op.trajectory(params, _dummy_tree(), torch.tensor(X0),
-                           torch.tensor(M0), eps)
+    X1, M1 = _one_chain_trajectory(op, params, _dummy_tree(),
+                                   torch.tensor(X0), torch.tensor(M0), eps)
 
     grad = jax.jit(jax.grad(jlp))
 

@@ -217,16 +217,18 @@ def _recording(monkeypatch):
     def plain(t):
         return t.as_subclass(torch.Tensor)
 
-    def resident(tips, children, order, pm, freqs, cw, schedule):
+    def resident(tips, children, order, pm, freqs, cw, schedule,
+                 want_post=False):
         calls.append(("resident", schedule))
         _, ids, pos, ls = schedule
+        wcs = cw[..., None] * freqs[..., None, :]
         return cuda_peeling._resident_plain(plain(tips), ids, pos, ls, pm,
-                                            cw[:, None] * freqs[None])
+                                            wcs, want_post)
 
     def mxu(tips, children, order, pm, freqs, cw, schedule):
         calls.append(("mxu", schedule))
         return cuda_mxu._mxu_plain(plain(tips), schedule, pm,
-                                   cw[:, None] * freqs[None])
+                                   cw[..., None] * freqs[..., None, :])
 
     def ring(tips, lr_ids, lr_pos, pm_ord, freqs, cw):
         calls.append(("stream", (lr_ids, lr_pos)))
@@ -279,9 +281,10 @@ def test_site_logliks_hands_each_kernel_its_schedule(monkeypatch, s, c,
         assert len(sorts) == 2
         order = tpeel.peel_order_from_heights(heights, n_taxa, parent)
         want = cuda_stream.stream_schedule(children, order)
-    else:
+    else:  # the kernel peels a batch of one
         assert len(sorts) == 1
-        want = cuda_stream.level_schedule(children, n_taxa, parent)
+        want = cuda_stream.level_schedule(children[None], n_taxa,
+                                          parent[None])
     assert len(schedule) == len(want)
     for a, b in zip(schedule, want):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
@@ -313,11 +316,12 @@ def test_multipartition_hands_one_level_schedule_to_every_partition(
                                            *args)
     np.testing.assert_allclose(float(got), float(ref), rtol=1e-12)
     assert [k for k, _ in calls] == ["resident"] * k_parts
-    assert all(sch is calls[0][1] for _, sch in calls)
+    assert all(a.data_ptr() == b.data_ptr()  # the one schedule's tensors
+               for _, sch in calls for a, b in zip(sch, calls[0][1]))
     assert len(sorts) == 1
     want = cuda_stream.level_schedule(children, n_taxa, parent)
-    for a, b in zip(calls[0][1], want):
-        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    for a, b in zip(calls[0][1], want):  # the kernel peels a batch of one
+        np.testing.assert_array_equal(a.numpy(), b[None].numpy())
 
 
 @pytest.mark.parametrize("itemsize", [4, 8])

@@ -35,7 +35,6 @@ import beast_mcmc_tpu_torch.models.treelikelihood as ttl
 from beast_mcmc_tpu_torch.apps.benchmarks import build_analysis
 from beast_mcmc_tpu_torch.convert import operator_from, states_from_numpy
 from beast_mcmc_tpu_torch.inference import component_cache as cc
-from beast_mcmc_tpu_torch.inference.hmc import HmcOperator
 from beast_mcmc_tpu_torch.inference.mc3 import (
     make_mc3_runner,
     mc3_temperatures,
@@ -181,13 +180,6 @@ def test_mc3_evaluates_the_posterior_once_a_step(monkeypatch):
     fresh = aux["log_post_chains"](states.params, states.tree)
     np.testing.assert_allclose(fresh.numpy(), states.log_posterior.numpy(),
                                rtol=0, atol=1e-9)
-
-
-def test_mc3_refuses_posterior_bound_operators():
-    _, ops, _, _, aux = build_analysis(10, 32, device="cpu")
-    with pytest.raises(ValueError, match="HmcOperator"):
-        make_mc3_runner(aux["log_post_chains"],
-                        [*ops, HmcOperator(parameters=("pop.size",))], 3)
 
 
 def test_random_walk_operator_from_jax():

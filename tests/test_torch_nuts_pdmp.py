@@ -27,7 +27,7 @@ from beast_mcmc_tpu.apps.benchmarks import build_analysis as jbuild
 from beast_mcmc_tpu.inference import nuts as jnuts
 
 from beast_mcmc_tpu_torch.apps.benchmarks import build_analysis
-from beast_mcmc_tpu_torch.inference.hmc import value_and_grad
+from beast_mcmc_tpu_torch.inference.hmc import batch_of_one, value_and_grad
 from beast_mcmc_tpu_torch.inference.mcmc import (
     init_mcmc_state,
     make_mcmc_step,
@@ -171,8 +171,10 @@ def test_nuts_trajectory_on_the_tree_posterior_matches_jax():
     _, _, jp0, jt0, jaux = jbuild(12, 64)
     op = NutsOperator(parameters=("clock.rate", "pop.size"))
     op.bind_log_posterior(aux["log_post_cached"])
-    u = op.neg_log_density(p0, t0)
-    y0 = op._pack(p0).numpy()
+    u1 = op.neg_log_density(op.one_chain_posterior(), batch_of_one(p0),
+                            batch_of_one(t0))
+    u = lambda y: u1(y[None])[0]  # noqa: E731  (the batch of one's chain)
+    y0 = op._pack(batch_of_one(p0))[0].numpy()
 
     def ju(y):
         x = jnp.exp(y)
