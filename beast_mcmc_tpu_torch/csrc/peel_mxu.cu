@@ -93,118 +93,18 @@ using peel::cp_async_wait_all;
 using peel::take_scale;
 
 constexpr int MAX_THREADS = 512;       // of one block
-constexpr int W = 8;                   // patterns of a block
+constexpr int W = peel::TILE_W;        // patterns of a block
 constexpr size_t SMEM_LIMIT = 232448;  // bytes a block may take on sm_90
-constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// The bulk copy engine (TMA): `bytes` (a multiple of 16, both ends 16-byte
-// aligned) from device to shared memory, counted on the mbarrier `bar`.
-__device__ __forceinline__ void bulk_copy(void* smem, const void* gmem, unsigned bytes,
-                                          unsigned bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-      "[%3];\n" ::"r"(smem_addr(smem)),
-      "l"(gmem), "r"(bytes), "r"(bar)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-// until the phase of parity `parity` of the mbarrier has completed
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// leading dimension >= n that is 4 mod 8 (n is a multiple of 4)
-__host__ __device__ inline int pad_ld(int n) { return n + ((4 - n) & 7); }
-
-__device__ __forceinline__ void mma_f64(double& d0, double& d1, double a, double b) {
-  asm volatile(
-      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0,%1}, {%2}, {%3}, {%0,%1};\n"
-      : "+d"(d0), "+d"(d1)
-      : "d"(a), "d"(b));
-}
-
-// One 8 x 8 tile of A [8, 4*ksteps] . X [4*ksteps, 8]: a_tile is the first of
-// the 8 rows (leading dimension lda), x_tile the first of the 8 columns
-// (leading dimension W). The thread gets out[lane / 4][2 * (lane % 4) + i]
-// in y_i, the accumulator layout of mma.m8n8k4.
-__device__ __forceinline__ void tile_product(const double* __restrict__ a_tile, int lda,
-                                             const double* __restrict__ x_tile, int ksteps,
-                                             int lane, double& y0, double& y1) {
-  const double* a = a_tile + (lane >> 2) * lda + (lane & 3);
-  const double* b = x_tile + (lane & 3) * W + (lane >> 2);
-  constexpr int step = 4 * W;
-  double e0 = 0.0, e1 = 0.0;
-  y0 = 0.0;
-  y1 = 0.0;
-  int ks = 0;
-  for (; ks + 1 < ksteps; ks += 2) {
-    mma_f64(y0, y1, a[4 * ks], b[ks * step]);
-    mma_f64(e0, e1, a[4 * ks + 4], b[(ks + 1) * step]);
-  }
-  if (ks < ksteps) mma_f64(y0, y1, a[4 * ks], b[ks * step]);
-  y0 += e0;
-  y1 += e1;
-}
-
-__device__ __forceinline__ void tile_product(const float* __restrict__ a_tile, int lda,
-                                             const float* __restrict__ x_tile, int ksteps,
-                                             int lane, float& y0, float& y1) {
-  const float4* a = reinterpret_cast<const float4*>(a_tile + (lane >> 2) * lda);
-  const float* b = x_tile + 2 * (lane & 3);
-  y0 = 0.f;
-  y1 = 0.f;
-  for (int ks = 0; ks < ksteps; ++ks) {
-    const float4 av = a[ks];
-    const float* bk = b + 4 * ks * W;
-    const float2 b0 = *reinterpret_cast<const float2*>(bk);
-    const float2 b1 = *reinterpret_cast<const float2*>(bk + W);
-    const float2 b2 = *reinterpret_cast<const float2*>(bk + 2 * W);
-    const float2 b3 = *reinterpret_cast<const float2*>(bk + 3 * W);
-    y0 = fmaf(av.x, b0.x, y0);
-    y1 = fmaf(av.x, b0.y, y1);
-    y0 = fmaf(av.y, b1.x, y0);
-    y1 = fmaf(av.y, b1.y, y1);
-    y0 = fmaf(av.z, b2.x, y0);
-    y1 = fmaf(av.z, b2.y, y1);
-    y0 = fmaf(av.w, b3.x, y0);
-    y1 = fmaf(av.w, b3.y, y1);
-  }
-}
-
-// over the 8 rows of a tile: the lanes with the same lane % 4
-template <typename T>
-__device__ __forceinline__ T rows_max(T v) {
-#pragma unroll
-  for (int off = 4; off < 32; off <<= 1) v = peel::dmax(v, __shfl_xor_sync(FULL, v, off));
-  return v;
-}
-template <typename T>
-__device__ __forceinline__ T rows_sum(T v) {
-#pragma unroll
-  for (int off = 4; off < 32; off <<= 1) v += __shfl_xor_sync(FULL, v, off);
-  return v;
-}
-
-// the warps of one team (named barrier `id`, 1..15)
-__device__ __forceinline__ void team_sync(int id, int nthreads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(nthreads) : "memory");
-}
+using peel::bulk_copy;
+using peel::mbar_expect;
+using peel::mbar_wait;
+using peel::pad_ld;
+using peel::rows_max;
+using peel::rows_sum;
+using peel::smem_addr;
+using peel::team_sync;
+using peel::tile_product;
 
 // Shared memory of a block: the schedule, {node, left, right, -} a position
 // and `level_start`, and an mbarrier a team; then, in elements of the working

@@ -115,12 +115,12 @@ def gy94_eigen(kappa, omega, codon_freqs: torch.Tensor,
                code=None) -> EigenSystem:
     """Goldman-Yang 1994 codon model: single-nucleotide codon exchanges at
     rate kappa^[transition] * omega^[nonsynonymous]; reversible with respect
-    to the codon frequencies."""
+    to the codon frequencies. kappa and omega [B] (a chain batch) give B
+    systems from one batched eigh."""
     single, is_ts, is_nonsyn = _codon_rates(codon_freqs, code)
-    kappa = torch.as_tensor(kappa, dtype=codon_freqs.dtype,
-                            device=codon_freqs.device)
-    omega = torch.as_tensor(omega, dtype=codon_freqs.dtype,
-                            device=codon_freqs.device)
+    kappa, omega = (torch.as_tensor(v, dtype=codon_freqs.dtype,
+                                    device=codon_freqs.device)[..., None, None]
+                    for v in (kappa, omega))
     return reversible_eigen(single * kappa ** is_ts * omega ** is_nonsyn,
                             codon_freqs)
 

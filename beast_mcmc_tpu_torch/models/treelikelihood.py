@@ -7,9 +7,8 @@ ops/cuda_stream2.py: by levels of depth from the root, with no height order,
 all partitions in one launch (its plain version for CPU tensors). Every
 other shape goes by the device: CUDA tensors to the kernels through
 ops/cuda_peeling.py::peel_site_loglik_auto, with the schedule that
-`peel_schedule` builds for the route (the level schedule for the resident
-and matrix-product kernels too, the height order only for the v1 streaming
-one); CPU tensors to the height-ordered plain peel.
+ops/cuda_stream.py::level_schedule builds (every kernel reads it); CPU
+tensors to the height-ordered plain peel.
 
 `tree_loglikelihood_q`, the non-reversible route of the discrete traits,
 builds its matrices by ops/expm.py and peels with the plain PyTorch peel on
@@ -39,7 +38,6 @@ import torch
 from beast_mcmc_tpu_torch.ops.cuda_peeling import (
     peel_loglikelihood_auto,
     peel_route,
-    peel_schedule,
     peel_site_loglik_auto,
 )
 from beast_mcmc_tpu_torch.ops.cuda_stream import level_schedule
@@ -107,8 +105,7 @@ def _site_logliks(tip_partials, parent, children, heights, root, p_mats,
     """Per-pattern log-likelihoods of one tree, or [K, P] of K partitions
     on it from the deep route. The deep route orders the peel by depth
     alone (`level_schedule`, which computes the depth once); on a CUDA
-    device the resident and matrix-product routes do too, and the v1
-    streaming one takes the height order (`peel_schedule`); the CPU's plain
+    device every other route does too; the CPU's plain
     peel takes the height order. A chain batch ([B, M] parent) is one
     chain-axis peel on both devices: [B, P], or [B, K, P] on the deep
     route."""
@@ -118,18 +115,18 @@ def _site_logliks(tip_partials, parent, children, heights, root, p_mats,
         b_n, lead = parent.shape[0], p_mats.dim() - 4
         freqs = _with_chains(freqs, b_n, lead + 1)
         category_weights = _with_chains(category_weights, b_n, lead + 1)
-        order, schedule = peel_schedule(route, children, heights, parent)
-        return peel_site_loglik_auto(tip_partials, children, order, root,
-                                     p_mats, freqs, category_weights,
+        schedule = level_schedule(children, n_taxa, parent)
+        return peel_site_loglik_auto(tip_partials, children, schedule[0],
+                                     root, p_mats, freqs, category_weights,
                                      schedule)
     if route == "deep":
         return peel_site_loglik_deep(
             tip_partials, children, None, root, p_mats, freqs,
             category_weights, level_schedule(children, n_taxa, parent))
     if tip_partials.is_cuda:
-        order, schedule = peel_schedule(route, children, heights, parent)
-        return peel_site_loglik_auto(tip_partials, children, order, root,
-                                     p_mats, freqs, category_weights,
+        schedule = level_schedule(children, n_taxa, parent)
+        return peel_site_loglik_auto(tip_partials, children, schedule[0],
+                                     root, p_mats, freqs, category_weights,
                                      schedule)
     order = peel_order_from_heights(heights, n_taxa, parent)
     return peel_site_loglik(tip_partials, children, order, root, p_mats,
@@ -180,7 +177,7 @@ def multipartition_loglikelihood(tip_partials, pattern_weights, parent,
     The branch matrices of all partitions come from one batched product.
     On the deep route all K partitions are one peel (one kernel launch, the
     grid's second axis). Elsewhere the peel order, and on a CUDA device the
-    schedule of the route's kernel (`peel_schedule`), are computed once and
+    level schedule that every kernel reads, are computed once and
     each partition is one peel. A chain batch ([B, M] parent, eigs batched
     over [B, K], category_rates [B, K, C]) gives [B]: on the deep route one
     launch for every chain and partition, elsewhere one chain-axis peel a
@@ -203,7 +200,8 @@ def multipartition_loglikelihood(tip_partials, pattern_weights, parent,
             tip_partials, parent, children, heights, root, p_mats, freqs,
             category_weights))
     if tip_partials.is_cuda:
-        order, schedule = peel_schedule(route, children, heights, parent)
+        schedule = level_schedule(children, n_taxa, parent)
+        order = schedule[0]
 
         def peel(*a):
             return peel_loglikelihood_auto(*a, schedule)

@@ -86,12 +86,27 @@ class MxuPlan(NamedTuple):
     smem: int  # bytes of shared memory
 
 
+def piece_dims(s: int) -> tuple[int, int, int]:
+    """(kp, mp, lda) of an [S, S] matrix piece in shared memory (csrc):
+    the inner dimension rounded up to 4, the rows to 8, the leading
+    dimension kp rounded up to 4 mod 8."""
+    kp, mp = -(-s // 4) * 4, -(-s // 8) * 8
+    return kp, mp, kp + (4 - kp) % 8
+
+
+def pad_pieces(p_matrices: torch.Tensor) -> torch.Tensor:
+    """[..., S, S] matrices padded with zeros to [..., mp, lda], as shared
+    memory holds them, so that one bulk copy moves each."""
+    s = p_matrices.shape[-1]
+    _, mp, lda = piece_dims(s)
+    return torch.nn.functional.pad(p_matrices, (0, lda - s, 0, mp - s))
+
+
 def _route_smem(n_int: int, c: int, s: int, itemsize: int) -> int:
     """Shared memory the node-by-node design took at its smallest plan (8
     patterns a block, one [S, S] piece a slot): the route rule's
     arithmetic."""
-    kp, mp = -(-s // 4) * 4, -(-s // 8) * 8
-    lda = kp + (4 - kp) % 8
+    kp, mp, lda = piece_dims(s)
     units = c * mp // 8
     w = max(min(units, 12), -(-units // 8))
     return (6 * c * kp * 12 + 2 * mp * lda + 16 * w) * itemsize + 16 * n_int
@@ -108,8 +123,7 @@ def resident_mxu_fits(m: int, c: int, s: int, itemsize: int = 8) -> bool:
 def _smem(n_int: int, c: int, s: int, g: int, teams: int, tw: int,
           itemsize: int) -> int:
     """Bytes of shared memory of a block (csrc/peel_mxu.cu, smem_bytes)."""
-    kp, mp = -(-s // 4) * 4, -(-s // 8) * 8
-    lda = kp + (4 - kp) % 8
+    kp, mp, lda = piece_dims(s)
     slot = g * mp * lda + 2 * c * kp * 8
     elems = teams * slot + (teams + 1) * tw * 8
     head = -(-(-(-(16 * n_int + 4 * (n_int + 1)) // 8) * 8 + 8 * teams)
@@ -217,11 +231,7 @@ def prepare_mxu(tips, children, order, p_matrices, freqs, cat_w,
                       n_ptrs=8)
     fn = lib.peel_mxu_f64 if dt == torch.float64 else lib.peel_mxu_f32
     wcs = (cat_w[:, :, None] * freqs[:, None, :]).contiguous()
-    # the matrices padded as the kernel's shared memory holds them, [mp, lda]
-    # (zeros beyond S), so that one bulk copy moves one of them
-    kp, mp = -(-s // 4) * 4, -(-s // 8) * 8
-    pm_pad = torch.nn.functional.pad(p_matrices,
-                                     (0, kp + (4 - kp) % 8 - s, 0, mp - s))
+    pm_pad = pad_pieces(p_matrices)
     post = torch.empty((b_n, m, c, s, p), dtype=dt, device=tips.device)
     site = torch.empty((b_n, p), dtype=dt, device=tips.device)
     return _build.KernelCall(

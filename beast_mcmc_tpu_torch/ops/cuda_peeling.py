@@ -34,7 +34,7 @@ shared memory a Hopper block may use, as the JAX dispatcher does. S >= 16
 (amino acids, codons) goes to the matrix-product kernel (ops/cuda_mxu.py)
 where `resident_mxu_fits` accepts it. Every other shape goes to the v1
 streaming kernel (ops/cuda_stream.py), which takes any S up to 64.
-`peel_schedule` builds the schedule each route's kernel reads.
+Every kernel reads ops/cuda_stream.py::level_schedule.
 
 Gradients. Every route's entry point is differentiable in the branch
 matrices, the frequencies and the category weights: where autograd asks for
@@ -337,17 +337,13 @@ def peel_site_loglik_auto(tip_partials, children, order, root, p_matrices,
                           freqs, category_weights,
                           schedule=None) -> torch.Tensor:
     """Shape-dispatched peel (`peel_route`): per-pattern log-likelihood [P].
-    `schedule` is the route's schedule where the caller already has it
-    (`peel_schedule` builds it): level_schedule(children, N, parent) for
-    the deep, the resident and the matrix-product kernels, which order by
-    depth and do not read `order`; stream_schedule(children, order) for the
-    v1 streaming one (several partitions on one tree).
+    `schedule` is level_schedule(children, N, parent) where the caller
+    already has it: every kernel orders by depth, and none reads `order`.
 
     A chain batch (children [B, M, 2], p_matrices [B, M, C, S, S], freqs
     [B, S], category_weights [B, C], `order` and `schedule` with the chain
     axis) gives [B, P] from one launch of the route's kernel for all B
-    chains; on the v1 streaming route, whose kernel has no chain axis yet,
-    one launch a chain. On the deep route tip_partials [K, N, S, P] with
+    chains. On the deep route tip_partials [K, N, S, P] with
     p_matrices [B, K, M, C, S, S] gives [B, K, P] in one launch. One tree
     is the batch of one. A CPU tensor takes the route's plain chain-axis
     version. Differentiable in every chain's p_matrices, freqs and
@@ -374,31 +370,8 @@ def peel_site_loglik_auto(tip_partials, children, order, root, p_matrices,
     elif route == "mxu":
         site = peel_mxu_chains(*args)
     else:
-        site = peel_stream_chains(tip_partials, children, order,
-                                  *args[2:])
+        site = peel_stream_chains(*args)
     return site[0] if one else site
-
-
-def peel_schedule(route: str, children, heights, parent):
-    """(order, schedule) of a CUDA peel on `route` (`peel_route`): the
-    schedule its kernel reads. The deep, resident and matrix-product kernels
-    read level_schedule(children, N, parent), whose order is by depth (one
-    sort); the v1 streaming kernel reads stream_schedule of the height
-    order (two sorts). A chain batch (children [B, M, 2], heights and
-    parent [B, M]) gets every chain's schedule, row by row, in the same
-    sorts."""
-    from beast_mcmc_tpu_torch.ops.cuda_stream import (
-        level_schedule,
-        stream_schedule,
-    )
-    from beast_mcmc_tpu_torch.ops.peeling import peel_order_from_heights
-
-    n_tips = (children.shape[-2] + 1) // 2
-    if route == "stream":
-        order = peel_order_from_heights(heights, n_tips, parent)
-        return order, stream_schedule(children, order)
-    schedule = level_schedule(children, n_tips, parent)
-    return schedule[0], schedule
 
 
 def peel_loglikelihood_auto(tip_partials, children, order, root, p_matrices,

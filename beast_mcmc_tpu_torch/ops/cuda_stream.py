@@ -1,40 +1,57 @@
-"""The v1 streaming CUDA peel: any state count, partials returned.
+"""The v1 streaming CUDA peel: any state count, partials returned, B chains
+in one launch.
 
 Counterpart of beast_mcmc_tpu/ops/pallas_stream.py. The kernel
 (csrc/peel_stream_ring.cu) replaces pallas_stream.py::_stream_kernel: it
-returns the per-pattern log-likelihood and the rescaled partials by peel
-position, keeps the last two nodes in a shared-memory ring, fetches the
-other children one step ahead and streams the peel-ordered branch
-matrices through shared memory; see the source for what bounds it and
-what the design does about that. It takes 2 <= S <= 64 states and up to 8
-rate categories in float32 or float64; the dispatcher sends it the shapes
-that neither the S = 4 kernels nor the matrix-product kernel
-(ops/cuda_mxu.py, S >= 16) take.
+returns the per-pattern log-likelihood and the rescaled partials of every
+internal node. It walks the tree by levels of depth (`level_schedule`, the
+schedule of the other three kernels), the nodes of a level side by side in
+a block, one barrier a level, with its partials in device memory by level
+position, tile-major; below 16 states on the CUDA cores in slots of pw
+patterns x C categories of a warp, from 16 states on the FP64 tensor cores
+in teams of warps over 8 patterns, as ops/cuda_mxu.py's kernel; see the
+source for what bounds it and what the design does about that. It takes 2
+<= S <= 64 states and up to 8 rate categories in float32 or float64; the
+dispatcher (ops/cuda_peeling.py::peel_route) sends it the shapes that
+neither the S = 4 kernels nor the matrix-product kernel take: S = 2, S = 8
+and the other S below 16, and S >= 16 on trees too large for the
+matrix-product kernel's route rule (e.g. 61 codon states x 4 categories at
+1,441 taxa).
 
-`stream_schedule` is the gather of pallas_stream.py:277-284: `lr_ids`
-[n_int, 2] are each step's children, `lr_pos` their peel positions (-1
-for a tip); `p_matrices[lr_ids]` is `pm_ord` [n_int, 2, C, S, S]. The
-plain version `_stream_plain` peels from these, so a CPU tensor checks the
-gather as well as the arithmetic. `level_schedule` is the same gather in
-the deep kernel's order (ops/cuda_stream2.py): by depth, deepest first,
-with the first position of every level.
+A chain batch is the grid's second axis: `prepare_stream` with [B, ...]
+matrices and a chain-axis schedule launches once for all B chains; the
+tips are shared, and one tree is B = 1. `_stream_plain` is the plain
+version of the same level walk (ops/cuda_stream2.py::_deep_plain, chain by
+chain), the path of CPU tensors. `stream_schedule` is the gather of
+pallas_stream.py:277-284 in the caller's order; `level_schedule` builds it
+in the kernels' order.
 
-The planners are derived from the 227 KB of shared memory a Hopper block
-may take. A block holds, in elements of the working type,
-    3 ring slots + 2 x 2 staged children, each [C*S, BP]     7*C*S*BP
-    two matrix slots                                         2*unit
-    the per-pattern max reduction [R, BP]                    R*BP
-`_pick_chunk` sizes a matrix slot: whole nodes while one node's 2*C*S*S
-matrices fit CHUNK_BYTES, else 0, and the kernel then streams one child's
-one category ([S, S]) at a time. `_pick_bp` takes the widest pattern tile
-(at most 32) that leaves the whole within SMEM_BUDGET, and a narrower one
-while the grid would leave more than half of the 132 SMs without a block.
+The planner (`stream_plan`), from the 227 KB of shared memory a Hopper
+block may take (SMEM_BUDGET of it) and its 132 SMs. Below 16 states a
+slot is pw x C lanes of a warp; its shared memory is two buffers of one
+node's two [C, S, S] matrix blocks (each rounded up to 16 bytes) and its
+log-scale sums [pw] in float64. pw is the widest power of two with pw x C
+<= 32 lanes, halved while the grid of ceil(P / pw) x B blocks leaves SMs
+idle, down to one 32-byte sector of a state row (4 patterns in float64, 8
+in float32); a block is 16 warps, fewer where their slots would overflow
+shared memory. From 16 states a block is 8 patterns and `teams` teams of
+`tw` warps: a team's slot holds two buffers of g pieces [mp, lda] of a
+node's matrices (mp = S rounded up to 8, lda the inner dimension rounded up
+to 4 and then to 4 mod 8), which its steps take in turns, and its two
+children's tiles [C, kp, 8]; g is the most of a whole node (2C), a
+category's pair (2) or one piece that leaves room for a second team, else
+that fits one; then as many teams as fit (at most 15, the named barriers),
+and the warps left to each team, a warp owning at most 8 output tiles.
+Shapes outside
+the envelope raise. `chip_smoke.py --tiles` times the pattern and warp
+choices below 16 states and the team choices from 16.
 
 Gradients: where autograd asks for one, `peel_stream_chains` (and
-`peel_site_loglik_stream`, its batch of one) takes `_stream_forward`, chain
-by chain, as the forward of ops/peeling.py::peel_with_adjoint: its
-partials by height-order position go to their nodes through `order`, and
-the adjoint walks `level_schedule` of the same tree.
+`peel_site_loglik_stream`, its batch of one) takes the kernel's one launch
+with every chain's partials as the forward of
+ops/peeling.py::peel_with_adjoint: `deep_positions` turns the tile-major
+partials into positions, `post_by_node` puts them at their nodes, and one
+level adjoint over the same schedule takes all B chains.
 """
 
 from __future__ import annotations
@@ -44,74 +61,122 @@ from typing import NamedTuple
 import torch
 
 from beast_mcmc_tpu_torch.ops import _build
-from beast_mcmc_tpu_torch.ops.cuda_peeling import check_kernel_inputs
+from beast_mcmc_tpu_torch.ops.cuda_mxu import pad_pieces, piece_dims
+from beast_mcmc_tpu_torch.ops.cuda_peeling import (
+    _chain_lead,
+    check_kernel_inputs,
+)
 from beast_mcmc_tpu_torch.ops.peeling import (
     node_depths,
     one_chain,
     parent_from_children,
     peel_with_adjoint,
     post_by_node,
-    wants_grad,
 )
 from beast_mcmc_tpu_torch.utils.accum import stable_dot
 
 SMEM_BUDGET = 220 * 1024  # of the 227 KB a block may take
-CHUNK_BYTES = 32 * 1024  # one of the two matrix slots, whole-node mode
-TR = 4  # output rows one thread accumulates at a time (csrc)
-MAX_THREADS = 512
 N_SM = 132  # streaming multiprocessors of an H100
+MAX_WARPS = 16  # of one block (csrc: 512 threads)
+MMA_MIN_STATES = 16  # from here teams of warps on the tensor cores
+TILE_W = 8  # patterns of a block from MMA_MIN_STATES (csrc: W)
+MAX_UNITS = 8  # output tiles one warp may own (csrc: the register tile)
+MAX_TEAMS = 15  # a named barrier each (1..15)
 STATES = range(2, 65)
 MAX_CATEGORIES = 8
 
 launches = 0  # kernel launches since the caller last set this to 0
 
 
-def _pick_chunk(c: int, s: int, itemsize: int) -> int:
-    """Nodes per matrix slot; 0 when one node's matrices exceed a slot and
-    the kernel streams [S, S] pieces instead."""
-    return min(64, CHUNK_BYTES // (2 * c * s * s * itemsize))
-
-
 class StreamPlan(NamedTuple):
-    bp: int  # patterns per block
-    rows: int  # threads along the output rows; a block is rows * bp threads
-    chunk: int  # nodes per matrix slot, 0 for [S, S] pieces
+    pw: int  # patterns of a slot (S < 16) or of a block (S >= 16, TILE_W)
+    warps: int  # warps of a block
+    nodes: int  # nodes a block peels side by side: slots or teams
+    g: int  # [S, S] matrix pieces a team's slot holds; 0 below 16 states
     smem: int  # bytes of shared memory
 
 
-def _plan(c: int, s: int, itemsize: int, bp: int) -> StreamPlan:
-    chunk = _pick_chunk(c, s, itemsize)
-    groups = -(-s // TR) * (c if chunk else 1)
-    rows = min(groups, MAX_THREADS // bp)
-    unit = chunk * 2 * c * s * s if chunk else s * s
-    smem = (7 * c * s * bp + 2 * unit + rows * bp) * itemsize
-    return StreamPlan(bp, rows, chunk, smem)
+def _slots_smem(c: int, s: int, pw: int, slots: int, itemsize: int) -> int:
+    """Bytes of shared memory of a block of slots (csrc, slots_smem)."""
+    per16 = 16 // itemsize
+    ne_pad = -(-c * s * s // per16) * per16
+    return slots * (4 * ne_pad * itemsize + 8 * pw)
 
 
-def _pick_bp(p: int, c: int, s: int, itemsize: int) -> int:
-    """Patterns per block: 32 where the block's buffers fit SMEM_BUDGET,
-    else the widest power of two that does (4 at S = 64, C = 8, float64);
-    then halved, down to 8, while twice the blocks still find an SM each:
-    a block's time does not depend on its width, so idle SMs are the gain."""
-    bp = 32
-    while bp > 4 and _plan(c, s, itemsize, bp).smem > SMEM_BUDGET:
-        bp //= 2
-    while bp > 8 and 2 * -(-p // bp) <= N_SM:
-        bp //= 2
-    return bp
+def _teams_smem(c: int, s: int, g: int, teams: int, tw: int,
+                itemsize: int) -> int:
+    """Bytes of shared memory of a block of teams (csrc, teams_smem)."""
+    kp, mp, lda = piece_dims(s)
+    slot = 2 * g * mp * lda + 2 * c * kp * TILE_W
+    elems = teams * slot + (teams + 1) * tw * TILE_W
+    return (-(-16 * teams // 16) * 16 + -(-elems * itemsize // 8) * 8
+            + teams * TILE_W * 8)
 
 
-def stream_plan(p: int, c: int, s: int, itemsize: int,
-                bp: int | None = None) -> StreamPlan:
-    """The launch plan at these shapes; raises outside the envelope. `bp`
-    forces the patterns per block (a measurement of the tile width); by
-    default `_pick_bp` chooses."""
+def _slots_plan(p, c, s, itemsize, b, pw, warps) -> StreamPlan:
+    if pw is None:
+        pw = 1 << ((32 // c).bit_length() - 1)
+        while pw > 32 // itemsize and -(-p // pw) * b < N_SM:
+            pw //= 2
+    if pw & (pw - 1) or not 2 <= pw * c <= 32:
+        raise ValueError(f"a slot is a power of two of patterns by the C "
+                         f"categories, 2..32 lanes: pw {pw}, C = {c}")
+    groups = 32 // (pw * c)
+    if warps is None:
+        warps = MAX_WARPS
+        while (warps > 1 and _slots_smem(c, s, pw, warps * groups, itemsize)
+               > SMEM_BUDGET):
+            warps //= 2
+    slots = warps * groups
+    return StreamPlan(pw, warps, slots, 0,
+                      _slots_smem(c, s, pw, slots, itemsize))
+
+
+def _teams_plan(c, s, itemsize, teams, warps) -> StreamPlan:
+    units = c * -(-s // 8)
+    tw_min = -(-units // MAX_UNITS)
+
+    def tw_for(teams_):  # the warps left to each team
+        if warps is not None:
+            return warps // teams_
+        return min(units, max(tw_min, MAX_WARPS // teams_))
+
+    def fits(g, teams_):
+        return (_teams_smem(c, s, g, teams_, tw_for(teams_), itemsize)
+                <= SMEM_BUDGET)
+
+    # the most pieces a buffer where a second team fits beside, else where
+    # one team does
+    g = next((g for t in (2, 1) for g in (2 * c, 2, 1) if fits(g, t)), 1)
+    if teams is None:
+        teams = 1
+        while (teams + 1 <= MAX_TEAMS and (teams + 1) * tw_min <= MAX_WARPS
+               and _teams_smem(c, s, g, teams + 1, tw_for(teams + 1),
+                               itemsize) <= SMEM_BUDGET):
+            teams += 1
+    tw = tw_for(teams)
+    if tw < 1 or -(-units // tw) > MAX_UNITS or teams > MAX_TEAMS:
+        raise ValueError(f"no plan: {teams} teams x {tw} warps at S = {s}, "
+                         f"C = {c}")
+    return StreamPlan(TILE_W, teams * tw, teams, g,
+                      _teams_smem(c, s, g, teams, tw, itemsize))
+
+
+def stream_plan(p: int, c: int, s: int, itemsize: int, b: int = 1,
+                pw: int | None = None, warps: int | None = None,
+                teams: int | None = None) -> StreamPlan:
+    """The launch plan of B chains' trees of P patterns at these shapes;
+    raises outside the envelope. Below 16 states `pw` and `warps` force
+    the block, from 16 `teams` and `warps` (a measurement of them)."""
     if s not in STATES or not 1 <= c <= MAX_CATEGORIES:
         raise ValueError(f"the streaming peel takes 2..64 states and 1..8 "
                          f"categories, got S = {s}, C = {c}")
-    plan = _plan(c, s, itemsize, bp or _pick_bp(p, c, s, itemsize))
-    if plan.smem > SMEM_BUDGET:
-        raise ValueError(f"no plan within shared memory: {plan}")
+    plan = (_slots_plan(p, c, s, itemsize, b, pw, warps)
+            if s < MMA_MIN_STATES else _teams_plan(c, s, itemsize, teams,
+                                                   warps))
+    if plan.smem > SMEM_BUDGET or plan.warps > MAX_WARPS:
+        raise ValueError(f"no plan within shared memory and {MAX_WARPS} "
+                         f"warps: {plan}")
     return plan
 
 
@@ -166,132 +231,162 @@ def level_schedule(children, n_tips, parent=None):
     return (order, *stream_schedule(children, order), level_start)
 
 
-def _stream_plain(tip_partials, lr_ids, lr_pos, pm_ord, wcs):
-    """Plain PyTorch version of the streaming kernel: the same peel, read
-    from the peel-ordered schedule. Returns (site_logl [P], post_pos
-    [n_int, C, S, P])."""
-    n_int = lr_ids.shape[0]
-    c = pm_ord.shape[2]
-    _, s, p = tip_partials.shape
-    dt = pm_ord.dtype
-    tips = tip_partials.to(dt)
-    post = torch.empty((n_int, c, s, p), dtype=dt, device=pm_ord.device)
-    acc = torch.zeros(p, dtype=dt, device=pm_ord.device)
-    ids = lr_ids.tolist()
-    pos = lr_pos.tolist()
-    for i in range(n_int):
-        x = None
-        for k in range(2):
-            child = tips[ids[i][k]][None] if pos[i][k] < 0 else post[pos[i][k]]
-            v = pm_ord[i, k] @ child
-            x = v if x is None else x * v
-        scale = torch.amax(x, dim=(0, 1))
-        scale = torch.where(scale > 0, scale, torch.ones_like(scale))
-        post[i] = x / scale
-        acc = acc + torch.log(scale)
-    site = torch.log(torch.einsum("cs,csp->p", wcs, post[n_int - 1])) + acc
-    return site, post
+def _stream_plain(tip_partials, schedule, p_matrices, wcs):
+    """Plain PyTorch version of the kernel: the same level walk, one batched
+    step a level (ops/cuda_stream2.py::_deep_plain), chain by chain. The
+    chain-axis level_schedule(children, N, parent), p_matrices [B, M, C, S,
+    S] and wcs [B, C, S] give (site_logl [B, P], the rescaled partials by
+    level position [B, n_int, C, S, P])."""
+    from beast_mcmc_tpu_torch.ops.cuda_stream2 import (
+        _deep_plain,
+        chains_pm_ord,
+    )
+
+    _, lr_ids, lr_pos, level_start = schedule
+    site, post = _deep_plain(tip_partials[None], lr_ids, lr_pos, level_start,
+                             chains_pm_ord(p_matrices[:, None], lr_ids),
+                             wcs[:, None], want_post=True)
+    return site[:, 0], post[:, 0]
 
 
-def prepare_stream(tips, lr_ids, lr_pos, pm_ord, freqs, cat_w,
-                   bp: int | None = None) -> _build.KernelCall:
+def prepare_stream(tips, schedule, p_matrices, freqs, cat_w,
+                   pw: int | None = None, warps: int | None = None,
+                   teams: int | None = None) -> _build.KernelCall:
     """Check the inputs and allocate the outputs of one launch of the
-    streaming kernel. The call's `out` is (site_logl, post_pos). `bp` is
-    passed to `stream_plan`."""
-    n_int = lr_ids.shape[0]
+    kernel: the call's `out` is (site_logl, partials), the partials
+    tile-major by level position [tiles, n_int, C, S, pw]
+    (`deep_positions` gives [n_int, C, S, P]). `schedule` is
+    level_schedule(children, N, parent); `pw`, `warps` and `teams` go to
+    `stream_plan`.
+
+    A chain batch is one launch: a chain-axis schedule, p_matrices [B, M, C,
+    S, S], freqs [B, S] and cat_w [B, C] give ([B, P], [B, tiles, n_int, C,
+    S, pw]); the tips [N, S, P] are shared. One tree is the B = 1 case of
+    the same launch."""
+    chains = p_matrices.dim() == 5
+    p_matrices, freqs, cat_w = _chain_lead(chains, p_matrices, freqs, cat_w)
+    _, lr_ids, lr_pos, level_start = (schedule if chains
+                                      else one_chain(schedule))
     n_tips, s, p = tips.shape
-    c = pm_ord.shape[2]
-    dt = pm_ord.dtype
-    check_kernel_inputs(tips, pm_ord.reshape(-1, c, s, s), freqs, cat_w,
-                        lr_ids, lr_pos, states=STATES,
+    b_n, m, c = p_matrices.shape[:3]
+    n_int = n_tips - 1
+    dt = p_matrices.dtype
+    check_kernel_inputs(tips, p_matrices[0], freqs[0], cat_w[0], lr_ids,
+                        lr_pos, level_start, states=STATES,
                         max_categories=MAX_CATEGORIES)
-    if n_int != n_tips - 1 or lr_pos.shape != (n_int, 2):
-        raise ValueError("the schedule must cover the N-1 internal nodes")
-    plan = stream_plan(p, c, s, pm_ord.element_size(), bp)
+    if m != 2 * n_tips - 1:
+        raise ValueError("p_matrices must be [2N-1,C,S,S], with the chain "
+                         "axis where there is one")
+    if (lr_ids.shape != (b_n, n_int, 2) or lr_pos.shape != (b_n, n_int, 2)
+            or level_start.shape != (b_n, n_int + 1)):
+        raise ValueError("the schedule must cover the N-1 internal nodes of "
+                         "every chain")
+    if freqs.shape[0] != b_n or cat_w.shape[0] != b_n:
+        raise ValueError("freqs and cat_w must share the chain axis")
+    plan = stream_plan(p, c, s, p_matrices.element_size(), b_n, pw, warps,
+                       teams)
     lib = _build.load("peel_stream_ring",
-                      ["peel_stream_ring_f64", "peel_stream_ring_f32"], 7)
+                      ["peel_stream_ring_f64", "peel_stream_ring_f32"], 9,
+                      n_ptrs=8)
     fn = (lib.peel_stream_ring_f64 if dt == torch.float64
           else lib.peel_stream_ring_f32)
-    wcs = (cat_w[:, None] * freqs[None, :]).contiguous()
-    ids32 = lr_ids.to(torch.int32).contiguous()
-    pos32 = lr_pos.to(torch.int32).contiguous()
-    pm_ord = pm_ord.contiguous()
-    post_pos = torch.empty((n_int, c, s, p), dtype=dt, device=tips.device)
-    site = torch.empty(p, dtype=dt, device=tips.device)
+    wcs = (cat_w[:, :, None] * freqs[:, None, :]).contiguous()
+    if s >= MMA_MIN_STATES:  # a team copies each piece in one bulk copy
+        p_matrices = pad_pieces(p_matrices)
+    tiles = -(-p // plan.pw)
+    post = torch.empty((b_n, tiles, n_int, c, s, plan.pw), dtype=dt,
+                       device=tips.device)
+    site = torch.empty((b_n, p), dtype=dt, device=tips.device)
     return _build.KernelCall(
         "peel_stream_ring", fn,
-        (tips, pm_ord, ids32, pos32, wcs, post_pos, site),
-        (n_int, c, s, p, plan.bp, plan.rows, plan.chunk), (site, post_pos))
+        (tips, p_matrices.contiguous(), lr_ids.to(torch.int32).contiguous(),
+         lr_pos.to(torch.int32).contiguous(),
+         level_start.to(torch.int32).contiguous(), wcs, post, site),
+        (n_tips, c, s, p, plan.pw, plan.warps, plan.nodes, plan.g, b_n),
+        (site, post) if chains else (site[0], post[0]))
 
 
-def _peel_stream_ring_kernel(tips, lr_ids, lr_pos, pm_ord, freqs, cat_w):
+def _peel_stream_ring_kernel(tips, schedule, p_matrices, freqs, cat_w):
     global launches
-    out = prepare_stream(tips, lr_ids, lr_pos, pm_ord, freqs, cat_w).launch()
+    out = prepare_stream(tips, schedule, p_matrices, freqs, cat_w).launch()
     launches += 1
     return out
 
 
+def _stream_chains(tips, schedule, p_matrices, freqs, cat_w, want_post):
+    """(site_logl [B, P], partials by level position [B, n_int, C, S, P] or
+    None) of a chain batch (the chain-axis level_schedule, p_matrices [B,
+    M, C, S, S], freqs [B, S], cat_w [B, C]) through the kernel; CPU
+    tensors take the plain version."""
+    from beast_mcmc_tpu_torch.ops.cuda_stream2 import deep_positions
+
+    if not tips.is_cuda:
+        site, post = _stream_plain(tips, schedule, p_matrices,
+                                   cat_w[:, :, None] * freqs[:, None, :])
+        return site, (post if want_post else None)
+    site, post = _peel_stream_ring_kernel(tips.contiguous(), schedule,
+                                          p_matrices.contiguous(), freqs,
+                                          cat_w)
+    return site, (deep_positions(post, tips.shape[-1]) if want_post
+                  else None)
+
+
 def _stream_forward(tip_partials, children, order, p_matrices, freqs, cat_w,
                     schedule=None):
-    """(site_logl [P], post_pos [n_int, C, S, P]) through the streaming
-    kernel; CPU tensors take the plain version. `schedule` is
-    stream_schedule(children, order) where the caller already has it
-    (several partitions on one tree)."""
-    lr_ids, lr_pos = schedule or stream_schedule(children, order)
-    pm_ord = p_matrices[lr_ids]
-    if not tip_partials.is_cuda:
-        wcs = cat_w[:, None] * freqs[None, :]
-        return _stream_plain(tip_partials, lr_ids, lr_pos, pm_ord, wcs)
-    return _peel_stream_ring_kernel(tip_partials.contiguous(), lr_ids, lr_pos,
-                                    pm_ord, freqs, cat_w)
+    """(site_logl [P], post_pos [n_int, C, S, P]) of one tree through the
+    kernel; CPU tensors take the plain version. The kernel peels by levels
+    of depth, so the partials are by level position: `schedule` =
+    level_schedule(children, N, parent) (computed here when not given)
+    holds the node of each position first. `order` is kept for interface
+    parity."""
+    schedule = one_chain(schedule) or level_schedule(children[None],
+                                                     tip_partials.shape[0])
+    site, post = _stream_chains(tip_partials, schedule, p_matrices[None],
+                                freqs[None], cat_w[None], True)
+    return site[0], post[0]
 
 
-def peel_stream_chains(tip_partials, children, order, p_matrices, freqs,
-                       cat_w, schedule=None) -> torch.Tensor:
-    """The v1 streaming peel of a chain batch, one launch a chain (the
-    kernel has no chain axis yet): children [B, M, 2], `order` [B, n_int]
-    each chain's peel order, p_matrices [B, M, C, S, S], freqs [B, S] and
-    cat_w [B, C] give [B, P]. `schedule` is the chain-axis
-    stream_schedule(children, order) where the caller has it. A CPU tensor
-    takes the plain version. Differentiable in every chain's p_matrices,
-    freqs and cat_w: each launch returns its chain's partials by position,
-    `post_by_node` puts them at their nodes, and one level adjoint over
-    level_schedule takes all B chains."""
-    lr_ids, lr_pos = schedule or stream_schedule(children, order)
+def peel_stream_chains(tip_partials, children, p_matrices, freqs, cat_w,
+                       schedule=None) -> torch.Tensor:
+    """The v1 streaming peel of a chain batch in one launch: children [B, M,
+    2], p_matrices [B, M, C, S, S], freqs [B, S] and cat_w [B, C] give [B,
+    P]; the tips [N, S, P] are shared. `schedule` is the chain-axis
+    level_schedule(children, N, parent), computed here when not given. A
+    CPU tensor takes the plain version. Differentiable in every chain's
+    p_matrices, freqs and cat_w: the one launch returns every chain's
+    partials, and one level adjoint takes all B chains."""
+    if schedule is None:
+        schedule = level_schedule(children, tip_partials.shape[0])
 
     def forward(pm, fr, cw, want_post):  # [B, 1, ...]: one partition
-        outs = [_stream_forward(tip_partials, children[b], order[b],
-                                pm[b, 0], fr[b, 0], cw[b, 0],
-                                (lr_ids[b], lr_pos[b]))
-                for b in range(pm.shape[0])]
-        site = torch.stack([o[0] for o in outs])[:, None]
+        site, post = _stream_chains(tip_partials, schedule, pm[:, 0],
+                                    fr[:, 0], cw[:, 0], want_post)
         if not want_post:
-            return site
-        pos = torch.stack([o[1] for o in outs])[:, None]
-        return site, post_by_node(pos, tip_partials[None], order)
+            return site[:, None]
+        return site[:, None], post_by_node(post[:, None], tip_partials[None],
+                                           schedule[0])
 
-    levels = (level_schedule(children, tip_partials.shape[0])
-              if wants_grad(p_matrices, freqs, cat_w) else None)
-    return peel_with_adjoint(forward, levels, p_matrices[:, None],
+    return peel_with_adjoint(forward, schedule, p_matrices[:, None],
                              freqs[:, None], cat_w[:, None])[:, 0]
 
 
 def peel_site_loglik_stream(tip_partials, children, order, root, p_matrices,
                             freqs, category_weights,
                             schedule=None) -> torch.Tensor:
-    """Per-pattern log-likelihood [P] through the streaming kernel,
-    differentiable in p_matrices, freqs and category_weights:
-    `peel_stream_chains`' batch of one. `root` is kept for interface parity
-    (the peel order ends at the root)."""
-    return peel_stream_chains(tip_partials, children[None], order[None],
-                              p_matrices[None], freqs[None],
-                              category_weights[None], one_chain(schedule))[0]
+    """Per-pattern log-likelihood [P] through the kernel, differentiable in
+    p_matrices, freqs and category_weights: `peel_stream_chains`' batch of
+    one. `schedule` is level_schedule(children, N, parent) where the caller
+    has it; the kernel peels by levels of depth, so `order` and `root` are
+    kept for interface parity."""
+    return peel_stream_chains(tip_partials, children[None], p_matrices[None],
+                              freqs[None], category_weights[None],
+                              one_chain(schedule))[0]
 
 
 def peel_loglikelihood_stream(tip_partials, children, order, root, p_matrices,
                               freqs, category_weights, pattern_weights,
                               schedule=None) -> torch.Tensor:
-    """Pattern-weighted total through the streaming kernel, in float64."""
+    """Pattern-weighted total through the kernel, in float64."""
     site = peel_site_loglik_stream(tip_partials, children, order, root,
                                    p_matrices, freqs, category_weights,
                                    schedule)

@@ -15,11 +15,14 @@ result line):
      level-scheduled deep peel (S = 4) at the Makona shape, at the
      benchmark1 three-partition launch (K = 3), at the small forced shape,
      on a caterpillar tree and at a ragged pattern count; the v1 streaming
-     peel at S = 4, 20 and 61, and the matrix-product peel (by levels) at the
-     protein (S = 20) and codon (S = 61) shapes, a ragged small one and a
-     caterpillar of 128 taxa, partials included, timed in turns with the v1
-     streaming peel on the same inputs; hold the card's log posterior
-     against the CPU's on a small analysis;
+     peel (by levels) at S = 2, 4, 8, 20 and 61 (one benchmark1 partition,
+     Makona, the small ragged shape, caterpillars at S = 4 and 20, the
+     GY94+Gamma4 inputs of phase 11), partials included, timed in turns
+     with the deep peel at Makona, and the matrix-product peel (by levels)
+     at the protein (S = 20) and codon (S = 61) shapes, a ragged small one
+     and a caterpillar of 128 taxa, partials included, timed in turns with
+     the v1 streaming peel on the same inputs; hold the card's log
+     posterior against the CPU's on a small analysis;
   3. the f64 GTR+Gamma4 chain at the benchmark2 shape (62 taxa, 5,565
      patterns) through the resident kernel, with the full-evaluation
      self-check (< 0.1);
@@ -77,9 +80,10 @@ result line):
      the component cache (inference/component_cache.py), a launch exactly
      on each step whose operator refreshes the likelihood. Phase 2 also
      holds each chain-axis kernel (peel_resident at B = 8, peel_stream at
-     B = 4 and at B = 4 x K = 3, peel_mxu at B = 4, the chains' trees from
-     their own seeds) against its plain chain-axis version and B single
-     launches, and times the one launch against the B.
+     B = 4 and at B = 4 x K = 3, peel_mxu at B = 4, peel_stream_ring at B
+     = 4 at the GY94+Gamma4 and benchmark1-partition shapes, the chains'
+     trees from their own seeds) against its plain chain-axis version and B
+     single launches, and times the one launch against the B.
   9. the Makona-1610 joint analysis (`joint_path`), the north-star model of
      examples/makona_joint.xml, built at full size by
      apps/makona.py::build_makona_joint: 1,610 dated taxa, the document's
@@ -110,15 +114,26 @@ result line):
      batch), aggregate states/s beside one chain's with the same operators,
      a profiler window, the full-evaluation check on every chain, and
      P10d's swap acceptance inside [0.05, 0.95].
+  11. the GY94+Gamma4 codon chain at benchmark1's size (`codon_analysis`
+     with four categories: 1,441 taxa, 593 codon patterns, 61 states, f64,
+     uniform codon frequencies, strict clock, constant coalescent), which
+     peel_route sends to the v1 streaming kernel (asserted)
+     (`codon_gamma_path`): one chain, G4_STEPS steps after 20, exactly one
+     peel_stream_ring launch a step, a profiler window and the
+     full-evaluation check; the same model as a batch of G4_CHAINS chains
+     (make_multichain_step), one launch a batch step for all of them, the
+     check on every chain, aggregate states/s beside one chain's; and the
+     route's gradient for the G4_CHAINS chains (`chain_gradient_checks`)
+     against the same level adjoint over the plain chain-axis forward and
+     each chain's single-tree gradient, one launch a gradient.
 
-`python3 chip_smoke.py --tiles` instead builds the v1 streaming kernel and
-times it at every pattern-tile width its planner could pick (32, 16, 8, 4
-patterns a block, where shared memory allows), with its largest deviation
-from the plain version; `*` marks the width the planner picks. This is the
-measurement behind the planner's rule of narrowing the tile while the grid
-would leave more than half of the SMs idle. At the shapes with 16 states or
-more it then times the matrix-product kernel at 1 to 8 teams a block, where
-shared memory allows. It times the deep kernel at the Makona
+`python3 chip_smoke.py --tiles` instead builds the kernels and times the
+v1 streaming kernel at the plans its planner could pick, with its largest
+deviation from the plain version (`*` marks the planner's): below 16 states
+patterns a slot (32 to 2, where a slot's lanes allow) by 4, 8 and 16 warps
+a block; from 16 states 1 to 8 teams a block. At the shapes with 16 states
+or more it then times the matrix-product kernel at 1 to 8 teams a block,
+where shared memory allows. It times the deep kernel at the Makona
 and the benchmark1 three-partition shapes at every pattern tile (pw
 patterns a slot) and 4, 8, 16 and 32 warps a block, and last the resident
 kernel at the benchmark2 shape at 8 and 4 patterns a slot, 4 to 32 warps
@@ -168,9 +183,17 @@ AMINO = (128, 4, 20, 1024)  # taxa, categories, states, patterns
 CODON = (64, 1, 61, 512)
 RAGGED = (20, 4, 61, 70)
 CATERPILLAR_MXU = (128, 4, 20, 1024)
+# the GY94+Gamma4 codon chain at benchmark1's size, the v1 streaming
+# kernel's main path (phase 11): taxa, categories, states, patterns
+CODON_G4 = (1441, 4, 61, 593)
+RING_SHAPES = [("S=2", (400, 1, 2, 1000), 38), ("S=8", (40, 2, 8, 300), 39),
+               ("caterpillar", (500, 4, 4, 203), 40),
+               ("caterpillar S=20", (128, 4, 20, 256), 41)]
+G4_STEPS, G4_CHECK = 200, 50  # phase 11, one chain
+G4_CHAINS, G4_BATCH_STEPS, G4_BATCH_CHECK = 4, 60, 20  # phase 11, a batch
 TILE_SHAPES = [CODON, AMINO, RAGGED, (300, 2, 16, 2048),
                (128, 4, 20, 8192), (1441, 1, 4, 640), (1610, 4, 4, 2048),
-               (62, 4, 4, 5632)]
+               (62, 4, 4, 5632), (40, 2, 8, 300), CODON_G4]
 B2_STEPS, B2_CHECK = 1000, 100
 MAK_STEPS, MAK_CHECK = 200, 50
 B1_STEPS, B1_CHECK = 300, 50
@@ -343,33 +366,49 @@ def protein_analysis(n_taxa=128, n_patterns=1024, seed=0, dtype=None,
 
 
 def codon_analysis(n_taxa=64, n_patterns=512, seed=0, dtype=None,
-                   device="cuda"):
-    """GY94 (kappa, omega, uniform codon frequencies) on 61-state tips, one
-    rate category, strict clock, constant coalescent. "eig" is derived from
-    ("kappa", "omega"), so the 61 x 61 eigh runs only when one of them
-    moves."""
+                   device="cuda", n_categories=1, alpha=0.5):
+    """GY94 (kappa, omega, uniform codon frequencies) on 61-state tips,
+    strict clock, constant coalescent. "eig" is derived from ("kappa",
+    "omega"), so the 61 x 61 eigh runs only when one of them moves. One
+    rate category, or with `n_categories` > 1 discrete Gamma rates
+    (GY94+Gamma): "site.rates" derived from "alpha" (starting at `alpha`),
+    with a ScaleOperator on alpha beside those on kappa and omega."""
     import torch
 
     from beast_mcmc_tpu_torch.inference.operators import ScaleOperator
-    from beast_mcmc_tpu_torch.models.sitemodel import single_rate
+    from beast_mcmc_tpu_torch.models.sitemodel import (
+        discrete_gamma_rates, single_rate)
     from beast_mcmc_tpu_torch.models.substitution import gy94_eigen
 
     dtype = dtype or torch.float64
     freqs = torch.full((61,), 1.0 / 61, dtype=dtype, device=device)
-    rates, cat_w = single_rate(dtype=dtype, device=device)
+    one_rate = single_rate(dtype=dtype, device=device)
 
     def eigen(params):
         return gy94_eigen(params["kappa"], params["omega"], freqs)
 
-    def model(params, cached):
-        return (params["eig"] if cached else eigen(params)), rates, cat_w
+    def site_rates(params):
+        return discrete_gamma_rates(params["alpha"], n_categories,
+                                    dtype=dtype)
 
+    def model(params, cached):
+        eig = params["eig"] if cached else eigen(params)
+        if n_categories == 1:
+            return (eig, *one_rate)
+        return (eig, *(params["site.rates"] if cached
+                       else site_rates(params)))
+
+    params0 = {"kappa": 2.0, "omega": 0.5}
+    derived = {"eig": (eigen, ("kappa", "omega"))}
+    ops = [ScaleOperator(parameter="kappa", weight=1.0),
+           ScaleOperator(parameter="omega", weight=1.0)]
+    if n_categories > 1:
+        params0["alpha"] = alpha
+        derived["site.rates"] = (site_rates, ("alpha",))
+        ops.append(ScaleOperator(parameter="alpha", weight=1.0))
     return _strict_clock_analysis(
         *_one_hot_tips(n_taxa, n_patterns, 61, seed), freqs, seed, dtype,
-        device, {"kappa": 2.0, "omega": 0.5},
-        {"eig": (eigen, ("kappa", "omega"))}, model,
-        [ScaleOperator(parameter="kappa", weight=1.0),
-         ScaleOperator(parameter="omega", weight=1.0)])
+        device, params0, derived, model, ops)
 
 
 # phase 6d, the samplers: starting step sizes in log space (NUTS from the
@@ -1064,6 +1103,24 @@ def chain_gradient_checks(peel_cases, post_cases, chain_inputs, analyses,
             _, post_p = cuda_stream2._deep_plain(
                 t4, ids, pos, ls, pm_ord, wcs_of(k(fr), k(cw)),
                 want_post=True)
+        elif kname == "peel_stream_ring":
+            def entry(*x):
+                return cuda_stream.peel_stream_chains(tips, ch, *x, sched)
+
+            def single(b, *x):
+                return cuda_stream.peel_site_loglik_stream(
+                    tips, ch[b], None, None, *x, one[b])
+
+            def plain_fwd(pm_, fr_, cw_, want_post):  # True: autograd
+                site, pp = cuda_stream._stream_plain(
+                    tips, sched, pm_[:, 0], wcs_of(fr_, cw_)[:, 0])
+                return site[:, None], plain.post_by_node(
+                    pp[:, None], tips[None], lvl_order)
+
+            _, post_k = cuda_stream._stream_chains(tips, sched, pm, fr, cw,
+                                                   True)
+            _, post_p = cuda_stream._stream_plain(tips, sched, pm,
+                                                  wcs_of(fr, cw))
         else:
             def entry(*x):
                 return cuda_peeling.peel_site_loglik_auto(
@@ -1201,6 +1258,91 @@ def chain_gradient_checks(peel_cases, post_cases, chain_inputs, analyses,
     for case in post_cases:
         posterior_grad_check(*case)
     return p10_grads
+
+
+def codon_gamma_path(analysis, kname, reset_counts, read_counts, device_ms,
+                     dev):
+    """Phase 11: the GY94+Gamma4 codon chain (`codon_analysis` with four
+    categories) through its route's kernel, `kname`. One chain: G4_STEPS
+    steps after 20, exactly one launch a step, a profiler window, the
+    full-evaluation check over G4_CHECK steps. A batch of G4_CHAINS chains
+    replicated from the start (make_multichain_step): exactly one launch a
+    batch step for all chains, aggregate states/s beside one chain's, a
+    profiler window, the full-evaluation check on every chain. Returns
+    ({path: record}, {path: launches})."""
+    import numpy as np
+    import torch
+
+    from beast_mcmc_tpu_torch.inference.mc3 import replicate_state
+    from beast_mcmc_tpu_torch.inference.mcmc import (
+        apply_derived, full_evaluation_check, init_mcmc_state,
+        make_mcmc_step, make_multichain_step, operator_report, run_chain)
+
+    log_post, ops, p0, t0, aux = analysis
+    lpc = aux["log_post_cached"]
+    records, launches = {}, {}
+
+    def sync():
+        if dev != "cpu":
+            torch.cuda.synchronize()
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def run(label, step, state, n_steps, n_check, lp_full, b_n):
+        t_phase = time.perf_counter()
+        state, _ = run_chain(step, state, 20 if b_n == 1 else 10)
+        sync()
+        reset_counts()
+        t0_ = time.perf_counter()
+        state, _ = run_chain(step, state, n_steps)
+        sync()
+        secs = time.perf_counter() - t0_
+        counts = read_counts()
+        lps = state.log_posterior.reshape(-1).tolist()
+        rec = {"chains": b_n, "steps": n_steps, "seconds": secs,
+               "aggregate_states_per_s": b_n * n_steps / secs,
+               "launches": counts, "log_posterior": lps}
+        if dev != "cpu":
+            wall, busy = device_ms(lambda: run_chain(step, state, 20),
+                                   f"P11 {label}", 20, 8)
+            rec.update({"profiled_ms_per_step": wall,
+                        "device_busy_ms_per_step": busy or "not measured",
+                        "device_busy_share": (busy / wall if busy
+                                              else "not measured")})
+        state, dev_max = full_evaluation_check(step, lp_full, state, n_check,
+                                               derived=aux["derived"])
+        rec["full_eval_max_deviation"] = float(dev_max)
+        rec["seconds_in_phase"] = time.perf_counter() - t_phase
+        log(f"[P11 {label}] {json.dumps(rec)}")
+        log(operator_report(ops, state))
+        if counts != {k: n_steps * (k == kname) for k in counts}:
+            raise AssertionError(f"P11 {label}: expected one {kname} launch "
+                                 f"a step, got {counts}")
+        if not all(np.isfinite(lps)):
+            raise AssertionError(f"P11 {label}: posterior not finite: {lps}")
+        if not rec["full_eval_max_deviation"] < FULL_EVAL_TOL:
+            raise AssertionError(f"P11 {label}: full-evaluation deviation "
+                                 f"{rec['full_eval_max_deviation']}")
+        records[label], launches[f"codon+gamma4 {label}"] = rec, counts
+
+    step = make_mcmc_step(lpc, ops, derived=aux["derived"])
+    run("one chain", step, init_mcmc_state(p0, t0, gen(110), ops, lpc),
+        G4_STEPS, G4_CHECK, log_post, 1)
+    lp_chains = aux["log_post_cached_chains"]
+    mstep = make_multichain_step(lp_chains, ops, derived=aux["derived"])
+    states = replicate_state(init_mcmc_state(p0, t0, gen(111), ops, lpc),
+                             G4_CHAINS, gen(112))
+    # the batch's derived entries and posterior from the batch's own code
+    # path: the replicated single chain's category rates (a 0-d alpha's
+    # product) differ from the batch's by ~1e-14, which random one-hot
+    # codons at this size turn into ~0.5 of log posterior
+    params = apply_derived(aux["derived"], states.params)
+    states = states.replace(params=params,
+                            log_posterior=lp_chains(params, states.tree))
+    run(f"B={G4_CHAINS}", mstep, states, G4_BATCH_STEPS, G4_BATCH_CHECK,
+        aux["log_post_chains"], G4_CHAINS)
+    return records, launches
 
 
 # phase 10, chain batches and MC3 with the operators that bind the
@@ -1515,7 +1657,8 @@ def main():
     from beast_mcmc_tpu_torch.ops import (
         _build, cuda_mxu, cuda_peeling, cuda_stream, cuda_stream2)
     from beast_mcmc_tpu_torch.ops import peeling as plain
-    from beast_mcmc_tpu_torch.ops.peeling import peel_order_from_heights
+    from beast_mcmc_tpu_torch.ops.peeling import (
+        one_chain, peel_order_from_heights)
     from beast_mcmc_tpu_torch.tree.topology import (
         make_tree_state, simulate_coalescent_tree)
 
@@ -1579,31 +1722,38 @@ def main():
             for dtype in (torch.float64, torch.float32):
                 (tips, ch, order, _, pm, fr, cw), _ = random_inputs(
                     *shape, 1, dtype)
-                ids, pos = cuda_stream.stream_schedule(ch, order)
-                pmo = pm[ids]
-                ref = cuda_stream._stream_plain(tips, ids, pos, pmo,
-                                                cw[:, None] * fr[None, :])
                 n_taxa, c, s, p = shape
-                picked = cuda_stream.stream_plan(p, c, s,
-                                                 pm.element_size()).bp
+                sched = cuda_stream.level_schedule(ch, n_taxa)
+                ref = tuple(t[0] for t in cuda_stream._stream_plain(
+                    tips, one_chain(sched), pm[None],
+                    (cw[:, None] * fr[None, :])[None]))
+                picked = tuple(cuda_stream.stream_plan(
+                    p, c, s, pm.element_size())[:4])
                 line = f"[tiles] {shape} {str(dtype)[6:]}"
-                for bp in (32, 16, 8, 4):
+                # below 16 states patterns a slot and warps a block, from 16
+                # teams a block (the warps left to each)
+                choices = ([{"pw": pw, "warps": w} for pw in (32, 16, 8, 4, 2)
+                            for w in (4, 8, 16)]
+                           if s < cuda_stream.MMA_MIN_STATES else
+                           [{"teams": t} for t in range(1, 9)])
+                for kw in choices:
                     try:
-                        call = cuda_stream.prepare_stream(tips, ids, pos, pmo,
-                                                          fr, cw, bp)
-                    except ValueError:  # this width overflows shared memory
+                        call = cuda_stream.prepare_stream(tips, sched, pm, fr,
+                                                          cw, **kw)
+                    except ValueError:  # outside the envelope
                         continue
-                    got = call.launch()
-                    err = max((g - r).abs().max().item()
-                              for g, r in zip(got, ref))
-                    line += (f" | bp {bp}{'*' if bp == picked else ''} "
-                             f"err {err:.1e} ms {time_ms(call.launch, 10):.4f}")
+                    site, post = call.launch()
+                    err = max((site - ref[0]).abs().max().item(),
+                              (cuda_stream2.deep_positions(post, p)
+                               - ref[1]).abs().max().item())
+                    plan = tuple(call.ints[4:8])  # pw, warps, nodes, g
+                    line += (f" | {plan}{'*' if plan == picked else ''} "
+                             f"err {err:.1e} ms {time_ms(call.launch, 5):.4f}")
                 log(line)
                 if s < cuda_peeling.MXU_MIN_STATES:
                     continue
                 # the matrix-product kernel: teams a block, forced through
                 # the planner's argument
-                sched = cuda_stream.level_schedule(ch, n_taxa)
                 picked = cuda_mxu.mxu_plan(n_taxa - 1, c, s,
                                            pm.element_size())
                 line = f"[tiles] {shape} {str(dtype)[6:]} peel_mxu"
@@ -1703,6 +1853,9 @@ def main():
     analyses[AMINO] = protein_analysis(AMINO[0], AMINO[3], 0, torch.float64,
                                        dev)
     analyses[CODON] = codon_analysis(CODON[0], CODON[3], 0, torch.float64, dev)
+    analyses[CODON_G4] = codon_analysis(CODON_G4[0], CODON_G4[3], 0,
+                                        torch.float64, dev,
+                                        n_categories=CODON_G4[1])
     torch.cuda.synchronize()
     log(f"[setup] analyses built in {time.perf_counter() - t0:.2f} s")
     mark("1 build and set-up")
@@ -1797,25 +1950,23 @@ def main():
             ins = [tips, pm_ord, lr_ids, lr_pos, ls, fr, cw]
             rec["shape"] = [tips.shape[0], *rec["shape"]]
             rec["levels"] = int((ls < n_int).sum())
-        else:
-            lr_ids, lr_pos = cuda_stream.stream_schedule(ch, order)
-            pm_ord = pm[lr_ids]
-            ins = [tips, pm_ord, lr_ids, lr_pos, fr, cw]
-            call = cuda_stream.prepare_stream(tips, lr_ids, lr_pos, pm_ord,
-                                              fr, cw)
-            plain_fn = lambda: cuda_stream._stream_plain(  # noqa: E731
-                tips, lr_ids, lr_pos, pm_ord, wcs)
-            # children the ring serves from shared memory
-            step = torch.arange(n_int, device=dev)[:, None]
-            inner = lr_pos >= 0
-            rec["internal_child_reads"] = int(inner.sum())
-            rec["ring_share"] = (int((inner & (lr_pos >= step - 2)).sum())
-                                 / rec["internal_child_reads"])
+        else:  # peel_stream_ring, by levels; one tree is B = 1
+            sched = cuda_stream.level_schedule(ch, n_int + 1)
+            _, lr_ids, lr_pos, ls = sched
+            ins = [tips, pm, lr_ids, lr_pos, ls, fr, cw]
+            call = cuda_stream.prepare_stream(tips, sched, pm, fr, cw)
+            plain_fn = lambda: tuple(  # noqa: E731
+                t[0] for t in cuda_stream._stream_plain(
+                    tips, one_chain(sched), pm[None], wcs[None]))
+            rec["levels"] = int((ls < n_int).sum())
+            rec["plan"] = call.ints[4:8]  # pw, warps, slots or teams, g
         got = call.launch()
         got = tuple(t.clone() for t in (got if isinstance(got, tuple)
                                         else (got,)))
         if kname == "peel_mxu":  # the kernel leaves the tips' rows to the
             got[1][:tips.shape[0]] = tips[:, None]  # wrapper, as here
+        if kname == "peel_stream_ring":  # tile-major: by level position
+            got = (got[0], cuda_stream2.deep_positions(got[1], p))
         ref = plain_fn()
         torch.cuda.synchronize()
         max_abs, max_rel, finite = deviation(got[0], ref[0])
@@ -1902,6 +2053,8 @@ def main():
     b1_part = peel_inputs(B1, f64)
 
     check("peel_stream_ring", "benchmark1 partition f64", b1_part, 20, 2)
+    check("peel_stream_ring", "benchmark1 partition f32", random_inputs(
+        B1[0], 1, 4, B1[1], 37, f32, F32_CUT)[0], 20, 2)
     ring_call, ring_got = check("peel_stream_ring", "makona f64", mak, 20, 2)
     # the two streaming kernels on the same Makona inputs, timed in turns
     _, rel, _ = deviation(ring_got[0], deep_got[0][0])
@@ -1922,6 +2075,13 @@ def main():
         small = peel_inputs(SMALL, dtype)  # padded to 256 patterns: cut back
         check("peel_stream_ring", f"small ragged {name}",
               (small[0][..., :SMALL[1]].contiguous(), *small[1:]), 50, 5)
+        cut = F32_CUT if dtype == f32 else 0.6
+        for label, shape, seed in RING_SHAPES:
+            check("peel_stream_ring", f"{label} {name}", random_inputs(
+                *shape, seed, dtype, cut, caterpillar="caterpillar" in label
+            )[0], 10, 1)
+    check("peel_stream_ring", "codon+gamma4 f64", peel_inputs(CODON_G4, f64),
+          5, 1)
 
     # the matrix-product peel at the shapes of the protein and the codon
     # chain, and against the v1 streaming peel on the same inputs, in turns.
@@ -2007,6 +2167,14 @@ def main():
             plain_fn = lambda: cuda_mxu._mxu_plain(  # noqa: E731
                 tips, sched, pm, wcs)
             ins = [tips, pm, lvl_order.to(torch.int32), ids, ls, fr, cw]
+        elif kname == "peel_stream_ring":
+            call = cuda_stream.prepare_stream(tips, sched, pm, fr, cw)
+            singles = [cuda_stream.prepare_stream(
+                tips, tuple(t[b] for t in sched), pm[b], fr[b], cw[b])
+                for b in range(b_n)]
+            plain_fn = lambda: cuda_stream._stream_plain(  # noqa: E731
+                tips, sched, pm, wcs)
+            ins = [tips, pm, ids, pos, ls, fr, cw]
         else:  # peel_stream: one partition, or K on each chain's tree
             if not partitions:
                 tips, pm, fr, cw = tips[None], pm[:, None], fr[:, None], \
@@ -2027,6 +2195,8 @@ def main():
                                         else (got,)))
         if kname == "peel_mxu":  # the tips' rows are the wrapper's
             got[1][:, :n_tips] = tips[None, :, None]
+        if kname == "peel_stream_ring":  # tile-major: by level position
+            got = (got[0], cuda_stream2.deep_positions(got[1], p))
         ref = plain_fn()
         one = torch.stack([
             (lambda o: o[0] if isinstance(o, tuple) else o)(c_.launch())
@@ -2068,6 +2238,10 @@ def main():
     chain_check("peel_stream", "benchmark1 K=3 B=4 f64", B1, 4, 120, 10, 1,
                 partitions=True)
     chain_check("peel_mxu", "protein B=4 f64", AMINO, 4, 130, 10, 1)
+    chain_check("peel_stream_ring", "codon+gamma4 B=4 f64", CODON_G4,
+                G4_CHAINS, 150, 3, 1)
+    chain_check("peel_stream_ring", "benchmark1 partition B=4 f64", B1, 4,
+                160, 10, 1)
     mark("2 chain axis")
 
     # the card's log posterior against the CPU's plain path, small input
@@ -2162,18 +2336,16 @@ def main():
             _, res_p = cuda_mxu._mxu_plain(tips, lvl, pm, wcs)
             ins = [tips, pm, l_order.to(torch.int32), ids, ls, fr, cw]
         else:
-            sched = cuda_stream.stream_schedule(ch, order)
-
             def entry(*x):
                 return cuda_stream.peel_site_loglik_stream(tips, ch, order,
-                                                           root, *x, sched)
+                                                           root, *x, lvl)
             site_k, pos_k = cuda_stream._stream_forward(tips, ch, order, pm,
-                                                        fr, cw, sched)
-            _, pos_p = cuda_stream._stream_plain(tips, *sched, pm[sched[0]],
-                                                 wcs)
-            res_k = post_by_node(pos_k[None], tips[None], order)
-            res_p = post_by_node(pos_p[None], tips[None], order)
-            ins = [tips, pm[sched[0]], *sched, fr, cw]
+                                                        fr, cw, lvl)
+            _, pos_p = cuda_stream._stream_plain(tips, one_chain(lvl),
+                                                 pm[None], wcs[None])
+            res_k = post_by_node(pos_k[None], tips[None], l_order)
+            res_p = post_by_node(pos_p, tips[None], l_order)
+            ins = [tips, pm, ids, pos, ls, fr, cw]
 
         def plain_entry(pm_, fr_, cw_):  # the node-by-node peel, per tree
             if k_parts is None:
@@ -2652,6 +2824,22 @@ def main():
         reset_counts, read_counts, device_ms, dev)
     mark("10 bound chain batches")
 
+    # -- phase 11: the GY94+Gamma4 codon chain at 1,441 taxa -----------
+    g4_route = cuda_peeling.peel_route(2 * CODON_G4[0] - 1, CODON_G4[1],
+                                       CODON_G4[2], 8)
+    log(f"[P11] route of {CODON_G4} (taxa, categories, states, patterns): "
+        f"{g4_route}")
+    if g4_route != "stream":
+        raise AssertionError(f"the codon+gamma4 chain goes to {g4_route}")
+    p11, p11_launches = codon_gamma_path(
+        analyses[CODON_G4], "peel_stream_ring", reset_counts, read_counts,
+        device_ms, dev)
+    p11_grads = chain_gradient_checks(
+        [("peel_stream_ring", f"codon+gamma4 B={G4_CHAINS} f64",
+          (CODON_G4, G4_CHAINS, 170))],
+        [], chain_inputs, analyses, reset_counts, read_counts, dev)
+    mark("11 codon+gamma4")
+
     # -- summary ------------------------------------------------------
     def entry(kname, source, replaces, launches, label):
         rec = next(r for r in checks[kname] if r["label"] == label)
@@ -2716,6 +2904,19 @@ def main():
         f"chain backward over B single backwards " + ", ".join(
             f"{r['label']} {r['backward_over_single_backwards']:.3f}"
             for r in p10_grads if "ms_backward" in r) + f"; on {smi_line}")
+    g4_one, g4_b = p11["one chain"], p11[f"B={G4_CHAINS}"]
+    log(f"[summary p11] codon+gamma4 {CODON_G4}: one chain "
+        f"{g4_one['aggregate_states_per_s']:.2f} states/s, device busy "
+        f"{g4_one.get('device_busy_share')}, deviation "
+        f"{g4_one['full_eval_max_deviation']!r}; B={G4_CHAINS} "
+        f"{g4_b['aggregate_states_per_s']:.2f} aggregate states/s "
+        f"({g4_b['aggregate_states_per_s'] / g4_one['aggregate_states_per_s']:.2f}x "
+        f"one chain), deviation {g4_b['full_eval_max_deviation']!r}; "
+        f"gradient vs plain " + ", ".join(
+            f"{r['label']} {r.get('grad_max_rel_err_vs_plain')!r} vs single "
+            f"{r['grad_max_rel_err_vs_single']!r} launches "
+            f"{r['launches_per_gradient']}" for r in p11_grads)
+        + f"; on {smi_line}")
     log(f"[phases] {json.dumps(phases)}")
     log(smi_line)
     print(json.dumps({"kernels": [
@@ -2728,8 +2929,8 @@ def main():
         entry("peel_stream_ring",
               "beast_mcmc_tpu_torch/csrc/peel_stream_ring.cu",
               "beast_mcmc_tpu/ops/pallas_stream.py:62",
-              ring_counts["peel_stream_ring"],
-              "benchmark1 partition f64"),
+              p11_launches["codon+gamma4 one chain"]["peel_stream_ring"],
+              "codon+gamma4 f64"),
         entry("peel_mxu", "beast_mcmc_tpu_torch/csrc/peel_mxu.cu",
               "beast_mcmc_tpu/ops/pallas_mxu.py:67",
               aa_counts["peel_mxu"], "protein float64"),
@@ -2745,7 +2946,7 @@ def main():
                              "stream entry points": ring_counts,
                              **p8_launches,
                              "makona joint": j_launches,
-                             **p10_launches}}), flush=True)
+                             **p10_launches, **p11_launches}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

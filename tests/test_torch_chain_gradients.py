@@ -101,8 +101,8 @@ def test_chain_gradient_matches_jax_vmap_grad(monkeypatch, model, route):
     """The gradient of the sum of aux["log_post_chains"] over B_N chains in
     every chain's node heights and parameters, on the route forced here,
     against jax.vmap(jax.grad(log_post)); the route's plain chain-axis
-    forward runs once a gradient (the v1 streaming one once a chain), with
-    autograd off, so the gradient is the level adjoint's."""
+    forward runs once a gradient, with autograd off, so the gradient is
+    the level adjoint's."""
     monkeypatch.setattr(cuda_peeling, "peel_route", lambda *a: route)
     monkeypatch.setattr(ttl, "peel_route", lambda *a: route)
     mod, name = PLAIN[route]
@@ -111,8 +111,9 @@ def test_chain_gradient_matches_jax_vmap_grad(monkeypatch, model, route):
     def counted(*a, **kw):
         # a chain-axis call (its per-chain recursion is not counted): the
         # schedule's or the matrices' leading chain axis
-        lead = a[2].dim() == 5 if route == "mxu" else a[1].dim() == 3
-        if lead or route == "stream":
+        lead = (a[2].dim() == 5 if route in ("mxu", "stream")
+                else a[1].dim() == 3)
+        if lead:
             calls.append(torch.is_grad_enabled())
         return plain(*a, **kw)
 
@@ -128,7 +129,7 @@ def test_chain_gradient_matches_jax_vmap_grad(monkeypatch, model, route):
         batch.tree.replace(heights=leaves[0]))
     assert total.shape == (B_N,)
     got = torch.autograd.grad(total.sum(), leaves)
-    assert calls == [False] * (B_N if route == "stream" else 1)
+    assert calls == [False]
 
     def f(params, tree, h, *xs):
         return j_lp({**params, **dict(zip(names, xs))},

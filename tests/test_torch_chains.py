@@ -211,8 +211,8 @@ def test_chain_entry_point_dispatches_one_peel(monkeypatch, n_taxa, c):
         return plain(*a, **kw)
 
     monkeypatch.setattr(mod, name, counted)
-    order, sched = cuda_peeling.peel_schedule(route, tree.children,
-                                              tree.heights, tree.parent)
+    sched = cuda_stream.level_schedule(tree.children, n_taxa, tree.parent)
+    order = sched[0]
     got = cuda_peeling.peel_site_loglik_auto(tips, tree.children, order,
                                              tree.root, pm, fr, cw, sched)
     assert got.shape == (3, 12)
@@ -400,7 +400,7 @@ def test_parameter_operator_laws_on_a_batch():
 
 
 @pytest.mark.parametrize("kernel", ["peel_resident", "peel_stream",
-                                    "peel_mxu"])
+                                    "peel_mxu", "peel_stream_ring"])
 def test_chain_entry_with_grad_raises(monkeypatch, kernel):
     """A chain-axis entry whose matrices require grad returns the gradient
     of every chain, equal to each chain's single-tree gradient, with the
@@ -410,7 +410,8 @@ def test_chain_entry_with_grad_raises(monkeypatch, kernel):
     still raises."""
     n_taxa, c, s, p = {"peel_resident": (12, 4, 4, 8),
                        "peel_stream": (220, 4, 4, 8),
-                       "peel_mxu": (10, 2, 20, 8)}[kernel]
+                       "peel_mxu": (10, 2, 20, 8),
+                       "peel_stream_ring": (10, 2, 8, 8)}[kernel]
     tips_np, pm_np, fr_np, cw_np, tree, _ = _peel_problem(n_taxa, 2, 0, c, s,
                                                           p, seed=23)
     t = lambda x: torch.tensor(x, dtype=F64)  # noqa: E731
@@ -428,11 +429,14 @@ def test_chain_entry_with_grad_raises(monkeypatch, kernel):
 
     for mod, name in ((cuda_peeling, "_resident_plain"),
                       (cuda_stream2, "_deep_plain"),
-                      (cuda_mxu, "_mxu_plain")):
+                      (cuda_mxu, "_mxu_plain"),
+                      (cuda_stream, "_stream_plain")):
         monkeypatch.setattr(mod, name, untraced(getattr(mod, name)))
-    route = cuda_peeling.peel_route(2 * n_taxa - 1, c, s, 8)
-    order, sched = cuda_peeling.peel_schedule(route, tree.children,
-                                              tree.heights, tree.parent)
+    assert cuda_peeling.peel_route(2 * n_taxa - 1, c, s, 8) == {
+        "peel_resident": "resident", "peel_stream": "deep",
+        "peel_mxu": "mxu", "peel_stream_ring": "stream"}[kernel]
+    sched = cuda_stream.level_schedule(tree.children, n_taxa, tree.parent)
+    order = sched[0]
     g = t(np.random.default_rng(4).random((2, p)))
     site = cuda_peeling.peel_site_loglik_auto(tips, tree.children, order,
                                               tree.root, pm, fr, cw, sched)
@@ -452,6 +456,8 @@ def test_chain_entry_with_grad_raises(monkeypatch, kernel):
                                           cw, sched)
         elif kernel == "peel_mxu":
             cuda_mxu.prepare_mxu(tips, tree.children, None, pm, fr, cw, sched)
+        elif kernel == "peel_stream_ring":
+            cuda_stream.prepare_stream(tips, sched, pm, fr, cw)
         else:
             cuda_stream2.prepare_deep(
                 tips[None], ids, pos, ls,

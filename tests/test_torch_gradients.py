@@ -356,9 +356,8 @@ def test_kernel_entries_raise_on_inputs_that_require_grad(monkeypatch):
             lambda: cuda_stream2.prepare_deep(
                 tips_t[None], ids, pos, ls, pm_req[ids.long()][None],
                 fr_t[None], cw_t[None]),
-            lambda: cuda_stream.prepare_stream(
-                tips_t, *cuda_stream.stream_schedule(ch_t, order_t),
-                pm_req[ch_t[order_t]], fr_t, cw_t),
+            lambda: cuda_stream.prepare_stream(tips_t, sched, pm_req, fr_t,
+                                               cw_t),
             lambda: cuda_mxu.prepare_mxu(tips_t, ch_t, order_t, pm_req,
                                          fr_t, cw_t, sched)):
         with pytest.raises(RuntimeError, match="require grad"):

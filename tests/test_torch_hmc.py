@@ -48,6 +48,17 @@ from beast_mcmc_tpu_torch.utils import transforms as tt
 F64 = torch.float64
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """These tests run many thousands of tiny torch ops; with the default
+    thread pool its idle threads spin between them on every core, five
+    times the CPU time for no gain. One thread while they run."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pair(name, **kw):
     return getattr(jt, name)(**kw), getattr(tt, name)(**kw)
 

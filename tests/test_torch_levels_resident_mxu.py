@@ -15,10 +15,10 @@ are held against:
   site and 1e-5 on the partials by node, which lie in [0, 1];
 on a coalescent tree, a caterpillar (one node a level) and pattern counts
 that are no multiple of any tile. The dispatch tests check that on a CUDA
-device the resident and matrix-product routes hand their kernels the level
-schedule, with one sort a peel, and the v1 streaming route the height
-order: the kernel entries are replaced by recorders, and the tips are CPU
-tensors that report themselves as CUDA ones.
+device the resident, matrix-product and v1 streaming routes hand their
+kernels the level schedule, with one sort a peel: the kernel entries are
+replaced by recorders, and the tips are CPU tensors that report themselves
+as CUDA ones.
 """
 
 import jax.numpy as jnp
@@ -39,7 +39,6 @@ from beast_mcmc_tpu_torch.ops import (
     cuda_stream,
     cuda_stream2,
 )
-from beast_mcmc_tpu_torch.ops import peeling as tpeel
 
 SMEM_LIMIT = 232448  # bytes a block may take on sm_90
 
@@ -230,10 +229,11 @@ def _recording(monkeypatch):
         return cuda_mxu._mxu_plain(plain(tips), schedule, pm,
                                    cw[..., None] * freqs[..., None, :])
 
-    def ring(tips, lr_ids, lr_pos, pm_ord, freqs, cw):
-        calls.append(("stream", (lr_ids, lr_pos)))
-        return cuda_stream._stream_plain(plain(tips), lr_ids, lr_pos, pm_ord,
-                                         cw[:, None] * freqs[None])
+    def ring(tips, schedule, pm, freqs, cw):
+        calls.append(("stream", schedule))
+        site, post = cuda_stream._stream_plain(
+            plain(tips), schedule, pm, cw[..., None] * freqs[..., None, :])
+        return site, post[:, None]  # the kernel's partials: one tile of P
 
     monkeypatch.setattr(cuda_peeling, "_peel_resident_kernel", resident)
     monkeypatch.setattr(cuda_mxu, "_peel_mxu_kernel", mxu)
@@ -254,10 +254,10 @@ def _tree_args(n_taxa, seed):
                                        (8, 2, "stream")])
 def test_site_logliks_hands_each_kernel_its_schedule(monkeypatch, s, c,
                                                      route):
-    """tree_loglikelihood_pmats on a CUDA device: the resident and
-    matrix-product kernels get level_schedule (one sort), the v1 streaming
-    kernel the height order's stream_schedule (two sorts); the totals agree
-    with the CPU's height-ordered plain peel."""
+    """tree_loglikelihood_pmats on a CUDA device: the resident,
+    matrix-product and v1 streaming kernels get level_schedule (one sort),
+    a batch of one; the totals agree with the CPU's height-ordered plain
+    peel."""
     n_taxa, p = 14, 19
     parent, children, heights, root = _tree_args(n_taxa, 31)
     rng = np.random.default_rng(32)
@@ -277,14 +277,8 @@ def test_site_logliks_hands_each_kernel_its_schedule(monkeypatch, s, c,
     np.testing.assert_allclose(float(got), float(ref), rtol=1e-12)
     assert [k for k, _ in calls] == [route]
     schedule = calls[0][1]
-    if route == "stream":
-        assert len(sorts) == 2
-        order = tpeel.peel_order_from_heights(heights, n_taxa, parent)
-        want = cuda_stream.stream_schedule(children, order)
-    else:  # the kernel peels a batch of one
-        assert len(sorts) == 1
-        want = cuda_stream.level_schedule(children[None], n_taxa,
-                                          parent[None])
+    assert len(sorts) == 1  # the kernel peels a batch of one
+    want = cuda_stream.level_schedule(children[None], n_taxa, parent[None])
     assert len(schedule) == len(want)
     for a, b in zip(schedule, want):
         np.testing.assert_array_equal(a.numpy(), b.numpy())

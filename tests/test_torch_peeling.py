@@ -89,7 +89,9 @@ def test_plain_peel_matches_jax_scan_f64(shape):
                          + [((1025, 2, 4, 128), 1e-10)])
 def test_stream_plain_matches_jax_scan_f64(shape, rtol):
     """The v1 streaming kernel's plain version, through its entry points,
-    against the JAX scan; its partials against the scan's, by position."""
+    against the JAX scan; its partials, by level position, against the
+    scan's through the nodes (position i holds node level_schedule's
+    order[i])."""
     args = _problem(*shape, seed=3)
     jargs = _jax(args, jnp.float64)
     ref, ref_post, _ = jpeel._peel_forward(*jargs)
@@ -101,9 +103,10 @@ def test_stream_plain_matches_jax_scan_f64(shape, rtol):
                                                  freqs, cw)
     assert post_pos.shape == (shape[0] - 1, *shape[1:])
     np.testing.assert_array_equal(site.numpy(), got.numpy())
+    lvl_order = cuda_stream.level_schedule(children, shape[0])[0]
     np.testing.assert_allclose(post_pos.numpy(),
-                               np.asarray(ref_post)[args[2]], rtol=rtol,
-                               atol=1e-300)
+                               np.asarray(ref_post)[lvl_order.numpy()],
+                               rtol=rtol, atol=1e-300)
     # the plain peel returns what the JAX one does where a test needs it
     p_site, p_post = tpeel._peel_forward(*targs)
     np.testing.assert_allclose(p_site.numpy(), np.asarray(ref), rtol=rtol)
@@ -118,8 +121,9 @@ def test_stream_plain_matches_jax_scan_f64(shape, rtol):
 @pytest.mark.parametrize("shape", STREAM_SHAPES)
 def test_stream_plain_matches_pallas_stream_f32(shape):
     """The TPU kernel this package's peel_stream_ring replaces, in interpret
-    mode, float32: the per-site log-likelihood and the partials by peel
-    position."""
+    mode, float32: the per-site log-likelihood, and the partials compared
+    through the nodes (the TPU kernel's by height-order position, the
+    port's by level position)."""
     args = _problem(*shape, seed=7)
     tips, children, order, root, pm, freqs, cw = _jax(args, jnp.float32)
     ref_site, ref_post = jstream._stream_forward(tips, children, order, pm,
@@ -130,10 +134,14 @@ def test_stream_plain_matches_pallas_stream_f32(shape):
     got = cuda_stream.peel_site_loglik_stream(*targs)
     atol = 5e-5 if shape[2] < 16 else 1e-4
     np.testing.assert_allclose(got.numpy(), np.asarray(ref_entry), atol=atol)
+    sched = cuda_stream.level_schedule(targs[1], shape[0])
     _, post_pos = cuda_stream._stream_forward(targs[0], targs[1], targs[2],
-                                              *targs[4:])
-    np.testing.assert_allclose(post_pos.numpy(), np.asarray(ref_post),
-                               atol=1e-5)
+                                              *targs[4:], sched)
+    by_node = [tpeel.post_by_node(pos[None], targs[0][None], o)[0].numpy()
+               for pos, o in ((post_pos, sched[0]),
+                              (torch.tensor(np.asarray(ref_post)),
+                               targs[2]))]
+    np.testing.assert_allclose(*by_node, atol=1e-5)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref_site), atol=atol)
 
 
@@ -320,40 +328,52 @@ def test_check_kernel_inputs_takes_the_states_a_kernel_supports():
             *(t.half() for t in args(1, 20)), **envelope)
 
 
-@pytest.mark.parametrize("p,c,s,itemsize,bp,rows,chunk", [
-    (640, 1, 4, 8, 8, 1, 64),       # one benchmark1 partition: 80 blocks
-    (2048, 4, 4, 8, 16, 4, 32),     # Makona: 128 blocks
-    (5632, 4, 4, 8, 32, 4, 32),     # benchmark2: 176 blocks fill the card
-    (1024, 4, 20, 8, 8, 20, 1),     # amino acids: one node per matrix slot
-    (1024, 4, 20, 4, 8, 20, 2),
-    (8192, 4, 20, 8, 32, 16, 1),    # the same with the card full
-    (512, 1, 61, 8, 8, 16, 0),      # codons, f64: [S, S] pieces
-    (512, 1, 61, 4, 8, 16, 1),
-    (512, 4, 61, 8, 8, 16, 0),      # 238 KB of matrices a node: pieces
-    (64, 8, 64, 8, 4, 16, 0),       # the corner of the envelope
-    (64, 8, 64, 4, 8, 16, 0),
-    (130, 4, 4, 4, 8, 4, 64),
-    (7, 1, 2, 8, 8, 1, 64),
+@pytest.mark.parametrize("p,c,s,itemsize,b,pw,warps,nodes,g", [
+    (593, 1, 4, 8, 1, 4, 16, 128, 0),   # one benchmark1 partition: 149 tiles
+    (2048, 4, 4, 8, 1, 8, 16, 16, 0),   # Makona: 256 tiles of 8
+    (5632, 4, 4, 8, 1, 8, 16, 16, 0),   # benchmark2
+    (593, 1, 4, 4, 1, 8, 16, 64, 0),    # float32: one 32-byte sector
+    (300, 2, 8, 8, 1, 4, 8, 32, 0),     # S = 8: 8 warps' slots fit
+    (300, 2, 8, 8, 4, 8, 16, 32, 0),    # four chains: 152 blocks of 8
+    (100, 1, 2, 8, 1, 4, 16, 128, 0),   # S = 2
+    (130, 8, 15, 8, 1, 4, 2, 2, 0),     # the largest slots: two warps
+    (1024, 4, 20, 8, 1, 8, 15, 3, 8),   # amino acids: a whole node a buffer
+    (512, 1, 61, 8, 1, 8, 16, 2, 1),    # codons, one category: a piece
+    (593, 4, 61, 8, 1, 8, 16, 2, 1),    # codon+Gamma4: two teams
+    (593, 4, 61, 8, 4, 8, 16, 2, 1),    # the same for four chains
+    (64, 8, 64, 8, 1, 8, 16, 1, 2),     # the corner: one team
 ])
-def test_stream_plan(p, c, s, itemsize, bp, rows, chunk):
-    """The streaming kernel's planners, derived from Hopper's 227 KB of
-    shared memory a block (ring 3 + staged children 4 tiles of [C*S, BP],
-    two matrix slots, the max-reduction buffer) and its 132 SMs (a tile
-    narrower than 32, down to 8, while half the SMs would have no block)."""
-    plan = cuda_stream.stream_plan(p, c, s, itemsize)
-    assert (plan.bp, plan.rows, plan.chunk) == (bp, rows, chunk)
-    assert cuda_stream._pick_bp(p, c, s, itemsize) == bp
-    assert cuda_stream._pick_chunk(c, s, itemsize) == chunk
-    unit = chunk * 2 * c * s * s if chunk else s * s
-    assert plan.smem == (7 * c * s * bp + 2 * unit + rows * bp) * itemsize
+def test_stream_plan(p, c, s, itemsize, b, pw, warps, nodes, g):
+    """The streaming kernel's planner, from Hopper's 227 KB of shared
+    memory a block and 132 SMs. Below 16 states: slots of pw x C lanes, pw
+    the widest power of two with pw x C <= 32, halved while the grid of
+    ceil(P / pw) x B blocks leaves SMs idle, down to one 32-byte sector;
+    16 warps, fewer where the slots' two buffers of a node's matrices
+    overflow. From 16: 8 patterns a block, teams of warps, as many as fit,
+    each with two buffers of a whole node's matrices, else a category's
+    pair, else one piece, the most that leaves room for a second team."""
+    plan = cuda_stream.stream_plan(p, c, s, itemsize, b)
+    assert (plan.pw, plan.warps, plan.nodes, plan.g) == (pw, warps, nodes, g)
     assert plan.smem <= cuda_stream.SMEM_BUDGET < 227 * 1024
-    assert rows * bp <= cuda_stream.MAX_THREADS
-    blocks = -(-p // bp)
-    assert bp <= 8 or 2 * blocks > cuda_stream.N_SM
-    if chunk:
-        assert chunk * 2 * c * s * s * itemsize <= cuda_stream.CHUNK_BYTES
+    assert plan.warps * 32 <= 512
+    if s < cuda_stream.MMA_MIN_STATES:
+        per16 = 16 // itemsize
+        ne_pad = -(-c * s * s // per16) * per16
+        assert plan.smem == nodes * (4 * ne_pad * itemsize + 8 * pw)
+        tiles = -(-p // pw) * b
+        assert pw == 32 // itemsize or tiles >= cuda_stream.N_SM or (
+            2 * pw * c > 32)
     else:
-        assert 2 * c * s * s * itemsize > cuda_stream.CHUNK_BYTES
+        assert pw == cuda_stream.TILE_W and (2 * c) % g == 0
+        assert plan.smem == cuda_stream._teams_smem(c, s, g, nodes,
+                                                    warps // nodes, itemsize)
+        units = c * -(-s // 8)
+        tw_min = -(-units // 8)
+        tw_more = min(units, max(tw_min, 16 // (nodes + 1)))
+        assert (nodes == cuda_stream.MAX_TEAMS or (nodes + 1) * tw_min > 16
+                or cuda_stream._teams_smem(c, s, g, nodes + 1, tw_more,
+                                           itemsize)
+                > cuda_stream.SMEM_BUDGET)  # as many teams as fit
 
 
 def test_stream_plan_covers_the_envelope_and_refuses_outside():
@@ -361,7 +381,7 @@ def test_stream_plan_covers_the_envelope_and_refuses_outside():
         for c in range(1, 9):
             for s in range(2, 65):
                 plan = cuda_stream.stream_plan(1000, c, s, itemsize)
-                assert plan.bp >= 4 and plan.smem <= cuda_stream.SMEM_BUDGET
+                assert plan.pw >= 1 and plan.smem <= cuda_stream.SMEM_BUDGET
     for c, s in [(9, 4), (0, 4), (1, 1), (1, 65)]:
         with pytest.raises(ValueError):
             cuda_stream.stream_plan(128, c, s, 8)
