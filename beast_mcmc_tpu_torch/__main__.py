@@ -1,0 +1,118 @@
+"""The `beast`-equivalent command line of the port.
+
+    python -m beast_mcmc_tpu_torch run analysis.xml [-seed N]
+        [-chain_length N] [-save_state FILE] [-load_state FILE]
+        [-log FILE] [-trees FILE] [-overwrite] [-device cuda|cpu]
+
+Counterpart of beast_mcmc_tpu/__main__.py, BeastMain's flag surface
+(BeastMain.java:370-460: -seed, -save_state/-load_state, -overwrite; the
+XML file is the analysis). `run` takes the declarative importer route:
+config/xml_import.py -> AnalysisSpec -> apps/runner.py::run_analysis,
+which writes a Tracer-compatible tab log and a NEXUS tree log (by default
+<xml base name>.log and .trees in the working directory). -device picks
+the card (cuda, the default) or the CPU.
+
+Not ported yet, and refused with a message and a non-zero code, never run
+in another way: -testxml and the interpreter fallback for documents
+outside the importer's vocabulary (ROADMAP queue A item 5, the XML layer),
+-particles (queue A item 4f, inference/smc.py), and the sub-tools
+loganalyser, logcombiner, treeannotator, seqgen and treestat (queue A item
+3). -mc3_chains > 1 raises NotImplementedError (queue A, the builder's
+chain-axis posterior), and the other -mc3_* flags come with it. An
+unknown command returns 2.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+SUB_TOOLS = ("loganalyser", "logcombiner", "treeannotator", "seqgen",
+             "treestat")
+
+
+def _not_ported(what: str, item: str) -> int:
+    print(f"{what} is not ported to beast_mcmc_tpu_torch yet (ROADMAP "
+          f"queue A item {item})", file=sys.stderr)
+    return 1
+
+
+def _cmd_run(argv) -> int:
+    p = argparse.ArgumentParser(
+        prog="beast_mcmc_tpu_torch run",
+        description="Run a BEAST XML analysis (BeastMain role)")
+    p.add_argument("xml", help="BEAST XML analysis file")
+    p.add_argument("-seed", type=int, default=None)
+    p.add_argument("-chain_length", type=int, default=None,
+                   help="override <mcmc chainLength>")
+    p.add_argument("-save_state", default=None, metavar="FILE")
+    p.add_argument("-load_state", default=None, metavar="FILE")
+    p.add_argument("-particles", default=None, metavar="DIR",
+                   help="folder of particle checkpoints (not ported)")
+    p.add_argument("-log", default=None, help="parameter log file")
+    p.add_argument("-trees", default=None, help="NEXUS tree log file")
+    p.add_argument("-overwrite", action="store_true")
+    p.add_argument("-mc3_chains", type=int, default=1,
+                   help="number of Metropolis-coupled chains (only 1)")
+    p.add_argument("-testxml", action="store_true",
+                   help="the TestXML interpreter (not ported)")
+    p.add_argument("-device", default="cuda",
+                   help="torch device of the chain: cuda (default) or cpu")
+    args = p.parse_args(argv)
+
+    for f in (args.log, args.trees):
+        if f and os.path.exists(f) and not args.overwrite:
+            p.error(f"{f} exists (use -overwrite)")
+    if args.testxml:
+        return _not_ported("-testxml (the TestXML interpreter)", "5")
+    if args.particles:
+        return _not_ported("-particles (inference/smc.py)", "4f")
+
+    from beast_mcmc_tpu_torch.apps.runner import run_analysis
+    from beast_mcmc_tpu_torch.config.xml_import import (
+        XmlImportError,
+        parse_beast_xml,
+    )
+
+    with open(args.xml) as f:
+        text = f.read()
+    try:
+        spec = parse_beast_xml(text)
+    except (NotImplementedError, XmlImportError) as e:
+        return _not_ported(f"{args.xml} needs the XML interpreter "
+                           f"(importer: {e});", "5")
+    if args.seed is not None:
+        spec.mcmc.seed = args.seed
+    if args.chain_length is not None:
+        spec.mcmc.chain_length = args.chain_length
+
+    base = os.path.splitext(os.path.basename(args.xml))[0]
+    log_file = args.log or f"{base}.log"
+    tree_file = args.trees or f"{base}.trees"
+    result = run_analysis(
+        spec, log_file=log_file, tree_file=tree_file,
+        checkpoint_file=args.save_state, load_state=args.load_state,
+        mc3_chains=args.mc3_chains, device=args.device)
+    print(result.report)
+    print(f"{result.states_per_sec:.1f} states/sec; logs: {log_file}, "
+          f"{tree_file}")
+    return 0
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] in ("-h", "--help"):
+        print(__doc__)
+        return 0
+    cmd, rest = argv[0], argv[1:]
+    if cmd == "run":
+        return _cmd_run(rest)
+    if cmd in SUB_TOOLS:
+        return _not_ported(f"the {cmd} tool", "3")
+    print(f"unknown command {cmd!r}; try: run", file=sys.stderr)
+    return 2
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -331,6 +331,14 @@ def gtr_site_model(params, n_categories: int, dtype=DEFAULT_FLOAT):
     return gtr_eigen(rates6, freqs), freqs, rates, cat_w
 
 
+def geo_model(params):
+    """(Q [K, K], normalised frequencies [K]) of the location trait: the
+    asymmetric CTMC on the BSSVS-masked rates (rates x indicators)."""
+    f = params["geo.frequencies"]
+    return (general_complex_q(params["geo.rates"] * params["geo.indicators"],
+                              f), f / torch.sum(f))
+
+
 def clock_rates(params) -> torch.Tensor:
     """[M] branch rates of the discretised lognormal relaxed clock."""
     return discretized_clock_rates(params["branchRates.categories"],
@@ -393,11 +401,10 @@ def build_joint_analysis(location_tips: np.ndarray, seq_tips: np.ndarray,
                                   cat_w, clock_rates(p))
 
     def geo_likelihood(p, t):
-        f = p["geo.frequencies"]
-        q = general_complex_q(p["geo.rates"] * p["geo.indicators"], f)
+        q, freqs = geo_model(p)
         return tree_loglikelihood_q(geo_t, geo_w, t.parent, t.children,
-                                    t.heights, t.root, q, f / torch.sum(f),
-                                    geo_rate, geo_w1, 1.0)
+                                    t.heights, t.root, q, freqs, geo_rate,
+                                    geo_w1, 1.0)
 
     fns = [
         (lambda p, t: gamma_logpdf(p["skygrid.precision"], prec_shape,

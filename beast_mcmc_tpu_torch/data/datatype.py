@@ -45,11 +45,20 @@ class DataType:
         raise ValueError(f"{self.name} has no fully-ambiguous code")
 
     def encode(self, seq: str) -> np.ndarray:
-        """Character string -> int8/int16 state codes (unknown for unmapped)."""
+        """Character string -> int16 state codes (unknown for unmapped). An
+        ASCII string goes through a 128-entry lookup table at once (a
+        Makona-size document holds 30 million characters)."""
         unknown = self.unknown_code
-        out = np.empty(len(seq), dtype=np.int16)
+        seq = seq.upper()
         cm = self.char_map
-        for i, ch in enumerate(seq.upper()):
+        if seq.isascii():
+            lut = np.full(128, unknown, dtype=np.int16)
+            for ch, code in cm.items():
+                if len(ch) == 1 and ch.isascii():
+                    lut[ord(ch)] = code
+            return lut[np.frombuffer(seq.encode("ascii"), dtype=np.uint8)]
+        out = np.empty(len(seq), dtype=np.int16)
+        for i, ch in enumerate(seq):
             out[i] = cm.get(ch, unknown)
         return out
 

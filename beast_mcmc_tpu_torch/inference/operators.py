@@ -1,4 +1,4 @@
-"""MCMC proposal operators of the main path.
+"""MCMC proposal operators of the main path and of the config layer.
 
 Counterpart of beast_mcmc_tpu/inference/operators.py, with the same
 proposal laws and Hastings ratios. Every operator is
@@ -243,6 +243,44 @@ class DeltaExchangeOperator(Operator):
                                 torch.zeros((), dtype=flat.dtype,
                                             device=flat.device))
         return {**params, self.parameter: new.reshape(x.shape)}, tree, logh
+
+
+@dataclasses.dataclass
+class UniformIntegerOperator(Operator):
+    """UniformIntegerOperator.java: set one random dimension of an integer
+    parameter to U{lower..upper} (inclusive); symmetric. The relaxed
+    clock's rate categories (DiscretizedBranchRates)."""
+
+    parameter: str = ""
+    lower: int = 0
+    upper: int = 1  # inclusive
+
+    def propose(self, params, tree, gen, tuning):
+        x0 = params[self.parameter]
+        x = torch.atleast_1d(x0)
+        idx = _randint(gen, 0, x.shape[0], x.device)
+        v = _randint(gen, self.lower, self.upper + 1, x.device)
+        new = x.index_put((idx,), v.to(x.dtype)).reshape(x0.shape)
+        return ({**params, self.parameter: new}, tree,
+                torch.zeros((), dtype=tree.heights.dtype,
+                            device=tree.heights.device))
+
+
+@dataclasses.dataclass
+class SwapOperator(Operator):
+    """SwapOperator.java: swap two distinct random dimensions of a
+    parameter; symmetric."""
+
+    parameter: str = ""
+
+    def propose(self, params, tree, gen, tuning):
+        x = params[self.parameter]
+        i = _randint(gen, 0, x.shape[0], x.device)
+        j = sample_excluding(gen, x.shape[0], i)
+        new = x.index_put((i,), x[j]).index_put((j,), x[i])
+        return ({**params, self.parameter: new}, tree,
+                torch.zeros((), dtype=tree.heights.dtype,
+                            device=tree.heights.device))
 
 
 @dataclasses.dataclass

@@ -1,7 +1,7 @@
-"""Coalescent tree priors: constant size, and the skygrid with its GMRF
-smoothing prior.
+"""Coalescent tree priors: constant size, exponential growth, and the
+skygrid with its GMRF smoothing prior.
 
-Counterpart of beast_mcmc_tpu/models/coalescent.py:28-74,138-194.
+Counterpart of beast_mcmc_tpu/models/coalescent.py:28-95,138-194.
 Intervals come from a device-side sort of node heights with lineage deltas
 (+1 at tips, -1 at coalescences); lineage counts are their prefix sum.
 logL = sum_coal -log N(t_i) - sum_intervals C(k,2) [L(t_end) - L(t_start)]
@@ -63,6 +63,23 @@ def constant_coalescent_loglik(heights: torch.Tensor, n_taxa: int,
         log_pop=lambda t: torch.log(pop).expand(t.shape),
         intensity=lambda t: t / pop,
     )
+
+
+def exponential_growth_loglik(heights: torch.Tensor, n_taxa: int,
+                              pop_size, growth_rate) -> torch.Tensor:
+    """Exponential growth N(t) = N0 exp(-r t) backwards in time
+    (ExponentialGrowth.java getIntensity); one tree."""
+    n0 = torch.as_tensor(pop_size, dtype=heights.dtype, device=heights.device)
+    r = torch.as_tensor(growth_rate, dtype=heights.dtype,
+                        device=heights.device)
+
+    def intensity(t):
+        # (exp(r t) - 1) / (r N0); the r -> 0 limit t / N0, via expm1
+        return torch.where(torch.abs(r) < 1e-12, t / n0,
+                           torch.expm1(r * t) / (r * n0))
+
+    return coalescent_loglik(heights, n_taxa,
+                             lambda t: torch.log(n0) - r * t, intensity)
 
 
 def skygrid_cut_points(n_grid: int, cutoff: float, dtype=torch.float64,

@@ -1,9 +1,11 @@
-"""Prior log densities of the main path and of the Makona joint analysis.
+"""Prior log densities of the main path, the Makona joint analysis and the
+config layer's priors.
 
-Counterpart of beast_mcmc_tpu/models/priors.py:34,45,61,89,95. Each
-returns the sum of the elementwise log density, -inf outside the support;
-with `chains=True` the leading axis of x is a chain batch's, and the sum
-is taken per chain ([B]).
+Counterpart of beast_mcmc_tpu/models/priors.py:22,28,34,45,61,80,89,95,100.
+Each returns the sum of the elementwise log density, -inf outside the
+support; with `chains=True` the leading axis of x is a chain batch's, and
+the sum is taken per chain ([B]). The Dirichlet and CTMC-scale densities
+take one chain.
 """
 
 from __future__ import annotations
@@ -15,6 +17,23 @@ import torch
 
 def _total(lp: torch.Tensor, chains: bool) -> torch.Tensor:
     return lp.reshape(lp.shape[0], -1).sum(-1) if chains else torch.sum(lp)
+
+
+def uniform_logpdf(x: torch.Tensor, lower: float, upper: float,
+                   chains: bool = False) -> torch.Tensor:
+    """Uniform on [lower, upper] (<uniformPrior>)."""
+    lp = torch.full_like(x, -math.log(upper - lower))
+    inside = (x >= lower) & (x <= upper)
+    return _total(torch.where(inside, lp, torch.full_like(lp, -math.inf)),
+                  chains)
+
+
+def normal_logpdf(x: torch.Tensor, mean: float, stdev: float,
+                  chains: bool = False) -> torch.Tensor:
+    """Normal(mean, stdev) (<normalPrior>)."""
+    z = (x - mean) / stdev
+    return _total(-0.5 * z * z - math.log(stdev)
+                  - 0.5 * math.log(2 * math.pi), chains)
 
 
 def lognormal_logpdf(x: torch.Tensor, mu: float, sigma: float,
@@ -62,3 +81,26 @@ def poisson_logpmf(k: torch.Tensor, mean: float,
     (<poissonPrior>)."""
     k = torch.as_tensor(k)
     return _total(k * math.log(mean) - mean - torch.lgamma(k + 1.0), chains)
+
+
+def dirichlet_logpdf(x: torch.Tensor, alpha) -> torch.Tensor:
+    """Dirichlet(alpha) on a simplex x (<dirichletPrior>); -inf off the
+    simplex (a sum more than 1e-8 from 1, or an entry <= 0)."""
+    alpha = torch.as_tensor(alpha, dtype=x.dtype, device=x.device)
+    safe = torch.all(x > 0) & (torch.abs(torch.sum(x) - 1.0) < 1e-8)
+    xs = torch.where(x > 0, x, torch.ones_like(x))
+    lp = (torch.sum((alpha - 1) * torch.log(xs))
+          + torch.lgamma(torch.sum(alpha)) - torch.sum(torch.lgamma(alpha)))
+    return torch.where(safe, lp, torch.full_like(lp, -math.inf))
+
+
+def ctmc_scale_logpdf(rate: torch.Tensor, tree_length) -> torch.Tensor:
+    """The CTMC reference prior of an overall clock rate
+    (CTMCScalePrior.java:51): p(rate) proportional to sqrt(T / rate)
+    e^{-rate T}, T the tree length in time units."""
+    safe = rate > 0
+    rs = torch.where(safe, rate, torch.ones_like(rate))
+    tl = torch.as_tensor(tree_length, dtype=rate.dtype, device=rate.device)
+    lp = (0.5 * (torch.log(tl) - torch.log(rs)) - rs * tl
+          - math.lgamma(0.5))
+    return torch.sum(torch.where(safe, lp, torch.full_like(lp, -math.inf)))

@@ -95,6 +95,13 @@ result line):
      peel_stream launches must equal its steps whose operator refreshes
      treeLikelihood (the 56-state trait peels by the plain level peel and
      launches nothing); the full-evaluation check; a profiler window.
+     The chain writes what the document's <log> and <logTree> ask for
+     (apps/makona.py::run_joint_logged): makona_joint.log every
+     JOINT_LOG_EVERY steps (the five columns) and makona_joint.trees every
+     JOINT_TREE_EVERY, each node annotated with a joint draw of its
+     location, into build/smoke/; the tree file is read back with the
+     port's parse_newick (1,610 tips, a location of the 56 on every node,
+     the tips' their data) and the host ms of an annotated draw reported.
   10. chain batches and MC3 with the operators that bind the posterior
      (`chain_gradient_checks`, `bound_chain_paths`). P10g: each chain-axis
      route's gradient (B chains' trees from their own seeds: resident at
@@ -126,6 +133,20 @@ result line):
      route's gradient for the G4_CHAINS chains (`chain_gradient_checks`)
      against the same level adjoint over the plain chain-axis forward and
      each chain's single-tree gradient, one launch a gradient.
+  12. the importer route at the Makona shape (`spec_document`,
+     `spec_path`): a BEAUti-style document in the importer's vocabulary
+     (the 1,610 dated taxa of examples/makona_joint.xml, its 18,996 sites
+     simulated as in phase 9, GTR+Gamma4, the discretised lognormal
+     clock, a skygrid of 50 cells, ctmcScale, logNormal and gamma priors,
+     <log logEvery="10">) run through `python -m beast_mcmc_tpu_torch
+     run` (__main__.main): SPEC_STEPS steps straight, half of them with
+     -save_state, the other half with -load_state, and an unknown
+     command; each run's peel_stream launches exactly its steps plus its
+     full evaluations (start, load check); 30 log rows under the
+     builder's columns, 30 trees of 1,610 tips read back; the checkpoint
+     reloaded within 0.1; the resumed run's final log posterior against
+     the straight run's; the built analysis's full-evaluation check over
+     SPEC_CHECK steps and a profiler window.
 
 `python3 chip_smoke.py --tiles` instead builds the kernels and times the
 v1 streaming kernel at the plans its planner could pick, with its largest
@@ -914,22 +935,60 @@ def chain_paths(paths, reset_counts, read_counts, device_ms, dev):
 # full-evaluation steps of its chain, and the steps of its profiler window
 JOINT_WARM, JOINT_STEPS, JOINT_CHECK, JOINT_PROFILE = 20, 300, 50, 30
 JOINT_SEED = 666  # the starting tree's (the JAX package's) and alignment's
+# the joint's log rows and annotated trees: the document's logEvery of 1,000
+# and 10,000 are for its 200 million steps, scaled here to 300
+JOINT_LOG_EVERY, JOINT_TREE_EVERY = 10, 50
+SMOKE_OUT = os.path.join(ROOT, "build", "smoke")  # git-ignored
+
+
+def check_joint_trees(path, cfg):
+    """Read a joint tree file back: each tree through the port's
+    parse_newick (all of the document's taxa), a location="..." of the
+    document's states on every node, and each tip whose location is known
+    annotated with it. Returns the number of trees."""
+    import re
+
+    from beast_mcmc_tpu_torch.tree.topology import parse_newick
+
+    n_taxa, codes = len(cfg["taxa"]), set(cfg["location_codes"])
+    by_upper = {c.upper(): c for c in codes}  # the data type maps upper case
+    lines = [ln for ln in open(path) if ln.startswith("tree STATE_")]
+    for ln in lines:
+        newick = ln.split("[&R]", 1)[1].strip()
+        _, _, _, _, names = parse_newick(newick)
+        if len(names) != n_taxa:
+            raise AssertionError(f"joint trees: {len(names)} tips")
+        labels = re.findall(r'\[&location="([^"]*)"\]', newick)
+        if len(labels) != 2 * n_taxa - 1 or not set(labels) <= codes:
+            raise AssertionError(f"joint trees: {len(labels)} annotations, "
+                                 f"unknown {sorted(set(labels) - codes)}")
+        for num, loc in re.findall(r'[(,](\d+)\[&location="([^"]*)"\]',
+                                   newick):
+            data = by_upper.get(cfg["locations"][int(num) - 1].strip().upper())
+            if data is not None and loc != data:
+                raise AssertionError(f"joint trees: tip {num} is {loc}, its "
+                                     f"data {data}")
+    return len(lines)
 
 
 def joint_path(analysis, reset_counts, read_counts, dev, n_steps=JOINT_STEPS,
-               n_check=JOINT_CHECK, n_warm=JOINT_WARM):
+               n_check=JOINT_CHECK, n_warm=JOINT_WARM, out_dir=SMOKE_OUT):
     """Phase 9: the joint analysis's component-cached chain
     (apps/makona.py::build_makona_joint's five-tuple), through
     make_mcmc_step(components=, op_tree_flags=) and run_chain, as
     bench.py::measure_makona_joint steps it. After n_warm steps, n_steps
-    are timed with the launch counts set to 0 just before them; peel_stream
-    must have launched exactly on the steps whose operator refreshes
-    treeLikelihood (each operator's steps from its accept and reject
-    counts), and no other kernel at all (the trait peels by the plain level
-    peel). Then the full-evaluation check over n_check steps. Returns
-    (record, launches, step, state)."""
+    are timed with the launch counts set to 0 just before them, through
+    apps/makona.py::run_joint_logged, which writes makona_joint.log and
+    makona_joint.trees into out_dir; peel_stream must have launched
+    exactly on the steps whose operator refreshes treeLikelihood (each
+    operator's steps from its accept and reject counts), and no other
+    kernel at all (the trait and the annotation peel by the plain level
+    peel). The tree file is read back (check_joint_trees). Then the
+    full-evaluation check over n_check steps. Returns (record, launches,
+    step, state)."""
     import torch
 
+    from beast_mcmc_tpu_torch.apps.makona import run_joint_logged
     from beast_mcmc_tpu_torch.inference.mcmc import (
         full_evaluation_check, init_mcmc_state, make_mcmc_step,
         operator_report, run_chain)
@@ -948,14 +1007,26 @@ def joint_path(analysis, reset_counts, read_counts, dev, n_steps=JOINT_STEPS,
 
     sync()
     before = (state.op_accept + state.op_reject).tolist()
+    cfg = aux["config"]
+    os.makedirs(out_dir, exist_ok=True)
+    files = [os.path.join(out_dir, f"makona_joint.{ext}")
+             for ext in ("log", "trees")]
     reset_counts()
     t_start = time.perf_counter()
-    state, _ = run_chain(step, state, n_steps)
+    state, info = run_joint_logged(
+        step, state, n_steps, aux["geo_tips"], cfg["taxa"],
+        cfg["location_codes"], *files, JOINT_LOG_EVERY, JOINT_TREE_EVERY,
+        JOINT_SEED)
     sync()
     dt = time.perf_counter() - t_start
     counts = read_counts()
     per_op = [a - b for a, b in zip(
         (state.op_accept + state.op_reject).tolist(), before)]
+    n_rows = sum(1 for ln in open(files[0]) if ln[:1].isdigit())
+    n_trees = check_joint_trees(files[1], cfg)
+    if (n_rows, n_trees) != (n_steps // JOINT_LOG_EVERY,
+                             n_steps // JOINT_TREE_EVERY):
+        raise AssertionError(f"joint: {n_rows} log rows, {n_trees} trees")
 
     def steps_refreshing(name):
         i = names.index(name)
@@ -965,12 +1036,16 @@ def joint_path(analysis, reset_counts, read_counts, dev, n_steps=JOINT_STEPS,
            "log_posterior": float(state.log_posterior), "launches": counts,
            "tree_likelihood_steps": steps_refreshing("treeLikelihood"),
            "geo_likelihood_steps": steps_refreshing("geoLikelihood"),
-           "steps_per_operator": per_op}
+           "steps_per_operator": per_op, "log_rows": n_rows,
+           "trees": n_trees, "tree_sample_ms": info["sample_ms"],
+           "files": files}
     log(f"[joint] {n_steps} steps in {dt:.3f} s = {rec['states_per_s']:.2f} "
         f"states/s; log posterior {rec['log_posterior']!r}; launches "
         f"{json.dumps(counts)}; steps refreshing treeLikelihood "
         f"{rec['tree_likelihood_steps']}, geoLikelihood "
-        f"{rec['geo_likelihood_steps']}")
+        f"{rec['geo_likelihood_steps']}; wrote {n_rows} log rows and "
+        f"{n_trees} annotated trees (read back); host ms of an annotated "
+        f"tree sample {[round(x, 3) for x in info['sample_ms']]}")
     log(operator_report(ops, state))
     expect = {k: rec["tree_likelihood_steps"] * (k == "peel_stream")
               for k in counts}
@@ -990,6 +1065,283 @@ def joint_path(analysis, reset_counts, read_counts, dev, n_steps=JOINT_STEPS,
         raise AssertionError("joint: full-evaluation deviation "
                              f"{rec['full_evaluation_deviation']}")
     return rec, counts, step, state
+
+
+# phase 12, the importer route at the Makona shape: the straight run's steps
+# (half of them before the checkpoint, half after), the built analysis's
+# full-evaluation check and profiler window, the CLI's seed
+SPEC_STEPS, SPEC_CHECK, SPEC_PROFILE, SPEC_SEED = 300, 50, 20, 7
+SPEC_LOG_EVERY = 10
+SPEC_TAXA, SPEC_SITES = 1610, 18996  # examples/makona_joint.xml's
+
+
+def spec_document(path, n_taxa=SPEC_TAXA, n_sites=SPEC_SITES,
+                  seed=JOINT_SEED, device="cuda"):
+    """Write a BEAUti-style document in the importer's vocabulary
+    (config/xml_import.py) at `path`: the first n_taxa dated taxa of
+    examples/makona_joint.xml's <taxa> block; n_sites nucleotides of each
+    simulated with apps/makona.py::simulate_sites on `device` down a
+    coalescent tree from `seed` (at the full size and the default seed,
+    phase 9's tree and alignment); gtrModel with gammaShape over 4
+    categories, discretizedBranchRates with a lognormal,
+    gmrfSkyGridLikelihood with 50 cells, ctmcScale, logNormal, gamma and
+    exponential priors, the operators that make the model's parameters
+    estimated, <log logEvery="10">. Returns {"taxa", "sites", "patterns"}
+    (the distinct columns)."""
+    import numpy as np
+    from xml.sax.saxutils import quoteattr
+
+    from beast_mcmc_tpu_torch.apps.makona import (
+        read_makona_xml, simulate_sites, tip_heights)
+    from beast_mcmc_tpu_torch.apps.seqgen import compress_patterns
+    from beast_mcmc_tpu_torch.tree.topology import simulate_coalescent_tree
+
+    cfg = read_makona_xml()
+    taxa, dates = cfg["taxa"][:n_taxa], cfg["dates"][:n_taxa]
+    init = cfg["model"]["init"]
+    tree = simulate_coalescent_tree(np.random.default_rng(seed),
+                                    tip_heights(dates), cfg["pop_size"])
+    states = simulate_sites(cfg, tree, seed, device, n_sites)
+    n_patterns = compress_patterns(states)[0].shape[1]
+    rows = np.frombuffer(b"ACGT", np.uint8)[states.cpu().numpy()]
+    out = ['<?xml version="1.0" standalone="yes"?>', "<beast>",
+           '  <taxa id="taxa">']
+    out += [f'    <taxon id={quoteattr(t)}><date value="{float(d)!r}" '
+            'direction="forwards" units="years"/></taxon>'
+            for t, d in zip(taxa, dates)]
+    out += ["  </taxa>", '  <alignment id="alignment" dataType="nucleotide">']
+    out += [f"    <sequence><taxon idref={quoteattr(t)}/>"
+            f"{row.tobytes().decode()}</sequence>"
+            for t, row in zip(taxa, rows)]
+    freqs = " ".join(repr(float(f)) for f in init["frequencies"])
+    gtr = "\n".join(
+        f'    <rate{r}><parameter id="gtr.{r.lower()}" '
+        f'value="{float(init["gtr." + r.lower()])!r}" lower="0.0"/>'
+        f"</rate{r}>" for r in ("AC", "AG", "AT", "CG", "GT"))
+    n_grid = int(init["skygrid.numGridPoints"])
+    out.append(f"""  </alignment>
+  <patterns id="patterns" from="1" strip="false">
+    <alignment idref="alignment"/>
+  </patterns>
+  <gmrfSkyGridLikelihood id="skygrid">
+    <populationSizes>
+      <parameter id="skygrid.logPopSize" dimension="{n_grid + 1}" value="1.0"/>
+    </populationSizes>
+    <precisionParameter>
+      <parameter id="skygrid.precision" value="{init['skygrid.precision']!r}" lower="0.0"/>
+    </precisionParameter>
+    <numGridPoints><parameter value="{n_grid}"/></numGridPoints>
+    <cutOff><parameter value="{float(init['skygrid.cutOff'])!r}"/></cutOff>
+  </gmrfSkyGridLikelihood>
+  <discretizedBranchRates id="branchRates">
+    <distribution>
+      <logNormalDistributionModel meanInRealSpace="true">
+        <mean><parameter id="ucld.mean" value="{init['ucld.mean']!r}" lower="0.0"/></mean>
+        <stdev><parameter id="ucld.stdev" value="{init['ucld.stdev']!r}" lower="0.0"/></stdev>
+      </logNormalDistributionModel>
+    </distribution>
+    <rateCategories><parameter id="branchRates.categories"/></rateCategories>
+  </discretizedBranchRates>
+  <gtrModel id="gtr">
+    <frequencies>
+      <frequencyModel dataType="nucleotide">
+        <frequencies><parameter id="frequencies" value="{freqs}"/></frequencies>
+      </frequencyModel>
+    </frequencies>
+{gtr}
+  </gtrModel>
+  <siteModel id="siteModel">
+    <substitutionModel><gtrModel idref="gtr"/></substitutionModel>
+    <gammaShape gammaCategories="{cfg['model']['gamma_categories']}">
+      <parameter id="siteModel.alpha" value="{init['siteModel.alpha']!r}" lower="0.0"/>
+    </gammaShape>
+  </siteModel>
+  <treeDataLikelihood id="treeLikelihood" useAmbiguities="false">
+    <patterns idref="patterns"/>
+    <siteModel idref="siteModel"/>
+    <discretizedBranchRates idref="branchRates"/>
+  </treeDataLikelihood>
+  <operators id="operators">
+    <scaleOperator scaleFactor="0.75" weight="3"><parameter idref="ucld.mean"/></scaleOperator>
+    <scaleOperator scaleFactor="0.75" weight="3"><parameter idref="ucld.stdev"/></scaleOperator>
+    <scaleOperator scaleFactor="0.75" weight="1"><parameter idref="siteModel.alpha"/></scaleOperator>
+    <scaleOperator scaleFactor="0.75" weight="1"><parameter idref="gtr.ag"/></scaleOperator>
+    <scaleOperator scaleFactor="0.75" weight="3"><parameter idref="skygrid.precision"/></scaleOperator>
+  </operators>
+  <mcmc id="mcmc" chainLength="{SPEC_STEPS}" autoOptimize="true">
+    <posterior id="posterior">
+      <prior id="prior">
+        <ctmcScalePrior><ctmcScale><parameter idref="ucld.mean"/></ctmcScale></ctmcScalePrior>
+        <exponentialPrior mean="0.3333"><parameter idref="ucld.stdev"/></exponentialPrior>
+        <exponentialPrior mean="0.5"><parameter idref="siteModel.alpha"/></exponentialPrior>
+        <logNormalPrior mean="1.0" stdev="1.25"><parameter idref="gtr.ag"/></logNormalPrior>
+        <gammaPrior shape="0.001" scale="1000.0"><parameter idref="skygrid.precision"/></gammaPrior>
+        <gmrfSkyGridLikelihood idref="skygrid"/>
+      </prior>
+      <likelihood id="likelihood">
+        <treeDataLikelihood idref="treeLikelihood"/>
+      </likelihood>
+    </posterior>
+    <operators idref="operators"/>
+    <log logEvery="{SPEC_LOG_EVERY}" fileName="makona_spec.log">
+      <posterior idref="posterior"/>
+      <parameter idref="ucld.mean"/>
+      <parameter idref="siteModel.alpha"/>
+    </log>
+    <logTree logEvery="{SPEC_LOG_EVERY}" nexusFormat="true" fileName="makona_spec.trees"/>
+  </mcmc>
+</beast>
+""")
+    with open(path, "w") as f:
+        f.write("\n".join(out))
+    return {"taxa": len(taxa), "sites": int(states.shape[1]),
+            "patterns": int(n_patterns)}
+
+
+def spec_path(doc, out_dir, reset_counts, read_counts, device_ms, dev,
+              n_steps=SPEC_STEPS, n_check=SPEC_CHECK,
+              n_profile=SPEC_PROFILE):
+    """Phase 12: the importer route, `python -m beast_mcmc_tpu_torch run
+    doc` through __main__.main, as a user runs it. n_steps straight
+    (-log, -trees, -save_state), then half of them with -save_state and
+    the other half from that checkpoint with -load_state, each run's
+    launch counts set to 0 just before it and read just after: peel_stream
+    exactly its steps plus its full evaluations (one at the start, one to
+    check a loaded checkpoint), nothing else; an unknown command returns 2
+    and launches nothing. The straight log holds n_steps / logEvery rows
+    under the builder's columns and its tree file as many trees of every
+    taxon (read back with parse_newick); the resumed run's final log
+    posterior is set beside the straight run's (from their checkpoints'
+    manifests). Then the built analysis (config/builder.py::build of the
+    imported spec): the checkpoint reloaded within 0.1 (the deviation
+    recorded), the full-evaluation check over n_check steps and a profiler
+    window of n_profile steps (device_ms) from the reloaded state, with
+    their launches. Returns
+    (record, launches)."""
+    import contextlib
+    import io
+    import re
+
+    import torch
+
+    from beast_mcmc_tpu_torch.__main__ import main as cli
+    from beast_mcmc_tpu_torch.config.builder import build
+    from beast_mcmc_tpu_torch.config.xml_import import parse_beast_xml_file
+    from beast_mcmc_tpu_torch.inference.checkpoint import load_checkpoint
+    from beast_mcmc_tpu_torch.inference.mcmc import (
+        full_evaluation_check, init_mcmc_state, make_mcmc_step, run_chain)
+    from beast_mcmc_tpu_torch.tree.topology import parse_newick
+
+    os.makedirs(out_dir, exist_ok=True)
+    path = lambda name: os.path.join(out_dir, name)  # noqa: E731
+    half = n_steps // 2
+    rec, launches = {}, {}
+
+    def run(label, argv, expect, want_rc=0):
+        reset_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli(argv)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        want = {k: expect * (k == "peel_stream") for k in counts}
+        if rc != want_rc or counts != want:
+            raise AssertionError(f"P12 {label}: rc {rc}, launches {counts}, "
+                                 f"expected {want}\n{buf.getvalue()}")
+        rate = re.findall(r"([0-9.]+) states/sec", buf.getvalue())
+        rec[label] = {"rc": rc, "cli_seconds": wall, "launches": counts,
+                      "states_per_s": float(rate[-1]) if rate else None}
+        launches[f"P12 {label}"] = counts
+        log(f"[P12] {label}: rc {rc} in {wall:.2f} s, launches "
+            f"{json.dumps(counts)}, {rec[label]['states_per_s']} states/s")
+
+    base = ["run", doc, "-seed", str(SPEC_SEED), "-device", str(dev),
+            "-overwrite"]
+    run("straight", base + ["-chain_length", str(n_steps), "-log",
+                            path("straight.log"), "-trees",
+                            path("straight.trees"), "-save_state",
+                            path("straight.ckpt")], n_steps + 1)
+    run("first half", base + ["-chain_length", str(half), "-log",
+                              path("first.log"), "-trees",
+                              path("first.trees"), "-save_state",
+                              path("half.ckpt")], half + 1)
+    run("resumed", base + ["-chain_length", str(n_steps - half), "-log",
+                           path("resumed.log"), "-trees",
+                           path("resumed.trees"), "-load_state",
+                           path("half.ckpt"), "-save_state",
+                           path("resumed.ckpt")], n_steps - half + 2)
+    run("unknown command", ["frobnicate"], 0, want_rc=2)
+
+    spec = parse_beast_xml_file(doc)
+    spec.mcmc.seed = SPEC_SEED
+    analysis = build(spec, device=dev)
+    cols = ["posterior", "treeModel.rootHeight"] + [
+        k for k, v in analysis.params0.items() if v.dim() == 0]
+    lines = open(path("straight.log")).read().splitlines()
+    header = next(ln for ln in lines if ln.startswith("state"))
+    n_rows = sum(1 for ln in lines if ln[:1].isdigit())
+    want_rows = n_steps // spec.mcmc.log_every
+    if header.split("\t") != ["state"] + cols or n_rows != want_rows:
+        raise AssertionError(f"P12 log: {n_rows} rows under {header!r}")
+    trees = [ln.split("[&R]", 1)[1].strip()
+             for ln in open(path("straight.trees"))
+             if ln.startswith("tree STATE_")]
+    for newick in trees:
+        if len(parse_newick(newick)[4]) != analysis.n_taxa:
+            raise AssertionError("P12 trees: a tree lacks taxa")
+    if len(trees) != want_rows:
+        raise AssertionError(f"P12 trees: {len(trees)}")
+    finals = [json.load(open(path(f"{n}.ckpt.manifest.json")))
+              for n in ("straight", "resumed")]
+    rec.update({"taxa": analysis.n_taxa, "log_rows": n_rows,
+                "log_columns": cols, "trees": len(trees),
+                "final_log_posterior": {
+                    "straight": finals[0]["log_posterior"],
+                    "resumed": finals[1]["log_posterior"]},
+                "resumed_equals_straight": (finals[0]["log_posterior"]
+                                            == finals[1]["log_posterior"])})
+    log(f"[P12] log {n_rows} rows, columns {cols}; {len(trees)} trees of "
+        f"{analysis.n_taxa} taxa read back; final log posterior straight "
+        f"{finals[0]['log_posterior']!r}, resumed "
+        f"{finals[1]['log_posterior']!r} (equal: "
+        f"{rec['resumed_equals_straight']})")
+
+    reset_counts()
+    step = make_mcmc_step(analysis.log_posterior, analysis.operators)
+    gen = torch.Generator(device=dev).manual_seed(SPEC_SEED)
+    state = init_mcmc_state(analysis.params0, analysis.tree0, gen,
+                            analysis.operators, analysis.log_posterior)
+    state = load_checkpoint(path("half.ckpt"), state)
+    rec["reload_deviation"] = abs(
+        float(analysis.log_posterior(state.params, state.tree))
+        - float(state.log_posterior))
+    if not rec["reload_deviation"] <= FULL_EVAL_TOL:
+        raise AssertionError(f"P12 reload {rec['reload_deviation']}")
+    state, dev_max = full_evaluation_check(step, analysis.log_posterior,
+                                           state, n_check)
+    rec["full_evaluation_deviation"] = float(dev_max)
+    wall, busy = device_ms(lambda: run_chain(step, state, n_profile),
+                           "p12 importer chain", n_profile)
+    rec["profile_ms_per_step"] = wall
+    rec["device_busy_share"] = None if busy is None else busy / wall
+    counts = read_counts()
+    # the start, the reload check, each checked step and its fresh
+    # evaluation, the profiled steps
+    want = 2 + 2 * n_check + n_profile
+    launches["P12 built analysis"] = counts
+    log(f"[P12] built analysis: reload deviation "
+        f"{rec['reload_deviation']!r}, full-evaluation deviation over "
+        f"{n_check} steps {rec['full_evaluation_deviation']!r} (tolerance "
+        f"{FULL_EVAL_TOL}), {wall:.3f} ms a step under the profiler, busy "
+        f"share {rec['device_busy_share']}, launches {json.dumps(counts)}")
+    if counts != {k: want * (k == "peel_stream") for k in counts}:
+        raise AssertionError(f"P12 built analysis: launches {counts}, "
+                             f"expected {want} peel_stream")
+    if not rec["full_evaluation_deviation"] <= FULL_EVAL_TOL:
+        raise AssertionError("P12 full-evaluation deviation "
+                             f"{rec['full_evaluation_deviation']}")
+    return rec, launches
 
 
 def chain_gradient_checks(peel_cases, post_cases, chain_inputs, analyses,
@@ -2840,6 +3192,18 @@ def main():
         [], chain_inputs, analyses, reset_counts, read_counts, dev)
     mark("11 codon+gamma4")
 
+    # -- phase 12: the importer route at the Makona shape ---------------
+    doc = os.path.join(SMOKE_OUT, "makona_spec.xml")
+    os.makedirs(SMOKE_OUT, exist_ok=True)
+    t0 = time.perf_counter()
+    p12_doc = spec_document(doc, device=dev)
+    log(f"[P12] wrote {doc} in {time.perf_counter() - t0:.2f} s: "
+        f"{json.dumps(p12_doc)}")
+    p12, p12_launches = spec_path(doc, SMOKE_OUT, reset_counts, read_counts,
+                                  device_ms, dev)
+    p12.update(p12_doc)
+    mark("12 importer route")
+
     # -- summary ------------------------------------------------------
     def entry(kname, source, replaces, launches, label):
         rec = next(r for r in checks[kname] if r["label"] == label)
@@ -2917,6 +3281,21 @@ def main():
             f"{r['grad_max_rel_err_vs_single']!r} launches "
             f"{r['launches_per_gradient']}" for r in p11_grads)
         + f"; on {smi_line}")
+    log(f"[summary p9 logs] makona joint: {j_rec['log_rows']} log rows, "
+        f"{j_rec['trees']} annotated trees read back; host ms of an "
+        f"annotated tree sample {j_rec['tree_sample_ms']}; on {smi_line}")
+    straight = p12["straight"]
+    log(f"[summary p12] importer route {p12['taxa']} taxa x {p12['sites']} "
+        f"sites ({p12['patterns']} patterns): straight run "
+        f"{straight['states_per_s']} states/s ({straight['cli_seconds']:.2f} "
+        f"s of CLI), peel_stream launches "
+        f"{straight['launches']['peel_stream']} in {SPEC_STEPS} steps; "
+        f"resumed final log posterior equals the straight one: "
+        f"{p12['resumed_equals_straight']} "
+        f"({json.dumps(p12['final_log_posterior'])}); reload deviation "
+        f"{p12['reload_deviation']!r}; full-evaluation deviation "
+        f"{p12['full_evaluation_deviation']!r}; device busy share "
+        f"{p12['device_busy_share']}; on {smi_line}")
     log(f"[phases] {json.dumps(phases)}")
     log(smi_line)
     print(json.dumps({"kernels": [
@@ -2946,7 +3325,8 @@ def main():
                              "stream entry points": ring_counts,
                              **p8_launches,
                              "makona joint": j_launches,
-                             **p10_launches, **p11_launches}}), flush=True)
+                             **p10_launches, **p11_launches,
+                             **p12_launches}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

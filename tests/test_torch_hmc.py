@@ -398,4 +398,4 @@ def test_operator_settings_carry_across():
     assert (type(scale).__name__, scale.parameter, scale.weight) == (
         "ScaleOperator", "alpha", 2.0)
     with pytest.raises(ValueError, match="no counterpart"):
-        operator_from(jops.SwapOperator(parameter="x"))
+        operator_from(jops.UniformRealOperator(parameter="x"))

@@ -21,9 +21,26 @@ def _modules():
 
 def test_import_every_module_without_jax():
     # every kernel's wrapper, the data modules, the samplers, MC3, the
-    # component cache and the joint analysis's modules are among the
-    # modules found
+    # component cache, the joint analysis's modules and the run surface
+    # (config, runner, loggers, checkpoint, ancestral draw, the command
+    # line) are among the modules found
     assert {"beast_mcmc_tpu_torch.apps.makona",
+            "beast_mcmc_tpu_torch.__main__",
+            "beast_mcmc_tpu_torch.apps.runner",
+            "beast_mcmc_tpu_torch.config",
+            "beast_mcmc_tpu_torch.config.builder",
+            "beast_mcmc_tpu_torch.config.spec",
+            "beast_mcmc_tpu_torch.config.xml_import",
+            "beast_mcmc_tpu_torch.inference.checkpoint",
+            "beast_mcmc_tpu_torch.inference.loggers",
+            "beast_mcmc_tpu_torch.inference.operators",
+            "beast_mcmc_tpu_torch.inference.trace",
+            "beast_mcmc_tpu_torch.models.coalescent",
+            "beast_mcmc_tpu_torch.models.priors",
+            "beast_mcmc_tpu_torch.models.speciation",
+            "beast_mcmc_tpu_torch.ops.ancestral",
+            "beast_mcmc_tpu_torch.tree.topology",
+            "beast_mcmc_tpu_torch.utils.dtypes",
             "beast_mcmc_tpu_torch.apps.seqgen",
             "beast_mcmc_tpu_torch.inference.tree_operators",
             "beast_mcmc_tpu_torch.models.clock",

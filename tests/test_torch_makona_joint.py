@@ -13,7 +13,12 @@ chain evaluates them) to 1e-10 relative, the expm ones (geoLikelihood) to
 1e-9, at the start and after 20 steps of a JAX chain; the components'
 dependency sets to JAX's trace_deps; a 200-step chain of the port to the
 full-evaluation check (0.1); apps/makona.py's reader to JAX's taxa; the
-sequence simulator's law to JAX's and to the exact pattern probabilities.
+sequence simulator's law to JAX's and to the exact pattern probabilities;
+the document's five <log> columns at the start state to JAX's (1e-10) and
+its annotation tag and labels; the annotation draw's site log-likelihood
+to JAX's geoLikelihood (1e-9); a chain that writes the log and the
+annotated trees (apps/makona.py::run_joint_logged) ends in the state of
+the same chain unlogged, and its tree file reads back.
 """
 
 import subprocess
@@ -325,3 +330,92 @@ def test_sequence_simulator_law(tmp_path):
                                  .numpy()).all(0))[0])
              for j in range(pats.shape[1])]
     assert first == sorted(first)
+
+
+def test_log_columns_and_annotation_match_jax(joint):
+    """The document's five <log> columns at the start state, and the
+    annotation's tag and state labels, against JAX's XmlAnalysis (its
+    columns evaluated under jit) to 1e-10."""
+    import types
+
+    from beast_mcmc_tpu_torch.apps.makona import (
+        JOINT_COLUMNS, LOCATION_TAG, joint_columns)
+
+    ax = joint["ax"]
+    params, tree = joint["states"][0]
+    mcmc_el = ax.root.find("mcmc")
+    cols = ax._log_columns(mcmc_el.find("log"))
+    assert [name for name, _ in cols] == list(JOINT_COLUMNS)
+    log_post, ops, p0, t0, _ = _port(joint, params, tree)
+    state = init_mcmc_state(p0, t0, torch.Generator().manual_seed(1), ops,
+                            log_post)
+    got = joint_columns(state)
+    for name, fn in cols:
+        ref = float(jax.jit(lambda p, t, f=fn: f(types.SimpleNamespace(
+            params=p, tree=t)))(params, tree))
+        assert got[name].dim() == 0
+        assert float(got[name]) == pytest.approx(ref, rel=RTOL), name
+    rec = ax._ancestral_liks["geoLikelihood"]
+    assert rec["tag"] == LOCATION_TAG
+    assert rec["labels"] == read_makona_xml(str(joint["path"]))[
+        "location_codes"]
+
+
+def test_location_states_match_jax_geo_likelihood(joint):
+    """location_states (the annotation's draw) peels the trait with the
+    matrices of JAX's states_fn: JAX's geoLikelihood clock is the unit one
+    there, and the draw's site log-likelihood equals JAX's geoLikelihood
+    (one pattern of weight 1) to 1e-9, at the start and after 20 JAX
+    steps. Tips keep their data."""
+    from beast_mcmc_tpu_torch.apps.makona import location_states
+
+    parts = joint["ax"]._treelik_parts["geoLikelihood"]
+    geo_leaf = joint["leaves"][NAMES.index("geoLikelihood")]
+    data = np.argmax(joint["geo"], axis=1)
+    for params, tree in joint["states"]:
+        np.testing.assert_array_equal(
+            np.asarray(jax.jit(parts["clock"].rates)(params, tree)), 1.0)
+        _, _, p0, t0, aux = _port(joint, params, tree)
+        states, site_logl = location_states(
+            p0, t0, aux["geo_tips"], torch.Generator().manual_seed(3))
+        assert site_logl.shape == (1,) and site_logl.dtype == torch.float64
+        ref = float(jax.jit(geo_leaf.fn)(params, tree))
+        assert float(site_logl[0]) == pytest.approx(ref, rel=RTOL_EXPM)
+        np.testing.assert_array_equal(states[:len(data)].numpy(), data)
+
+
+def test_tree_logger_leaves_the_chain_alone(joint, tmp_path):
+    """run_joint_logged (a log row every 10 steps, an annotated tree every
+    50) ends in the very state of run_chain over the same steps; the tree
+    file reads back with every node annotated and the tips their data
+    (chip_smoke.check_joint_trees)."""
+    import chip_smoke
+
+    from beast_mcmc_tpu_torch.apps.makona import run_joint_logged
+
+    params, tree = joint["states"][0]
+    log_post, ops, p0, t0, aux = _port(joint, params, tree)
+    step = make_mcmc_step(log_post, ops, components=aux["components"],
+                          op_tree_flags=aux["op_tree_flags"])
+
+    def start():
+        return init_mcmc_state(p0, t0, torch.Generator().manual_seed(4), ops,
+                               log_post)
+
+    plain, _ = run_chain(step, start(), 100)
+    cfg = read_makona_xml(str(joint["path"]))
+    files = [str(tmp_path / f"j.{ext}") for ext in ("log", "trees")]
+    logged, info = run_joint_logged(step, start(), 100, aux["geo_tips"],
+                                    cfg["taxa"], cfg["location_codes"],
+                                    *files, 10, 50, 4)
+    for k in plain.params:
+        assert torch.equal(plain.params[k], logged.params[k]), k
+    assert torch.equal(plain.tree.heights, logged.tree.heights)
+    assert torch.equal(plain.tree.parent, logged.tree.parent)
+    assert torch.equal(plain.log_posterior, logged.log_posterior)
+    assert (info["rows"], info["trees"]) == (10, 2)
+    assert chip_smoke.check_joint_trees(files[1], cfg) == 2
+    rows = [ln.split("\t") for ln in open(files[0]) if ln[:1].isdigit()]
+    assert [int(r[0]) for r in rows] == list(range(10, 101, 10))
+    assert float(rows[-1][1]) == pytest.approx(float(plain.log_posterior),
+                                               rel=1e-9)
