@@ -3,6 +3,10 @@
     python -m beast_mcmc_tpu_torch run analysis.xml [-seed N]
         [-chain_length N] [-save_state FILE] [-load_state FILE]
         [-log FILE] [-trees FILE] [-overwrite] [-device cuda|cpu]
+        [-mc3_chains N] [-mc3_delta D] [-mc3_temperatures T1,T2,...]
+        [-mc3_swap K]
+    python -m beast_mcmc_tpu_torch loganalyser|logcombiner|treeannotator|
+        seqgen|treestat ...
 
 Counterpart of beast_mcmc_tpu/__main__.py, BeastMain's flag surface
 (BeastMain.java:370-460: -seed, -save_state/-load_state, -overwrite; the
@@ -10,21 +14,26 @@ XML file is the analysis). `run` takes the declarative importer route:
 config/xml_import.py -> AnalysisSpec -> apps/runner.py::run_analysis,
 which writes a Tracer-compatible tab log and a NEXUS tree log (by default
 <xml base name>.log and .trees in the working directory). -device picks
-the card (cuda, the default) or the CPU.
+the card (cuda, the default) or the CPU. -mc3_chains N > 1 runs N
+Metropolis-coupled chains (BeastMain.java:436-440) as one chain batch:
+the ladder 1 / (1 + delta k), or 1 followed by -mc3_temperatures; a swap
+attempt every -mc3_swap states; the cold chain's log only.
+
+The sub-tools keep the reference's app names (LogAnalyser.java,
+LogCombiner.java, TreeAnnotator.java, SeqGen.java, TreeStatApp) and run
+the port's apps/ modules of the same names.
 
 Not ported yet, and refused with a message and a non-zero code, never run
 in another way: -testxml and the interpreter fallback for documents
-outside the importer's vocabulary (ROADMAP queue A item 5, the XML layer),
--particles (queue A item 4f, inference/smc.py), and the sub-tools
-loganalyser, logcombiner, treeannotator, seqgen and treestat (queue A item
-3). -mc3_chains > 1 raises NotImplementedError (queue A, the builder's
-chain-axis posterior), and the other -mc3_* flags come with it. An
-unknown command returns 2.
+outside the importer's vocabulary (ROADMAP queue A item 5, the XML layer)
+and -particles (queue A item 4f, inference/smc.py). An unknown command
+returns 2.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
 import os
 import sys
 
@@ -54,7 +63,13 @@ def _cmd_run(argv) -> int:
     p.add_argument("-trees", default=None, help="NEXUS tree log file")
     p.add_argument("-overwrite", action="store_true")
     p.add_argument("-mc3_chains", type=int, default=1,
-                   help="number of Metropolis-coupled chains (only 1)")
+                   help="number of Metropolis-coupled chains")
+    p.add_argument("-mc3_delta", type=float, default=None,
+                   help="temperature increment parameter")
+    p.add_argument("-mc3_temperatures", default=None,
+                   help="comma-separated hot-chain temperatures")
+    p.add_argument("-mc3_swap", type=int, default=100,
+                   help="states between chain swap attempts")
     p.add_argument("-testxml", action="store_true",
                    help="the TestXML interpreter (not ported)")
     p.add_argument("-device", default="cuda",
@@ -90,10 +105,14 @@ def _cmd_run(argv) -> int:
     base = os.path.splitext(os.path.basename(args.xml))[0]
     log_file = args.log or f"{base}.log"
     tree_file = args.trees or f"{base}.trees"
+    mc3_temps = (None if args.mc3_temperatures is None else
+                 [float(x) for x in args.mc3_temperatures.split(",")])
     result = run_analysis(
         spec, log_file=log_file, tree_file=tree_file,
         checkpoint_file=args.save_state, load_state=args.load_state,
-        mc3_chains=args.mc3_chains, device=args.device)
+        mc3_chains=args.mc3_chains, mc3_delta=args.mc3_delta,
+        mc3_temperatures=mc3_temps, mc3_swap=args.mc3_swap,
+        device=args.device)
     print(result.report)
     print(f"{result.states_per_sec:.1f} states/sec; logs: {log_file}, "
           f"{tree_file}")
@@ -109,8 +128,14 @@ def main(argv=None) -> int:
     if cmd == "run":
         return _cmd_run(rest)
     if cmd in SUB_TOOLS:
-        return _not_ported(f"the {cmd} tool", "3")
-    print(f"unknown command {cmd!r}; try: run", file=sys.stderr)
+        tool = importlib.import_module(f"beast_mcmc_tpu_torch.apps.{cmd}")
+        try:
+            return tool.main(rest) or 0
+        except OSError as e:  # a missing or unreadable input or output
+            print(f"{cmd}: {e}", file=sys.stderr)
+            return 1
+    print(f"unknown command {cmd!r}; try: run, {', '.join(SUB_TOOLS)}",
+          file=sys.stderr)
     return 2
 
 

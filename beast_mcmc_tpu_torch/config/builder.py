@@ -13,6 +13,13 @@ card's kernels for CUDA tensors (a 1,610-taxon GTR+Gamma4 partition:
 one peel_stream launch an evaluation) and to their plain versions on the
 CPU. There is no derived cache: every evaluation rebuilds the eigensystem
 and the rates, as the JAX package's does.
+
+`Analysis.log_posterior_chains(params, tree) -> [B]` is the same posterior
+over a chain batch (params [B, ...], the tree's fields [B, M], as
+inference/mc3.py::replicate_state makes them), the port's form of
+jax.vmap(log_posterior) that the JAX package's MC3 runs: every model term
+carries the chain axis, a fixed parameter is broadcast over it, and each
+partition is one peel for all B chains (one kernel launch on the card).
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from beast_mcmc_tpu_torch.utils.dtypes import DEFAULT_DEVICE, default_float
 @dataclasses.dataclass
 class Analysis:
     log_posterior: Callable
+    log_posterior_chains: Callable
     log_likelihood: Callable
     log_prior: Callable
     operators: List[O.Operator]
@@ -57,27 +65,27 @@ class Analysis:
     n_taxa: int
 
 
-def _prior_logpdf(prior, value, aux):
-    if prior is None:
-        return 0.0
+def _prior_logpdf(prior, value, aux, chains=False):
+    """The prior's log density at value; [B] with `chains` (value [B, ...],
+    aux["tree_length"] [B])."""
     if isinstance(prior, S.LogNormalPrior):
-        return P.lognormal_logpdf(value, prior.mu, prior.sigma)
+        return P.lognormal_logpdf(value, prior.mu, prior.sigma, chains)
     if isinstance(prior, S.NormalPrior):
-        return P.normal_logpdf(value, prior.mean, prior.stdev)
+        return P.normal_logpdf(value, prior.mean, prior.stdev, chains)
     if isinstance(prior, S.GammaPrior):
-        return P.gamma_logpdf(value, prior.shape, prior.scale)
+        return P.gamma_logpdf(value, prior.shape, prior.scale, chains)
     if isinstance(prior, S.ExponentialPrior):
-        return P.exponential_logpdf(value, prior.mean)
+        return P.exponential_logpdf(value, prior.mean, chains)
     if isinstance(prior, S.UniformPrior):
-        return P.uniform_logpdf(value, prior.lower, prior.upper)
+        return P.uniform_logpdf(value, prior.lower, prior.upper, chains)
     if isinstance(prior, S.OneOnXPrior):
-        return P.one_on_x_logpdf(value)
+        return P.one_on_x_logpdf(value, chains)
     if isinstance(prior, S.DirichletPrior):
         alpha = torch.as_tensor(np.asarray(prior.alpha, np.float64),
                                 dtype=value.dtype, device=value.device)
-        return P.dirichlet_logpdf(value, alpha.expand(value.shape))
+        return P.dirichlet_logpdf(value, alpha, chains)
     if isinstance(prior, S.CTMCScalePrior):
-        return P.ctmc_scale_logpdf(value, aux["tree_length"])
+        return P.ctmc_scale_logpdf(value, aux["tree_length"], chains)
     raise TypeError(f"unknown prior {prior!r}")
 
 
@@ -120,9 +128,12 @@ class _Registry:
                     O.DeltaExchangeOperator(parameter=name, weight=w))
         return name
 
-    def get(self, params: Dict, name: str):
+    def get(self, params: Dict, name: str, b=None):
+        """The parameter's value; a fixed one broadcast over b chains where
+        b is given (params then carry the chain axis)."""
         if name in self.fixed:
-            return self.fixed[name]
+            v = self.fixed[name]
+            return v if b is None else v.expand(b, *v.shape)
         return params[name]
 
 
@@ -161,41 +172,43 @@ def _frequencies(sub, pats, reg):
 
 
 def _eigen_fn(sub, pname, freqs, reg):
-    """fn(params) -> the partition's eigensystem; registers its params."""
+    """fn(params, b) -> the partition's eigensystem, batched over b chains
+    where b is given (JC's is shared); registers its params."""
     if isinstance(sub, S.HKY):
         kn = reg.add(f"{pname}.kappa", sub.kappa)
-        return lambda prm: subst.hky_eigen(reg.get(prm, kn), freqs)
+        return lambda prm, b: subst.hky_eigen(reg.get(prm, kn, b), freqs)
     if isinstance(sub, S.TN93):
-        a = reg.add(f"{pname}.kappa1", sub.kappa1)
-        b = reg.add(f"{pname}.kappa2", sub.kappa2)
-        return lambda prm: subst.tn93_eigen(reg.get(prm, a),
-                                            reg.get(prm, b), freqs)
+        k1 = reg.add(f"{pname}.kappa1", sub.kappa1)
+        k2 = reg.add(f"{pname}.kappa2", sub.kappa2)
+        return lambda prm, b: subst.tn93_eigen(reg.get(prm, k1, b),
+                                               reg.get(prm, k2, b), freqs)
     if isinstance(sub, S.GTR):
         rn = reg.add(f"{pname}.gtr.rates", sub.rates)
-        return lambda prm: subst.gtr_eigen(reg.get(prm, rn), freqs)
+        return lambda prm, b: subst.gtr_eigen(reg.get(prm, rn, b), freqs)
     if isinstance(sub, S.JC69):
         eig0 = subst.jc_eigen(freqs)
-        return lambda prm: eig0
+        return lambda prm, b: eig0
     if isinstance(sub, S.GeneralReversible):
         n_r = sub.n_states * (sub.n_states - 1) // 2
         rp = sub.rates or S.Param(np.ones(n_r), prior=S.GammaPrior(1.0, 1.0),
                                   operator_weight=2.0)
         rn = reg.add(f"{pname}.rates", rp)
         if not sub.bssvs:
-            return lambda prm: subst.general_reversible_eigen(
-                reg.get(prm, rn), freqs)
+            return lambda prm, b: subst.general_reversible_eigen(
+                reg.get(prm, rn, b), freqs)
         iname = f"{pname}.indicators"
         reg.params0[iname] = torch.ones(n_r, dtype=torch.int32,
                                         device=reg.device)
         reg.operators.append(O.BitFlipOperator(parameter=iname, weight=3.0))
-        return lambda prm: subst.general_reversible_eigen(
-            subst.svs_masked_rates(reg.get(prm, rn),
+        return lambda prm, b: subst.general_reversible_eigen(
+            subst.svs_masked_rates(reg.get(prm, rn, b),
                                    prm[iname].to(freqs.dtype)), freqs)
     raise TypeError(f"unknown substitution model {sub!r}")
 
 
 def _rates_fn(smod, pname, reg):
-    """fn(params) -> (category rates, weights); registers the site
+    """fn(params, b) -> (category rates, weights), [B, C] over b chains
+    where b is given (weights [C] where they are shared); registers the site
     model's params."""
     mn = reg.add(f"{pname}.mu", smod.mu) if smod.mu is not None else None
     an = (reg.add(f"{pname}.alpha", smod.alpha)
@@ -204,27 +217,32 @@ def _rates_fn(smod, pname, reg):
           if smod.p_invariant is not None else None)
     nc, dtype = smod.categories, reg.dtype
 
-    def rates_fn(prm):
-        mu = reg.get(prm, mn) if mn else None
+    def rates_fn(prm, b):
+        mu = reg.get(prm, mn, b) if mn else None
         if an is not None:
             return sm.discrete_gamma_rates(
-                reg.get(prm, an), nc,
-                p_invariant=reg.get(prm, pn) if pn else None, mu=mu,
+                reg.get(prm, an, b), nc,
+                p_invariant=reg.get(prm, pn, b) if pn else None, mu=mu,
                 dtype=dtype)
         if pn is not None:
-            return sm.invariant_only_rates(reg.get(prm, pn), mu)
+            return sm.invariant_only_rates(reg.get(prm, pn, b), mu)
         return sm.single_rate(mu, dtype, reg.device)
 
     return rates_fn
 
 
 def _clock(spec, reg, m):
-    """(branch_rates_fn(params) -> [M], whether the rate is estimated)."""
+    """(branch_rates_fn(params, b) -> [M], or [B, M] over b chains where b
+    is given; whether the rate is estimated)."""
     dtype = reg.dtype
     if isinstance(spec.clock, S.StrictClock):
         rn = reg.add("clock.rate", spec.clock.rate)
-        return (lambda prm: reg.get(prm, rn).to(dtype).expand(m),
-                spec.clock.rate.estimate)
+
+        def strict(prm, b):
+            rate = reg.get(prm, rn, b).to(dtype)
+            return rate.expand(m) if b is None else rate[:, None].expand(b, m)
+
+        return strict, spec.clock.rate.estimate
     if isinstance(spec.clock, S.RelaxedClockLognormal):
         mn = reg.add("ucld.mean", spec.clock.mean)
         sn = reg.add("ucld.stdev", spec.clock.stdev)
@@ -236,25 +254,31 @@ def _clock(spec, reg, m):
             upper=nc - 1))
         reg.operators.append(O.SwapOperator(
             parameter="branchRates.categories", weight=10.0))
-        return (lambda prm: clock_models.discretized_lognormal_rates(
-            prm["branchRates.categories"], reg.get(prm, mn),
-            reg.get(prm, sn), n_categories=nc).to(dtype),
-            spec.clock.mean.estimate)
+
+        def relaxed(prm, b):
+            mean, stdev = reg.get(prm, mn, b), reg.get(prm, sn, b)
+            if b is not None:  # a chain's moments beside its row of rates
+                mean, stdev = mean[:, None], stdev[:, None]
+            return clock_models.discretized_lognormal_rates(
+                prm["branchRates.categories"], mean, stdev,
+                n_categories=nc).to(dtype)
+
+        return relaxed, spec.clock.mean.estimate
     raise TypeError(f"unknown clock {spec.clock!r}")
 
 
 def _tree_prior(tp, reg, n_taxa):
-    """fn(params, tree) -> the tree prior's log density; registers its
-    params."""
+    """fn(params, tree, b) -> the tree prior's log density, [B] over b
+    chains where b is given; registers its params."""
     if isinstance(tp, S.ConstantCoalescent):
         ps = reg.add("constant.popSize", tp.pop_size)
-        return lambda prm, tree: coal.constant_coalescent_loglik(
-            tree.heights, n_taxa, reg.get(prm, ps))
+        return lambda prm, tree, b: coal.constant_coalescent_loglik(
+            tree.heights, n_taxa, reg.get(prm, ps, b))
     if isinstance(tp, S.ExponentialGrowthCoalescent):
         ps = reg.add("exponential.popSize", tp.pop_size)
         gr = reg.add("exponential.growthRate", tp.growth_rate, op="walk")
-        return lambda prm, tree: coal.exponential_growth_loglik(
-            tree.heights, n_taxa, reg.get(prm, ps), reg.get(prm, gr))
+        return lambda prm, tree, b: coal.exponential_growth_loglik(
+            tree.heights, n_taxa, reg.get(prm, ps, b), reg.get(prm, gr, b))
     if isinstance(tp, S.SkygridCoalescent):
         cells = tp.n_cells
         cuts = reg.tensor(np.linspace(0, tp.cutoff, cells)[1:])
@@ -265,22 +289,22 @@ def _tree_prior(tp, reg, n_taxa):
             lower=-float("inf"), upper=float("inf"), window=0.5))
         pr = reg.add("skygrid.precision", tp.precision)
 
-        def skygrid(prm, tree):
+        def skygrid(prm, tree, b):
             g = prm["skygrid.logPopSizes"]
             return (coal.skygrid_loglik(tree.heights, n_taxa, g, cuts)
-                    + coal.gmrf_log_prior(g, reg.get(prm, pr)))
+                    + coal.gmrf_log_prior(g, reg.get(prm, pr, b)))
 
         return skygrid
     if isinstance(tp, S.YulePrior):
         br = reg.add("yule.birthRate", tp.birth_rate)
-        return lambda prm, tree: spn.yule_loglik(
-            tree.heights, n_taxa, tree.root, reg.get(prm, br))
+        return lambda prm, tree, b: spn.yule_loglik(
+            tree.heights, n_taxa, tree.root, reg.get(prm, br, b))
     if isinstance(tp, S.BirthDeathPrior):
         bd = reg.add("birthDeath.meanGrowthRate", tp.birth_diff_rate)
         dr = reg.add("birthDeath.relativeDeathRate", tp.relative_death_rate)
-        return lambda prm, tree: spn.birth_death_loglik(
-            tree.heights, n_taxa, tree.root, reg.get(prm, bd),
-            reg.get(prm, dr))
+        return lambda prm, tree, b: spn.birth_death_loglik(
+            tree.heights, n_taxa, tree.root, reg.get(prm, bd, b),
+            reg.get(prm, dr, b))
     raise TypeError(f"unknown tree prior {tp!r}")
 
 
@@ -343,30 +367,45 @@ def build(spec: S.AnalysisSpec, device=DEFAULT_DEVICE) -> Analysis:
     reg.operators.extend(spec.extra_operators)
 
     # ---- compose the posterior ------------------------------------------
-    def log_likelihood(params, tree):
-        branch_rates = branch_rates_fn(params)
-        total = torch.zeros((), dtype=dtype, device=device)
+    # b is None for one chain, else the chain count of a batch: the model
+    # terms are then [B], and each partition one peel for all B chains
+    def likelihood(params, tree, b):
+        branch_rates = branch_rates_fn(params, b)
+        total = torch.zeros(() if b is None else (b,), dtype=dtype,
+                            device=device)
         for tips, weights, freqs, eig_fn, rates_fn in partition_fns:
-            rates, cat_w = rates_fn(params)
+            rates, cat_w = rates_fn(params, b)
             total = total + tree_loglikelihood(
                 tips, weights, tree.parent, tree.children, tree.heights,
-                tree.root, eig_fn(params), freqs, rates.to(dtype),
+                tree.root, eig_fn(params, b), freqs, rates.to(dtype),
                 cat_w.to(dtype), branch_rates)
         return total
 
-    def log_prior(params, tree):
-        aux = {"tree_length": torch.sum(branch_lengths(tree.parent,
-                                                       tree.heights))}
-        total = tree_prior_fn(params, tree)
-        for name, prior in reg.priors:
-            total = total + _prior_logpdf(prior, params[name], aux)
+    def prior(params, tree, b):
+        chains = b is not None
+        aux = {"tree_length": torch.sum(
+            branch_lengths(tree.parent, tree.heights), dim=-1)}
+        total = tree_prior_fn(params, tree, b)
+        for name, pr in reg.priors:
+            total = total + _prior_logpdf(pr, params[name], aux, chains)
         return total
 
+    def log_likelihood(params, tree):
+        return likelihood(params, tree, None)
+
+    def log_prior(params, tree):
+        return prior(params, tree, None)
+
     def log_posterior(params, tree):
-        return log_likelihood(params, tree) + log_prior(params, tree)
+        return likelihood(params, tree, None) + prior(params, tree, None)
+
+    def log_posterior_chains(params, tree):
+        b = tree.parent.shape[0]
+        return likelihood(params, tree, b) + prior(params, tree, b)
 
     return Analysis(
         log_posterior=log_posterior,
+        log_posterior_chains=log_posterior_chains,
         log_likelihood=log_likelihood,
         log_prior=log_prior,
         operators=reg.operators,

@@ -68,10 +68,14 @@ def constant_coalescent_loglik(heights: torch.Tensor, n_taxa: int,
 def exponential_growth_loglik(heights: torch.Tensor, n_taxa: int,
                               pop_size, growth_rate) -> torch.Tensor:
     """Exponential growth N(t) = N0 exp(-r t) backwards in time
-    (ExponentialGrowth.java getIntensity); one tree."""
+    (ExponentialGrowth.java getIntensity). A chain batch, heights [B, M]
+    with pop_size and growth_rate [B], gives [B]."""
     n0 = torch.as_tensor(pop_size, dtype=heights.dtype, device=heights.device)
     r = torch.as_tensor(growth_rate, dtype=heights.dtype,
                         device=heights.device)
+    if heights.dim() == 2:
+        n0 = n0[..., None] if n0.dim() == 1 else n0
+        r = r[..., None] if r.dim() == 1 else r
 
     def intensity(t):
         # (exp(r t) - 1) / (r N0); the r -> 0 limit t / N0, via expm1
@@ -99,32 +103,37 @@ def skygrid_loglik(heights: torch.Tensor, n_taxa: int,
     [cut_{k-1}, cut_k) with cut_{-1} = 0 and cut_{K-1} = inf, gamma[k] =
     log N there. The interval term is a masked interval-by-cell overlap
     sum; an event exactly at a grid point belongs to the cell below it
-    (searchsorted, side left), as in the JAX package."""
+    (searchsorted, side left), as in the JAX package. A chain batch,
+    heights [B, M] and log_pop_sizes [B, K], gives [B]."""
     dt = heights.dtype
     times, lineages, is_coal = coalescent_intervals(heights, n_taxa)
     zero = torch.zeros(1, dtype=dt, device=heights.device)
     lo = torch.cat([zero, cut_points])
     hi = torch.cat([cut_points, torch.full_like(zero, float("inf"))])
-    t0, t1 = times[:-1, None], times[1:, None]
+    t0, t1 = times[..., :-1, None], times[..., 1:, None]
     overlap = torch.clamp(torch.minimum(t1, hi) - torch.maximum(t0, lo),
                           min=0.0)
-    k = lineages[:-1]
+    k = lineages[..., :-1]
     choose2 = (k * (k - 1) / 2.0).to(dt)
-    interval_term = -torch.sum(choose2[:, None] * overlap
-                               * torch.exp(-log_pop_sizes)[None, :])
+    interval_term = -torch.sum(
+        choose2[..., None] * overlap
+        * torch.exp(-log_pop_sizes)[..., None, :], dim=(-2, -1))
     cell = torch.searchsorted(cut_points, times, side="left")
-    event_term = -torch.sum(torch.where(is_coal, log_pop_sizes[cell],
-                                        torch.zeros_like(times)))
+    at_cell = (torch.gather(log_pop_sizes, -1, cell) if times.dim() == 2
+               else log_pop_sizes[cell])
+    event_term = -torch.sum(torch.where(is_coal, at_cell,
+                                        torch.zeros_like(times)), dim=-1)
     return interval_term + event_term
 
 
 def gmrf_log_prior(log_pop_sizes: torch.Tensor, precision) -> torch.Tensor:
     """First-order GMRF (RW1) smoothing prior on the skygrid's log
     populations (GMRFSkyrideLikelihood calculateLogFieldLikelihood):
-    (K-1)/2 log(tau / 2 pi) - tau / 2 sum (g_{k+1} - g_k)^2."""
+    (K-1)/2 log(tau / 2 pi) - tau / 2 sum (g_{k+1} - g_k)^2. A chain batch,
+    log_pop_sizes [B, K] and precision [B], gives [B]."""
     tau = torch.as_tensor(precision, dtype=log_pop_sizes.dtype,
                           device=log_pop_sizes.device)
-    diffs = torch.diff(log_pop_sizes)
-    k1 = diffs.shape[0]
+    diffs = torch.diff(log_pop_sizes, dim=-1)
+    k1 = diffs.shape[-1]
     return (0.5 * k1 * (torch.log(tau) - math.log(2 * math.pi))
-            - 0.5 * tau * torch.sum(diffs * diffs))
+            - 0.5 * tau * torch.sum(diffs * diffs, dim=-1))

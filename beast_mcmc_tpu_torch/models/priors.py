@@ -4,8 +4,7 @@ config layer's priors.
 Counterpart of beast_mcmc_tpu/models/priors.py:22,28,34,45,61,80,89,95,100.
 Each returns the sum of the elementwise log density, -inf outside the
 support; with `chains=True` the leading axis of x is a chain batch's, and
-the sum is taken per chain ([B]). The Dirichlet and CTMC-scale densities
-take one chain.
+the sum is taken per chain ([B]).
 """
 
 from __future__ import annotations
@@ -83,24 +82,34 @@ def poisson_logpmf(k: torch.Tensor, mean: float,
     return _total(k * math.log(mean) - mean - torch.lgamma(k + 1.0), chains)
 
 
-def dirichlet_logpdf(x: torch.Tensor, alpha) -> torch.Tensor:
+def dirichlet_logpdf(x: torch.Tensor, alpha,
+                     chains: bool = False) -> torch.Tensor:
     """Dirichlet(alpha) on a simplex x (<dirichletPrior>); -inf off the
-    simplex (a sum more than 1e-8 from 1, or an entry <= 0)."""
+    simplex (a sum more than 1e-8 from 1, or an entry <= 0). With
+    `chains` each row of x [B, K] is a chain's simplex."""
     alpha = torch.as_tensor(alpha, dtype=x.dtype, device=x.device)
-    safe = torch.all(x > 0) & (torch.abs(torch.sum(x) - 1.0) < 1e-8)
+    alpha = alpha.expand(x.shape)
+    positive = _total((x <= 0).to(x.dtype), chains) == 0
+    safe = positive & (torch.abs(_total(x, chains) - 1.0) < 1e-8)
     xs = torch.where(x > 0, x, torch.ones_like(x))
-    lp = (torch.sum((alpha - 1) * torch.log(xs))
-          + torch.lgamma(torch.sum(alpha)) - torch.sum(torch.lgamma(alpha)))
+    lp = (_total((alpha - 1) * torch.log(xs), chains)
+          + torch.lgamma(_total(alpha, chains))
+          - _total(torch.lgamma(alpha), chains))
     return torch.where(safe, lp, torch.full_like(lp, -math.inf))
 
 
-def ctmc_scale_logpdf(rate: torch.Tensor, tree_length) -> torch.Tensor:
+def ctmc_scale_logpdf(rate: torch.Tensor, tree_length,
+                      chains: bool = False) -> torch.Tensor:
     """The CTMC reference prior of an overall clock rate
     (CTMCScalePrior.java:51): p(rate) proportional to sqrt(T / rate)
-    e^{-rate T}, T the tree length in time units."""
+    e^{-rate T}, T the tree length in time units. With `chains` rate is
+    [B, ...] and tree_length [B], one per chain."""
     safe = rate > 0
     rs = torch.where(safe, rate, torch.ones_like(rate))
     tl = torch.as_tensor(tree_length, dtype=rate.dtype, device=rate.device)
+    if chains:
+        tl = tl.reshape(-1, *([1] * (rate.dim() - 1)))
     lp = (0.5 * (torch.log(tl) - torch.log(rs)) - rs * tl
           - math.lgamma(0.5))
-    return torch.sum(torch.where(safe, lp, torch.full_like(lp, -math.inf)))
+    return _total(torch.where(safe, lp, torch.full_like(lp, -math.inf)),
+                  chains)

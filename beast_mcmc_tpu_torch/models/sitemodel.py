@@ -56,21 +56,24 @@ def discrete_gamma_rates(alpha: torch.Tensor, n_categories: int,
 def single_rate(mu: Optional[torch.Tensor] = None,
                 dtype: torch.dtype = DEFAULT_FLOAT,
                 device=DEFAULT_DEVICE) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One category of rate mu (1 without it): ([1], [1]); mu [B] (a chain
+    batch) gives rates [B, 1] and the shared weights [1]."""
     r = torch.ones(1, dtype=dtype, device=device)
     if mu is not None:
-        r = r * mu
+        r = r * torch.as_tensor(mu)[..., None]
     return r, torch.ones(1, dtype=dtype, device=device)
 
 
 def invariant_only_rates(p_invariant: torch.Tensor,
                          mu: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """No gamma, just +I: one zero-rate category plus one at 1/(1 - pInv)."""
-    p_inv = torch.as_tensor(p_invariant).reshape(())
-    rates = torch.stack([torch.zeros_like(p_inv), 1.0 / (1.0 - p_inv)])
-    weights = torch.stack([p_inv, 1.0 - p_inv])
+    """No gamma, just +I: one zero-rate category plus one at 1/(1 - pInv).
+    p_invariant [B] (a chain batch, mu 0-d or [B]) gives [B, 2] each."""
+    p_inv = torch.as_tensor(p_invariant)
+    rates = torch.stack([torch.zeros_like(p_inv), 1.0 / (1.0 - p_inv)], -1)
+    weights = torch.stack([p_inv, 1.0 - p_inv], -1)
     if mu is not None:
-        rates = rates * mu
+        rates = rates * torch.as_tensor(mu)[..., None]
     return rates, weights
 
 

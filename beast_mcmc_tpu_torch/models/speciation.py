@@ -30,23 +30,36 @@ def birth_death_loglik(heights: torch.Tensor, n_taxa: int, root,
                        labeled: bool = True) -> torch.Tensor:
     """Gernhard08 birth-death density on an ultrametric tree's node
     heights; 0-d. labeled=True adds the LABELED coefficient 2^(n-1)/(n-1)!
-    of the reference's default <birthDeathModel> (logCoeff)."""
+    of the reference's default <birthDeathModel> (logCoeff). A chain
+    batch, heights [B, M] and root [B] with the rates 0-d or [B], gives
+    [B]."""
     dt, dev = heights.dtype, heights.device
-    r = torch.as_tensor(birth_diff_rate, dtype=dt, device=dev)
-    a = torch.as_tensor(relative_death_rate, dtype=dt, device=dev)
-    rho = torch.as_tensor(sample_probability, dtype=dt, device=dev)
+    chains = heights.dim() == 2
+    r, a, rho = (torch.as_tensor(v, dtype=dt, device=dev)
+                 for v in (birth_diff_rate, relative_death_rate,
+                           sample_probability))
     n = n_taxa
-    m = heights.shape[0]
+    m = heights.shape[-1]
     internal = torch.arange(m, device=dev) >= n
-    mrh = -r * heights
-    z = torch.log(rho + ((1.0 - rho) - a) * torch.exp(mrh))
+
+    def col(v):  # a chain's rate beside its row of heights
+        return v[..., None] if chains and v.dim() == 1 else v
+
+    mrh = -col(r) * heights
+    z = torch.log(col(rho) + ((1.0 - col(rho)) - col(a)) * torch.exp(mrh))
     node_terms = torch.where(internal, -2.0 * z + mrh, torch.zeros_like(z))
-    root = torch.as_tensor(root, device=dev).reshape(1)
-    root_term = (mrh[root] - z[root]).reshape(())
+    root = torch.as_tensor(root, device=dev)
+    if chains:
+        root = root.reshape(-1, 1)
+        root_term = (torch.gather(mrh, -1, root)
+                     - torch.gather(z, -1, root)).reshape(-1)
+    else:
+        root = root.reshape(1)
+        root_term = (mrh[root] - z[root]).reshape(())
     c1 = (n - 1) * torch.log(r * rho) + n * torch.log1p(-a)
     if labeled:
         c1 = c1 + (n - 1) * math.log(2.0) - math.lgamma(n)
-    return c1 + torch.sum(node_terms) + root_term
+    return c1 + torch.sum(node_terms, dim=-1) + root_term
 
 
 def yule_loglik(heights: torch.Tensor, n_taxa: int, root, birth_rate,

@@ -66,12 +66,14 @@ def gtr_eigen(rates6: torch.Tensor, freqs: torch.Tensor) -> EigenSystem:
 
 def tn93_eigen(kappa1, kappa2, freqs: torch.Tensor) -> EigenSystem:
     """TN93: separate purine (A<->G, kappa1) and pyrimidine (C<->T, kappa2)
-    transition rates."""
-    k1 = torch.as_tensor(kappa1, dtype=freqs.dtype, device=freqs.device)
-    k2 = torch.as_tensor(kappa2, dtype=freqs.dtype, device=freqs.device)
+    transition rates; kappa1 and kappa2 [B] (a chain batch) give B
+    systems."""
+    k1, k2 = torch.broadcast_tensors(
+        torch.as_tensor(kappa1, dtype=freqs.dtype, device=freqs.device),
+        torch.as_tensor(kappa2, dtype=freqs.dtype, device=freqs.device))
     # exchangeabilities AC, AG, AT, CG, CT, GT
-    one = torch.ones((), dtype=freqs.dtype, device=freqs.device)
-    return gtr_eigen(torch.stack([one, k1, one, one, k2, one]), freqs)
+    one = torch.ones_like(k1)
+    return gtr_eigen(torch.stack([one, k1, one, one, k2, one], dim=-1), freqs)
 
 
 def general_reversible_eigen(rates_vec: torch.Tensor,

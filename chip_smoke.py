@@ -147,6 +147,22 @@ result line):
      reloaded within 0.1; the resumed run's final log posterior against
      the straight run's; the built analysis's full-evaluation check over
      SPEC_CHECK steps and a profiler window.
+  13. the CLI's MC3 and the post-processing tools on phase 12's files
+     (`mc3_path`, `tools_path`): `run doc -mc3_chains MC3_CHAINS -mc3_swap
+     MC3_SWAP` for SPEC_STEPS steps, exactly one peel_stream launch a
+     batch step and the start's evaluation, nothing else; the cold
+     chain's log of SPEC_STEPS / MC3_SWAP rows; the built analysis's batch
+     (config/builder.py::Analysis.log_posterior_chains) run for one swap
+     round, its carried log posteriors against a fresh evaluation within
+     0.1, a profiler window of MC3_PROFILE batch steps, and the chain-axis
+     posterior at four parameter draws against four single-chain
+     posteriors to MC3_REL_TOL, with their exact launches; aggregate
+     states/s and swap acceptance printed, not gated. Then loganalyser on
+     the straight log, logcombiner of the halves' logs (its rows those of
+     the two at or past the burn-in), treeannotator's MCC tree of the
+     straight run's trees read back with every tip, treestat on them, and
+     seqgen down the last of them at the document's width on the card;
+     each tool exits 0, its host seconds printed.
 
 `python3 chip_smoke.py --tiles` instead builds the kernels and times the
 v1 streaming kernel at the plans its planner could pick, with its largest
@@ -1342,6 +1358,246 @@ def spec_path(doc, out_dir, reset_counts, read_counts, device_ms, dev,
         raise AssertionError("P12 full-evaluation deviation "
                              f"{rec['full_evaluation_deviation']}")
     return rec, launches
+
+
+# phase 13, the CLI's MC3 at the Makona shape: chains, steps between swaps
+# (SPEC_STEPS / MC3_SWAP logged rounds), the built batch's steps before its
+# full-evaluation check and in its profiler window, the seed of the four
+# parameter draws and their relative tolerance against single chains
+MC3_CHAINS, MC3_SWAP, MC3_CHECK, MC3_PROFILE = 4, 50, 50, 20
+MC3_DRAW_SEED, MC3_REL_TOL = 13, 1e-10
+# the sub-tools on phase 12's files: logcombiner's burn-in in states,
+# treeannotator's as a fraction, and seqgen's partition (GTR+Gamma4 at a
+# clock rate near the document's ucld.mean) and seed
+TOOLS_BURNIN_STATES, TOOLS_BURNIN_FRACTION = 50, 0.1
+SEQGEN_PARTITION, SEQGEN_SEED = "model=GTR,alpha=0.5,ncat=4,rate=0.001", 17
+
+
+def mc3_path(doc, out_dir, reset_counts, read_counts, device_ms, dev,
+             n_steps=SPEC_STEPS, swap=MC3_SWAP, n_chains=MC3_CHAINS,
+             n_check=MC3_CHECK, n_profile=MC3_PROFILE):
+    """Phase 13a: `python -m beast_mcmc_tpu_torch run doc -mc3_chains
+    n_chains -mc3_swap swap` through __main__.main, its launch counts set
+    to 0 just before and read just after: peel_stream exactly once a batch
+    step and once for the start, nothing else; the cold chain's log of
+    n_steps // swap rows under phase 12's columns. Then the built
+    analysis's batch, counted likewise: the start, one swap round of
+    n_check steps (inference/mc3.py), the carried [B] log posteriors
+    against log_posterior_chains within FULL_EVAL_TOL, a profiler window
+    of n_profile batch steps at the ladder's temperatures (device_ms), and
+    log_posterior_chains at n_chains parameter draws (from MC3_DRAW_SEED;
+    the relaxed clock's categories permuted, the rest scaled) on the
+    chains' trees against n_chains single-chain log_posterior calls to
+    MC3_REL_TOL relative. Returns (record, launches)."""
+    import contextlib
+    import io
+    import re
+
+    import numpy as np
+    import torch
+
+    from beast_mcmc_tpu_torch.__main__ import main as cli
+    from beast_mcmc_tpu_torch.config.builder import build
+    from beast_mcmc_tpu_torch.config.xml_import import parse_beast_xml_file
+    from beast_mcmc_tpu_torch.inference.mc3 import (
+        chain_state, make_mc3_runner, replicate_state)
+    from beast_mcmc_tpu_torch.inference.mcmc import (
+        init_mcmc_state, make_multichain_step, run_chain)
+
+    rec, launches = {}, {}
+    log_f = os.path.join(out_dir, "mc3.log")
+    n_rounds = n_steps // swap
+
+    def expect(label, counts, n):
+        launches[f"P13 {label}"] = counts
+        if counts != {k: n * (k == "peel_stream") for k in counts}:
+            raise AssertionError(f"P13 {label}: launches {counts}, expected "
+                                 f"{n} peel_stream")
+
+    reset_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli(["run", doc, "-seed", str(SPEC_SEED), "-device", str(dev),
+                  "-overwrite", "-chain_length", str(n_steps), "-log", log_f,
+                  "-mc3_chains", str(n_chains), "-mc3_swap", str(swap)])
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    out = buf.getvalue()
+    if rc != 0:
+        raise AssertionError(f"P13 MC3 CLI: rc {rc}\n{out}")
+    expect("mc3 cli", counts, 1 + n_rounds * swap)
+    rec["cli"] = {
+        "rc": rc, "cli_seconds": wall, "launches": counts,
+        "aggregate_states_per_s": float(
+            re.findall(r"([0-9.]+) states/sec", out)[-1]),
+        "swap_acceptance": float(
+            re.search(r"swap acceptance ([0-9.]+)", out).group(1)),
+        "temperatures": re.search(r"temperatures (\[[^\]]*\])",
+                                  out).group(1)}
+    log(f"[P13] mc3 CLI: rc {rc} in {wall:.2f} s, launches "
+        f"{json.dumps(counts)}, {rec['cli']['aggregate_states_per_s']} "
+        f"aggregate states/s, temperatures {rec['cli']['temperatures']}, "
+        f"swap acceptance {rec['cli']['swap_acceptance']}")
+
+    spec = parse_beast_xml_file(doc)
+    spec.mcmc.seed = SPEC_SEED
+    analysis = build(spec, device=dev)
+    cols = ["posterior", "treeModel.rootHeight"] + [
+        k for k, v in analysis.params0.items() if v.dim() == 0]
+    lines = open(log_f).read().splitlines()
+    header = next(ln for ln in lines if ln.startswith("state"))
+    rows = [ln.split("\t") for ln in lines if ln[:1].isdigit()]
+    if (header.split("\t") != ["state"] + cols or len(rows) != n_rounds
+            or [int(r[0]) for r in rows] != [swap * (i + 1)
+                                             for i in range(n_rounds)]):
+        raise AssertionError(f"P13 log: {len(rows)} rows under {header!r}")
+    rec["log_rows"] = len(rows)
+
+    reset_counts()
+    ops = analysis.operators
+    run, temps = make_mc3_runner(analysis.log_posterior_chains, ops,
+                                 n_chains, swap_every=n_check)
+    state0 = init_mcmc_state(
+        analysis.params0, analysis.tree0,
+        torch.Generator(device=dev).manual_seed(SPEC_SEED), ops,
+        analysis.log_posterior)
+    states = replicate_state(state0, n_chains, torch.Generator(
+        device=dev).manual_seed(SPEC_SEED + 1))
+    states, _ = run(states, torch.Generator().manual_seed(SPEC_SEED + 2), 1)
+    fresh = analysis.log_posterior_chains(states.params, states.tree)
+    rec["full_evaluation_deviation"] = float(
+        (fresh - states.log_posterior).abs().max())
+    mstep = make_multichain_step(analysis.log_posterior_chains, ops)
+    temps_dev = temps.to(dev)
+    wall_ms, busy = device_ms(
+        lambda: run_chain(lambda s, t: mstep(s, temps_dev), states,
+                          n_profile), "p13 mc3 batch", n_profile)
+    rec["profile_ms_per_batch_step"] = wall_ms
+    rec["device_busy_share"] = None if busy is None else busy / wall_ms
+
+    rng = np.random.default_rng(MC3_DRAW_SEED)
+    draws = {}
+    for k, v in analysis.params0.items():
+        v = v.cpu().numpy()
+        if v.dtype.kind == "i":
+            x = np.stack([rng.permutation(v) for _ in range(n_chains)])
+        else:
+            x = v * np.exp(rng.normal(0.0, 0.05, (n_chains,) + v.shape))
+        draws[k] = torch.as_tensor(x, device=dev)
+    batch = analysis.log_posterior_chains(draws, states.tree)
+    singles = torch.stack([analysis.log_posterior(
+        {k: v[b] for k, v in draws.items()}, chain_state(states, b).tree)
+        for b in range(n_chains)])
+    rec["draws_max_rel_err"] = float(((batch - singles).abs()
+                                      / singles.abs()).max())
+    rec["draws_log_posterior"] = batch.tolist()
+    expect("mc3 built batch", read_counts(),
+           1 + n_check + 1 + n_profile + 1 + n_chains)
+    log(f"[P13] built batch of {n_chains}: full-evaluation deviation after "
+        f"{n_check} steps {rec['full_evaluation_deviation']!r} (tolerance "
+        f"{FULL_EVAL_TOL}), {wall_ms:.3f} ms a batch step under the "
+        f"profiler, busy share {rec['device_busy_share']}; "
+        f"{n_chains} draws: chain-axis posterior {rec['draws_log_posterior']}"
+        f" against single chains, max relative error "
+        f"{rec['draws_max_rel_err']!r} (tolerance {MC3_REL_TOL}); launches "
+        f"{json.dumps(launches['P13 mc3 built batch'])}")
+    if not rec["full_evaluation_deviation"] <= FULL_EVAL_TOL:
+        raise AssertionError("P13 full-evaluation deviation "
+                             f"{rec['full_evaluation_deviation']}")
+    if not rec["draws_max_rel_err"] <= MC3_REL_TOL:
+        raise AssertionError(f"P13 draws: {rec['draws_max_rel_err']}")
+    return rec, launches
+
+
+def tools_path(out_dir, n_taxa, dev, n_sites=SPEC_SITES,
+               burnin_states=TOOLS_BURNIN_STATES):
+    """Phase 13b: the sub-tools through __main__.main on phase 12's files
+    in out_dir, each required to return 0, its host seconds recorded:
+    loganalyser on straight.log (every column reported); logcombiner of
+    first.log and resumed.log past burnin_states (its rows those of the
+    two at or past it); treeannotator's MCC tree of straight.trees
+    (read back by parse_newick with all n_taxa tips); treestat on
+    straight.trees (a row a tree); seqgen down the last tree of
+    straight.trees, n_sites columns under SEQGEN_PARTITION on `dev` (its
+    FASTA read back: n_taxa rows of n_sites, the pattern count recorded).
+    Returns the record."""
+    import contextlib
+    import io
+
+    from beast_mcmc_tpu_torch.__main__ import main as cli
+    from beast_mcmc_tpu_torch.apps.treeannotator import read_trees_file
+    from beast_mcmc_tpu_torch.data.alignment import SitePatterns
+    from beast_mcmc_tpu_torch.data.io import read_fasta
+    from beast_mcmc_tpu_torch.tree.topology import parse_newick, to_newick
+
+    path = lambda name: os.path.join(out_dir, name)  # noqa: E731
+    rec = {}
+
+    def tool(name, argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli([name] + argv)
+        secs = time.perf_counter() - t0
+        rec[name] = {"rc": rc, "host_seconds": secs}
+        log(f"[P13b] {name}: rc {rc} in {secs:.2f} s")
+        if rc != 0:
+            raise AssertionError(f"P13b {name}: rc {rc}\n{buf.getvalue()}")
+        return buf.getvalue()
+
+    def rows(f, burnin=0):
+        return [ln for ln in open(f) if ln[:1].isdigit()
+                and int(ln.split("\t")[0]) >= burnin]
+
+    report = tool("loganalyser", [path("straight.log")])
+    header = next(ln for ln in open(path("straight.log"))
+                  if ln.startswith("state")).split("\t")[1:]
+    missing = [c.strip() for c in header if c.strip() not in report]
+    if missing:
+        raise AssertionError(f"P13b loganalyser: {missing} not reported")
+
+    tool("logcombiner", ["-burnin", str(burnin_states),
+                         path("first.log"), path("resumed.log"),
+                         path("combined.log")])
+    want = sum(len(rows(path(f), burnin_states))
+               for f in ("first.log", "resumed.log"))
+    rec["logcombiner"]["rows"] = len(rows(path("combined.log")))
+    if rec["logcombiner"]["rows"] != want:
+        raise AssertionError(f"P13b logcombiner: {rec['logcombiner']['rows']}"
+                             f" rows, expected {want}")
+
+    tool("treeannotator", ["-burnin", str(TOOLS_BURNIN_FRACTION),
+                           path("straight.trees"), path("mcc.tree")])
+    tips = parse_newick(open(path("mcc.tree")).read())[4]
+    trees = read_trees_file(path("straight.trees"))
+    rec["treeannotator"]["tips"] = len(tips)
+    if len(tips) != n_taxa or set(tips) != set(trees[0].taxa):
+        raise AssertionError(f"P13b treeannotator: {len(tips)} tips")
+
+    tool("treestat", [path("straight.trees"), "-output",
+                      path("treestat.txt")])
+    rec["treestat"]["rows"] = sum(1 for ln in open(path("treestat.txt"))
+                                  if ln[:1].isdigit())
+    if rec["treestat"]["rows"] != len(trees):
+        raise AssertionError(f"P13b treestat: {rec['treestat']['rows']} rows")
+
+    last = trees[-1]
+    with open(path("last.nwk"), "w") as f:
+        f.write(to_newick(last.parent, last.children, last.heights,
+                          last.root, last.taxa) + "\n")
+    tool("seqgen", ["-tree", path("last.nwk"), "-partition",
+                    f"length={n_sites},{SEQGEN_PARTITION}", "-seed",
+                    str(SEQGEN_SEED), "-output", path("seqgen.fasta"),
+                    "-device", str(dev)])
+    aln = read_fasta(open(path("seqgen.fasta")).read())
+    rec["seqgen"]["shape"] = list(aln.states.shape)
+    rec["seqgen"]["patterns"] = SitePatterns.from_alignment(aln).n_patterns
+    if rec["seqgen"]["shape"] != [n_taxa, n_sites]:
+        raise AssertionError(f"P13b seqgen: {rec['seqgen']['shape']}")
+    log(f"[P13b] seqgen wrote {n_taxa} x {n_sites}: "
+        f"{rec['seqgen']['patterns']} patterns")
+    return rec
 
 
 def chain_gradient_checks(peel_cases, post_cases, chain_inputs, analyses,
@@ -3204,6 +3460,12 @@ def main():
     p12.update(p12_doc)
     mark("12 importer route")
 
+    # -- phase 13: the CLI's MC3 and the sub-tools on phase 12's files --
+    p13, p13_launches = mc3_path(doc, SMOKE_OUT, reset_counts, read_counts,
+                                 device_ms, dev)
+    p13["tools"] = tools_path(SMOKE_OUT, p12["taxa"], dev)
+    mark("13 mc3 and tools")
+
     # -- summary ------------------------------------------------------
     def entry(kname, source, replaces, launches, label):
         rec = next(r for r in checks[kname] if r["label"] == label)
@@ -3296,6 +3558,19 @@ def main():
         f"{p12['reload_deviation']!r}; full-evaluation deviation "
         f"{p12['full_evaluation_deviation']!r}; device busy share "
         f"{p12['device_busy_share']}; on {smi_line}")
+    tools = p13["tools"]
+    log(f"[summary p13] MC3 CLI {MC3_CHAINS} chains at {p12['taxa']} taxa x "
+        f"{p12['sites']} sites: {p13['cli']['aggregate_states_per_s']} "
+        f"aggregate states/s (one chain, phase 12: "
+        f"{straight['states_per_s']}), swap acceptance "
+        f"{p13['cli']['swap_acceptance']}, peel_stream launches "
+        f"{p13['cli']['launches']['peel_stream']} in {SPEC_STEPS} batch "
+        f"steps, {p13['log_rows']} log rows; built batch deviation "
+        f"{p13['full_evaluation_deviation']!r}, busy share "
+        f"{p13['device_busy_share']}, draws vs single chains "
+        f"{p13['draws_max_rel_err']!r}; tools host s "
+        + ", ".join(f"{k} {v['host_seconds']:.2f}" for k, v in tools.items())
+        + f"; seqgen {tools['seqgen']['patterns']} patterns; on {smi_line}")
     log(f"[phases] {json.dumps(phases)}")
     log(smi_line)
     print(json.dumps({"kernels": [
@@ -3326,7 +3601,7 @@ def main():
                              **p8_launches,
                              "makona joint": j_launches,
                              **p10_launches, **p11_launches,
-                             **p12_launches}}), flush=True)
+                             **p12_launches, **p13_launches}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -21,9 +21,9 @@ def _modules():
 
 def test_import_every_module_without_jax():
     # every kernel's wrapper, the data modules, the samplers, MC3, the
-    # component cache, the joint analysis's modules and the run surface
+    # component cache, the joint analysis's modules, the run surface
     # (config, runner, loggers, checkpoint, ancestral draw, the command
-    # line) are among the modules found
+    # line) and the post-processing apps are among the modules found
     assert {"beast_mcmc_tpu_torch.apps.makona",
             "beast_mcmc_tpu_torch.__main__",
             "beast_mcmc_tpu_torch.apps.runner",
@@ -58,7 +58,13 @@ def test_import_every_module_without_jax():
             "beast_mcmc_tpu_torch.inference.nuts",
             "beast_mcmc_tpu_torch.inference.pdmp",
             "beast_mcmc_tpu_torch.inference.samplers",
-            "beast_mcmc_tpu_torch.models.data.aa_matrices"} <= set(_modules())
+            "beast_mcmc_tpu_torch.models.data.aa_matrices",
+            "beast_mcmc_tpu_torch.data.io",
+            "beast_mcmc_tpu_torch.utils.citations",
+            *(f"beast_mcmc_tpu_torch.apps.{m}" for m in (
+                "beastgen", "checkpoint_compat", "coalgen", "convergence",
+                "dnds", "loganalyser", "logcombiner", "online", "plugins",
+                "profiler", "treeannotator", "treestat"))} <= set(_modules())
     code = (
         "import importlib, json, sys\n"
         f"for m in {_modules()!r}:\n"

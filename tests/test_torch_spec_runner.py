@@ -18,9 +18,9 @@ __main__.py) against the JAX package's, on the CPU in float64.
   12 taxa x 300 sites: the same spec numbers as JAX's importer; the data
   types' encoding (a lookup table for ASCII) against JAX's loop.
 - The CLI with -device cpu: importer mode, -save_state/-load_state,
-  -overwrite refusal, the unknown command (2), -mc3_chains 2
-  (NotImplementedError), the refused modes; phase 12 of chip_smoke.py
-  rehearsed at a small size with its launch counts.
+  -overwrite refusal, the unknown command (2), -mc3_chains 2 (the cold
+  chain's log), the refused modes, a sub-tool's missing input; phase 12 of
+  chip_smoke.py rehearsed at a small size with its launch counts.
 """
 
 import dataclasses
@@ -384,9 +384,12 @@ def test_run_analysis_end_to_end(tmp_path):
     assert trees_txt.rstrip().endswith("End;")
     assert os.path.exists(ckpt_f + ".npz")
     assert os.path.exists(ckpt_f + ".manifest.json")
-    with pytest.raises(NotImplementedError, match="chain-axis"):
-        run_analysis(_port_spec("strict clock"), mc3_chains=2,
-                     device="cpu")
+    # two Metropolis-coupled chains: 200 states in two swap rounds of 100
+    mc3 = run_analysis(_port_spec("strict clock"), mc3_chains=2,
+                       verbose=False, device="cpu")
+    assert mc3.report.startswith("MC3: 2 chains, temperatures [1.0, 0.5]")
+    assert list(mc3.states) == [100, 200]
+    assert np.isfinite(mc3.samples["posterior"]).all()
 
 
 def _state_equal(a, b):
@@ -589,9 +592,12 @@ def test_cli_importer_mode(tmp_path, monkeypatch, capsys):
         main(["run", str(doc), "-device", "cpu", "-log", "run2.log"])
     assert main(["run", str(doc), "-chain_length", "20", "-device", "cpu",
                  "-log", "run2.log", "-overwrite"]) == 0
-    with pytest.raises(NotImplementedError, match="chain-axis"):
-        main(["run", str(doc), "-device", "cpu", "-mc3_chains", "2",
-              "-overwrite"])
+    # -mc3_chains 2: one swap round of 100 states, the cold chain's log
+    assert main(["run", str(doc), "-device", "cpu", "-mc3_chains", "2",
+                 "-overwrite"]) == 0
+    rows = [ln.split("\t")[0] for ln in open("inline.log")
+            if ln[:1].isdigit()]
+    assert rows == ["100"]
 
 
 def test_cli_refusals(tmp_path, monkeypatch, capsys):
@@ -601,7 +607,7 @@ def test_cli_refusals(tmp_path, monkeypatch, capsys):
     assert main(["frobnicate"]) == 2
     assert main(["run", str(doc), "-testxml", "-device", "cpu"]) != 0
     assert main(["run", str(doc), "-particles", "p", "-device", "cpu"]) != 0
-    assert main(["treeannotator", "x.trees"]) != 0
+    assert main(["treeannotator", "x.trees"]) != 0  # no such file
     bad = tmp_path / "bad.xml"
     bad.write_text(INLINE.replace("</beast>",
                                   '<logisticGrowth id="x"/></beast>'))
