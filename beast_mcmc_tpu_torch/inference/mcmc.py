@@ -263,24 +263,30 @@ def _propose_chains(op, params, tree, gen, tuning):
     """op.propose over the chain axis of params and tree, vmapped with
     randomness "different": each chain draws its own numbers from the one
     generator. Returns (the params entries the proposal replaced, the tree
-    or None where it kept it, log Hastings [B], None)."""
+    or None where it kept it, log Hastings [B], the operator's own
+    acceptance statistic [B] where it returns one (the conjugate Gibbs
+    draws), else None)."""
     touched = {}
 
     def one(p, t, tun):
         tr = TreeState(*t)
-        p2, t2, logh = op.propose(p, tr, gen, tun)[:3]
+        p2, t2, logh, *acc = op.propose(p, tr, gen, tun)
         # vmap runs this once, so the Python-side identity checks are exact
         touched["params"] = [k for k in p2 if p2[k] is not p.get(k)]
         touched["tree"] = t2 is not tr
+        touched["acc"] = bool(acc)
+        acc = (torch.as_tensor(acc[0], dtype=logh.dtype) if acc
+               else torch.full_like(logh, math.nan))
         return ({k: p2[k] for k in touched["params"]},
-                tuple(getattr(t2, f) for f in TREE_FIELDS), logh)
+                tuple(getattr(t2, f) for f in TREE_FIELDS), logh, acc)
 
-    p2, t2, logh = torch.func.vmap(
+    p2, t2, logh, acc = torch.func.vmap(
         one, in_dims=(0, 0, None if tuning is None else 0),
         randomness="different")(params,
                                 tuple(getattr(tree, f) for f in TREE_FIELDS),
                                 tuning)
-    return p2, (TreeState(*t2) if touched["tree"] else None), logh, None
+    return (p2, (TreeState(*t2) if touched["tree"] else None), logh,
+            acc if touched["acc"] else None)
 
 
 def _propose_bound(op, params, tree, gen, tuning):
@@ -413,7 +419,8 @@ def make_multichain_step(log_posterior_chains, operators: Sequence[Operator],
     the posterior inside its proposal is bound to log_posterior_chains and
     proposes over all chains at once (`propose_chains`); as in
     make_mcmc_step, it may not move a parameter a derived entry depends
-    on."""
+    on. `mstep.given_op(states, op_idx, temperatures)` is the step with
+    the operator chosen by the caller."""
     core = _chain_batch_core(log_posterior_chains, operators, derived,
                              adaptation)
     _, cum = _operator_cdf(operators)
@@ -423,6 +430,12 @@ def make_multichain_step(log_posterior_chains, operators: Sequence[Operator],
                              dtype=torch.float64))
         return core(states, [(_draw(cum, u), None)], None, temperatures)
 
+    def given_op(states: MCMCState, op_idx: int,
+                 temperatures=1.0) -> MCMCState:
+        """The batch step with the operator chosen by the caller."""
+        return core(states, [(op_idx, None)], None, temperatures)
+
+    mstep.given_op = given_op
     return mstep
 
 

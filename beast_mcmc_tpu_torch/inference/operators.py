@@ -1,7 +1,7 @@
-"""MCMC proposal operators of the main path and of the config layer.
+"""MCMC proposal operators.
 
-Counterpart of beast_mcmc_tpu/inference/operators.py, with the same
-proposal laws and Hastings ratios. Every operator is
+Counterpart of beast_mcmc_tpu/inference/operators.py, every class of it,
+with the same proposal laws and Hastings ratios. Every operator is
 
     propose(params, tree, gen, tuning) -> (params', tree', log_hastings)
                                        or (params', tree', log_hastings,
@@ -9,7 +9,8 @@ proposal laws and Hastings ratios. Every operator is
 
 where `gen` is the state's device generator and log_hastings a 0-d tensor,
 -inf for an invalid proposal, +inf for a Gibbs-style move that is always
-accepted (NUTS, the PDMPs, the slice samplers). acc_stat, where given, is
+accepted (NUTS, the PDMPs, the slice samplers, the conjugate Gibbs
+draws). acc_stat, where given, is
 the operator's own acceptance statistic for the step-size adaptation
 (NaN: adapt on the Metropolis probability). Tree moves are index rewires
 on the tree's tensors. Node indices are kept as shape-[1] int64 tensors on the device:
@@ -18,6 +19,9 @@ an index would), so a proposal never waits on the device.
 
 Selection with exclusion draws in [0, M - #excluded) and shifts past the
 sorted excluded indices: exactly uniform over the eligible set, no loop.
+No proposal reads a value on the host or branches on one, so each vmaps
+over a chain batch (inference/mcmc.py::_propose_chains); the composite
+TeamOperator runs every sub-operator and selects the drawn one's result.
 """
 
 from __future__ import annotations
@@ -486,4 +490,368 @@ class WilsonBaldingOperator(Operator):
                   .index_put((cip,), pip))
         heights = h.index_put((ip,), new_age)
         tree = tree.replace(parent=parent, children=children, heights=heights)
+        return params, tree, logh
+
+
+# ---------------------------------------------------------------------------
+# draws: every draw of the operators below goes through these helpers, so
+# a test can hand a proposal given draws; each vmaps with randomness
+# "different" (a chain batch's draw is one draw of shape [B, ...])
+# ---------------------------------------------------------------------------
+
+
+def _normal(gen: torch.Generator, like: torch.Tensor,
+            shape=()) -> torch.Tensor:
+    """Standard normal draws of `shape`, `like`'s dtype and device."""
+    return torch.randn(shape, generator=gen, dtype=like.dtype,
+                       device=like.device)
+
+
+def _uniforms(gen: torch.Generator, like: torch.Tensor, shape) -> torch.Tensor:
+    """Uniform [0, 1) draws of `shape`, `like`'s dtype and device."""
+    return torch.rand(shape, generator=gen, dtype=like.dtype,
+                      device=like.device)
+
+
+GAMMA_ROUNDS = 16  # Marsaglia-Tsang rounds a draw; each accepts w.p. > 0.95
+
+
+def gamma_draw(gen: torch.Generator, shape, like: torch.Tensor,
+               size=()) -> torch.Tensor:
+    """Gamma(shape, 1) draws of `size` on `like`'s dtype and device
+    (Marsaglia & Tsang 2000), with the operator's generator:
+    torch._standard_gamma takes none. Each draw runs GAMMA_ROUNDS rounds
+    at once (a normal and a uniform each) and keeps the first accepted, so
+    there is no data-dependent loop and the draw vmaps; below shape 1 a
+    draw at shape + 1 is boosted by u^(1/shape). The chance that no round
+    accepts is under 0.05^16, and such a draw returns the mode of its
+    squeeze, d."""
+    a = torch.as_tensor(shape, dtype=like.dtype, device=like.device)
+    a = a.expand(size)
+    boost = a < 1.0
+    a1 = torch.where(boost, a + 1.0, a)
+    d = (a1 - 1.0 / 3.0)[..., None]
+    c = 1.0 / torch.sqrt(9.0 * d)
+    x = _normal(gen, like, (*a.shape, GAMMA_ROUNDS))
+    u = _uniforms(gen, like, (*a.shape, GAMMA_ROUNDS))
+    v = (1.0 + c * x) ** 3
+    log_v = torch.log(torch.clamp_min(v, 1e-300))
+    ok = (v > 0) & (torch.log(u) < 0.5 * x * x + d - d * v + d * log_v)
+    first = torch.argmax(ok.long(), dim=-1, keepdim=True)
+    g = (d * torch.gather(v, -1, first)).squeeze(-1)
+    g = torch.where(ok.any(-1), g, d.squeeze(-1))
+    w = _uniforms(gen, like, a.shape)
+    return torch.where(boost, g * w ** (1.0 / a), g)
+
+
+def _zero(tree: TreeState) -> torch.Tensor:
+    return torch.zeros((), dtype=tree.heights.dtype,
+                       device=tree.heights.device)
+
+
+@dataclasses.dataclass
+class TransformedRandomWalkOperator(Operator):
+    """TransformedParameterRandomWalkOperator.java: u = transform(x), u_i +=
+    U(-w, w) on one random dimension, x' = transform^-1(u'); logq =
+    logdetJ_inv(u') - logdetJ_inv(u), -inf where x' is not finite."""
+
+    parameter: str = ""
+    transform: object = None  # utils.transforms.Transform
+    window: float = 1.0
+    adaptable: bool = True
+
+    def initial_adapt(self) -> float:
+        return math.log(self.window)
+
+    def tuning(self, adapt_value):
+        return torch.exp(adapt_value)
+
+    def propose(self, params, tree, gen, tuning):
+        x = params[self.parameter]
+        u = torch.atleast_1d(self.transform.forward(x))
+        idx = _randint(gen, 0, u.shape[0], u.device)
+        delta = (_uniform(gen, u) * 2.0 - 1.0) * tuning
+        u2 = u.index_put((idx,), u[idx] + delta)
+        x2 = self.transform.inverse(u2).reshape(x.shape)
+        logq = (self.transform.log_det_jacobian_inverse(u2)
+                - self.transform.log_det_jacobian_inverse(u))
+        ok = torch.all(torch.isfinite(torch.atleast_1d(x2)))
+        return {**params, self.parameter: x2}, tree, _valid_or_reject(ok, logq)
+
+
+@dataclasses.dataclass
+class StarRootHeightScaleOperator(_ScaleTuned, Operator):
+    """Scale the one tied height of a star tree (StarTreeModel: every
+    internal node reads the root height): all internal nodes move with the
+    root; logq = -log s; lower bound the oldest tip."""
+
+    n_taxa: int = 0
+    scale_factor: float = 0.75
+    adaptable: bool = True
+    modifies_params = ()
+
+    def propose(self, params, tree, gen, tuning):
+        h = tree.heights
+        s = _scale_draw(gen, tuning.to(h.dtype))
+        new_h = h[tree.root.reshape(1)] * s
+        tip = torch.arange(h.shape[0], device=h.device) < self.n_taxa
+        lo = torch.amax(torch.where(tip, h, -math.inf))
+        heights = torch.where(tip, h, new_h)
+        return (params, tree.replace(heights=heights),
+                _valid_or_reject(new_h > lo, -torch.log(s)))
+
+
+@dataclasses.dataclass
+class JointOperator(Operator):
+    """JointOperator.java: the sub-operators in sequence, each on its own
+    draws at its static tuning (not adapted); the log Hastings terms add."""
+
+    sub_operators: Sequence[Operator] = ()
+
+    def propose(self, params, tree, gen, tuning):
+        logh = _zero(tree)
+        for op in self.sub_operators:
+            t = op.tuning(torch.tensor(op.initial_adapt(),
+                                       dtype=tree.heights.dtype,
+                                       device=tree.heights.device))
+            params, tree, lh = op.propose(params, tree, gen, t)[:3]
+            logh = logh + lh
+        return params, tree, logh
+
+
+@dataclasses.dataclass
+class NormalGammaPrecisionGibbsOperator(Operator):
+    """NormalGammaPrecisionGibbsOperator.java: the conjugate draw tau | x ~
+    Gamma(shape + n/2, rate + sum((x - mu)^2)/2) (`gamma_draw`). A Gibbs
+    move: log Hastings +inf and its own acceptance statistic 1."""
+
+    data_parameter: str = ""
+    mean_parameter: str = ""
+    precision_parameter: str = ""
+    prior_shape: float = 0.001
+    prior_rate: float = 0.001
+
+    def propose(self, params, tree, gen, tuning):
+        x = torch.atleast_1d(params[self.data_parameter])
+        mu = params[self.mean_parameter]
+        shape = self.prior_shape + 0.5 * x.shape[0]
+        rate = self.prior_rate + 0.5 * torch.sum((x - mu) ** 2)
+        tau = gamma_draw(gen, shape, x) / rate
+        one = torch.ones((), dtype=tree.heights.dtype,
+                         device=tree.heights.device)
+        return ({**params, self.precision_parameter: tau}, tree,
+                one * math.inf, one)
+
+
+@dataclasses.dataclass
+class NormalNormalMeanGibbsOperator(Operator):
+    """NormalNormalMeanGibbsOperator.java: the conjugate draw mu | x, tau ~
+    N((p0 m0 + tau sum x) / (p0 + n tau), 1 / (p0 + n tau)). A Gibbs move:
+    log Hastings +inf and its own acceptance statistic 1."""
+
+    data_parameter: str = ""
+    mean_parameter: str = ""
+    precision_parameter: str = ""
+    prior_mean: float = 0.0
+    prior_precision: float = 1e-4
+
+    def propose(self, params, tree, gen, tuning):
+        x = torch.atleast_1d(params[self.data_parameter])
+        tau = params[self.precision_parameter]
+        post_prec = self.prior_precision + x.shape[0] * tau
+        post_mean = (self.prior_precision * self.prior_mean
+                     + tau * torch.sum(x)) / post_prec
+        mu = post_mean + _normal(gen, x) / torch.sqrt(post_prec)
+        one = torch.ones((), dtype=tree.heights.dtype,
+                         device=tree.heights.device)
+        return ({**params, self.mean_parameter: mu}, tree, one * math.inf,
+                one)
+
+
+@dataclasses.dataclass
+class UniformRealOperator(Operator):
+    """UniformOperator.java on a bounded real parameter: one random
+    dimension set to U(lower, upper); symmetric."""
+
+    parameter: str = ""
+    lower: float = 0.0
+    upper: float = 1.0
+
+    def propose(self, params, tree, gen, tuning):
+        x0 = params[self.parameter]
+        x = torch.atleast_1d(x0)
+        idx = _randint(gen, 0, x.shape[0], x.device)
+        v = self.lower + _uniform(gen, x) * (self.upper - self.lower)
+        return ({**params, self.parameter: x.index_put(
+            (idx,), v.reshape(1)).reshape(x0.shape)}, tree, _zero(tree))
+
+
+@dataclasses.dataclass
+class CompoundWeightedDeltaOperator(Operator):
+    """DeltaExchangeOperator.java's weighted branch on a compoundParameter
+    of separate scalars: two members i != j, x_i += d / w_i, x_j -= d / w_j
+    with d ~ U(0, delta), keeping sum w x; symmetric, rejected (and left
+    unchanged) where a member falls to the lower bound."""
+
+    parameters: Sequence[str] = ()
+    parameter_weights: Sequence[float] = ()
+    delta: float = 0.02
+    lower: float = 0.0
+    adaptable: bool = True
+
+    def initial_adapt(self) -> float:
+        return math.log(self.delta)
+
+    def tuning(self, adapt_value):
+        return torch.exp(adapt_value)
+
+    def propose(self, params, tree, gen, tuning):
+        n = len(self.parameters)
+        dt, dev = tree.heights.dtype, tree.heights.device
+        i = _randint(gen, 0, n, dev)
+        j_raw = _randint(gen, 0, n - 1, dev)
+        j = j_raw + (j_raw >= i).long()
+        d = _uniform(gen, tree.heights) * tuning
+        w = torch.tensor(list(self.parameter_weights) or [1.0] * n, dtype=dt,
+                         device=dev)
+        vals = torch.stack([params[p].reshape(()).to(dt)
+                            for p in self.parameters])
+        step = torch.zeros(n, dtype=dt, device=dev)
+        step = step.index_put((i,), d / w[i]).index_put((j,), -d / w[j])
+        new_vals = vals + step
+        ok = torch.all(new_vals > self.lower)
+        new_vals = torch.where(ok, new_vals, vals)
+        out = dict(params)
+        for k, p in enumerate(self.parameters):
+            out[p] = new_vals[k].to(params[p].dtype).reshape(params[p].shape)
+        return out, tree, _valid_or_reject(ok, _zero(tree))
+
+
+@dataclasses.dataclass
+class MvnRandomWalkOperator(Operator):
+    """MVNOperator with a fixed proposal Cholesky factor L: x' = x + sf L z
+    over the whole vector; symmetric; adapt value log(sf)."""
+
+    parameter: str = ""
+    chol: object = None  # [D, D]
+    scale_factor: float = 1.0
+    adaptable: bool = True
+
+    def initial_adapt(self) -> float:
+        return math.log(self.scale_factor)
+
+    def tuning(self, adapt_value):
+        return torch.exp(adapt_value)
+
+    def propose(self, params, tree, gen, tuning):
+        x = params[self.parameter]
+        flat = x.reshape(-1)
+        chol = torch.as_tensor(self.chol, dtype=flat.dtype, device=flat.device)
+        z = _normal(gen, flat, flat.shape)
+        new = flat + tuning * (chol @ z)
+        return ({**params, self.parameter: new.reshape(x.shape)}, tree,
+                _zero(tree))
+
+
+@dataclasses.dataclass
+class SubsetRandomWalkOperator(Operator):
+    """RandomWalkOperator on a MaskedParameter: x_j += U(-w, w) at one j of a
+    fixed index subset; symmetric."""
+
+    parameter: str = ""
+    indices: Sequence[int] = ()
+    window: float = 1.0
+    adaptable: bool = True
+
+    def initial_adapt(self) -> float:
+        return math.log(self.window)
+
+    def tuning(self, adapt_value):
+        return torch.exp(adapt_value)
+
+    def propose(self, params, tree, gen, tuning):
+        x = params[self.parameter]
+        flat = x.reshape(-1)
+        idx = torch.as_tensor(list(self.indices), device=flat.device)
+        j = idx[_randint(gen, 0, idx.shape[0], flat.device)]
+        delta = (_uniform(gen, flat) * 2.0 - 1.0) * tuning
+        new = flat.index_put((j,), flat[j] + delta)
+        return ({**params, self.parameter: new.reshape(x.shape)}, tree,
+                _zero(tree))
+
+
+@dataclasses.dataclass
+class RateBitExchangeOperator(Operator):
+    """RateBitExchangeOperator.java:26-49: the indicator and rate vectors
+    split in halves; the (bit, rate) pair at a random index swaps with its
+    partner in the other half where at least one of the two bits is set;
+    symmetric."""
+
+    bit_parameter: str = ""
+    rate_parameter: str = ""
+
+    @property
+    def modifies_params(self):
+        return (self.bit_parameter, self.rate_parameter)
+
+    def propose(self, params, tree, gen, tuning):
+        bits0, rates0 = params[self.bit_parameter], params[self.rate_parameter]
+        bits, rates = bits0.reshape(-1), rates0.reshape(-1)
+        dim = bits.shape[0] // 2
+        idx = _randint(gen, 0, dim, bits.device)
+        ok = (bits[idx] + bits[idx + dim]) >= 1
+        bits2 = bits.index_put((idx,), bits[idx + dim]).index_put(
+            (idx + dim,), bits[idx])
+        rates2 = rates.index_put((idx,), rates[idx + dim]).index_put(
+            (idx + dim,), rates[idx])
+        return ({**params, self.bit_parameter: bits2.reshape(bits0.shape),
+                 self.rate_parameter: rates2.reshape(rates0.shape)}, tree,
+                _valid_or_reject(ok, _zero(tree)))
+
+
+@dataclasses.dataclass
+class TeamOperator(Operator):
+    """TeamOperator.java:115-128: n_pick of the sub-operators, drawn
+    uniformly without replacement (the order of n uniforms), applied in
+    sequence at their static tunings; the log Hastings terms add. Without
+    a host read the drawn one cannot be branched to: each slot runs every
+    sub-operator, each on its own draws, and selects the drawn one's result
+    (JAX's lax.switch under vmap does the same)."""
+
+    sub_operators: Sequence[Operator] = ()
+    n_pick: int = 1
+
+    def modified_params(self):
+        out = []
+        for op in self.sub_operators:
+            mp = op.modified_params()
+            if mp is None:
+                return None
+            out.extend(mp)
+        return tuple(dict.fromkeys(out))
+
+    def propose(self, params, tree, gen, tuning):
+        h = tree.heights
+        perm = torch.argsort(_uniforms(gen, h, (len(self.sub_operators),)))
+        logh = _zero(tree)
+        for slot in range(self.n_pick):
+            sel = perm[slot]
+            outs = []
+            for op in self.sub_operators:
+                t = op.tuning(torch.tensor(op.initial_adapt(), dtype=h.dtype,
+                                           device=h.device))
+                outs.append(op.propose(params, tree, gen, t)[:3])
+            new_p, new_t, new_l = params, tree, logh
+            for k, (p2, t2, lh) in enumerate(outs):
+                hit = sel == k
+                new_p = {name: new_p[name] if p2[name] is params[name] else
+                         torch.where(hit, p2[name], new_p[name])
+                         for name in params}
+                if t2 is not tree:
+                    new_t = TreeState(*(torch.where(hit, getattr(t2, f),
+                                                    getattr(new_t, f))
+                                        for f in ("parent", "children",
+                                                  "heights", "root")))
+                new_l = torch.where(hit, logh + lh, new_l)
+            params, tree, logh = new_p, new_t, new_l
         return params, tree, logh

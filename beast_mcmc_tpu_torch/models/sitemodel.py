@@ -5,8 +5,9 @@ Counterpart of beast_mcmc_tpu/models/sitemodel.py (GammaSiteModel's
 calculateCategoryRates): K categories at the median quantiles
 (2i+1)/(2K) of Gamma(alpha, 1/alpha); an optional invariant category of
 rate 0 and weight pInv; rates normalised so that the weighted mean over all
-categories is 1; mu rescales all rates. The exact-quantile (AS91) route is
-not ported.
+categories is 1; mu rescales all rates. With exact_quantiles the rates of a
+concrete alpha come from the reference's published AS91 algorithm
+(utils/as91.py), as JAX's do.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ from beast_mcmc_tpu_torch.utils.dtypes import DEFAULT_DEVICE, DEFAULT_FLOAT
 def discrete_gamma_rates(alpha: torch.Tensor, n_categories: int,
                          p_invariant: Optional[torch.Tensor] = None,
                          mu: Optional[torch.Tensor] = None,
-                         dtype: torch.dtype = DEFAULT_FLOAT
+                         dtype: torch.dtype = DEFAULT_FLOAT,
+                         exact_quantiles: bool = False
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(rates [C], weights [C]), computed in float64 and cast to `dtype`.
     The scale 1/alpha cancels in the mean normalisation, which is taken in
@@ -31,8 +33,30 @@ def discrete_gamma_rates(alpha: torch.Tensor, n_categories: int,
     `p_invariant` the result has C + 1 entries: category 0 is the invariant
     one (rate exactly 0, weight pInv). alpha [B] (a chain batch, with
     p_invariant and mu 0-d or [B]) gives rates and weights [B, C]: the
-    quantiles are normalised over the last axis."""
-    alpha = torch.as_tensor(alpha).to(torch.float64)
+    quantiles are normalised over the last axis.
+
+    exact_quantiles: JAX's bit-parity route (beast_mcmc_tpu/models/
+    sitemodel.py:52-65). A concrete alpha, one value in a tensor that does
+    not require grad, without p_invariant (and mu, if given, not requiring
+    grad either), takes the reference's AS91 median rates, computed in
+    float64 on the host (one read of alpha); any other input the smooth
+    quantiles below."""
+    alpha = torch.as_tensor(alpha)
+    if (exact_quantiles and p_invariant is None and alpha.numel() == 1
+            and not alpha.requires_grad
+            and not (isinstance(mu, torch.Tensor) and mu.requires_grad)):
+        a_c = float(alpha)
+        if a_c > 0:
+            from beast_mcmc_tpu_torch.utils.as91 import gamma_category_rates
+
+            rates = torch.tensor(gamma_category_rates(a_c, n_categories),
+                                 dtype=torch.float64, device=alpha.device)
+            weights = torch.full((n_categories,), 1.0 / n_categories,
+                                 dtype=torch.float64, device=alpha.device)
+            if mu is not None:
+                rates = rates * torch.as_tensor(mu, dtype=torch.float64)
+            return rates.to(dtype), weights.to(dtype)
+    alpha = alpha.to(torch.float64)
     k = n_categories
     lq = log_gamma_category_quantiles(alpha, k)
     lnorm = torch.logsumexp(lq, dim=-1, keepdim=True) - math.log(k)

@@ -163,6 +163,29 @@ result line):
      straight run's trees read back with every tip, treestat on them, and
      seqgen down the last of them at the document's width on the card;
      each tool exits 0, its host seconds printed.
+  14. every MCMC operator of the JAX package (`operators_path`): phase
+     12's document built with the new operators in spec.extra_operators
+     (the subtree leap, tip leap and jump, FNPR, NNI, fixed-height SPR,
+     the node- and tip-height moves, and the transformed, MVN, subset and
+     uniform moves, a compound weighted delta, a joint and a team
+     operator on its parameters): 14a one chain of A14_STEPS steps taking
+     each new operator in turn, exactly one peel_stream launch a step and
+     one a full evaluation, the carried posterior within 0.1 of a fresh
+     one at every step, the final and A14_TREES sampled trees valid on the
+     host, each operator's acceptance, states/s and a profiler window;
+     14b B14_PAR Gibbs prune-and-regraft and B14_SWAP Gibbs subtree-swap
+     proposals, each scoring its candidates as chunks of trees, one
+     peel_stream launch a chunk (exactly one for the current tree and
+     ceil(candidates / chunk) an enumeration, and the step's own), sampled
+     candidates' scores against single-tree evaluations and the carried
+     posterior against a fresh one to P14_REL_TOL; 14c a batch of
+     C14_CHAINS chains taking every new operator and the two Gibbs moves
+     in turn, one launch a batch step plus the Gibbs proposals' own, every
+     chain's carried posterior within 0.1; 14d the operators with no
+     target there on small posteriors on the card (a star tree, a normal
+     hierarchy's conjugate Gibbs draws, the rate-bit exchange on a BSSVS
+     analysis), and the 36 densities of models/priors.py, gamma_quantile
+     and gammainc_fixed on the card against the CPU to P14_DENSITY_TOL.
 
 `python3 chip_smoke.py --tiles` instead builds the kernels and times the
 v1 streaming kernel at the plans its planner could pick, with its largest
@@ -1507,6 +1530,480 @@ def mc3_path(doc, out_dir, reset_counts, read_counts, device_ms, dev,
                              f"{rec['full_evaluation_deviation']}")
     if not rec["draws_max_rel_err"] <= MC3_REL_TOL:
         raise AssertionError(f"P13 draws: {rec['draws_max_rel_err']}")
+    return rec, launches
+
+
+# phase 14, every MCMC operator: 14a's steps (each new operator in turn)
+# and profiler window; 14b's Gibbs proposals and the candidates sampled from
+# each to check; 14c's chains, steps and profiler window; 14d's steps on
+# each small posterior; the seed and the relative tolerances
+A14_STEPS, A14_TREES, A14_PROFILE, A14_MIN_DRAWN = 198, 10, 20, 5
+B14_PAR, B14_SWAP, B14_SAMPLED = 3, 2, 4
+C14_CHAINS, C14_STEPS, C14_PROFILE = 4, 40, 18
+D14_STEPS = 50
+P14_SEED, P14_REL_TOL, P14_DENSITY_TOL = 21, 1e-10, 1e-12
+
+
+def new_operators(tips, n_taxa, n_cells):
+    """[(label, operator)]: the new operators of phase 14a on phase 12's
+    analysis (its parameter names); `tips` three dated tips for the tip
+    moves."""
+    import numpy as np
+
+    from beast_mcmc_tpu_torch.inference import operators as O
+    from beast_mcmc_tpu_torch.inference import tree_operators as T
+    from beast_mcmc_tpu_torch.utils.transforms import LogTransform
+
+    def parameter_ops():
+        return (O.MvnRandomWalkOperator(parameter="skygrid.logPopSizes",
+                                        chol=0.05 * np.eye(n_cells)),
+                O.SubsetRandomWalkOperator(parameter="skygrid.logPopSizes",
+                                           indices=tuple(range(0, n_cells,
+                                                               5)),
+                                           window=0.2),
+                O.CompoundWeightedDeltaOperator(
+                    parameters=("treeLikelihood.alpha", "ucld.stdev"),
+                    parameter_weights=(1.0, 1.0), delta=0.02))
+
+    mvn, subset, compound = parameter_ops()
+    return [
+        ("subtree leap", T.SubtreeLeapOperator(size=0.05)),
+        ("tip leap", T.TipLeapOperator(size=0.05, n_tips=n_taxa)),
+        ("subtree jump", T.SubtreeJumpOperator(size=0.05)),
+        ("FNPR", T.FNPROperator()),
+        ("NNI", T.NNIOperator()),
+        ("fixed-height SPR", T.FixedHeightSPROperator()),
+        ("scale node height", T.ScaleNodeHeightOperator()),
+        ("random-walk node height", T.RandomWalkNodeHeightOperator(
+            window=0.01)),
+        ("tip height random walk", T.TipHeightRandomWalkOperator(
+            tip=tips[0], window=0.01)),
+        ("tip height uniform", T.TipHeightUniformOperator(tip=tips[1])),
+        ("tip height scale", T.TipHeightScaleOperator(tip=tips[2])),
+        ("transformed random walk ucld.mean",
+         O.TransformedRandomWalkOperator(parameter="ucld.mean",
+                                         transform=LogTransform(),
+                                         window=0.1)),
+        ("mvn random walk skygrid", mvn),
+        ("subset random walk skygrid", subset),
+        ("uniform ucld.stdev", O.UniformRealOperator(
+            parameter="ucld.stdev", lower=0.0, upper=2.0)),
+        ("compound weighted delta", compound),
+        ("joint", O.JointOperator(sub_operators=[
+            O.TransformedRandomWalkOperator(parameter="ucld.mean",
+                                            transform=LogTransform(),
+                                            window=0.1),
+            O.UniformRealOperator(parameter="ucld.stdev", lower=0.0,
+                                  upper=2.0)])),
+        ("team", O.TeamOperator(sub_operators=list(parameter_ops()),
+                                n_pick=2)),
+    ]
+
+
+def valid_tree_np(parent, children, heights, root, n_taxa):
+    """Whether host arrays are one binary tree over n_taxa tips: one root,
+    each child listed by its parent, each parent above its children (so
+    no cycle: every node reaches the root)."""
+    m = parent.shape[0]
+    if m != 2 * n_taxa - 1 or int((parent < 0).sum()) != 1 \
+            or parent[root] >= 0:
+        return False
+    for x in range(m):
+        if x != root and (x not in children[parent[x]]
+                          or not heights[parent[x]] > heights[x]):
+            return False
+    return bool((children[:n_taxa] < 0).all()
+                and (children[n_taxa:] >= 0).all())
+
+
+def density_cases():
+    """[(name, args)]: each of the 36 densities of models/priors.py beyond
+    the main path's at numpy inputs from P14_SEED (x first)."""
+    import numpy as np
+
+    rng = np.random.default_rng(P14_SEED)
+    pos, unit = rng.uniform(0.1, 4.0, 64), rng.uniform(0.02, 0.98, 64)
+    real, ints = rng.normal(0.0, 2.0, 64), rng.integers(0, 9, 64) * 1.0
+    a = rng.normal(size=(4, 4))
+    spd = a @ a.T + 4 * np.eye(4)
+    corr = spd / np.sqrt(np.outer(np.diag(spd), np.diag(spd)))
+    return [
+        ("inverse_gamma_logpdf", (pos, 2.5, 1.3)),
+        ("laplace_logpdf", (real, 0.3, 1.7)),
+        ("beta_logpdf", (unit, 2.0, 3.5)),
+        ("normal_gamma_precision_logpdf", (real, 0.2, 3.0)),
+        ("multivariate_normal_logpdf", (real[:4], real[4:8], spd)),
+        ("bayesian_bridge_logpdf", (real, 0.7, 0.25)),
+        ("lkj_logpdf", (corr, 2.5)),
+        ("wishart_logpdf", (spd, 6.0, spd + np.eye(4))),
+        ("inverse_wishart_logpdf", (spd, 6.0, spd + np.eye(4))),
+        ("half_t_logpdf", (pos, 1.5, 3.0)),
+        ("chi_square_logpdf", (pos, 3.0)),
+        ("t_logpdf", (real, 4.0, 0.5, 1.3)),
+        ("cauchy_logpdf", (real, 0.2, 0.8)),
+        ("logistic_logpdf", (real, 0.5, 1.2)),
+        ("weibull_logpdf", (pos, 1.7, 2.2)),
+        ("gumbel2_logpdf", (pos, 2.0, 1.5)),
+        ("half_normal_logpdf", (pos, 1.4)),
+        ("pareto_logpdf", (pos + 1.0, 0.9, 2.5)),
+        ("inverse_gaussian_logpdf", (pos, 1.2, 2.0)),
+        ("truncated_normal_logpdf", (pos - 0.5, 0.4, 1.1, -0.5, 3.6)),
+        ("reflected_normal_logpdf", (pos - 0.1, 1.0, 0.9, 0.0, 4.0)),
+        ("negative_binomial_logpmf", (ints, 4.5, 0.6)),
+        ("geometric_logpmf", (ints, 0.3)),
+        ("binomial_logpmf", (ints, 10.0, 0.35)),
+        ("discrete_uniform_logpmf", (ints, 0.0, 9.0)),
+        ("multivariate_gamma_logpdf", (pos[:4], np.array([0.5, 1.5, 2.0,
+                                                          4.0]),
+                                       np.array([2.0, 0.5, 1.0, 3.0]))),
+        ("ar1_normal_logpdf", (real, 1.3, 0.6)),
+        ("normal_kde_logpdf", (real[:8], real[8:])),
+        ("log_transformed_normal_kde_logpdf", (pos[:8], pos[8:])),
+        ("logit_transformed_normal_kde_logpdf", (unit[:8], unit[8:])),
+        ("marginalized_alpha_stable_logpdf", (real, 1.3, 0.7)),
+        ("multivariate_t_logpdf", (real[:4], real[4:8], spd, 5.0)),
+        ("multivariate_lognormal_logpdf", (pos[:4], real[4:8], spd)),
+        ("kumaraswamy_logpdf", (unit, 2.0, 3.0)),
+        ("point_mass_mixture_logpmf", (np.array([1.0, 2.0]),
+                                       np.array([0.2, 0.5, 0.3]),
+                                       np.array([[0.0, 1.0], [1.0, 2.0],
+                                                 [1.0, 2.0]]))),
+        ("frechet_logpdf", (pos, 2.5, 1.5)),
+    ]
+
+
+def operators_path(doc, reset_counts, read_counts, device_ms, dev,
+                   n_steps=A14_STEPS, n_profile=A14_PROFILE,
+                   n_chains=C14_CHAINS, c_steps=C14_STEPS,
+                   c_profile=C14_PROFILE, d_steps=D14_STEPS,
+                   n_par=B14_PAR, n_swap=B14_SWAP, bssvs_shape=(40, 400)):
+    """Phase 14 (see the module docstring) on `doc`, phase 12's document,
+    its spec built with config/builder.py::build and the new operators of
+    `new_operators` and the two Gibbs moves in spec.extra_operators; each
+    part's launch counts set to 0 just before it and read just after.
+    Returns (record, launches)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from beast_mcmc_tpu_torch.config import spec as S
+    from beast_mcmc_tpu_torch.config.builder import build
+    from beast_mcmc_tpu_torch.config.xml_import import parse_beast_xml_file
+    from beast_mcmc_tpu_torch.data import alignment as al
+    from beast_mcmc_tpu_torch.data import datatype as dt
+    from beast_mcmc_tpu_torch.inference import operators as O
+    from beast_mcmc_tpu_torch.inference import tree_operators as T
+    from beast_mcmc_tpu_torch.inference.mc3 import replicate_state
+    from beast_mcmc_tpu_torch.inference.mcmc import (
+        init_mcmc_state, make_mcmc_step, make_multichain_step)
+    from beast_mcmc_tpu_torch.models import priors as P
+    from beast_mcmc_tpu_torch.ops import special
+    from beast_mcmc_tpu_torch.tree.topology import TreeState, make_tree_state
+
+    rec, launches = {}, {}
+    f64 = torch.float64
+
+    def expect(label, want):
+        counts = read_counts()
+        launches[f"P14 {label}"] = counts
+        if counts != {k: want * (k == "peel_stream") for k in counts}:
+            raise AssertionError(f"P14 {label}: launches {counts}, expected "
+                                 f"{want} peel_stream")
+        return counts
+
+    def host_tree(tree):
+        return tuple(getattr(tree, f).cpu().numpy()
+                     for f in ("parent", "children", "heights", "root"))
+
+    spec = parse_beast_xml_file(doc)
+    spec.mcmc.seed = SPEC_SEED
+    taxa = spec.partitions[0].patterns.taxa
+    dated = sorted(range(len(taxa)),
+                   key=lambda i: -spec.tree.tip_heights.get(taxa[i], 0.0))
+    new = new_operators(dated[:3], len(taxa), 50)
+    gibbs = [T.GibbsPruneAndRegraftOperator(), T.GibbsSubtreeSwapOperator()]
+    spec.extra_operators = [op for _, op in new] + gibbs
+    analysis = build(spec, device=dev)
+    for g in gibbs:
+        g.log_posterior_chains = analysis.log_posterior_chains
+    ops = analysis.operators
+    index = {id(op): k for k, op in enumerate(ops)}
+    new_idx = [index[id(op)] for _, op in new]
+    gibbs_idx = [index[id(g)] for g in gibbs]
+    n_taxa = analysis.n_taxa
+    lp = analysis.log_posterior
+
+    # 14a: one chain, each new operator in turn
+    step = make_mcmc_step(lp, ops)
+    reset_counts()
+    t0 = time.perf_counter()
+    state = init_mcmc_state(analysis.params0, analysis.tree0,
+                            torch.Generator(device=dev).manual_seed(P14_SEED),
+                            ops, lp)
+    max_dev = torch.zeros((), dtype=f64, device=dev)
+    sampled = []
+    for k in range(n_steps):
+        state = step.given_op(state, new_idx[k % len(new_idx)])
+        fresh = lp(state.params, state.tree)
+        max_dev = torch.maximum(max_dev, (fresh - state.log_posterior).abs())
+        state = state.replace(log_posterior=fresh)
+        if (k + 1) % (n_steps // A14_TREES) == 0:
+            sampled.append(host_tree(state.tree))
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sampled.append(host_tree(state.tree))
+    bad = [k for k, t in enumerate(sampled)
+           if not valid_tree_np(*t, n_taxa)]
+    acc = state.op_accept.tolist()
+    rej = state.op_reject.tolist()
+    a = {"steps": n_steps, "operators": len(new_idx),
+         "seconds_with_checks": wall, "max_deviation": float(max_dev),
+         "trees_checked": len(sampled), "acceptance": {
+             label: {"drawn": acc[i] + rej[i],
+                     "acceptance": acc[i] / max(acc[i] + rej[i], 1)}
+             for (label, _), i in zip(new, new_idx)}}
+    k = [0]
+
+    def cycle(st, _t=1.0):
+        k[0] += 1
+        return step.given_op(st, new_idx[k[0] % len(new_idx)])
+
+    from beast_mcmc_tpu_torch.inference.mcmc import run_chain
+
+    wall_ms, busy = device_ms(lambda: run_chain(cycle, state, n_profile),
+                              "p14a new operators", n_profile)
+    a.update({"profile_ms_per_step": wall_ms,
+              "states_per_s": 1e3 / wall_ms,
+              "device_busy_share": None if busy is None else busy / wall_ms})
+    expect("14a one chain", 1 + 2 * n_steps + n_profile)
+    rec["14a"] = a
+    log(f"[P14a] {n_steps} steps of {len(new_idx)} new operators in turn at "
+        f"{n_taxa} taxa: max deviation {a['max_deviation']!r} (tolerance "
+        f"{FULL_EVAL_TOL}), {a['trees_checked']} trees valid on the host: "
+        f"{not bad}, {a['states_per_s']:.2f} states/s, busy share "
+        f"{a['device_busy_share']}; launches "
+        f"{json.dumps(launches['P14 14a one chain'])}")
+    for label, r in a["acceptance"].items():
+        log(f"[P14a]   {label:36s} drawn {r['drawn']:3d} acceptance "
+            f"{r['acceptance']:.3f}")
+    if bad or not a["max_deviation"] <= FULL_EVAL_TOL or min(
+            r["drawn"] for r in a["acceptance"].values()) < min(
+                A14_MIN_DRAWN, n_steps // len(new_idx)):
+        raise AssertionError(f"P14a: invalid trees {bad}, deviation "
+                             f"{a['max_deviation']}, {a['acceptance']}")
+
+    # 14b: the Gibbs moves, each proposal through step.given_op
+    b_rec = []
+    for label, oi, op in ([("prune-regraft", gibbs_idx[0], gibbs[0])] * n_par
+                          + [("subtree swap", gibbs_idx[1], gibbs[1])]
+                          * n_swap):
+        before = state
+        n_acc = int(state.op_accept[oi])
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        state = step.given_op(state, oi)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        chunk = op.chunk(dev)
+        want = 1 + sum(-(-n // chunk) for n in op.last_candidates)
+        if op.last_calls != want:
+            raise AssertionError(f"P14b {label}: {op.last_calls} posterior "
+                                 f"calls, expected {want}")
+        counts = expect(f"14b {label} {len(b_rec)}", want + 1)
+        r = {"operator": label, "candidates": list(op.last_candidates),
+             "chunk": chunk, "launches": counts["peel_stream"], "ms": ms,
+             "peak_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
+                                if dev != "cpu" else None),
+             "accepted": int(state.op_accept[oi]) > n_acc}
+        # candidates sampled over the enumerations, each scored alone
+        pairs = [(e, j) for e, scores in enumerate(op.last_scores)
+                 for j in torch.isfinite(scores[0]).nonzero()[:, 0].tolist()]
+        rng = np.random.default_rng(P14_SEED + len(b_rec))
+        errs = []
+        for n in rng.choice(len(pairs), min(len(pairs), B14_SAMPLED),
+                            replace=False):
+            e, j = pairs[n]
+            one = lp(before.params, op.candidate_tree(e, 0, j))
+            errs.append(float((one - op.last_scores[e][0, j]).abs()
+                              / one.abs()))
+        fresh = lp(state.params, state.tree)
+        r["sampled_max_rel_err"] = max(errs)
+        r["sampled"] = len(errs)
+        r["carried_rel_err"] = float((fresh - state.log_posterior).abs()
+                                     / fresh.abs())
+        b_rec.append(r)
+        log(f"[P14b] {label}: candidates {r['candidates']}, chunk {chunk}, "
+            f"launches {r['launches']} (= 1 current + sum ceil(candidates / "
+            f"chunk) + 1 step), {ms:.1f} ms, peak memory "
+            f"{r['peak_memory_gb']} GB, accepted {r['accepted']}; "
+            f"{len(errs)} sampled candidates' scores vs single-tree "
+            f"evaluations max rel {r['sampled_max_rel_err']!r}, carried vs "
+            f"fresh rel {r['carried_rel_err']!r} (tolerance {P14_REL_TOL})")
+        if len(errs) != min(len(pairs), B14_SAMPLED) or max(
+                r["sampled_max_rel_err"], r["carried_rel_err"]) > P14_REL_TOL:
+            raise AssertionError(f"P14b {label}: {r}")
+        if not valid_tree_np(*host_tree(state.tree), n_taxa):
+            raise AssertionError(f"P14b {label}: invalid tree")
+    rec["14b"] = b_rec
+
+    # 14c: a batch, every new operator and the Gibbs moves in turn
+    states = replicate_state(state, n_chains, torch.Generator(
+        device=dev).manual_seed(P14_SEED + 1))
+    mstep = make_multichain_step(analysis.log_posterior_chains, ops)
+    order = new_idx + gibbs_idx
+    reset_counts()
+    calls0 = sum(g.total_calls for g in gibbs)
+    max_dev = torch.zeros((), dtype=f64, device=dev)
+    for k in range(c_steps):
+        states = mstep.given_op(states, order[k % len(order)])
+        fresh = analysis.log_posterior_chains(states.params, states.tree)
+        max_dev = torch.maximum(max_dev,
+                                (fresh - states.log_posterior).abs().max())
+        states = states.replace(log_posterior=fresh)
+    gibbs_calls = sum(g.total_calls for g in gibbs) - calls0
+    expect("14c batch", 2 * c_steps + gibbs_calls)
+    kc = [0]
+
+    def batch_cycle(st, _t=1.0):
+        kc[0] += 1
+        return mstep.given_op(st, new_idx[kc[0] % len(new_idx)])
+
+    reset_counts()
+    wall_ms, busy = device_ms(lambda: run_chain(batch_cycle, states,
+                                                c_profile),
+                              "p14c batch of new operators", c_profile)
+    expect("14c batch profile", c_profile)
+    c = {"chains": n_chains, "steps": c_steps,
+         "gibbs_posterior_calls": gibbs_calls,
+         "max_deviation": float(max_dev),
+         "profile_ms_per_batch_step": wall_ms,
+         "aggregate_states_per_s": n_chains * 1e3 / wall_ms,
+         "device_busy_share": None if busy is None else busy / wall_ms}
+    rec["14c"] = c
+    log(f"[P14c] {n_chains} chains x {c_steps} steps (every new operator "
+        f"and both Gibbs moves in turn): launches one a batch step and one "
+        f"a check plus the Gibbs proposals' {gibbs_calls}; max deviation "
+        f"{c['max_deviation']!r} over every chain; aggregate "
+        f"{c['aggregate_states_per_s']:.2f} states/s against one chain's "
+        f"{a['states_per_s']:.2f} (14a), busy share {c['device_busy_share']}")
+    if not c["max_deviation"] <= FULL_EVAL_TOL:
+        raise AssertionError(f"P14c deviation {c['max_deviation']}")
+    for k in range(0, n_chains):
+        if not valid_tree_np(*host_tree(TreeState(*(
+                getattr(states.tree, f)[k] for f in
+                ("parent", "children", "heights", "root")))), n_taxa):
+            raise AssertionError(f"P14c chain {k}: invalid tree")
+
+    # 14d: the operators with no target above, on small posteriors
+    d = {}
+
+    def run_small(label, log_post, operators, params, tree):
+        stp = make_mcmc_step(log_post, operators)
+        st = init_mcmc_state(params, tree, torch.Generator(
+            device=dev).manual_seed(P14_SEED), operators, log_post)
+        for k in range(d_steps):
+            st = stp.given_op(st, k % len(operators))
+        lp_end = float(st.log_posterior)
+        acc, rej = st.op_accept.tolist(), st.op_reject.tolist()
+        d[label] = {"log_posterior": lp_end, "acceptance": [
+            x / max(x + y, 1) for x, y in zip(acc, rej)]}
+        log(f"[P14d] {label}: {d_steps} steps, log posterior {lp_end!r}, "
+            f"acceptance {d[label]['acceptance']}")
+        if not math.isfinite(lp_end):
+            raise AssertionError(f"P14d {label}: {lp_end}")
+
+    n_star = 8  # a caterpillar whose internal nodes share one height
+    ch = np.full((2 * n_star - 1, 2), -1)
+    for i in range(1, n_star):
+        ch[n_star + i - 1] = (n_star + i - 2 if i > 1 else 0, i)
+    par = np.full(2 * n_star - 1, -1)
+    for x in range(n_star, 2 * n_star - 1):
+        par[ch[x]] = x
+    star = make_tree_state(par, ch, np.r_[np.zeros(n_star),
+                                          np.full(n_star - 1, 1.0)],
+                           2 * n_star - 2, f64, dev)
+    run_small("star root height scale", lambda p, t: P.lognormal_logpdf(
+        t.heights[t.root], 0.0, 0.5),
+        [O.StarRootHeightScaleOperator(n_taxa=n_star)], {}, star)
+    data = torch.tensor(np.random.default_rng(P14_SEED).normal(2.0, 0.5, 20),
+                        dtype=f64, device=dev)
+
+    def normal_model(p, t):
+        return (P.normal_gamma_precision_logpdf(data, p["mu"], p["tau"])
+                + P.gamma_logpdf(p["tau"], 2.0, 1.0)
+                + P.normal_logpdf(p["mu"], 0.0, 10.0))
+
+    kw = {"data_parameter": "data", "mean_parameter": "mu",
+          "precision_parameter": "tau"}
+    run_small("conjugate normal-gamma Gibbs", normal_model,
+                   [O.NormalGammaPrecisionGibbsOperator(prior_shape=2.0,
+                                                        prior_rate=1.0, **kw),
+                    O.NormalNormalMeanGibbsOperator(prior_precision=0.01,
+                                                    **kw)],
+                   {"data": data, "mu": torch.zeros((), dtype=f64,
+                                                    device=dev),
+                    "tau": torch.ones((), dtype=f64, device=dev)}, star)
+    if d["conjugate normal-gamma Gibbs"]["acceptance"] != [1.0, 1.0]:
+        raise AssertionError(f"P14d conjugate Gibbs {d}")
+    n_b, n_sites = bssvs_shape
+    rng = np.random.default_rng(P14_SEED)
+    letters = np.array(list("ABCD"))
+    names = [f"t{i}" for i in range(n_b)]
+    pats = al.SitePatterns.from_alignment(al.Alignment.from_sequences(
+        names, ["".join(letters[rng.integers(0, 4, n_sites)])
+                for _ in names], dt.general_datatype(list("ABCD"))))
+    bspec = S.AnalysisSpec(
+        partitions=[S.Partition(
+            patterns=pats,
+            substitution=S.GeneralReversible(n_states=4, bssvs=True))],
+        tree=S.TreeSpec(seed=P14_SEED),
+        clock=S.StrictClock(rate=S.Param(1.0, prior=S.CTMCScalePrior())),
+        tree_prior=S.ConstantCoalescent())
+    exchange = O.RateBitExchangeOperator(bit_parameter="p1.indicators",
+                                         rate_parameter="p1.rates")
+    bspec.extra_operators = [exchange]
+    banalysis = build(bspec, device=dev)
+    bops = banalysis.operators
+    k_x = next(k for k, op in enumerate(bops) if op is exchange)
+    bops = [bops[k_x]] + [op for k, op in enumerate(bops) if k != k_x]
+    run_small("rate-bit exchange on BSSVS", banalysis.log_posterior,
+              bops[:1] + [op for op in bops[1:]
+                          if type(op).__name__ == "BitFlipOperator"],
+              banalysis.params0, banalysis.tree0)
+
+    worst = {}
+    for name, args in density_cases():
+        def on(device):
+            return getattr(P, name)(*[
+                torch.tensor(x, dtype=f64, device=device)
+                if isinstance(x, np.ndarray) else x for x in args])
+        got, ref = float(on(dev)), float(on("cpu"))
+        worst[name] = abs(got - ref) / abs(ref) if ref != got else 0.0
+    p_q = np.random.default_rng(P14_SEED).uniform(0.01, 0.99, 64)
+    shape = np.exp(np.random.default_rng(P14_SEED + 1).uniform(-3.0, 4.0,
+                                                                 64))
+    for name, fn, args in (
+            ("gamma_quantile", special.gamma_quantile, (p_q, shape)),
+            ("gammainc_fixed", special.gammainc_fixed, (shape, shape * p_q
+                                                        * 2))):
+        got = fn(*[torch.tensor(x, device=dev) for x in args]).cpu()
+        ref = fn(*[torch.tensor(x) for x in args])
+        worst[name] = float(((got - ref).abs() / ref.abs()).max())
+    d["densities_max_rel_err"] = max(worst.values())
+    d["densities"] = len(worst)
+    rec["14d"] = d
+    log(f"[P14d] {len(worst)} functions (36 densities, gamma_quantile, "
+        f"gammainc_fixed) on the card against the CPU: max relative "
+        f"difference {d['densities_max_rel_err']!r} (tolerance "
+        f"{P14_DENSITY_TOL}); worst {max(worst, key=worst.get)}")
+    if not d["densities_max_rel_err"] <= P14_DENSITY_TOL:
+        raise AssertionError(f"P14d densities: {worst}")
     return rec, launches
 
 
@@ -3466,6 +3963,11 @@ def main():
     p13["tools"] = tools_path(SMOKE_OUT, p12["taxa"], dev)
     mark("13 mc3 and tools")
 
+    # -- phase 14: every MCMC operator, the Gibbs moves at the Makona shape --
+    p14, p14_launches = operators_path(doc, reset_counts, read_counts,
+                                       device_ms, dev)
+    mark("14 operators")
+
     # -- summary ------------------------------------------------------
     def entry(kname, source, replaces, launches, label):
         rec = next(r for r in checks[kname] if r["label"] == label)
@@ -3571,6 +4073,18 @@ def main():
         f"{p13['draws_max_rel_err']!r}; tools host s "
         + ", ".join(f"{k} {v['host_seconds']:.2f}" for k, v in tools.items())
         + f"; seqgen {tools['seqgen']['patterns']} patterns; on {smi_line}")
+    p14a, p14c = p14["14a"], p14["14c"]
+    log(f"[summary p14] {p14a['operators']} new operators at "
+        f"{p12['taxa']} taxa: {p14a['states_per_s']:.2f} states/s, busy share "
+        f"{p14a['device_busy_share']}, deviation {p14a['max_deviation']!r}; "
+        f"Gibbs proposals " + ", ".join(
+            f"{r['operator']} {r['candidates']} candidates chunk "
+            f"{r['chunk']} launches {r['launches']} {r['ms']:.1f} ms peak "
+            f"{r['peak_memory_gb']:.2f} GB" for r in p14["14b"])
+        + f"; {p14c['chains']} chains {p14c['aggregate_states_per_s']:.2f} "
+        f"aggregate states/s, deviation {p14c['max_deviation']!r}; "
+        f"densities on the card vs the CPU "
+        f"{p14['14d']['densities_max_rel_err']!r}; on {smi_line}")
     log(f"[phases] {json.dumps(phases)}")
     log(smi_line)
     print(json.dumps({"kernels": [
@@ -3601,7 +4115,8 @@ def main():
                              **p8_launches,
                              "makona joint": j_launches,
                              **p10_launches, **p11_launches,
-                             **p12_launches, **p13_launches}}), flush=True)
+                             **p12_launches, **p13_launches,
+                             **p14_launches}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -372,7 +372,9 @@ def test_gtr_chain_with_both_hmc_operators():
 
 def test_operator_settings_carry_across():
     """convert.operator_from: the JAX HMC operators' settings, transforms
-    included, become the port's operators of the same class."""
+    included, become the port's operators of the same class, as do the
+    other operators' (the uniform real move); an
+    operator with no counterpart yet raises."""
     from beast_mcmc_tpu.inference import hmc as jhmc
     from beast_mcmc_tpu.inference import operators as jops
 
@@ -397,5 +399,11 @@ def test_operator_settings_carry_across():
     scale = operator_from(jops.ScaleOperator(parameter="alpha", weight=2.0))
     assert (type(scale).__name__, scale.parameter, scale.weight) == (
         "ScaleOperator", "alpha", 2.0)
+    uniform = operator_from(jops.UniformRealOperator(parameter="x",
+                                                     lower=0.5, upper=2.0))
+    assert (type(uniform).__name__, uniform.lower, uniform.upper) == (
+        "UniformRealOperator", 0.5, 2.0)
+    # inference/gibbs.py is queue item 4f: no counterpart yet
+    from beast_mcmc_tpu.inference import gibbs as jgibbs
     with pytest.raises(ValueError, match="no counterpart"):
-        operator_from(jops.UniformRealOperator(parameter="x"))
+        operator_from(jgibbs.GmrfBlockUpdateOperator())

@@ -23,7 +23,8 @@ def test_import_every_module_without_jax():
     # every kernel's wrapper, the data modules, the samplers, MC3, the
     # component cache, the joint analysis's modules, the run surface
     # (config, runner, loggers, checkpoint, ancestral draw, the command
-    # line) and the post-processing apps are among the modules found
+    # line), the post-processing apps and the AS91 copy are among the
+    # modules found
     assert {"beast_mcmc_tpu_torch.apps.makona",
             "beast_mcmc_tpu_torch.__main__",
             "beast_mcmc_tpu_torch.apps.runner",
@@ -61,6 +62,9 @@ def test_import_every_module_without_jax():
             "beast_mcmc_tpu_torch.models.data.aa_matrices",
             "beast_mcmc_tpu_torch.data.io",
             "beast_mcmc_tpu_torch.utils.citations",
+            "beast_mcmc_tpu_torch.utils.as91",
+            "beast_mcmc_tpu_torch.ops.special",
+            "beast_mcmc_tpu_torch.models.sitemodel",
             *(f"beast_mcmc_tpu_torch.apps.{m}" for m in (
                 "beastgen", "checkpoint_compat", "coalgen", "convergence",
                 "dnds", "loganalyser", "logcombiner", "online", "plugins",
