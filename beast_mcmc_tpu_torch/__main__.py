@@ -4,30 +4,40 @@
         [-chain_length N] [-save_state FILE] [-load_state FILE]
         [-log FILE] [-trees FILE] [-overwrite] [-device cuda|cpu]
         [-mc3_chains N] [-mc3_delta D] [-mc3_temperatures T1,T2,...]
-        [-mc3_swap K]
+        [-mc3_swap K] [-testxml] [-scale F]
     python -m beast_mcmc_tpu_torch loganalyser|logcombiner|treeannotator|
         seqgen|treestat ...
 
 Counterpart of beast_mcmc_tpu/__main__.py, BeastMain's flag surface
 (BeastMain.java:370-460: -seed, -save_state/-load_state, -overwrite; the
-XML file is the analysis). `run` takes the declarative importer route:
-config/xml_import.py -> AnalysisSpec -> apps/runner.py::run_analysis,
-which writes a Tracer-compatible tab log and a NEXUS tree log (by default
-<xml base name>.log and .trees in the working directory). -device picks
-the card (cuda, the default) or the CPU. -mc3_chains N > 1 runs N
-Metropolis-coupled chains (BeastMain.java:436-440) as one chain batch:
-the ladder 1 / (1 + delta k), or 1 followed by -mc3_temperatures; a swap
-attempt every -mc3_swap states; the cold chain's log only.
+XML file is the analysis). `run` has two routes, as in the JAX package:
+
+  - the declarative importer: config/xml_import.py -> AnalysisSpec ->
+    apps/runner.py::run_analysis, which writes a Tracer-compatible tab log
+    and a NEXUS tree log (by default <xml base name>.log and .trees in the
+    working directory). -mc3_chains N > 1 runs N Metropolis-coupled chains
+    (BeastMain.java:436-440) as one chain batch: the ladder 1 / (1 + delta
+    k), or 1 followed by -mc3_temperatures; a swap attempt every -mc3_swap
+    states; the cold chain's log only;
+  - a document outside the importer's vocabulary runs through the XML
+    interpreter (config/interpreter.py), which writes the logs its own
+    <log fileName> and <logTree fileName> elements name in the working
+    directory; -testxml sends a document there straight, runs it strictly
+    (a failed <traceAnalysis> expectation fails the run) and scales its
+    chains by -scale.
+
+-device picks the card (cuda, the default) or the CPU for both. A tag of
+a JAX extension module that is not ported yet, or a document the
+interpreter cannot read, stops the run with a message (naming the module)
+and a non-zero code.
 
 The sub-tools keep the reference's app names (LogAnalyser.java,
 LogCombiner.java, TreeAnnotator.java, SeqGen.java, TreeStatApp) and run
 the port's apps/ modules of the same names.
 
 Not ported yet, and refused with a message and a non-zero code, never run
-in another way: -testxml and the interpreter fallback for documents
-outside the importer's vocabulary (ROADMAP queue A item 5, the XML layer)
-and -particles (queue A item 4f, inference/smc.py). An unknown command
-returns 2.
+in another way: -particles (queue A item 4f, inference/smc.py). An unknown
+command returns 2.
 """
 
 from __future__ import annotations
@@ -71,7 +81,10 @@ def _cmd_run(argv) -> int:
     p.add_argument("-mc3_swap", type=int, default=100,
                    help="states between chain swap attempts")
     p.add_argument("-testxml", action="store_true",
-                   help="the TestXML interpreter (not ported)")
+                   help="run through the TestXML interpreter "
+                        "(multi-mcmc blocks + embedded assertions)")
+    p.add_argument("-scale", type=float, default=1.0,
+                   help="chain-length scale factor (testxml mode)")
     p.add_argument("-device", default="cuda",
                    help="torch device of the chain: cuda (default) or cpu")
     args = p.parse_args(argv)
@@ -79,10 +92,25 @@ def _cmd_run(argv) -> int:
     for f in (args.log, args.trees):
         if f and os.path.exists(f) and not args.overwrite:
             p.error(f"{f} exists (use -overwrite)")
-    if args.testxml:
-        return _not_ported("-testxml (the TestXML interpreter)", "5")
     if args.particles:
         return _not_ported("-particles (inference/smc.py)", "4f")
+    from beast_mcmc_tpu_torch.config.interpreter import Unsupported, XmlError
+
+    if args.testxml:
+        from beast_mcmc_tpu_torch.config.interpreter import run_testxml
+
+        try:
+            res = run_testxml(
+                args.xml, scale=args.scale, seed=args.seed or 666,
+                max_states=args.chain_length or 10**9, device=args.device)
+        except (Unsupported, XmlError) as e:
+            print(f"{args.xml}: {e}", file=sys.stderr)
+            return 1
+        for fname, name, mean, exp, se in res:
+            print(f"E[{name}] = {mean:.6g} (expected {exp:.6g}, "
+                  f"SE {se:.3g}) OK")
+        print(f"{args.xml}: all embedded checks passed")
+        return 0
 
     from beast_mcmc_tpu_torch.apps.runner import run_analysis
     from beast_mcmc_tpu_torch.config.xml_import import (
@@ -95,8 +123,30 @@ def _cmd_run(argv) -> int:
     try:
         spec = parse_beast_xml(text)
     except (NotImplementedError, XmlImportError) as e:
-        return _not_ported(f"{args.xml} needs the XML interpreter "
-                           f"(importer: {e});", "5")
+        # one vocabulary, two engines: past the importer's subset the
+        # document runs through the interpreter registry
+        print(f"[importer: {e}; running through the interpreter registry]")
+        from beast_mcmc_tpu_torch.config.interpreter import XmlAnalysis
+
+        try:
+            ax = XmlAnalysis(
+                args.xml, seed=args.seed or 666,
+                max_states=args.chain_length or 10**9, workdir=os.getcwd(),
+                # the reference only warns on a failed trace expectation
+                # (TraceAnalysisParser.java:108-112); -testxml is strict
+                strict_expectations=False, device=args.device)
+            ax.run()
+        except (Unsupported, XmlError) as e:
+            print(f"{args.xml}: {e}", file=sys.stderr)
+            return 1
+        for r in ax.runs:
+            print(f"{r['steps']} states in {r['seconds']:.1f}s = "
+                  f"{r['steps'] / max(r['seconds'], 1e-9):.1f} states/sec; "
+                  f"full-evaluation deviation {r['full_eval_deviation']:.3g}",
+                  file=sys.stderr)
+        print(f"{args.xml}: analysis complete "
+              f"(logs written beside the XML's fileName attributes)")
+        return 0
     if args.seed is not None:
         spec.mcmc.seed = args.seed
     if args.chain_length is not None:

@@ -2,7 +2,9 @@
 
 The inputs of the JAX package's bench.py::measure_makona_joint, made
 without JAX: a fixed reader for this one document (scripts/make_makona.py
-writes it; the general XML layer is not ported) takes the <taxa> block
+writes it; config/interpreter.py cannot read it yet, since its skygrid,
+ancestral and discrete-trait tags are config/xml_ext.py's and
+xml_geo.py's, queue items 4e and 4g) takes the <taxa> block
 (id, date, location), the location states and the model's constants with
 xml.etree; the starting tree is a coalescent simulation on the dated tips
 (<coalescentTree>, tree/topology.py), and the alignment a simulation of

@@ -260,7 +260,7 @@ def parse_beast_xml(text: str) -> S.AnalysisSpec:
         if el.tag in _OTHER_PRIOR_TAGS and not el.get("idref"):
             raise NotImplementedError(
                 f"tree prior <{el.tag}> is not supported by the "
-                f"declarative importer (the XML interpreter is not ported)"
+                f"declarative importer; use config.interpreter"
             )
     for el in root.findall("constantSize"):
         pp = _make_param(_first_param(_child(el, "populationSize"), store), registry)

@@ -220,12 +220,15 @@ class RandomWalkOperator(Operator):
 @dataclasses.dataclass
 class DeltaExchangeOperator(Operator):
     """DeltaExchangeOperator.java: move d ~ U(0, delta) from one random
-    dimension to another; keeps the sum; symmetric."""
+    dimension to another; keeps the sum; symmetric. With `integer` d is
+    uniform on 1..round(delta) (at least 1) and every entry must stay at
+    least 1 (the integer group sizes of a skyline)."""
 
     parameter: str = ""
     delta: float = 0.01
     lower: float = 0.0
     upper: float = math.inf
+    integer: bool = False
     adaptable: bool = True
 
     def initial_adapt(self) -> float:
@@ -240,11 +243,18 @@ class DeltaExchangeOperator(Operator):
         dim = flat.shape[0]
         i = _randint(gen, 0, dim, flat.device)
         j = sample_excluding(gen, dim, i)
-        d = _uniform(gen, flat) * tuning
+        lower = self.lower
+        if self.integer:
+            hi = max(int(round(self.delta)), 1)
+            d = _randint(gen, 1, hi + 1, flat.device).to(flat.dtype)
+            lower = max(self.lower, 1.0)
+        else:
+            d = _uniform(gen, flat) * tuning
         new = flat.index_put((i,), flat[i] - d)
         new = new.index_put((j,), new[j] + d)
-        logh = _valid_or_reject(_in_bounds(new, self.lower, self.upper),
-                                torch.zeros((), dtype=flat.dtype,
+        fdt = flat.dtype if flat.is_floating_point() else tree.heights.dtype
+        logh = _valid_or_reject(_in_bounds(new, lower, self.upper),
+                                torch.zeros((), dtype=fdt,
                                             device=flat.device))
         return {**params, self.parameter: new.reshape(x.shape)}, tree, logh
 

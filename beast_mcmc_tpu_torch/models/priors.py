@@ -3,7 +3,8 @@
 Counterpart of beast_mcmc_tpu/models/priors.py, every function of it. Each
 returns the sum of the elementwise log density, -inf outside the support.
 The priors of the main path, the Makona joint analysis and the config
-layer (the first nine below) take `chains=True`: the leading axis of x is
+layer (the first nine below) take numbers or tensors as their
+distribution's parameters, and `chains=True`: the leading axis of x is
 then a chain batch's, and the sum is taken per chain ([B]).
 """
 
@@ -18,10 +19,20 @@ def _total(lp: torch.Tensor, chains: bool) -> torch.Tensor:
     return lp.reshape(lp.shape[0], -1).sum(-1) if chains else torch.sum(lp)
 
 
+def _log(v):
+    """log of a number (math, as before) or of a tensor argument (the
+    estimated parameters of a <distributionLikelihood>)."""
+    return torch.log(v) if isinstance(v, torch.Tensor) else math.log(v)
+
+
+def _lgamma(v):
+    return torch.lgamma(v) if isinstance(v, torch.Tensor) else math.lgamma(v)
+
+
 def uniform_logpdf(x: torch.Tensor, lower: float, upper: float,
                    chains: bool = False) -> torch.Tensor:
     """Uniform on [lower, upper] (<uniformPrior>)."""
-    lp = torch.full_like(x, -math.log(upper - lower))
+    lp = torch.zeros_like(x) - _log(upper - lower)
     inside = (x >= lower) & (x <= upper)
     return _total(torch.where(inside, lp, torch.full_like(lp, -math.inf)),
                   chains)
@@ -31,7 +42,7 @@ def normal_logpdf(x: torch.Tensor, mean: float, stdev: float,
                   chains: bool = False) -> torch.Tensor:
     """Normal(mean, stdev) (<normalPrior>)."""
     z = (x - mean) / stdev
-    return _total(-0.5 * z * z - math.log(stdev)
+    return _total(-0.5 * z * z - _log(stdev)
                   - 0.5 * math.log(2 * math.pi), chains)
 
 
@@ -42,7 +53,7 @@ def lognormal_logpdf(x: torch.Tensor, mu: float, sigma: float,
     safe = x > 0
     lx = torch.log(torch.where(safe, x, torch.ones_like(x)))
     z = (lx - mu) / sigma
-    lp = -0.5 * z * z - lx - math.log(sigma) - 0.5 * math.log(2 * math.pi)
+    lp = -0.5 * z * z - lx - _log(sigma) - 0.5 * math.log(2 * math.pi)
     return _total(torch.where(safe, lp, torch.full_like(lp, -math.inf)),
                   chains)
 
@@ -60,8 +71,8 @@ def gamma_logpdf(x: torch.Tensor, shape: float, scale: float,
     """Gamma(shape, scale) (GammaDistribution.java, <gammaPrior>)."""
     safe = x > 0
     xs = torch.where(safe, x, torch.ones_like(x))
-    lp = ((shape - 1) * torch.log(xs) - xs / scale - math.lgamma(shape)
-          - shape * math.log(scale))
+    lp = ((shape - 1) * torch.log(xs) - xs / scale - _lgamma(shape)
+          - shape * _log(scale))
     return _total(torch.where(safe, lp, torch.full_like(lp, -math.inf)),
                   chains)
 
@@ -69,7 +80,7 @@ def gamma_logpdf(x: torch.Tensor, shape: float, scale: float,
 def exponential_logpdf(x: torch.Tensor, mean: float,
                        chains: bool = False) -> torch.Tensor:
     """Exponential of the given mean (<exponentialPrior>)."""
-    lp = -x / mean - math.log(mean)
+    lp = -x / mean - _log(mean)
     return _total(torch.where(x >= 0, lp, torch.full_like(lp, -math.inf)),
                   chains)
 
@@ -79,7 +90,7 @@ def poisson_logpmf(k: torch.Tensor, mean: float,
     """Poisson of the given mean at (real-valued) counts k
     (<poissonPrior>)."""
     k = torch.as_tensor(k)
-    return _total(k * math.log(mean) - mean - torch.lgamma(k + 1.0), chains)
+    return _total(k * _log(mean) - mean - torch.lgamma(k + 1.0), chains)
 
 
 def dirichlet_logpdf(x: torch.Tensor, alpha,

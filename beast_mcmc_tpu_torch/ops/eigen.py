@@ -24,6 +24,7 @@ through `_SymmetricExpm`.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -113,7 +114,10 @@ def normalized_q(rates_symmetric: torch.Tensor,
 def reversible_eigen(rates_symmetric: torch.Tensor,
                      freqs: torch.Tensor) -> EigenSystem:
     """Spectral decomposition of a reversible Q by pi-symmetrisation, in
-    float64, cast back to the inputs' dtype."""
+    float64, cast back to the inputs' dtype. A non-finite input (a
+    proposal that left a frequency negative or zero) gives NaN eigenvalues,
+    as JAX's eigh does, so that the posterior is NaN and the proposal is
+    rejected: torch.linalg.eigh itself would raise on it."""
     out_dt = torch.promote_types(rates_symmetric.dtype, freqs.dtype)
     rates_symmetric = rates_symmetric.to(torch.float64)
     freqs = freqs.to(torch.float64)
@@ -121,7 +125,10 @@ def reversible_eigen(rates_symmetric: torch.Tensor,
     sqrt_pi = torch.sqrt(freqs)
     a = q * (sqrt_pi[..., :, None] / sqrt_pi[..., None, :])
     a = 0.5 * (a + a.transpose(-1, -2))  # exact symmetry
-    w, v = torch.linalg.eigh(a)
+    bad = ~torch.isfinite(a).all(-1).all(-1)
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+    w, v = torch.linalg.eigh(torch.where(bad[..., None, None], eye, a))
+    w = torch.where(bad[..., None], torch.full_like(w, math.nan), w)
     u = v / sqrt_pi[..., :, None]
     u_inv = v.transpose(-1, -2) * sqrt_pi[..., None, :]
     sym = None

@@ -186,6 +186,25 @@ result line):
      hierarchy's conjugate Gibbs draws, the rate-bit exchange on a BSSVS
      analysis), and the 36 densities of models/priors.py, gamma_quantile
      and gammainc_fixed on the card against the CPU to P14_DENSITY_TOL.
+  15. the XML interpreter route at the Makona shape (`interpreter_path`,
+     `functions_path`, `testxml_path`): on phase 12's taxa and alignment,
+     15a a document outside the importer's vocabulary (GTR+Gamma4, a
+     random local clock over every node with a Poisson prior on its
+     indicator sum, a time-aware GMRF skyride, a coalescentSimulator start
+     tree) through `python -m beast_mcmc_tpu_torch run` (the importer's
+     refusal printed, the interpreter's route taken) for P15_STEPS_A
+     states after the interpreter's 100-step full-evaluation check, its
+     peel_stream launches exactly as predicted from _run_mcmc (the start,
+     two a checked step, one a step, one a log row's posterior), its log
+     and trees read back, a profiler window of P15_PROFILE steps; 15b
+     HKY+Gamma4 with a local clock on a clade of P15_CLADE taxa and a
+     stepwise skyline of P15_GROUPS groups through XmlAnalysis.run, the
+     same checks; 15c every function that models/clock.py, epoch.py,
+     coalescent.py and speciation.py gained on the card against the CPU
+     at 3,219 nodes to P15_REL_TOL (P15_ODE_TOL for the SIR ODE); 15d
+     `run -testxml` on the conjugate normal document of
+     tests/test_distribution_likelihood_xml.py, exit 0 and its
+     expectation line.
 
 `python3 chip_smoke.py --tiles` instead builds the kernels and times the
 v1 streaming kernel at the plans its planner could pick, with its largest
@@ -1114,6 +1133,49 @@ SPEC_LOG_EVERY = 10
 SPEC_TAXA, SPEC_SITES = 1610, 18996  # examples/makona_joint.xml's
 
 
+def makona_data(n_taxa=SPEC_TAXA, n_sites=SPEC_SITES, seed=JOINT_SEED,
+                device="cuda"):
+    """The first n_taxa dated taxa of examples/makona_joint.xml and n_sites
+    nucleotides of each, simulated with apps/makona.py::simulate_sites on
+    `device` down a coalescent tree from `seed` (at the full size and the
+    default seed, phase 9's tree and alignment): {"cfg", "taxa", "dates",
+    "rows" (uint8 [taxa, sites] of ACGT), "sites", "patterns" (the
+    distinct columns)}."""
+    import numpy as np
+
+    from beast_mcmc_tpu_torch.apps.makona import (
+        read_makona_xml, simulate_sites, tip_heights)
+    from beast_mcmc_tpu_torch.apps.seqgen import compress_patterns
+    from beast_mcmc_tpu_torch.tree.topology import simulate_coalescent_tree
+
+    cfg = read_makona_xml()
+    taxa, dates = cfg["taxa"][:n_taxa], cfg["dates"][:n_taxa]
+    tree = simulate_coalescent_tree(np.random.default_rng(seed),
+                                    tip_heights(dates), cfg["pop_size"])
+    states = simulate_sites(cfg, tree, seed, device, n_sites)
+    return {"cfg": cfg, "taxa": taxa, "dates": dates,
+            "rows": np.frombuffer(b"ACGT", np.uint8)[states.cpu().numpy()],
+            "sites": int(states.shape[1]),
+            "patterns": int(compress_patterns(states)[0].shape[1])}
+
+
+def taxa_alignment_xml(data):
+    """The <taxa> block (forward dates in years) and the <alignment> of
+    makona_data's rows, as lines."""
+    from xml.sax.saxutils import quoteattr
+
+    out = ['  <taxa id="taxa">']
+    out += [f'    <taxon id={quoteattr(t)}><date value="{float(d)!r}" '
+            'direction="forwards" units="years"/></taxon>'
+            for t, d in zip(data["taxa"], data["dates"])]
+    out += ["  </taxa>", '  <alignment id="alignment" dataType="nucleotide">']
+    out += [f"    <sequence><taxon idref={quoteattr(t)}/>"
+            f"{row.tobytes().decode()}</sequence>"
+            for t, row in zip(data["taxa"], data["rows"])]
+    out.append("  </alignment>")
+    return out
+
+
 def spec_document(path, n_taxa=SPEC_TAXA, n_sites=SPEC_SITES,
                   seed=JOINT_SEED, device="cuda"):
     """Write a BEAUti-style document in the importer's vocabulary
@@ -1127,39 +1189,18 @@ def spec_document(path, n_taxa=SPEC_TAXA, n_sites=SPEC_SITES,
     exponential priors, the operators that make the model's parameters
     estimated, <log logEvery="10">. Returns {"taxa", "sites", "patterns"}
     (the distinct columns)."""
-    import numpy as np
-    from xml.sax.saxutils import quoteattr
-
-    from beast_mcmc_tpu_torch.apps.makona import (
-        read_makona_xml, simulate_sites, tip_heights)
-    from beast_mcmc_tpu_torch.apps.seqgen import compress_patterns
-    from beast_mcmc_tpu_torch.tree.topology import simulate_coalescent_tree
-
-    cfg = read_makona_xml()
-    taxa, dates = cfg["taxa"][:n_taxa], cfg["dates"][:n_taxa]
+    data = makona_data(n_taxa, n_sites, seed, device)
+    cfg, taxa, n_patterns = data["cfg"], data["taxa"], data["patterns"]
     init = cfg["model"]["init"]
-    tree = simulate_coalescent_tree(np.random.default_rng(seed),
-                                    tip_heights(dates), cfg["pop_size"])
-    states = simulate_sites(cfg, tree, seed, device, n_sites)
-    n_patterns = compress_patterns(states)[0].shape[1]
-    rows = np.frombuffer(b"ACGT", np.uint8)[states.cpu().numpy()]
-    out = ['<?xml version="1.0" standalone="yes"?>', "<beast>",
-           '  <taxa id="taxa">']
-    out += [f'    <taxon id={quoteattr(t)}><date value="{float(d)!r}" '
-            'direction="forwards" units="years"/></taxon>'
-            for t, d in zip(taxa, dates)]
-    out += ["  </taxa>", '  <alignment id="alignment" dataType="nucleotide">']
-    out += [f"    <sequence><taxon idref={quoteattr(t)}/>"
-            f"{row.tobytes().decode()}</sequence>"
-            for t, row in zip(taxa, rows)]
+    out = ['<?xml version="1.0" standalone="yes"?>', "<beast>"]
+    out += taxa_alignment_xml(data)
     freqs = " ".join(repr(float(f)) for f in init["frequencies"])
     gtr = "\n".join(
         f'    <rate{r}><parameter id="gtr.{r.lower()}" '
         f'value="{float(init["gtr." + r.lower()])!r}" lower="0.0"/>'
         f"</rate{r}>" for r in ("AC", "AG", "AT", "CG", "GT"))
     n_grid = int(init["skygrid.numGridPoints"])
-    out.append(f"""  </alignment>
-  <patterns id="patterns" from="1" strip="false">
+    out.append(f"""  <patterns id="patterns" from="1" strip="false">
     <alignment idref="alignment"/>
   </patterns>
   <gmrfSkyGridLikelihood id="skygrid">
@@ -1233,7 +1274,7 @@ def spec_document(path, n_taxa=SPEC_TAXA, n_sites=SPEC_SITES,
 """)
     with open(path, "w") as f:
         f.write("\n".join(out))
-    return {"taxa": len(taxa), "sites": int(states.shape[1]),
+    return {"taxa": len(taxa), "sites": data["sites"],
             "patterns": int(n_patterns)}
 
 
@@ -2095,6 +2136,702 @@ def tools_path(out_dir, n_taxa, dev, n_sites=SPEC_SITES,
     log(f"[P13b] seqgen wrote {n_taxa} x {n_sites}: "
         f"{rec['seqgen']['patterns']} patterns")
     return rec
+
+
+# phase 15, the XML interpreter route at the Makona shape: 15a's steps
+# (the CLI's full-evaluation check is the interpreter's default of 100
+# steps), 15b's steps and full-evaluation steps, the profiler windows, the
+# log interval, the seed, 15b's local-clock clade and skyline groups, the
+# -testxml document's chain scale, and 15c's tolerances (card against the
+# CPU, relative to the output's largest magnitude; the SIR ODE's loop
+# accumulates)
+P15_STEPS_A, P15_CHECK_A = 300, 100
+P15_STEPS_B, P15_CHECK_B = 200, 50
+P15_PROFILE, P15_LOG_EVERY, P15_SEED = 20, 10, 7
+P15_CLADE, P15_GROUPS = 100, 10
+P15_TESTXML_SCALE = 0.02
+P15_REL_TOL, P15_ODE_TOL = 1e-12, 1e-10
+
+
+def interpreter_document(path, kind, data, n_steps):
+    """Write a document outside the importer's vocabulary at `path` on
+    makona_data's taxa and alignment, with a coalescentSimulator start
+    tree (the interpreter draws it from its numpy stream) and n_steps
+    states, <log logEvery="P15_LOG_EVERY"> of the posterior (the one
+    column that evaluates the tree likelihood) and scalar parameters, and
+    a tree log. kind "rlc" (15a): gtrModel with Gamma4, a
+    randomLocalClockModel over every node (rates, rateIndicator,
+    clockRate), a sumStatistic of the indicators under a poissonPrior, a
+    time-aware gmrfSkyrideLikelihood whose precision has a gammaPrior;
+    scale, bit-flip, random-walk, subtree-slide, narrow-exchange,
+    Wilson-Balding and uniform node-height operators. kind "skyline" (15b):
+    HKYModel with Gamma4, a localClockModel with one clade of the first
+    P15_CLADE taxa and the trunk, a stepwise generalizedSkyLineLikelihood
+    of P15_GROUPS groups; its operators with an integer delta exchange on
+    the group sizes. Returns the file's name of its log."""
+    from xml.sax.saxutils import quoteattr
+
+    cfg = data["cfg"]
+    init = cfg["model"]["init"]
+    pop = float(cfg["pop_size"])
+    freqs = " ".join(repr(float(f)) for f in init["frequencies"])
+    alpha = float(init["siteModel.alpha"])
+    out = ['<?xml version="1.0" standalone="yes"?>', "<beast>"]
+    out += taxa_alignment_xml(data)
+    name = f"makona_{kind}"
+    common = f"""  <patterns id="patterns" from="1"><alignment idref="alignment"/></patterns>
+  <constantSize id="initialDemo" units="years">
+    <populationSize><parameter id="initialDemo.popSize" value="{pop!r}"/></populationSize>
+  </constantSize>
+  <coalescentSimulator id="startingTree">
+    <taxa idref="taxa"/><constantSize idref="initialDemo"/>
+  </coalescentSimulator>
+  <treeModel id="treeModel">
+    <coalescentTree idref="startingTree"/>
+    <rootHeight><parameter id="treeModel.rootHeight"/></rootHeight>
+    <nodeHeights internalNodes="true"><parameter id="treeModel.internalNodeHeights"/></nodeHeights>
+  </treeModel>"""
+    tree_ops = """    <subtreeSlide size="1.0" gaussian="true" weight="15"><treeModel idref="treeModel"/></subtreeSlide>
+    <narrowExchange weight="15"><treeModel idref="treeModel"/></narrowExchange>
+    <wilsonBalding weight="3"><treeModel idref="treeModel"/></wilsonBalding>
+    <uniformOperator weight="30"><parameter idref="treeModel.internalNodeHeights"/></uniformOperator>
+    <scaleOperator scaleFactor="0.75" weight="3"><parameter idref="treeModel.rootHeight"/></scaleOperator>"""
+    site = f"""    <gammaShape gammaCategories="4"><parameter id="alpha" value="{alpha!r}" lower="0.0"/></gammaShape>"""
+    if kind == "rlc":
+        rates = "\n".join(
+            f'    <rate{r}><parameter id="gtr.{r.lower()}" '
+            f'value="{float(init["gtr." + r.lower()])!r}" lower="0.0"/>'
+            f"</rate{r}>" for r in ("AC", "AG", "AT", "CG", "GT"))
+        model = f"""  <gtrModel id="subst">
+    <frequencies><frequencyModel dataType="nucleotide">
+      <frequencies><parameter id="frequencies" value="{freqs}"/></frequencies>
+    </frequencyModel></frequencies>
+{rates}
+  </gtrModel>
+  <randomLocalClockModel id="clock">
+    <treeModel idref="treeModel"/>
+    <rates><parameter id="rlc.rates"/></rates>
+    <rateIndicator><parameter id="rlc.indicators"/></rateIndicator>
+    <clockRate><parameter id="clock.rate" value="{float(init['ucld.mean'])!r}" lower="0.0"/></clockRate>
+  </randomLocalClockModel>
+  <sumStatistic id="rlc.changes"><parameter idref="rlc.indicators"/></sumStatistic>
+  <gmrfSkyrideLikelihood id="treePrior" timeAwareSmoothing="true">
+    <populationSizes><parameter id="skyride.logPopSize" value="{float(__import__('math').log(pop))!r}"/></populationSizes>
+    <precisionParameter><parameter id="skyride.precision" value="1.0" lower="0.0"/></precisionParameter>
+    <populationTree><treeModel idref="treeModel"/></populationTree>
+  </gmrfSkyrideLikelihood>"""
+        clock_ref = '<randomLocalClockModel idref="clock"/>'
+        ops = """    <scaleOperator scaleFactor="0.75" weight="3"><parameter idref="clock.rate"/></scaleOperator>
+    <scaleOperator scaleFactor="0.75" weight="10"><parameter idref="rlc.rates"/></scaleOperator>
+    <bitFlipOperator weight="10"><parameter idref="rlc.indicators"/></bitFlipOperator>
+    <scaleOperator scaleFactor="0.75" weight="1"><parameter idref="gtr.ag"/></scaleOperator>
+    <randomWalkOperator windowSize="0.5" weight="10"><parameter idref="skyride.logPopSize"/></randomWalkOperator>
+    <scaleOperator scaleFactor="0.75" weight="2"><parameter idref="skyride.precision"/></scaleOperator>"""
+        priors = """        <poissonPrior mean="0.6931471805599453"><statistic idref="rlc.changes"/></poissonPrior>
+        <gammaPrior shape="0.5" scale="2.0"><parameter idref="rlc.rates"/></gammaPrior>
+        <gammaPrior shape="0.001" scale="1000.0"><parameter idref="skyride.precision"/></gammaPrior>
+        <gmrfSkyrideLikelihood idref="treePrior"/>"""
+        logged = """      <parameter idref="clock.rate"/>
+      <sumStatistic idref="rlc.changes"/>
+      <parameter idref="skyride.precision"/>"""
+    else:
+        clade = "".join(f"<taxon idref={quoteattr(t)}/>"
+                        for t in data["taxa"][:P15_CLADE])
+        pops = " ".join([repr(pop)] * P15_GROUPS)
+        model = f"""  <taxa id="clade">{clade}</taxa>
+  <HKYModel id="subst">
+    <frequencies><frequencyModel dataType="nucleotide">
+      <frequencies><parameter id="frequencies" value="{freqs}"/></frequencies>
+    </frequencyModel></frequencies>
+    <kappa><parameter id="kappa" value="4.0" lower="0.0"/></kappa>
+  </HKYModel>
+  <localClockModel id="clock">
+    <treeModel idref="treeModel"/>
+    <rate><parameter id="clock.rate" value="{float(init['ucld.mean'])!r}" lower="0.0"/></rate>
+    <clade includeStem="false"><taxa idref="clade"/>
+      <parameter id="clade.rate" value="{float(init['ucld.mean'])!r}" lower="0.0"/></clade>
+  </localClockModel>
+  <generalizedSkyLineLikelihood id="treePrior" linear="false">
+    <populationSizes><parameter id="skyline.popSize" value="{pops}" lower="0.0"/></populationSizes>
+    <groupSizes><parameter id="skyline.groupSize" dimension="{P15_GROUPS}"/></groupSizes>
+    <populationTree><treeModel idref="treeModel"/></populationTree>
+  </generalizedSkyLineLikelihood>"""
+        clock_ref = '<localClockModel idref="clock"/>'
+        ops = """    <scaleOperator scaleFactor="0.75" weight="3"><parameter idref="clock.rate"/></scaleOperator>
+    <scaleOperator scaleFactor="0.75" weight="3"><parameter idref="clade.rate"/></scaleOperator>
+    <scaleOperator scaleFactor="0.75" weight="1"><parameter idref="kappa"/></scaleOperator>
+    <scaleOperator scaleFactor="0.75" weight="10"><parameter idref="skyline.popSize"/></scaleOperator>
+    <deltaExchange delta="1" integer="true" weight="5"><parameter idref="skyline.groupSize"/></deltaExchange>"""
+        priors = """        <logNormalPrior mean="1.0" stdev="1.25"><parameter idref="kappa"/></logNormalPrior>
+        <oneOnXPrior><parameter idref="skyline.popSize"/></oneOnXPrior>
+        <generalizedSkyLineLikelihood idref="treePrior"/>"""
+        logged = """      <parameter idref="clock.rate"/>
+      <parameter idref="clade.rate"/>
+      <parameter idref="kappa"/>"""
+    out.append(f"""{common}
+{model}
+  <siteModel id="siteModel">
+    <substitutionModel><{'gtrModel' if kind == 'rlc' else 'HKYModel'} idref="subst"/></substitutionModel>
+{site}
+  </siteModel>
+  <treeLikelihood id="treeLikelihood" useAmbiguities="false">
+    <patterns idref="patterns"/><treeModel idref="treeModel"/>
+    <siteModel idref="siteModel"/>{clock_ref}
+  </treeLikelihood>
+  <operators id="operators">
+{ops}
+    <scaleOperator scaleFactor="0.75" weight="1"><parameter idref="alpha"/></scaleOperator>
+{tree_ops}
+  </operators>
+  <mcmc id="mcmc" chainLength="{n_steps}" autoOptimize="true">
+    <posterior id="posterior">
+      <prior id="prior">
+        <exponentialPrior mean="0.5"><parameter idref="alpha"/></exponentialPrior>
+{priors}
+      </prior>
+      <likelihood id="likelihood"><treeLikelihood idref="treeLikelihood"/></likelihood>
+    </posterior>
+    <operators idref="operators"/>
+    <log logEvery="{P15_LOG_EVERY}" fileName="{name}.log">
+      <posterior idref="posterior"/>
+      <parameter idref="alpha"/>
+{logged}
+      <parameter idref="treeModel.rootHeight"/>
+    </log>
+    <logTree logEvery="{P15_LOG_EVERY}" fileName="{name}.trees">
+      <treeModel idref="treeModel"/>
+    </logTree>
+  </mcmc>
+</beast>
+""")
+    with open(path, "w") as f:
+        f.write("\n".join(out))
+    return f"{name}.log"
+
+
+def _interp_files_check(label, out_dir, log_name, n_steps, n_taxa):
+    """The run's log (n_steps / P15_LOG_EVERY rows, finite) and tree file
+    (as many trees of every taxon) read back; (rows, trees)."""
+    import math
+
+    from beast_mcmc_tpu_torch.tree.topology import parse_newick
+
+    lines = open(os.path.join(out_dir, log_name)).read().splitlines()
+    rows = [ln.split("\t") for ln in lines if ln[:1].isdigit()]
+    want = n_steps // P15_LOG_EVERY
+    if (len(rows) != want or lines[0].split("\t")[:2] != ["state", "posterior"]
+            or not all(math.isfinite(float(v)) for r in rows for v in r)):
+        raise AssertionError(f"P15 {label} log: {len(rows)} rows of {want}")
+    trees = [ln.split("[&R]", 1)[1].strip() for ln in open(os.path.join(
+        out_dir, log_name.replace(".log", ".trees")))
+        if ln.startswith("tree STATE_")]
+    if len(trees) != want or any(len(parse_newick(t)[4]) != n_taxa
+                                 for t in trees):
+        raise AssertionError(f"P15 {label} trees: {len(trees)}")
+    return len(rows), len(trees)
+
+
+def interpreter_path(out_dir, reset_counts, read_counts, device_ms, dev,
+                     n_taxa=SPEC_TAXA, n_sites=SPEC_SITES,
+                     steps_a=P15_STEPS_A, steps_b=P15_STEPS_B,
+                     check_b=P15_CHECK_B,
+                     n_profile=P15_PROFILE):
+    """Phases 15a and 15b (see the module docstring) at n_taxa x n_sites.
+    The peel launches of each run are predicted from _run_mcmc's
+    evaluations: the start, two a checked step (the step's own and the
+    fresh one), one a step, and one a log row for the posterior column;
+    all of them peel_stream at the Makona shape. Returns (record,
+    launches)."""
+    import contextlib
+    import io
+    import re
+
+    from beast_mcmc_tpu_torch.__main__ import main as cli
+    from beast_mcmc_tpu_torch.config.interpreter import XmlAnalysis
+    from beast_mcmc_tpu_torch.inference.mcmc import run_chain
+
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    data = makona_data(n_taxa, n_sites, JOINT_SEED, dev)
+    docs = {k: os.path.join(out_dir, f"makona_{k}.xml")
+            for k in ("rlc", "skyline")}
+    logs = {"rlc": interpreter_document(docs["rlc"], "rlc", data, steps_a),
+            "skyline": interpreter_document(docs["skyline"], "skyline",
+                                            data, steps_b)}
+    rec = {"taxa": len(data["taxa"]), "sites": data["sites"],
+           "patterns": data["patterns"],
+           "documents_seconds": time.perf_counter() - t0}
+    launches = {}
+    kname = "peel_stream"
+
+    def expect(counts, n, label):
+        want = {k: n * (k == kname) for k in counts}
+        launches[f"P15 {label}"] = counts
+        if counts != want:
+            raise AssertionError(f"P15 {label}: launches {counts}, "
+                                 f"expected {want}")
+
+    def profile(ax, label):
+        """A profiler window of n_profile steps from the document's start
+        state: one launch to start, one a step."""
+        reset_counts()
+        chain = ax.prepare_chain()
+        wall, busy = device_ms(lambda: run_chain(
+            chain["step"], chain["state"], n_profile), label, n_profile)
+        expect(read_counts(), 1 + n_profile, label)
+        return {"profile_ms_per_step": wall,
+                "device_busy_share": None if busy is None else busy / wall,
+                "device_events_per_step": device_ms.events}
+
+    # 15a: the CLI, as a user runs it; the importer refuses the document
+    reset_counts()
+    out, err = io.StringIO(), io.StringIO()
+    cwd = os.getcwd()
+    os.chdir(out_dir)
+    t1 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli(["run", docs["rlc"], "-seed", str(P15_SEED), "-device",
+                      str(dev)])
+    finally:
+        os.chdir(cwd)
+    cli_s = time.perf_counter() - t1
+    a = {"rc": rc, "cli_seconds": cli_s}
+    text = out.getvalue() + err.getvalue()
+    m = re.search(r"(\d+) states in ([0-9.]+)s = ([0-9.]+) states/sec; "
+                  r"full-evaluation deviation (\S+)", text)
+    if rc != 0 or "running through the interpreter registry]" not in text \
+            or m is None:
+        raise AssertionError(f"P15a: rc {rc}\n{text[-3000:]}")
+    a.update({"steps": int(m.group(1)), "chain_seconds": float(m.group(2)),
+              "states_per_s": float(m.group(3)),
+              "full_evaluation_deviation": float(m.group(4))})
+    rows = steps_a // P15_LOG_EVERY
+    a["predicted_launches"] = 1 + 2 * P15_CHECK_A + steps_a + rows
+    expect(read_counts(), a["predicted_launches"], "15a CLI")
+    a["log_rows"], a["trees"] = _interp_files_check(
+        "15a", out_dir, logs["rlc"], steps_a, rec["taxa"])
+    if not a["full_evaluation_deviation"] <= FULL_EVAL_TOL:
+        raise AssertionError(f"P15a deviation {a}")
+    ax = XmlAnalysis(docs["rlc"], seed=P15_SEED, device=dev,
+                     workdir=out_dir)
+    a.update(profile(ax, "p15a interpreter chain"))
+    rec["15a"] = a
+    log(f"[P15a] CLI rc {rc} in {cli_s:.2f} s: {a['steps']} states in "
+        f"{a['chain_seconds']:.2f} s = {a['states_per_s']} states/s, "
+        f"full-evaluation deviation {a['full_evaluation_deviation']!r} "
+        f"(tolerance {FULL_EVAL_TOL}), peel_stream launches "
+        f"{a['predicted_launches']} as predicted, {a['log_rows']} log rows "
+        f"and {a['trees']} trees read back; profile "
+        f"{a['profile_ms_per_step']:.3f} ms a step, busy share "
+        f"{a['device_busy_share']}, {a['device_events_per_step']} device "
+        f"events a step")
+
+    # 15b: XmlAnalysis.run, as run_testxml runs it
+    reset_counts()
+    ax = XmlAnalysis(docs["skyline"], seed=P15_SEED, device=dev,
+                     workdir=out_dir)
+    t1 = time.perf_counter()
+    ax.run(full_eval_steps=check_b)
+    b = {"run_seconds": time.perf_counter() - t1, **ax.runs[0]}
+    b["states_per_s"] = b["steps"] / b["seconds"]
+    rows = steps_b // P15_LOG_EVERY
+    b["predicted_launches"] = 1 + 2 * check_b + steps_b + rows
+    expect(read_counts(), b["predicted_launches"], "15b run")
+    b["log_rows"], b["trees"] = _interp_files_check(
+        "15b", out_dir, logs["skyline"], steps_b, rec["taxa"])
+    if not b["full_eval_deviation"] <= FULL_EVAL_TOL:
+        raise AssertionError(f"P15b deviation {b}")
+    b.update(profile(ax, "p15b interpreter chain"))
+    rec["15b"] = b
+    log(f"[P15b] XmlAnalysis.run in {b['run_seconds']:.2f} s: {b['steps']} "
+        f"states in {b['seconds']:.2f} s = {b['states_per_s']:.2f} "
+        f"states/s, full-evaluation deviation "
+        f"{b['full_eval_deviation']!r}, peel_stream launches "
+        f"{b['predicted_launches']} as predicted, {b['log_rows']} log rows "
+        f"and {b['trees']} trees read back; profile "
+        f"{b['profile_ms_per_step']:.3f} ms a step, busy share "
+        f"{b['device_busy_share']}, {b['device_events_per_step']} device "
+        f"events a step")
+    return rec, launches
+
+
+def p15_function_cases(parent, children, heights, root, n_taxa, seed):
+    """{label: fn(A) -> tensor}: every function that models/{clock,epoch,
+    coalescent,speciation}.py gained with the interpreter route, on the
+    tree (parent, heights) of n_taxa taxa and inputs drawn with numpy from
+    `seed`; A(x) makes a tensor of x on the device under test."""
+    import numpy as np
+
+    from beast_mcmc_tpu_torch.models import clock, coalescent as coal
+    from beast_mcmc_tpu_torch.models import epoch, speciation as spec
+    from beast_mcmc_tpu_torch.models import substitution as subst
+
+    m = parent.shape[0]
+    n_ev = n_taxa - 1
+    rng = np.random.default_rng(seed)
+    rates = rng.uniform(0.5, 2.0, m)
+    ind = (rng.uniform(size=m) < 0.05).astype(np.float64)
+    log_rates = rng.normal(0.0, 0.3, m)
+    q = rng.uniform(0.05, 0.95, m)
+    log_pops = rng.normal(0.0, 0.4, n_ev)
+    groups = np.full(10, n_ev // 10)
+    groups[: n_ev - groups.sum()] += 1
+    tipset = np.zeros(m, bool)
+    tipset[rng.choice(n_taxa, min(100, n_taxa // 2), replace=False)] = True
+    ebsp_pops = rng.uniform(0.3, 1.2, n_ev)
+    ebsp_ind = (rng.uniform(size=n_ev - 1) < 0.1).astype(np.float64)
+    root_h = float(heights.max())
+    cuts = np.linspace(root_h / 20, root_h, 20)
+    gamma20 = rng.normal(0.0, 0.3, 21)
+    qmat = rng.uniform(0.1, 1.0, (4, 4))
+    np.fill_diagonal(qmat, 0.0)
+    np.fill_diagonal(qmat, -qmat.sum(1))
+    freqs = np.array([0.3, 0.2, 0.25, 0.25])
+    h = heights
+    P = parent
+
+    def hky(A, kappa):
+        return subst.hky_eigen(A(kappa), A(freqs))
+
+    return {
+        "strict_clock_rates": lambda A: clock.strict_clock_rates(A(1.7), m),
+        "continuous_quantile_rates": lambda A: clock
+        .continuous_quantile_rates(A(q), A(1.2), A(0.4)),
+        "arbitrary_rates": lambda A: clock.arbitrary_rates(A(rates)),
+        "rate_epoch_rates": lambda A: clock.rate_epoch_rates(
+            A(h), A(P), A(np.array([0.3, 0.8]) * root_h),
+            A(np.array([1.0, 2.0, 0.5]))),
+        "_doubling_steps": lambda A: A(np.asarray(
+            [clock._doubling_steps(k) for k in (2, 3, m)])),
+        "ancestor_or_self_mask": lambda A: clock.ancestor_or_self_mask(
+            A(P), int(root)).double(),
+        "local_clock_rates": lambda A: clock.local_clock_rates(
+            A(np.arange(m) % 3), A(np.array([0.5, 1.0, 2.0]))),
+        "random_local_clock_rates": lambda A: clock.random_local_clock_rates(
+            A(P), A(h), A(ind), A(rates)),
+        "random_local_clock_rates multipliers": lambda A: clock
+        .random_local_clock_rates(A(P), A(h), A(ind), A(rates),
+                                  mean_rate=A(0.7),
+                                  rates_are_multipliers=True),
+        "branch_rate_increments": lambda A: clock.branch_rate_increments(
+            A(P), A(h), A(log_rates), True)[0],
+        "autocorrelated_rates_log_density": lambda A: clock
+        .autocorrelated_rates_log_density(A(P), A(h), A(log_rates), A(3.0)),
+        "shrinkage_local_clock_log_density": lambda A: clock
+        .shrinkage_local_clock_log_density(A(P), A(h), A(log_rates), A(0.4),
+                                           A(0.5)),
+        "lognormal_mixture_cdf": lambda A: clock.lognormal_mixture_cdf(
+            A(rates), A(np.array([0.3, 0.7])), A(np.array([0.8, 1.5])),
+            A(np.array([0.3, 0.6]))),
+        "mixture_model_rates": lambda A: clock.mixture_model_rates(
+            A(q), A(np.array([0.3, 0.7])), A(np.array([0.8, 1.5])),
+            A(np.array([0.3, 0.6]))),
+        "latent_state_branch_rates": lambda A: clock
+        .latent_state_branch_rates(A(rates), A(q * 0.5)),
+        "two_state_occupancy_log_density": lambda A: clock
+        .two_state_occupancy_log_density(A(rates), A(q * 0.5), A(0.8),
+                                         A(1.3)),
+        "epoch_overlaps": lambda A: epoch.epoch_overlaps(
+            A(P), A(h), A(np.array([0.2, 0.6]) * root_h)),
+        "epoch_branch_matrices": lambda A: epoch.epoch_branch_matrices(
+            [hky(A, 2.0), A(qmat), hky(A, 6.0)],
+            A(np.array([0.2, 0.6]) * root_h), A(P), A(h), A(rates * 1e-3),
+            A(np.array([0.3, 0.8, 1.2, 1.7]))),
+        "ancestor_closure": lambda A: epoch.ancestor_closure(
+            A(P), A(0.0).dtype),
+        "clade_branch_matrices": lambda A: epoch.clade_branch_matrices(
+            hky(A, 2.0), [(A(tipset[:n_taxa]), hky(A, 8.0), A(0.4))],
+            A(P), A(h), A(root), A(rates * 1e-3),
+            A(np.array([0.3, 0.8, 1.2, 1.7]))),
+        "logistic_growth_loglik": lambda A: coal.logistic_growth_loglik(
+            A(h), n_taxa, A(0.6), A(2.0 / root_h), A(0.6 * root_h)),
+        "expansion_loglik": lambda A: coal.expansion_loglik(
+            A(h), n_taxa, A(0.6), A(0.2), A(3.0 / root_h)),
+        "piecewise_exponential_loglik": lambda A: coal
+        .piecewise_exponential_loglik(A(h), n_taxa,
+                                      A(np.array([0.6, 0.3, 0.9])),
+                                      A(np.array([1.5])),
+                                      A(np.array([0.2, 0.3]) * root_h)),
+        "cataclysm_loglik": lambda A: coal.cataclysm_loglik(
+            A(h), n_taxa, A(0.5), A(1.2), A(4.0), A(0.3 * root_h)),
+        "bayesian_skyline_loglik": lambda A: coal.bayesian_skyline_loglik(
+            A(h), n_taxa, A(rng_pops(10)), A(groups)),
+        "bayesian_skyline_linear_loglik": lambda A: coal
+        .bayesian_skyline_linear_loglik(A(h), n_taxa, A(rng_pops(11)),
+                                        A(groups)),
+        "gmrf_skyride_loglik": lambda A: coal.gmrf_skyride_loglik(
+            A(h), n_taxa, A(log_pops)),
+        "skyride_coalescent_midpoints": lambda A: coal
+        .skyride_coalescent_midpoints(A(h), n_taxa),
+        "gmrf_skyride_time_aware_prior": lambda A: coal
+        .gmrf_skyride_time_aware_prior(A(h), n_taxa, A(log_pops), A(2.5)),
+        "gmrf_skyride_uniform_prior": lambda A: coal
+        .gmrf_skyride_uniform_prior(A(log_pops), A(2.5)),
+        "grouped_skyride_loglik": lambda A: coal.grouped_skyride_loglik(
+            A(h), n_taxa, A(np.log(rng_pops(10))), A(groups)),
+        "grouped_skyride_gmrf_prior": lambda A: coal
+        .grouped_skyride_gmrf_prior(A(h), n_taxa, A(np.log(rng_pops(10))),
+                                    A(groups), A(1.5), lam=A(0.6)),
+        "sir_trajectories": lambda A: coal.sir_trajectories(
+            A(2.5), A(4.0), A(0.01), A(np.linspace(0.0, root_h, 256)))[1],
+        "sir_coalescent_loglik": lambda A: coal.sir_coalescent_loglik(
+            A(h), n_taxa, A(2.5), A(4.0 / root_h), A(0.01), A(5000.0),
+            root_h),
+        "multilocus_skygrid_loglik": lambda A: coal.multilocus_skygrid_loglik(
+            [A(h), A(h)], [n_taxa, n_taxa], A(gamma20), A(cuts),
+            [1.0, 0.5]),
+        "_ebsp_pop_at": lambda A: coal._ebsp_pop_at(
+            A(h), coal.ebsp_knots(A(h[n_taxa:]), True), A(ebsp_pops),
+            A(np.r_[True, ebsp_ind > 0.5])),
+        "ebsp_knots": lambda A: coal.ebsp_knots(A(h[n_taxa:]), False),
+        "ebsp_coalescent_loglik": lambda A: coal.ebsp_coalescent_loglik(
+            [A(h)], [n_taxa], [1.0], A(ebsp_pops), A(ebsp_ind), True),
+        "smooth_skygrid_loglik": lambda A: coal.smooth_skygrid_loglik(
+            A(h), n_taxa, A(gamma20), A(cuts), A(50.0 / root_h)),
+        "coalescent_loglik_integral": lambda A: coal
+        .coalescent_loglik_integral(
+            A(h), n_taxa, lambda t: 0.2 * t - 0.5,
+            coal.quad_interval_integral(lambda t: 0.2 * t - 0.5, 12)),
+        "quad_interval_integral": lambda A: coal.quad_interval_integral(
+            lambda t: 0.3 * t + 0.1 * t * t, 16)(A(h[:-1]), A(h[1:])),
+        "const_exponential_loglik": lambda A: coal.const_exponential_loglik(
+            A(h), n_taxa, A(0.6), A(0.1), A(4.0 / root_h)),
+        "exp_constant_loglik": lambda A: coal.exp_constant_loglik(
+            A(h), n_taxa, A(0.6), A(2.0 / root_h), A(0.2 * root_h)),
+        "const_logistic_loglik": lambda A: coal.const_logistic_loglik(
+            A(h), n_taxa, A(0.6), A(0.1), A(3.0 / root_h), A(0.4)),
+        "linear_growth_loglik": lambda A: coal.linear_growth_loglik(
+            A(h), n_taxa, A(2.0)),
+        "power_law_growth_loglik": lambda A: coal.power_law_growth_loglik(
+            A(h), n_taxa, A(0.5), A(1.5)),
+        "flexible_growth_loglik": lambda A: coal.flexible_growth_loglik(
+            A(h), n_taxa, A(0.5), A(2.0), A(1.5)),
+        "multi_epoch_exponential_loglik": lambda A: coal
+        .multi_epoch_exponential_loglik(A(h), n_taxa, A(0.6),
+                                        A(np.array([2.0, 0.0, 1.0]) / root_h),
+                                        A(np.array([0.1, 0.3]) * root_h)),
+        "exponential_sawtooth_loglik": lambda A: coal
+        .exponential_sawtooth_loglik(A(h), n_taxa, A(0.6), A(2.0 / root_h),
+                                     A(0.15 * root_h), A(0.2)),
+        "exponential_logistic_loglik": lambda A: coal
+        .exponential_logistic_loglik(A(h), n_taxa, A(0.6), A(3.0 / root_h),
+                                     A(0.5 * root_h), A(0.5 / root_h),
+                                     A(0.25 * root_h)),
+        "_bdss_c1": lambda A: spec._bdss_c1(A(2.0), A(0.5), A(0.3)),
+        "_bdss_c2": lambda A: spec._bdss_c2(A(2.0), A(0.5), A(0.1), A(0.3)),
+        "bdss_log_q": lambda A: spec.bdss_log_q(A(2.0), A(0.5), A(0.1),
+                                                A(0.3), A(h / root_h)),
+        "bdss_p0": lambda A: spec.bdss_p0(A(2.0), A(0.5), A(0.1), A(0.3),
+                                          A(h / root_h)),
+        "serial_birth_death_loglik": lambda A: spec.serial_birth_death_loglik(
+            A(h / root_h), n_taxa, A(2.0), A(0.5), A(0.3), A(1.2)),
+        "episodic_serial_birth_death_loglik": lambda A: spec
+        .episodic_serial_birth_death_loglik(
+            A(h / root_h), n_taxa, A(1.2), A(np.array([2.0, 1.5, 3.0])),
+            A(np.array([0.5, 0.7, 0.2])), A(np.array([0.3, 0.4, 0.2])),
+            treatment_probs=A(np.array([0.9, 1.0, 0.5])), rho_present=A(0.3),
+            grid_end=A(1.0), num_intervals=3),
+        "mrca_node": lambda A: spec.mrca_node(A(P), A(h), A(tipset)),
+        "calibrated_speciation_loglik": lambda A: spec
+        .calibrated_speciation_loglik(
+            A(-3.5), A(P), A(h),
+            [(A(tipset), lambda x: -0.5 * (x - 0.4 * root_h) ** 2)]),
+    }
+
+
+def rng_pops(k):
+    """k population sizes for the skyline cases, from a fixed seed."""
+    import numpy as np
+
+    return np.random.default_rng(1000 + k).uniform(0.3, 1.2, k)
+
+
+def functions_path(dev, n_taxa=SPEC_TAXA, seed=P15_SEED):
+    """Phase 15c: every case of p15_function_cases at the Makona shape (a
+    coalescent tree of the first n_taxa dated taxa of
+    examples/makona_joint.xml) on the card and on the CPU, each output's
+    largest deviation over its largest magnitude held to P15_REL_TOL
+    (P15_ODE_TOL for the SIR functions). Returns the record."""
+    import numpy as np
+    import torch
+
+    from beast_mcmc_tpu_torch.apps.makona import read_makona_xml, tip_heights
+    from beast_mcmc_tpu_torch.tree.topology import simulate_coalescent_tree
+
+    cfg = read_makona_xml()
+    tree = simulate_coalescent_tree(
+        np.random.default_rng(JOINT_SEED),
+        tip_heights(cfg["dates"][:n_taxa]), cfg["pop_size"])
+    parent, children, heights, root = tree
+    cases = p15_function_cases(parent.astype(np.int64), children, heights,
+                               root, n_taxa, seed)
+
+    def maker(d):
+        def A(x):
+            x = np.asarray(x)
+            return torch.as_tensor(x.astype(np.float64) if x.dtype.kind == "f"
+                                   else x, device=d)
+        return A
+
+    t0 = time.perf_counter()
+    worst = {}
+    for label, fn in cases.items():
+        got = fn(maker(dev)).detach().cpu().double()
+        want = fn(maker("cpu")).detach().double()
+        if not bool(torch.isfinite(want).all()):
+            raise AssertionError(f"P15c {label}: not finite on the CPU")
+        scale = max(float(want.abs().max()), 1e-300)
+        worst[label] = float((got - want).abs().max()) / scale
+        tol = P15_ODE_TOL if label.startswith("sir") else P15_REL_TOL
+        if not worst[label] <= tol:
+            raise AssertionError(f"P15c {label}: {worst[label]!r} > {tol}")
+    top = max(worst, key=worst.get)
+    rec = {"functions": len(worst), "nodes": 2 * n_taxa - 1,
+           "max_rel_err": worst[top], "worst": top,
+           "seconds": time.perf_counter() - t0, "rel_err": worst}
+    log(f"[P15c] {len(worst)} functions at {2 * n_taxa - 1} nodes on the "
+        f"card against the CPU in {rec['seconds']:.2f} s: largest deviation "
+        f"{worst[top]!r} ({top}; tolerance {P15_REL_TOL}, "
+        f"{P15_ODE_TOL} for the SIR ODE)")
+    return rec
+
+
+# the conjugate normal model of tests/test_distribution_likelihood_xml.py:
+# y = (1, 2, 3) ~ N(m, 1) with m ~ N(0, 10); E[m | y] = 6 / 3.01 = 1.9934
+CONJUGATE_XML = """<?xml version="1.0" standalone="yes"?>
+<beast>
+  <taxa id="taxa">
+    <taxon id="a"/><taxon id="b"/><taxon id="c"/><taxon id="d"/>
+  </taxa>
+  <alignment id="alignment" dataType="nucleotide">
+    <sequence><taxon idref="a"/>ACGTACGT</sequence>
+    <sequence><taxon idref="b"/>ACGTACGA</sequence>
+    <sequence><taxon idref="c"/>ACGAACGT</sequence>
+    <sequence><taxon idref="d"/>AGGTACGT</sequence>
+  </alignment>
+  <patterns id="patterns" from="1"><alignment idref="alignment"/></patterns>
+  <constantSize id="constant" units="substitutions">
+    <populationSize><parameter id="constant.popSize" value="0.08"/></populationSize>
+  </constantSize>
+  <coalescentTree id="startingTree" rootHeight="0.08">
+    <taxa idref="taxa"/><constantSize idref="constant"/>
+  </coalescentTree>
+  <treeModel id="treeModel">
+    <coalescentTree idref="startingTree"/>
+    <rootHeight><parameter id="treeModel.rootHeight"/></rootHeight>
+    <nodeHeights internalNodes="true">
+      <parameter id="treeModel.internalNodeHeights"/>
+    </nodeHeights>
+  </treeModel>
+  <coalescentLikelihood id="coalescent">
+    <model><constantSize idref="constant"/></model>
+    <populationTree><treeModel idref="treeModel"/></populationTree>
+  </coalescentLikelihood>
+  <HKYModel id="hky">
+    <frequencies>
+      <frequencyModel dataType="nucleotide">
+        <frequencies><parameter id="frequencies" value="0.25 0.25 0.25 0.25"/></frequencies>
+      </frequencyModel>
+    </frequencies>
+    <kappa><parameter id="kappa" value="2.0" lower="0.0"/></kappa>
+  </HKYModel>
+  <siteModel id="siteModel">
+    <substitutionModel><HKYModel idref="hky"/></substitutionModel>
+  </siteModel>
+  <treeLikelihood id="treeLikelihood" useAmbiguities="false">
+    <patterns idref="patterns"/>
+    <treeModel idref="treeModel"/>
+    <siteModel idref="siteModel"/>
+  </treeLikelihood>
+  <distributionLikelihood id="metaLik">
+    <distribution>
+      <normalDistributionModel>
+        <mean><parameter id="m" value="0.0"/></mean>
+        <stdev><parameter id="m.sd" value="1.0"/></stdev>
+      </normalDistributionModel>
+    </distribution>
+    <data>
+      <parameter id="y" value="1.0 2.0 3.0"/>
+    </data>
+  </distributionLikelihood>
+  <operators id="operators">
+    <subtreeSlide size="0.008" gaussian="true" weight="5">
+      <treeModel idref="treeModel"/>
+    </subtreeSlide>
+    <scaleOperator scaleFactor="0.75" weight="2">
+      <parameter idref="treeModel.rootHeight"/>
+    </scaleOperator>
+    <uniformOperator weight="10">
+      <parameter idref="treeModel.internalNodeHeights"/>
+    </uniformOperator>
+    <randomWalkOperator windowSize="0.8" weight="20">
+      <parameter idref="m"/>
+    </randomWalkOperator>
+  </operators>
+  <mcmc id="mcmc" chainLength="60000" autoOptimize="true">
+    <posterior id="posterior">
+      <prior id="prior">
+        <normalPrior mean="0.0" stdev="10.0">
+          <parameter idref="m"/>
+        </normalPrior>
+        <coalescentLikelihood idref="coalescent"/>
+      </prior>
+      <likelihood id="likelihood">
+        <treeLikelihood idref="treeLikelihood"/>
+        <distributionLikelihood idref="metaLik"/>
+      </likelihood>
+    </posterior>
+    <operators idref="operators"/>
+    <log id="fileLog" logEvery="20" fileName="distlik.log" overwrite="true">
+      <posterior idref="posterior"/>
+      <parameter idref="m"/>
+    </log>
+  </mcmc>
+  <traceAnalysis fileName="distlik.log" burnIn="500">
+    <expectation name="m" value="1.9934"/>
+  </traceAnalysis>
+</beast>
+"""
+
+
+def testxml_path(out_dir, reset_counts, read_counts, dev,
+                 scale=P15_TESTXML_SCALE):
+    """Phase 15d: `python -m beast_mcmc_tpu_torch run -testxml doc.xml
+    -scale scale` on CONJUGATE_XML, written into out_dir and run from
+    there: exit 0 and the expectation line. Returns (record, launches)."""
+    import contextlib
+    import io
+    import re
+
+    from beast_mcmc_tpu_torch.__main__ import main as cli
+
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "conjugate.xml")
+    with open(path, "w") as f:
+        f.write(CONJUGATE_XML)
+    reset_counts()
+    out = io.StringIO()
+    cwd = os.getcwd()
+    os.chdir(out_dir)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli(["run", path, "-testxml", "-scale", str(scale), "-seed",
+                      "13", "-device", str(dev)])
+    finally:
+        os.chdir(cwd)
+    rec = {"rc": rc, "seconds": time.perf_counter() - t0,
+           "launches": read_counts()}
+    m = re.search(r"E\[m\] = (\S+) \(expected 1\.9934, SE (\S+)\) OK",
+                  out.getvalue())
+    if rc != 0 or m is None or "all embedded checks passed" not in \
+            out.getvalue():
+        raise AssertionError(f"P15d: rc {rc}\n{out.getvalue()[-2000:]}")
+    rec.update({"mean": float(m.group(1)), "se": float(m.group(2))})
+    log(f"[P15d] -testxml rc {rc} in {rec['seconds']:.2f} s: {m.group(0)}; "
+        f"launches {json.dumps(rec['launches'])}")
+    return rec, {"P15 15d testxml": rec["launches"]}
 
 
 def chain_gradient_checks(peel_cases, post_cases, chain_inputs, analyses,
@@ -3381,6 +4118,7 @@ def main():
                        if e.device_type == DeviceType.CUDA),
                       key=lambda e: e.self_device_time_total, reverse=True)
         busy = sum(e.self_device_time_total for e in kern) / 1e3
+        device_ms.events = sum(e.count for e in kern) / n
         log(f"[profile {label}] wall {1e3 * wall / n:.3f} ms, device busy "
             f"{busy / n:.3f} ms, {sum(e.count for e in kern) / n:.1f} device "
             f"events, each of {n}")
@@ -3968,6 +4706,15 @@ def main():
                                        device_ms, dev)
     mark("14 operators")
 
+    # -- phase 15: the XML interpreter route at the Makona shape ----------
+    p15, p15_launches = interpreter_path(SMOKE_OUT, reset_counts,
+                                         read_counts, device_ms, dev)
+    p15["15c"] = functions_path(dev)
+    p15["15d"], p15d_launches = testxml_path(SMOKE_OUT, reset_counts,
+                                             read_counts, dev)
+    p15_launches.update(p15d_launches)
+    mark("15 interpreter route")
+
     # -- summary ------------------------------------------------------
     def entry(kname, source, replaces, launches, label):
         rec = next(r for r in checks[kname] if r["label"] == label)
@@ -4085,6 +4832,25 @@ def main():
         f"aggregate states/s, deviation {p14c['max_deviation']!r}; "
         f"densities on the card vs the CPU "
         f"{p14['14d']['densities_max_rel_err']!r}; on {smi_line}")
+    p15a, p15b = p15["15a"], p15["15b"]
+    log(f"[summary p15] interpreter route {p15['taxa']} taxa x "
+        f"{p15['sites']} sites ({p15['patterns']} patterns): 15a CLI "
+        f"random local clock + skyride {p15a['states_per_s']} states/s "
+        f"({p15a['cli_seconds']:.2f} s of CLI), busy share "
+        f"{p15a['device_busy_share']}, {p15a['device_events_per_step']} "
+        f"device events a step, peel_stream launches "
+        f"{p15a['predicted_launches']} (predicted), deviation "
+        f"{p15a['full_evaluation_deviation']!r}; 15b local clock + skyline "
+        f"{p15b['states_per_s']:.2f} states/s, busy share "
+        f"{p15b['device_busy_share']}, {p15b['device_events_per_step']} "
+        f"device events a step, peel_stream launches "
+        f"{p15b['predicted_launches']} (predicted), deviation "
+        f"{p15b['full_eval_deviation']!r}; 15c {p15['15c']['functions']} "
+        f"functions, largest deviation {p15['15c']['max_rel_err']!r} "
+        f"({p15['15c']['worst']}); 15d -testxml E[m] "
+        f"{p15['15d']['mean']!r} (SE {p15['15d']['se']!r}, expected "
+        f"1.9934); phase {phases['15 interpreter route']:.2f} s; on "
+        f"{smi_line}")
     log(f"[phases] {json.dumps(phases)}")
     log(smi_line)
     print(json.dumps({"kernels": [
@@ -4116,7 +4882,7 @@ def main():
                              "makona joint": j_launches,
                              **p10_launches, **p11_launches,
                              **p12_launches, **p13_launches,
-                             **p14_launches}}), flush=True)
+                             **p14_launches, **p15_launches}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -23,9 +23,11 @@ def test_import_every_module_without_jax():
     # every kernel's wrapper, the data modules, the samplers, MC3, the
     # component cache, the joint analysis's modules, the run surface
     # (config, runner, loggers, checkpoint, ancestral draw, the command
-    # line), the post-processing apps and the AS91 copy are among the
-    # modules found
+    # line), the post-processing apps, the AS91 copy, the XML
+    # interpreter and the epoch model are among the modules found
     assert {"beast_mcmc_tpu_torch.apps.makona",
+            "beast_mcmc_tpu_torch.config.interpreter",
+            "beast_mcmc_tpu_torch.models.epoch",
             "beast_mcmc_tpu_torch.__main__",
             "beast_mcmc_tpu_torch.apps.runner",
             "beast_mcmc_tpu_torch.config",
