@@ -22,9 +22,10 @@ XML file is the analysis). `run` has two routes, as in the JAX package:
   - a document outside the importer's vocabulary runs through the XML
     interpreter (config/interpreter.py), which writes the logs its own
     <log fileName> and <logTree fileName> elements name in the working
-    directory; -testxml sends a document there straight, runs it strictly
-    (a failed <traceAnalysis> expectation fails the run) and scales its
-    chains by -scale.
+    directory; -testxml sends a document there straight and runs it
+    strictly (a failed <traceAnalysis> expectation fails the run). On
+    this route -scale scales each chain's length and each log's logEvery,
+    as -testxml does; the JAX package's run route ignores it.
 
 -device picks the card (cuda, the default) or the CPU for both. A tag of
 a JAX extension module that is not ported yet, or a document the
@@ -84,7 +85,8 @@ def _cmd_run(argv) -> int:
                    help="run through the TestXML interpreter "
                         "(multi-mcmc blocks + embedded assertions)")
     p.add_argument("-scale", type=float, default=1.0,
-                   help="chain-length scale factor (testxml mode)")
+                   help="chain-length and logEvery scale factor (testxml "
+                        "mode and the interpreter route)")
     p.add_argument("-device", default="cuda",
                    help="torch device of the chain: cuda (default) or cpu")
     args = p.parse_args(argv)
@@ -130,7 +132,7 @@ def _cmd_run(argv) -> int:
 
         try:
             ax = XmlAnalysis(
-                args.xml, seed=args.seed or 666,
+                args.xml, scale=args.scale, seed=args.seed or 666,
                 max_states=args.chain_length or 10**9, workdir=os.getcwd(),
                 # the reference only warns on a failed trace expectation
                 # (TraceAnalysisParser.java:108-112); -testxml is strict

@@ -16,16 +16,24 @@ coalescent, and an asymmetric K-location CTMC with BSSVS indicators on the
 same tree, as the eight components of the JAX package's posterior, with
 the document's fourteen operators. apps/makona.py reads the document and
 simulates its inputs.
+
+`measure_makona_joint` is bench.py::measure_makona_joint: the same
+document built by the port's XML interpreter (its XmlAnalysis, the
+interpreter's own alignment simulation) and stepped with the component
+cache, in float64.
 """
 
 from __future__ import annotations
 
+import os
+import time
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from beast_mcmc_tpu_torch.inference.component_cache import (
+    decompose_likelihood,
     full_lp_fn,
     make_components,
     seed_components,
@@ -450,3 +458,94 @@ def build_joint_analysis(location_tips: np.ndarray, seq_tips: np.ndarray,
     aux = {"components": comps, "op_tree_flags": op_tree_flags,
            "tips": seq_t, "geo_tips": geo_t}
     return full_lp_fn(comps), operators, params0, tree0, aux
+
+
+MAKONA_JOINT_XML = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                os.pardir, os.pardir, "examples",
+                                "makona_joint.xml")
+
+
+def xml_joint_chain(path: str = MAKONA_JOINT_XML,
+                    device=DEFAULT_DEVICE) -> dict:
+    """The chain of bench.py::measure_makona_joint for the document at
+    `path`: the port's XmlAnalysis, the posterior of its <mcmc> decomposed
+    into its leaves, each a component of the cache (seeded at the
+    initial state, config/xml_assert.py::initial_eval_state), and
+    make_mcmc_step over the document's operators with their tree flags.
+    In float64 (the JAX package's float32 path fails its own self-check),
+    the chain's generator seeded with 7 as bench.py seeds its key.
+    Returns {"analysis", "operators", "tree_flags" (whether each operator
+    moves the tree), "components", "log_post" (the cache-free sum),
+    "step", "state"}."""
+    from beast_mcmc_tpu_torch.config.interpreter import XmlAnalysis
+    from beast_mcmc_tpu_torch.config.xml_assert import initial_eval_state
+    from beast_mcmc_tpu_torch.inference.mcmc import (
+        init_mcmc_state,
+        make_mcmc_step,
+    )
+
+    ax = XmlAnalysis(path, scale=1.0, max_states=10, dtype=torch.float64,
+                     device=device)
+    mcmc_el = ax.root.find("mcmc")
+    post = ax._posterior_of(mcmc_el)
+    operators, tids = ax.build(ax.deref(mcmc_el.find("operators")))
+    params0, tree0 = initial_eval_state(ax)
+    comps = make_components([(lf.fn, lf.name)
+                             for lf in decompose_likelihood(post)],
+                            params0, tree0)
+    params0 = seed_components(params0, tree0, comps)
+    lp_fn = full_lp_fn(comps)
+    flags = [t is not None for t in tids]
+    step = make_mcmc_step(lp_fn, operators, components=comps,
+                          op_tree_flags=flags)
+    state = init_mcmc_state(
+        params0, tree0, torch.Generator(device=device).manual_seed(7),
+        operators, lp_fn, dtype=torch.float64)
+    return {"analysis": ax, "operators": operators, "tree_flags": flags,
+            "components": comps, "log_post": lp_fn, "step": step,
+            "state": state}
+
+
+def measure_makona_joint(path: str = MAKONA_JOINT_XML, n_steps: int = 192,
+                         device=DEFAULT_DEVICE, n_warmup: int = 16,
+                         record=None, counts=None) -> float:
+    """States/s of the Makona-1610 joint analysis built from the document
+    through the XML interpreter and stepped with the component-cached
+    posterior (xml_joint_chain): n_warmup steps, then n_steps timed, then
+    the carried log posterior held against a fresh evaluation (< 0.1).
+    `record`, a dict, receives the chain, "seconds", "deviation",
+    "log_posterior" and "steps_per_operator" (the timed steps' draws of
+    each operator); `counts`, a (reset, read) pair, is reset just before
+    the timed steps and read just after them into record["launches"]."""
+    chain = xml_joint_chain(path, device)
+    step, state, lp_fn = chain["step"], chain["state"], chain["log_post"]
+
+    def sync():
+        if state.log_posterior.device.type == "cuda":
+            torch.cuda.synchronize(state.log_posterior.device)
+
+    for _ in range(n_warmup):  # warm the caches
+        state = step(state)
+    sync()
+    before = (state.op_accept + state.op_reject).tolist()
+    if counts is not None:
+        counts[0]()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        state = step(state)
+    sync()
+    dt = time.perf_counter() - t0
+    launches = counts[1]() if counts is not None else None
+    lp = float(state.log_posterior)
+    assert lp == lp, "NaN posterior in Makona joint chain"
+    # the carried-against-fresh self-check: the cache must stay exact
+    fresh = float(lp_fn(state.params, state.tree))
+    assert abs(lp - fresh) < 0.1, (lp, fresh)
+    if record is not None:
+        record.update(chain)
+        record.update({
+            "state": state, "seconds": dt, "deviation": abs(lp - fresh),
+            "log_posterior": lp, "launches": launches,
+            "steps_per_operator": [a - b for a, b in zip(
+                (state.op_accept + state.op_reject).tolist(), before)]})
+    return n_steps / dt

@@ -1,15 +1,17 @@
-"""The Makona-1610 joint analysis from examples/makona_joint.xml.
+"""The Makona-1610 joint analysis from examples/makona_joint.xml, by a
+fixed reader.
 
-The inputs of the JAX package's bench.py::measure_makona_joint, made
-without JAX: a fixed reader for this one document (scripts/make_makona.py
-writes it; config/interpreter.py cannot read it yet, since its skygrid,
-ancestral and discrete-trait tags are config/xml_ext.py's and
-xml_geo.py's, queue items 4e and 4g) takes the <taxa> block
-(id, date, location), the location states and the model's constants with
-xml.etree; the starting tree is a coalescent simulation on the dated tips
-(<coalescentTree>, tree/topology.py), and the alignment a simulation of
-the document's GTR+Gamma4 relaxed-clock model down that tree
-(<beagleSequenceSimulator>, apps/seqgen.py), compressed to patterns. Then
+The port's XmlAnalysis reads and runs the document as a user's document
+(config/interpreter.py with config/xml_geo.py and xml_ext.py;
+apps/benchmarks.py::measure_makona_joint builds it as the JAX package's
+bench.py does). This module is the fixed reader that chip_smoke.py's
+phase 9 keeps: it takes the <taxa> block (id, date, location), the
+location states and the model's constants with xml.etree; the starting
+tree is a coalescent simulation on the dated tips (<coalescentTree>,
+tree/topology.py), and the alignment its own simulation of the
+document's GTR+Gamma4 relaxed-clock model down that tree
+(apps/seqgen.py; the interpreter's <beagleSequenceSimulator> draws the
+JAX package's alignment instead), compressed to patterns. Then
 apps/benchmarks.py::build_joint_analysis builds the posterior and the
 operators.
 
@@ -34,7 +36,6 @@ import copy
 import os
 import time
 import xml.etree.ElementTree as ET
-import zlib
 
 import numpy as np
 import torch
@@ -52,6 +53,7 @@ from beast_mcmc_tpu_torch.apps.seqgen import (
     one_hot_tips,
     simulate_states,
 )
+from beast_mcmc_tpu_torch.config.interpreter import annotation_seed
 from beast_mcmc_tpu_torch.data import SitePatterns, general_datatype
 from beast_mcmc_tpu_torch.inference.loggers import write_run_files
 from beast_mcmc_tpu_torch.inference.mcmc import run_chain
@@ -245,13 +247,6 @@ def location_annotations(states, labels, tag: str = LOCATION_TAG) -> dict:
             for node, c in enumerate(np.asarray(states).tolist())}
 
 
-def annotation_seed(seed: int, tag: str = LOCATION_TAG) -> int:
-    """The annotation generator's seed: the chain's seed folded with the
-    tag's CRC, as the JAX package folds the chain's key
-    (interpreter.py:591-592)."""
-    return (int(seed) * 1_000_003 + zlib.crc32(tag.encode())) % 2**63
-
-
 def run_joint_logged(step, state, n_steps: int, geo_tips: torch.Tensor,
                      taxa, labels, log_file: str, tree_file: str,
                      log_every: int, tree_every: int, seed: int):
@@ -267,7 +262,8 @@ def run_joint_logged(step, state, n_steps: int, geo_tips: torch.Tensor,
         raise ValueError("n_steps must be a multiple of tree_every, and "
                          "tree_every of log_every")
     dev = state.tree.heights.device
-    gen = torch.Generator(device=dev).manual_seed(annotation_seed(seed))
+    gen = torch.Generator(device=dev).manual_seed(
+        annotation_seed(seed, LOCATION_TAG))
 
     def sync():
         if dev.type == "cuda":

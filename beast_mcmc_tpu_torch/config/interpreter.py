@@ -29,12 +29,22 @@ streams cannot be matched, so chains agree in law; every starting value
 drawn from the analysis's numpy generator (`_rng`, the coalescent start
 tree among them) is drawn the same way and equal.
 
-The nine extension modules (config/xml_{assert,ext,factor,field,geo,hmc,
-mle,stats,traits}.py) are not ported: each of their 181 element tags and
-27 operator tags raises `Unsupported` naming the JAX module and its
-ROADMAP queue item (`EXTENSION_TAGS`, `EXTENSION_OPERATORS`), as do the
-base file's branches into them and into inference/gibbs.py. No tag is
-skipped silently.
+Of the nine extension modules (config/xml_{assert,ext,factor,field,geo,
+hmc,mle,stats,traits}.py), config/xml_ext.py is ported whole and
+config/xml_geo.py's discrete-phylogeography part (general data types,
+attribute patterns, general substitution models, the sequence simulator),
+with the helpers they reach (xml_assert.py's initial state, xml_hmc.py's
+matrix parameters and transforms, xml_stats.py's current state,
+inference/gibbs.py's GMRF block update and elliptical slice sampler).
+Each remaining tag (`EXTENSION_TAGS`, `EXTENSION_OPERATORS`) raises
+`Unsupported` naming the JAX module and its ROADMAP queue item, as do the
+branches into unported modules. No tag is skipped silently.
+
+<logTree> annotates each sampled tree with the joint ancestral-state draw
+of its <ancestralTreeLikelihood> children, drawn on the device inside the
+collector from a generator of its own: the chain's seed folded with the
+tag's CRC (JAX folds the chain's key so). The law is JAX's; the stream
+cannot be.
 """
 
 from __future__ import annotations
@@ -44,6 +54,7 @@ import math
 import os
 import warnings
 import xml.etree.ElementTree as ET
+import zlib
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -66,7 +77,6 @@ class XmlError(ValueError):
 # ---------------------------------------------------------------------------
 
 QUEUE_ITEMS = {
-    "config/xml_ext.py": "4e",
     "config/xml_mle.py": "4f",
     "inference/gibbs.py": "4f",
     "config/xml_traits.py": "4g",
@@ -82,29 +92,9 @@ EXTENSION_TAGS: Dict[str, Tuple[str, ...]] = {
     "config/xml_assert.py": (
         "assertEqual",
     ),
-    "config/xml_ext.py": (
-        "ACLikelihood", "LKJCorrelationPrior", "alsSiteModel",
-        "alsTreeLikelihood", "ancestralTreeLikelihood",
-        "avgPosteriorIBDReporter", "binomialLikelihood", "cachedPrior",
-        "coalescentIntervals", "compoundLikelihood", "designMatrix",
-        "empiricalDistributionLikelihood", "exponentialBranchLengthsPrior",
-        "gaussianProcessFromTree", "gmrfSkyGridLikelihood",
-        "gmrfSkyrideGradient", "gridBasedBranchRateModel", "halfNormalPrior",
-        "halfTPrior", "markovJumpsTreeLikelihood", "maskedParameter",
-        "multivariateOUModel", "mutationDeathModel", "neighborJoiningTree",
-        "newBirthDeathSerialSampling", "nodeHeightTransform",
-        "nodePosteriorLikelihood", "positiveDefiniteSubstitutionModel",
-        "productStatistic", "rewardsAwareBranchModel",
-        "scaledTreeLengthModel", "skyGridLikelihood",
-        "skyGridPopSizeLikelihood", "sphericalBetaPrior",
-        "starTreeLikelihood", "starTreeModel", "traitValidation",
-        "transformedMultivariateParameter", "transformedParameter",
-        "transformedVectorSumTransform", "transmissionHistory",
-        "transmissionStatistic", "tree", "upgmaTree",
-    ),
     "config/xml_factor.py": (
         "crossValidation", "dataAndMissingFromTreeTips", "dataFromTreeTips",
-        "determinantPrior", "dirichletParameterPrior", "dummyModel",
+        "determinantPrior", "dirichletParameterPrior",
         "factorProportionStatistic", "independentNormalDistributionModel",
         "integratedFactorAnalysisLoadingsAndPrecisionGradient",
         "integratedFactorAnalysisLoadingsGradient",
@@ -126,16 +116,14 @@ EXTENSION_TAGS: Dict[str, Tuple[str, ...]] = {
         "randomFieldGradient", "weightProvider",
     ),
     "config/xml_geo.py": (
-        "approximateLogCtmcRateGradient", "attributePatterns",
-        "beagleSequenceSimulator", "complexSubstitutionModel",
-        "generalDataType", "generalSubstitutionModel", "glmModel",
+        "approximateLogCtmcRateGradient", "glmModel",
         "glmSubstitutionModel", "glmSubstitutionModelGradient",
         "instantaneousMixtureSubstitutionModel", "logCtmcRateGradient",
-        "logRateSubstitutionModel", "oldGLMSubstitutionModel",
-        "sequenceSimulator", "stateSet", "stronglyLumpableCtmcRates",
-        "structuredCoalescent", "structuredCoalescentLikelihoodGradient",
-        "substitutionGeneratorGradient", "svsGeneralSubstitutionModel",
-        "timeVaryingFrequences", "timeVaryingFrequencies",
+        "logRateSubstitutionModel", "oldGLMSubstitutionModel", "stateSet",
+        "stronglyLumpableCtmcRates", "structuredCoalescent",
+        "structuredCoalescentLikelihoodGradient",
+        "substitutionGeneratorGradient", "timeVaryingFrequences",
+        "timeVaryingFrequencies",
     ),
     "config/xml_hmc.py": (
         "DiagonalMatrix", "autoRegressiveNormalDistributionModel",
@@ -183,10 +171,6 @@ EXTENSION_TAGS: Dict[str, Tuple[str, ...]] = {
 }
 
 EXTENSION_OPERATORS: Dict[str, Tuple[str, ...]] = {
-    "config/xml_ext.py": (
-        "ellipticalSliceSampler", "mvnOperator",
-        "transformedParameterRandomWalkOperator",
-    ),
     "config/xml_factor.py": (
         "extendedLatentLiabilityGibbsOperator", "factorTreeGibbsOperator",
         "integratedFactorsGibbsOperator", "latentLiabilityGibbsOperator",
@@ -349,6 +333,29 @@ class _StateShim:
     def __init__(self, params, tree):
         self.params = params
         self.tree = tree
+
+
+def annotation_seed(seed: int, tag: str) -> int:
+    """The seed of a <logTree> annotation's generator: the chain's seed
+    folded with the tag's CRC, as the JAX package folds the chain's key
+    (interpreter.py:589-592)."""
+    return (int(seed) * 1_000_003 + zlib.crc32(tag.encode())) % 2**63
+
+
+def _node_annotations(anns, i):
+    """{node: 'tag="label",...'} of sample i of each annotation (tag,
+    states [samples, M], labels), or None without annotations; a state
+    code past the labels is written as its number."""
+    if not anns:
+        return None
+    out = {}
+    for tag, states, labels in anns:
+        for node, code in enumerate(states[i].tolist()):
+            lab = (labels[code] if labels and 0 <= code < len(labels)
+                   else str(code))
+            entry = f'{tag}="{lab}"'
+            out[node] = f"{out[node]},{entry}" if node in out else entry
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -727,20 +734,37 @@ class XmlAnalysis:
             t_every = max(1, int(_attr(lg, "logEvery", 1000, int)
                                  * self.scale))
             t_tid = None
+            # the ancestral-state children annotate every node (TreeLogger
+            # + AncestralStateBeagleTreeLikelihood:274): (tag, states_fn,
+            # labels, generator)
+            annotators = []
             for c in lg:
                 cc = self.deref(c)
                 if cc.tag in ("treeModel", "starTreeModel"):
                     t_tid = self.build(cc).tree_id
                 elif cc.tag in ("ancestralTreeLikelihood",
                                 "markovJumpsTreeLikelihood"):
-                    self.build(cc)  # raises: config/xml_ext.py
+                    self.build(cc)
+                    rec = getattr(self, "_ancestral_liks", {}).get(
+                        cc.get("id"))
+                    if rec is not None and rec.get("states_fn"):
+                        annotators.append((
+                            rec["tag"], rec["states_fn"], rec["labels"],
+                            torch.Generator(device=self.device).manual_seed(
+                                annotation_seed(self.seed, rec["tag"]))))
             if t_tid is not None:
-                tree_logs.append((fname, t_every, t_tid))
+                tree_logs.append((fname, t_every, t_tid, annotators))
         if logs or tree_logs:
             base_every = min([le for _, le, _ in logs]
-                             + [te for _, te, _ in tree_logs])
+                             + [te for _, te, _, _ in tree_logs])
         else:
             base_every = max(1, chain_length // 1000)
+
+        # the tree logs' rows are gathered apart, and only on the rows each
+        # keeps (every stride-th collector row): the annotation draw costs
+        # tens of milliseconds of host time at the Makona shape
+        tree_rows = {fname: [] for fname, _, _, _ in tree_logs}
+        row = [0]
 
         def collector(s):
             out = {}
@@ -748,12 +772,16 @@ class XmlAnalysis:
                 for cname, fn in cols:
                     out[f"{fname}\x00{cname}"] = torch.as_tensor(
                         fn(s), device=self.device).reshape(())
-            for fname, _, tid in tree_logs:
+            for fname, t_every, tid, annotators in tree_logs:
+                if row[0] % max(1, t_every // base_every):
+                    continue
                 tr = self.resolve_tree(tid, s.params, s.tree)
-                out[f"{fname}\x00__parent"] = tr.parent
-                out[f"{fname}\x00__children"] = tr.children
-                out[f"{fname}\x00__heights"] = tr.heights
-                out[f"{fname}\x00__root"] = tr.root
+                rec = {"parent": tr.parent, "children": tr.children,
+                       "heights": tr.heights, "root": tr.root}
+                for tag, states_fn, _, ann_gen in annotators:
+                    rec[f"ann_{tag}"] = states_fn(s.params, tr, ann_gen)
+                tree_rows[fname].append(rec)
+            row[0] += 1
             return out
 
         n_blocks = max(1, chain_length // base_every)
@@ -793,17 +821,19 @@ class XmlAnalysis:
                 for i in range(n_rows):
                     tl.log((i + 1) * log_every,
                            {c: table[c][i] for c in names})
-        for fname, t_every, tid in tree_logs:
-            stride = max(1, t_every // base_every)
-            parents = trace[f"{fname}\x00__parent"][::stride]
-            childs = trace[f"{fname}\x00__children"][::stride]
-            hts = trace[f"{fname}\x00__heights"][::stride]
-            roots = trace[f"{fname}\x00__root"][::stride]
+        for fname, t_every, tid, annotators in tree_logs:
+            rows = tree_rows[fname]
+            tcols = {k: torch.stack([r[k] for r in rows]).cpu().numpy()
+                     for k in (rows[0] if rows else ())}
+            anns = [(tag, tcols[f"ann_{tag}"], labels)
+                    for tag, _, labels, _ in annotators] if rows else []
             with open(os.path.join(self.workdir, fname), "w") as fh:
                 tl = NexusTreeLogger(self._trees[tid].taxa, fh)
-                for i in range(parents.shape[0]):
-                    tl.log_tree(int((i + 1) * t_every), parents[i],
-                                childs[i], hts[i], roots[i])
+                for i in range(len(rows)):
+                    tl.log_tree(int((i + 1) * t_every), tcols["parent"][i],
+                                tcols["children"][i], tcols["heights"][i],
+                                tcols["root"][i],
+                                annotations=_node_annotations(anns, i))
                 tl.close()
 
         # the final chain state back into the parse-time store, so that
@@ -844,8 +874,13 @@ class XmlAnalysis:
         ref_name = el.get("idref")
         el2 = self.deref(el)
         if el2.tag == "matrixParameter":
-            raise unported("logging a <matrixParameter> (matrix_param_of)",
-                           "config/xml_hmc.py")
+            from beast_mcmc_tpu_torch.config.xml_hmc import matrix_param_of
+
+            mp = matrix_param_of(self, el2)
+            nm = ref_name or el2.get("id") or "matrix"
+            return [(f"{nm}{i + 1}{j + 1}",
+                     lambda s, i=i, j=j: mp.fn(s.params)[i, j])
+                    for i in range(mp.dim) for j in range(len(mp.names))]
         if el2.tag == "parameter":
             obj = self.build(el2)
             if isinstance(obj, TreeAlias):
@@ -861,6 +896,8 @@ class XmlAnalysis:
                         for k, i in enumerate(sel)
                     ]
                 return [(nm_a, self._alias_reader(obj))]
+            if getattr(obj, "columns", None) is not None:
+                return list(obj.columns)  # a live view (the height ratios)
             if isinstance(obj, DerivedParam):
                 return self._log_columns_derived(ref_name or el2.get("id"),
                                                  obj)
@@ -886,6 +923,14 @@ class XmlAnalysis:
         if isinstance(obj, CompoundParam):
             return [(n, lambda s, n=n: s.params[n].reshape(()))
                     for n in obj.names]
+        if getattr(obj, "columns", None) is not None:
+            return list(obj.columns)  # a statistic of several columns
+        if hasattr(obj, "fn") and hasattr(obj, "dim") and hasattr(obj,
+                                                                  "names"):
+            # a matrix view (config/xml_hmc.py::MatrixParam)
+            return [(f"{nm}{i + 1}{j + 1}",
+                     lambda s, i=i, j=j, o=obj: o.fn(s.params)[i, j])
+                    for i in range(obj.dim) for j in range(obj.dim)]
         if isinstance(obj, DerivedParam):
             return self._log_columns_derived(nm, obj)
         if isinstance(obj, JointTipAlias):
@@ -1077,8 +1122,7 @@ class ParamsTreeOperator:
 _BUILDERS: Dict[str, Callable] = {}
 
 # the operator-tag extension registry: (ax, el, weight) -> (operator or
-# [operators], tree_id); empty in the port, whose extension modules are not
-# ported (EXTENSION_OPERATORS)
+# [operators], tree_id), filled by the ported extension modules
 _OP_EXT: Dict[str, Callable] = {}
 
 
@@ -2341,14 +2385,17 @@ def _site_model(ax: XmlAnalysis, el):
     mname = ax.param_from(mu) if mu is not None else None
     iname = ax.param_from(pinv) if pinv is not None else None
 
-    def rates_weights(params, dtype):
+    def rates_weights(params, dtype, exact=False):
         # the JAX package asks for exact_quantiles, which takes effect only
         # for a concrete alpha: under its chain's jit alpha never is, and
-        # the chain takes the smooth quantiles, as here (no host read)
+        # the chain takes the smooth quantiles, as here (no host read);
+        # its eager parse-time evaluations (the sequence simulator) take
+        # AS91's, as exact=True does
         if gname is not None:
             r, w = discrete_gamma_rates(
                 params[gname], n_cat,
-                p_invariant=params[iname] if iname else None, dtype=dtype)
+                p_invariant=params[iname] if iname else None, dtype=dtype,
+                exact_quantiles=exact)
         elif iname is not None:
             r, w = invariant_only_rates(params[iname])
             r, w = r.to(dtype), w.to(dtype)
@@ -2828,8 +2875,11 @@ def _tree_likelihood(ax: XmlAnalysis, el):
 
     for c in el:
         if ax.deref(c).tag == "rewardsAwareBranchModel":
-            raise unported("<rewardsAwareBranchModel> in a tree likelihood",
-                           "config/xml_ext.py")
+            from beast_mcmc_tpu_torch.config.xml_ext import (
+                _reward_aware_tree_likelihood,
+            )
+
+            return _reward_aware_tree_likelihood(ax, el, ax.deref(c))
     patterns = tm = site = clock = None
     partitions = []
     for c in el:
@@ -2931,6 +2981,13 @@ def _tree_likelihood(ax: XmlAnalysis, el):
                 tree.root, eig_k(params), fr_k(params), rk, wk, br)
         return tot
 
+    # the pieces the ancestral-state and Markov-jump handlers read
+    # (config/xml_ext.py)
+    ax._treelik_parts = getattr(ax, "_treelik_parts", {})
+    ax._treelik_parts[el.get("id") or "treeLikelihood"] = dict(
+        tips=tips_t, w=w_t, site_kind=site_kind, eigen=eigen,
+        freqs_of=freqs_of, rates_weights=rates_weights, clock=clock, tm=tm,
+        dtype=dtype, n_taxa=len(tm.taxa))
     return LikelihoodFn(fn, tm.tree_id, el.get("id") or "treeLikelihood")
 
 
@@ -2955,8 +3012,10 @@ def _targets_of(ax, el) -> List:
         elif cc.tag in ("matrixParameter", "compoundSymmetricMatrix",
                         "diagonalMatrix", "transposedMatrix",
                         "diagonalContrainedMatrixView"):
-            raise unported(f"a prior on <{cc.tag}> (matrix_param_of)",
-                           "config/xml_hmc.py")
+            from beast_mcmc_tpu_torch.config.xml_hmc import matrix_param_of
+
+            outs.append(lambda params, tree, mp=matrix_param_of(ax, cc):
+                        mp.fn(params).reshape(-1))
         else:
             obj = ax.build(cc)
             if isinstance(obj, CompoundParam):
@@ -2967,6 +3026,11 @@ def _targets_of(ax, el) -> List:
                 outs.append(lambda params, tree, n=obj.name: params[n])
             elif isinstance(obj, DerivedParam):
                 outs.append(lambda params, tree, f=obj.fn: f(params))
+            elif (hasattr(obj, "fn") and hasattr(obj, "names")
+                  and hasattr(obj, "dim")):
+                # a matrix view: the prior scores the flattened matrix
+                outs.append(lambda params, tree, mp=obj:
+                            mp.fn(params).reshape(-1))
             elif callable(obj) and not isinstance(obj, LikelihoodFn):
                 outs.append(lambda params, tree, f=obj: f(
                     _StateShim(params, tree)))
@@ -3419,14 +3483,28 @@ def _compound_likelihood(ax: XmlAnalysis, el):
     tree_id = None
     for c in el:
         obj = ax.build(c)
-        if isinstance(obj, (ClockModel, JointTipAlias)) or (
-                isinstance(obj, tuple) and obj
-                and obj[0] in ("subst", "subst_q")):
-            # no density of their own here: the base registry's clocks
-            # carry none, a mirrored tip-height view is a
-            # reparameterisation, and a substitution model adds one only
-            # when it is an SVS model, whose tag (config/xml_geo.py's)
-            # raises when built
+        if isinstance(obj, ClockModel):
+            # a branch-rate model adds its rate-evolution density if it has
+            # one (ACLikelihood), else nothing
+            dens = getattr(obj, "density", None)
+            if dens is not None:
+                parts.append(LikelihoodFn(dens, obj.tree_id,
+                                          ax.deref(c).get("id") or "ac"))
+                tree_id = tree_id or obj.tree_id
+            continue
+        if isinstance(obj, JointTipAlias):
+            continue  # a mirrored tip-height view is a reparameterisation
+        if isinstance(obj, tuple) and obj and obj[0] in ("subst", "subst_q"):
+            # an SVS substitution model inside <prior> adds its
+            # indicator-connectivity density
+            # (SVSGeneralSubstitutionModel.getLogLikelihood():111-115)
+            cid = ax.deref(c).get("id")
+            if cid and cid in getattr(ax, "_svs_models", {}):
+                from beast_mcmc_tpu_torch.config.xml_geo import (
+                    svs_connectivity_prior,
+                )
+
+                parts.append(svs_connectivity_prior(ax, cid))
             continue
         if not isinstance(obj, LikelihoodFn):
             raise Unsupported(f"<{el.tag}> child <{ax.deref(c).tag}>")
@@ -3624,8 +3702,10 @@ def _op_target(ax, el):
         if cc.tag == "compoundParameter":
             return ("compound", ax.build(cc), None)
         if cc.tag in ("matrixParameter", "compoundSymmetricMatrix"):
-            raise unported(f"an operator on <{cc.tag}> (matrix_param_of)",
-                           "config/xml_hmc.py")
+            from beast_mcmc_tpu_torch.config.xml_hmc import matrix_param_of
+
+            return ("compound",
+                    CompoundParam(list(matrix_param_of(ax, cc).names)), None)
     # a parameter-view element (maskedParameter and the like)
     missing = None
     for c in el:
@@ -3894,13 +3974,18 @@ def _build_operator(ax: XmlAnalysis, el):
         return O.BitFlipOperator(parameter=obj.name, weight=w), tid
 
     if tag == "bitFlipInSubstitutionModelOperator":
-        # as the JAX package substitutes it: the plain bit flip on the SVS
-        # model's indicators, whose model config/xml_geo.py builds
+        # BitFlipInSubstitutionModelOperator flips an SVS indicator and
+        # rescales mu; as the JAX package substitutes it, the plain
+        # posterior-preserving bit flip on the SVS model's indicators (mu
+        # has its own scale operator)
         for c in el:
             cc = ax.deref(c)
             if cc.tag in ("svsGeneralSubstitutionModel",
                           "generalSubstitutionModel"):
                 ax.build(cc)
+                rec = getattr(ax, "_svs_models", {}).get(cc.get("id"))
+                if rec is not None:
+                    return O.BitFlipOperator(parameter=rec[1], weight=w), None
         raise Unsupported("bitFlipInSubstitutionModelOperator structure")
 
     if tag in ("gmrfBlockUpdateOperator", "gmrfGridBlockUpdateOperator"):
@@ -3931,9 +4016,24 @@ def _build_operator(ax: XmlAnalysis, el):
         n_field = int(np.size(ax._params[pops].value))
         grouped = sky_el.find("groupSizes") is not None and (
             n_field != (len(tm_b.taxa) - 1 if tm_b else -1))
+        is_grid = sky_el.tag in ("gmrfSkyGridLikelihood", "skyGridLikelihood")
+        cuts = None
+        ngp, cut = sky_el.find("numGridPoints"), sky_el.find("cutOff")
+        if is_grid and ngp is not None and cut is not None:
+            n_grid = int(float(np.ravel(ax.value_of(ax.param_from(ngp)))[0]))
+            cutoff = float(np.ravel(ax.value_of(ax.param_from(cut)))[0])
+            cuts = tuple(np.linspace(cutoff / n_grid, cutoff, n_grid))
         if tm_b is not None and not grouped:
-            raise unported(f"<{tag}> on an ungrouped field "
-                           "(GmrfBlockUpdateOperator)", "inference/gibbs.py")
+            from beast_mcmc_tpu_torch.inference.gibbs import (
+                GmrfBlockUpdateOperator,
+            )
+
+            return GmrfBlockUpdateOperator(
+                field=pops, precision=prec, n_taxa=len(tm_b.taxa), weight=w,
+                scale_factor=_attr(el, "scaleFactor", 2.0, float),
+                time_aware=(_attr(sky_el, "timeAwareSmoothing", True, bool)
+                            and not is_grid),
+                cut_points=cuts), tm_b.tree_id
         return [
             O.ScaleOperator(parameter=prec, weight=w / 2, scale_factor=0.75),
             O.RandomWalkOperator(parameter=pops, weight=w / 2, window=0.5),
@@ -4101,3 +4201,12 @@ def _distribution_likelihood(ax: XmlAnalysis, el):
                 dnames.append(obj.name)
     return LikelihoodFn(fn, None, el.get("id") or "distributionLikelihood",
                         tuple(dnames))
+
+
+# ---------------------------------------------------------------------------
+# the ported extension vocabularies (they register into _BUILDERS and
+# _OP_EXT on import)
+# ---------------------------------------------------------------------------
+
+from beast_mcmc_tpu_torch.config import xml_ext as _xml_ext  # noqa: E402,F401
+from beast_mcmc_tpu_torch.config import xml_geo as _xml_geo  # noqa: E402,F401

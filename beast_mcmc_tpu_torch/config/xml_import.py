@@ -141,6 +141,12 @@ def parse_beast_xml(text: str) -> S.AnalysisSpec:
     patterns: Dict[str, SitePatterns] = {}
     for pel in root.findall("patterns"):
         aref = _resolve(_child(pel, "alignment"), store)
+        if aref.get("id") not in alignments:
+            # e.g. a <beagleSequenceSimulator>'s alignment: the JAX
+            # package's importer fails here with a KeyError, which its CLI
+            # does not catch
+            raise XmlImportError(
+                f"<patterns> over <{aref.tag}>, not an <alignment>")
         aln = alignments[aref.get("id")]
         lo = int(pel.get("from", 1)) - 1
         hi = int(pel.get("to", 0)) - 1  # -1 => end

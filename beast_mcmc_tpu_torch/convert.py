@@ -134,9 +134,14 @@ def operator_from(op):
     """The JAX package's operator `op` as this package's operator of the
     same class name and settings (weights, tuning, leapfrog steps, mass,
     preconditioning, transforms, bounds, trajectory and adaptation
-    settings). Raises for an operator not ported."""
+    settings). Raises for an operator not ported. inference/gibbs.py's
+    classes map to the port's gibbs.py (its EllipticalSliceOperator is
+    not samplers.py's)."""
     from beast_mcmc_tpu_torch.inference import (
-        geodesic, hmc, nuts, operators, pdmp, samplers, tree_operators)
+        geodesic, gibbs, hmc, nuts, operators, pdmp, samplers,
+        tree_operators)
 
+    if type(op).__module__.endswith(".gibbs"):
+        return _spec(op, (gibbs,))
     return _spec(op, (operators, tree_operators, hmc, nuts, pdmp, geodesic,
                       samplers))

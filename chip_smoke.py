@@ -205,6 +205,29 @@ result line):
      `run -testxml` on the conjugate normal document of
      tests/test_distribution_likelihood_xml.py, exit 0 and its
      expectation line.
+  16. the north-star document through the XML interpreter
+     (`north_star_path`, `p16_functions_path`): 16a
+     `python -m beast_mcmc_tpu_torch run examples/makona_joint.xml -scale
+     P16_SCALE` at full width (1,610 taxa, 18,996 sites simulated by its
+     <beagleSequenceSimulator>, 56 locations), P16_STATES states with a
+     log row and a location-annotated tree each, peel_stream launches
+     exactly as predicted from _run_mcmc, the log's columns and every
+     tree's annotations read back; 16b apps/benchmarks.py::
+     measure_makona_joint (bench.py's, in float64: P16_WARM warm-up and
+     P16_STEPS timed steps of the component-cached chain, the carried
+     posterior against a fresh one), its peel_stream launches equal to
+     the steps that refresh treeLikelihood, the document's pattern count,
+     the host ms of an annotated tree sample, a profiler window of
+     P16_PROFILE steps; 16c the document with a
+     <gmrfGridBlockUpdateOperator> on its skygrid added (written into
+     build/smoke and built as 16b builds the document, its alignment
+     16b's): P16_BLOCK_PROPOSALS block-update proposals timed with
+     CUDA events, their acceptance, then the full-evaluation check of the
+     whole operator mix; 16d the GMRF block update and elliptical slice
+     proposals (their draws given), the stochastic Dollo likelihood, the
+     SVS connectivity prior at 56 states and config/xml_ext.py's
+     densities, clocks, views and matrix parameters at the Makona tree,
+     on the card against the CPU to P16_REL_TOL.
 
 `python3 chip_smoke.py --tiles` instead builds the kernels and times the
 v1 streaming kernel at the plans its planner could pick, with its largest
@@ -240,6 +263,10 @@ F32_POST_TOL = 1e-5  # rescaled partials lie in [0, 1]
 GRAD_REL_TOL = 1e-10  # each gradient's max |diff| over its max |entry|, f64
 POST_ABS_TOL = 1e-13  # the gradient's residual, kernel against plain, f64
 FULL_EVAL_TOL = 0.1  # MarkovChain.java:55
+# steps of a plain chain's profiler window: the profiler's host-side parse
+# of a window grows with its operators (tens of seconds for 20 steps at
+# Makona width), so a window is kept short
+PROFILE_STEPS = 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # data sheet: float64 on the FP64 tensor cores (full precision), float32
 # outside the tensor cores (TF32 would lose precision)
@@ -872,8 +899,9 @@ def chain_paths(paths, reset_counts, read_counts, device_ms, dev):
                "single_chain_states_per_s": single, "launches": counts,
                "log_posterior": lps}
         if dev != "cpu":
-            wall, busy = device_ms(lambda: run_chain(mstep, states, 20),
-                                   f"{p_name} {label}", 20, 8)
+            wall, busy = device_ms(
+                lambda: run_chain(mstep, states, PROFILE_STEPS),
+                f"{p_name} {label}", PROFILE_STEPS, 8)
             rec.update({"profiled_ms_per_step": wall,
                         "device_busy_ms_per_step": busy or "not measured",
                         "device_busy_share": (busy / wall if busy
@@ -991,7 +1019,7 @@ def chain_paths(paths, reset_counts, read_counts, device_ms, dev):
 
 # phase 9, the Makona-1610 joint analysis: warm-up, measured and
 # full-evaluation steps of its chain, and the steps of its profiler window
-JOINT_WARM, JOINT_STEPS, JOINT_CHECK, JOINT_PROFILE = 20, 300, 50, 30
+JOINT_WARM, JOINT_STEPS, JOINT_CHECK, JOINT_PROFILE = 20, 300, 50, 10
 JOINT_SEED = 666  # the starting tree's (the JAX package's) and alignment's
 # the joint's log rows and annotated trees: the document's logEvery of 1,000
 # and 10,000 are for its 200 million steps, scaled here to 300
@@ -1128,7 +1156,7 @@ def joint_path(analysis, reset_counts, read_counts, dev, n_steps=JOINT_STEPS,
 # phase 12, the importer route at the Makona shape: the straight run's steps
 # (half of them before the checkpoint, half after), the built analysis's
 # full-evaluation check and profiler window, the CLI's seed
-SPEC_STEPS, SPEC_CHECK, SPEC_PROFILE, SPEC_SEED = 300, 50, 20, 7
+SPEC_STEPS, SPEC_CHECK, SPEC_PROFILE, SPEC_SEED = 300, 50, PROFILE_STEPS, 7
 SPEC_LOG_EVERY = 10
 SPEC_TAXA, SPEC_SITES = 1610, 18996  # examples/makona_joint.xml's
 
@@ -1428,7 +1456,7 @@ def spec_path(doc, out_dir, reset_counts, read_counts, device_ms, dev,
 # (SPEC_STEPS / MC3_SWAP logged rounds), the built batch's steps before its
 # full-evaluation check and in its profiler window, the seed of the four
 # parameter draws and their relative tolerance against single chains
-MC3_CHAINS, MC3_SWAP, MC3_CHECK, MC3_PROFILE = 4, 50, 50, 20
+MC3_CHAINS, MC3_SWAP, MC3_CHECK, MC3_PROFILE = 4, 50, 50, PROFILE_STEPS
 MC3_DRAW_SEED, MC3_REL_TOL = 13, 1e-10
 # the sub-tools on phase 12's files: logcombiner's burn-in in states,
 # treeannotator's as a fraction, and seqgen's partition (GTR+Gamma4 at a
@@ -2147,7 +2175,7 @@ def tools_path(out_dir, n_taxa, dev, n_sites=SPEC_SITES,
 # accumulates)
 P15_STEPS_A, P15_CHECK_A = 300, 100
 P15_STEPS_B, P15_CHECK_B = 200, 50
-P15_PROFILE, P15_LOG_EVERY, P15_SEED = 20, 10, 7
+P15_PROFILE, P15_LOG_EVERY, P15_SEED = PROFILE_STEPS, 10, 7
 P15_CLADE, P15_GROUPS = 100, 10
 P15_TESTXML_SCALE = 0.02
 P15_REL_TOL, P15_ODE_TOL = 1e-12, 1e-10
@@ -2834,6 +2862,505 @@ def testxml_path(out_dir, reset_counts, read_counts, dev,
     return rec, {"P15 15d testxml": rec["launches"]}
 
 
+# phase 16, the north-star document through the XML interpreter: 16a's
+# -scale (the document's 200 million states scaled to P16_STATES, a log
+# row and an annotated tree each state), 16b's warm-up and timed steps (as
+# bench.py::measure_makona_joint) and profiler window, 16c's block-update
+# proposals, its weight, the steps of its full-evaluation check and its
+# profiler window (proposals), and 16d's seed and tolerance (card against
+# the CPU, relative to the output's largest magnitude)
+P16_STATES = 200
+P16_SCALE = P16_STATES / 200_000_000
+P16_WARM, P16_STEPS, P16_PROFILE = 16, 192, PROFILE_STEPS
+P16_BLOCK_PROPOSALS, P16_BLOCK_WEIGHT, P16_BLOCK_CHECK = 40, 4, 40
+P16_BLOCK_PROFILE = 2
+P16_SEED, P16_REL_TOL = 16, 1e-12
+NORTH_STAR_XML = os.path.join(ROOT, "examples", "makona_joint.xml")
+
+
+def block_update_document(doc, path, weight=P16_BLOCK_WEIGHT):
+    """Write `doc` at `path` with a <gmrfGridBlockUpdateOperator> on its
+    skygrid (id "skygrid") added to its <operators>."""
+    text = open(doc).read()
+    anchor = '<operators id="operators">'
+    if anchor not in text:
+        raise AssertionError(f"P16c: no {anchor} in {doc}")
+    op = (f'\n    <gmrfGridBlockUpdateOperator scaleFactor="2.0" '
+          f'weight="{weight}">\n      <gmrfSkyGridLikelihood '
+          f'idref="skygrid"/>\n    </gmrfGridBlockUpdateOperator>')
+    with open(path, "w") as f:
+        f.write(text.replace(anchor, anchor + op, 1))
+    return path
+
+
+def north_star_path(out_dir, reset_counts, read_counts, device_ms, dev,
+                    doc=NORTH_STAR_XML, scale=P16_SCALE, n_warm=P16_WARM,
+                    n_steps=P16_STEPS, n_profile=P16_PROFILE,
+                    n_block=P16_BLOCK_PROPOSALS, block_check=P16_BLOCK_CHECK):
+    """Phases 16a to 16c (see the module docstring) on `doc`. The CLI's
+    peel launches are predicted from _run_mcmc's evaluations: the start,
+    two a checked step of its 100-step check, one a step, one a log row's
+    posterior (the annotation's trait peel is the plain level peel).
+    Returns (record, launches)."""
+    import contextlib
+    import io
+    import re
+
+    import torch
+
+    from beast_mcmc_tpu_torch.__main__ import main as cli
+    from beast_mcmc_tpu_torch.apps.benchmarks import (
+        measure_makona_joint, xml_joint_chain)
+    from beast_mcmc_tpu_torch.apps.makona import read_makona_xml
+    from beast_mcmc_tpu_torch.inference.gibbs import GmrfBlockUpdateOperator
+    from beast_mcmc_tpu_torch.inference.mcmc import (
+        full_evaluation_check, run_chain)
+
+    os.makedirs(out_dir, exist_ok=True)
+    kname = "peel_stream"
+    launches = {}
+    cfg = read_makona_xml(doc)
+
+    def sync():
+        if dev != "cpu":
+            torch.cuda.synchronize()
+
+    def expect(counts, n, label):
+        want = {k: n * (k == kname) for k in counts}
+        launches[f"P16 {label}"] = counts
+        if counts != want:
+            raise AssertionError(f"P16 {label}: launches {counts}, "
+                                 f"expected {want}")
+
+    # 16a: the CLI, as a user runs it on the document
+    out, err = io.StringIO(), io.StringIO()
+    cwd = os.getcwd()
+    os.chdir(out_dir)
+    reset_counts()
+    t1 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli(["run", doc, "-scale", repr(scale), "-device", str(dev)])
+    finally:
+        os.chdir(cwd)
+    a = {"rc": rc, "cli_seconds": time.perf_counter() - t1}
+    text = out.getvalue() + err.getvalue()
+    m = re.search(r"(\d+) states in ([0-9.]+)s = ([0-9.]+) states/sec; "
+                  r"full-evaluation deviation (\S+)", text)
+    if rc != 0 or "running through the interpreter registry]" not in text \
+            or m is None:
+        raise AssertionError(f"P16a: rc {rc}\n{text[-3000:]}")
+    a.update({"steps": int(m.group(1)), "chain_seconds": float(m.group(2)),
+              "states_per_s": float(m.group(3)),
+              "full_evaluation_deviation": float(m.group(4))})
+    a["predicted_launches"] = 1 + 2 * 100 + 2 * a["steps"]
+    expect(read_counts(), a["predicted_launches"], "16a CLI")
+    lines = open(os.path.join(out_dir, "makona_joint.log")).read().splitlines()
+    rows = [ln.split("\t") for ln in lines if ln[:1].isdigit()]
+    want_cols = ["state", "posterior", "ucld.mean", "siteModel.alpha",
+                 "nonZeroRates", "treeModel.rootHeight"]
+    if lines[0].split("\t") != want_cols or len(rows) != a["steps"]:
+        raise AssertionError(f"P16a log: {lines[0]!r}, {len(rows)} rows")
+    a["log_rows"] = len(rows)
+    a["trees"] = check_joint_trees(os.path.join(out_dir,
+                                                "makona_joint.trees"), cfg)
+    if a["trees"] != a["steps"] or not a["full_evaluation_deviation"] <= \
+            FULL_EVAL_TOL:
+        raise AssertionError(f"P16a: {a}")
+    log(f"[P16a] CLI rc {rc} in {a['cli_seconds']:.2f} s: {a['steps']} "
+        f"states in {a['chain_seconds']:.2f} s = {a['states_per_s']} "
+        f"states/s, full-evaluation deviation "
+        f"{a['full_evaluation_deviation']!r}, peel_stream launches "
+        f"{a['predicted_launches']} as predicted, {a['log_rows']} log rows "
+        f"of the document's columns and {a['trees']} location-annotated "
+        f"trees read back")
+
+    # 16b: bench.py::measure_makona_joint on the document, in float64
+    b = {}
+    t1 = time.perf_counter()
+    rate = measure_makona_joint(doc, n_steps, dev, n_warm, record=b,
+                                counts=(reset_counts, read_counts))
+    b["seconds_in_phase"] = time.perf_counter() - t1
+    ax, step = b["analysis"], b["step"]
+    names = [c.name for c in b["components"]]
+    i_lik = names.index("treeLikelihood")
+    b["tree_likelihood_steps"] = sum(
+        n for n, idxs in zip(b["steps_per_operator"], step.refreshed)
+        if i_lik in idxs)
+    expect(b["launches"], b["tree_likelihood_steps"], "16b timed steps")
+    pats = ax.build(ax._ids["patterns"])
+    rec = {"taxa": len(cfg["taxa"]), "sites": int(pats.n_sites),
+           "patterns": int(pats.n_patterns),
+           "patterns_padded": int(ax._treelik_parts["treeLikelihood"]
+                                  ["tips"].shape[-1]),
+           "locations": len(cfg["location_codes"])}
+    # the host ms of one annotated tree sample: the draw of every node's
+    # location, as <logTree> makes it
+    ann = ax._ancestral_liks["geoLikelihood"]
+    gen = torch.Generator(device=dev).manual_seed(P16_SEED)
+    state = b["state"]
+    sample_ms = []
+    for _ in range(5):
+        sync()
+        t1 = time.perf_counter()
+        loc = ann["states_fn"](state.params, state.tree, gen)
+        sync()
+        sample_ms.append(1e3 * (time.perf_counter() - t1))
+    if loc.shape[0] != 2 * rec["taxa"] - 1 or int(loc.min()) < 0:
+        raise AssertionError(f"P16b annotation: {loc.shape}")
+    reset_counts()
+    wall, busy = device_ms(lambda: run_chain(step, state, n_profile),
+                           "p16b north-star chain", n_profile)
+    b_rec = {"states_per_s": rate, "steps": n_steps, "warm_up": n_warm,
+             "seconds": b["seconds"], "deviation": b["deviation"],
+             "log_posterior": b["log_posterior"],
+             "tree_likelihood_steps": b["tree_likelihood_steps"],
+             "steps_per_operator": b["steps_per_operator"],
+             "launches": b["launches"], "tree_sample_ms": sample_ms,
+             "profile_ms_per_step": wall,
+             "device_busy_share": None if busy is None else busy / wall,
+             "device_events_per_step": device_ms.events,
+             "seconds_in_phase": b["seconds_in_phase"]}
+    log(f"[P16b] measure_makona_joint: {rec['patterns']} patterns "
+        f"({rec['patterns_padded']} padded) of {rec['sites']} sites, "
+        f"{rate:.2f} states/s over {n_steps} steps after {n_warm}; "
+        f"peel_stream launches {b['launches'][kname]} = steps refreshing "
+        f"treeLikelihood {b['tree_likelihood_steps']}; carried against "
+        f"fresh {b['deviation']!r}; host ms of an annotated tree sample "
+        f"{[round(x, 3) for x in sample_ms]}; profile {wall:.3f} ms a "
+        f"step, busy share {b_rec['device_busy_share']}, "
+        f"{device_ms.events} device events a step")
+
+    # 16c: the same document with the skygrid's block update added to its
+    # operators, written by the script and run through the interpreter as
+    # 16b runs the document (xml_joint_chain); the copy simulates 16b's
+    # alignment, from the same seed
+    n_patterns = rec["patterns"]
+    del b, ax, step, state
+    copy = block_update_document(doc, os.path.join(out_dir,
+                                                    "makona_block.xml"))
+    t1 = time.perf_counter()
+    chain = xml_joint_chain(copy, dev)
+    build_s = time.perf_counter() - t1
+    ops, step, state = chain["operators"], chain["step"], chain["state"]
+    log_post = chain["log_post"]
+    copy_patterns = chain["analysis"].build(
+        chain["analysis"]._ids["patterns"]).n_patterns
+    blk = [i for i, op in enumerate(ops)
+           if isinstance(op, GmrfBlockUpdateOperator)]
+    if len(blk) != 1 or copy_patterns != n_patterns:
+        raise AssertionError(f"P16c: block updates at {blk}, "
+                             f"{copy_patterns} patterns")
+    i_blk = blk[0]
+    del chain
+    state, _ = run_chain(step, state, n_warm)
+    sync()
+    acc0 = int(state.op_accept[i_blk])
+    ms = []
+    for _ in range(n_block):
+        if dev == "cpu":
+            t1 = time.perf_counter()
+            state = step.given_op(state, i_blk)
+            ms.append(1e3 * (time.perf_counter() - t1))
+            continue
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        ev0.record()
+        state = step.given_op(state, i_blk)
+        ev1.record()
+        torch.cuda.synchronize()
+        ms.append(ev0.elapsed_time(ev1))
+    accepted = int(state.op_accept[i_blk]) - acc0
+    # where a proposal's time goes: a profiler window of a few more
+    box = [state]
+
+    def block_proposals():
+        for _ in range(P16_BLOCK_PROFILE):
+            box[0] = step.given_op(box[0], i_blk)
+
+    wall_c, busy_c = device_ms(block_proposals, "p16c block update",
+                               P16_BLOCK_PROFILE)
+    state = box[0]
+    state, dev_max = full_evaluation_check(step, log_post, state,
+                                           block_check)
+    c_rec = {"proposals": n_block, "accepted": accepted, "document": copy,
+             "acceptance": accepted / n_block,
+             "ms_per_proposal": statistics.median(ms), "ms": ms,
+             "field": ops[i_blk].field,
+             "cells": len(ops[i_blk].cut_points) + 1,
+             "full_evaluation_deviation": float(dev_max),
+             "check_steps": block_check, "build_seconds": build_s,
+             "profile_ms_per_proposal": wall_c,
+             "device_busy_share": None if busy_c is None else busy_c / wall_c,
+             "device_events_per_proposal": device_ms.events}
+    if not c_rec["full_evaluation_deviation"] <= FULL_EVAL_TOL:
+        raise AssertionError(f"P16c deviation {c_rec}")
+    log(f"[P16c] {os.path.basename(copy)} built in {build_s:.2f} s "
+        f"({copy_patterns} patterns); gmrfGridBlockUpdateOperator on "
+        f"{c_rec['field']} ({c_rec['cells']} cells): {accepted} of "
+        f"{n_block} proposals "
+        f"accepted ({c_rec['acceptance']:.3f}), median "
+        f"{c_rec['ms_per_proposal']:.3f} ms a proposal "
+        f"({'CUDA events' if dev != 'cpu' else 'host clock'}), "
+        f"profile {wall_c:.3f} ms a proposal, busy share "
+        f"{c_rec['device_busy_share']}, {device_ms.events} device events a "
+        f"proposal; full-evaluation deviation over {block_check} steps of "
+        f"the whole mix {c_rec['full_evaluation_deviation']!r}")
+    rec.update({"16a": a, "16b": b_rec, "16c": c_rec})
+    return rec, launches
+
+
+P16_FUNCTIONS_XML = """  <constantSize id="initialDemo" units="years">
+    <populationSize><parameter id="initialDemo.popSize" value="2.0"/></populationSize>
+  </constantSize>
+  <coalescentSimulator id="startingTree">
+    <taxa idref="taxa"/><constantSize idref="initialDemo"/>
+  </coalescentSimulator>
+  <treeModel id="treeModel"><coalescentTree idref="startingTree"/></treeModel>
+  <gmrfSkyGridLikelihood id="skygrid">
+    <populationSizes><parameter id="sg.logPop" value="{pops}"/></populationSizes>
+    <precisionParameter><parameter id="sg.prec" value="0.8"/></precisionParameter>
+    <numGridPoints><parameter value="49"/></numGridPoints>
+    <cutOff><parameter value="2.0"/></cutOff>
+    <populationTree><treeModel idref="treeModel"/></populationTree>
+  </gmrfSkyGridLikelihood>
+  <ACLikelihood id="ac" distribution="logNormal">
+    <treeModel idref="treeModel"/>
+    <rates><parameter id="ac.rates" value="1.0"/></rates>
+    <rootRate><parameter id="ac.root" value="1.1"/></rootRate>
+    <variance><parameter id="ac.var" value="0.3"/></variance>
+  </ACLikelihood>
+  <exponentialBranchLengthsPrior id="ebl"><treeModel idref="treeModel"/></exponentialBranchLengthsPrior>
+  <gridBasedBranchRateModel id="grid">
+    <treeModel idref="treeModel"/>
+    <levelSpecificRates><parameter id="grid.rates" value="1.0 0.5 2.0 1.5"/></levelSpecificRates>
+    <gridPoints><parameter id="grid.points" value="0.3 0.8 1.5"/></gridPoints>
+  </gridBasedBranchRateModel>
+  <coalescentIntervals id="ci"><treeModel idref="treeModel"/></coalescentIntervals>
+  <LKJCorrelationPrior id="lkj" shapeParameter="2.0" dimension="6">
+    <data><parameter id="lkj.x" value="{lkj}"/></data>
+  </LKJCorrelationPrior>
+  <LKJCorrelationPrior id="lkjc" shapeParameter="1.5" cholesky="false">
+    <data><parameter id="lkjc.x" value="{lkjc}"/></data>
+  </LKJCorrelationPrior>
+  <sphericalBetaPrior id="sb" shapeParameter="2.5" dimension="3">
+    <data><parameter id="sb.x" value="{sb}"/></data>
+  </sphericalBetaPrior>
+  <halfTPrior id="ht" scale="2.0" df="3"><parameter id="ht.x" value="{pos}"/></halfTPrior>
+  <halfNormalPrior id="hn" mean="0.0" stdev="1.5"><parameter idref="ht.x"/></halfNormalPrior>
+  <binomialLikelihood id="bin">
+    <proportion><parameter id="bin.p" value="0.3"/></proportion>
+    <trials><parameter id="bin.n" value="56"/></trials>
+    <counts><parameter id="bin.k" value="{counts}"/></counts>
+  </binomialLikelihood>
+  <empiricalDistributionLikelihood id="emp">
+    <grid>
+      <logLikelihood><parameter value="-3.0 -1.0 -0.5 -1.2 -4.0"/></logLikelihood>
+      <value><parameter value="0.5 1.5 2.0 3.0 6.0"/></value>
+    </grid>
+    <data><parameter idref="ht.x"/></data>
+  </empiricalDistributionLikelihood>
+  <matrixParameter id="ouQ">
+    <parameter id="ou.q1" value="1.0 0.2"/><parameter id="ou.q2" value="0.2 0.8"/>
+  </matrixParameter>
+  <multivariateOUModel id="mvou">
+    <positiveDefiniteSubstitutionModel><matrixParameter idref="ouQ"/></positiveDefiniteSubstitutionModel>
+    <data><parameter id="ou.data" value="{ou}"/></data>
+    <times><parameter value="{times}"/></times>
+    <design><parameter value="{design}"/></design>
+    <diagonalMatrix id="ouG"><parameter id="ou.g" value="1.0 1.5"/></diagonalMatrix>
+  </multivariateOUModel>
+  <transformedVectorSumTransform id="vs" incrementTransformType="log">
+    <parameter id="vs.inc" value="{inc}"/>
+  </transformedVectorSumTransform>
+  <compoundSymmetricMatrix id="csm" asCorrelation="true" isCholesky="true">
+    <diagonal><parameter id="csm.d" value="1.0 2.0 0.5 1.5"/></diagonal>
+    <offDiagonal><parameter id="csm.o" value="{csm}"/></offDiagonal>
+  </compoundSymmetricMatrix>
+"""
+
+
+def p16_functions_document(path, n_taxa=SPEC_TAXA, seed=P16_SEED):
+    """Write 16d's document at `path`: the first n_taxa dated taxa of
+    examples/makona_joint.xml, a coalescentSimulator start tree, and
+    config/xml_ext.py's densities, clocks, views and matrix parameters
+    with values drawn from `seed`."""
+    import numpy as np
+
+    from beast_mcmc_tpu_torch.apps.makona import read_makona_xml
+
+    rng = np.random.default_rng(seed)
+
+    def vals(x):
+        return " ".join(repr(float(v)) for v in np.ravel(x))
+
+    n_points = 40
+    body = P16_FUNCTIONS_XML.format(
+        pops=vals(rng.normal(0.5, 0.4, 50)),
+        lkj=vals(rng.uniform(-0.3, 0.3, 15)),
+        lkjc=vals(rng.uniform(-0.2, 0.2, 6)),
+        sb=vals(rng.uniform(-0.3, 0.3, 30)),
+        pos=vals(rng.gamma(2.0, 1.0, 200)),
+        counts=vals(rng.integers(0, 56, 100)),
+        ou=vals(rng.normal(0.0, 0.5, 2 * n_points)),
+        times=vals(np.repeat(np.arange(n_points), 2)),
+        design=vals(np.tile([1, 2], n_points)),
+        inc=vals(rng.normal(0.0, 0.2, 60)),
+        csm=vals(rng.uniform(-0.3, 0.3, 6)))
+    cfg = read_makona_xml()
+    data = {"taxa": cfg["taxa"][:n_taxa], "dates": cfg["dates"][:n_taxa],
+            "rows": []}
+    lines = ['<?xml version="1.0" standalone="yes"?>', "<beast>"]
+    lines += taxa_alignment_xml(data)[:-2]  # the taxa, no alignment
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n" + body + "</beast>\n")
+    return path
+
+
+def p16_function_cases(ax):
+    """{label: fn() -> tensor} of 16d on an XmlAnalysis of
+    p16_functions_document: each density, clock, view and matrix at the
+    document's initial state, the stochastic Dollo likelihood at its tree,
+    the SVS connectivity prior at 56 states, and the GMRF block update's
+    and the elliptical slice sampler's proposals with their draws given
+    (inference/gibbs.py's draw helpers replaced for the call)."""
+    import numpy as np
+    import torch
+
+    from beast_mcmc_tpu_torch.config import xml_geo
+    from beast_mcmc_tpu_torch.config.interpreter import _StateShim
+    from beast_mcmc_tpu_torch.config.xml_assert import initial_eval_state
+    from beast_mcmc_tpu_torch.config.xml_hmc import matrix_param_of
+    from beast_mcmc_tpu_torch.inference import gibbs
+    from beast_mcmc_tpu_torch.models.dollo import stochastic_dollo_loglik
+
+    ax.build(ax._ids["treeModel"])
+    built = {k: ax.build(ax._ids[k]) for k in (
+        "skygrid", "ac", "ebl", "grid", "ci", "lkj", "lkjc", "sb", "ht",
+        "hn", "bin", "emp", "mvou", "vs")}
+    csm = matrix_param_of(ax, ax._ids["csm"])
+    p0, t0 = initial_eval_state(ax)
+    p0 = ax.inject_derived(p0)
+    n = (t0.parent.shape[0] + 1) // 2
+    rng = np.random.default_rng(P16_SEED)
+    dev, dt = t0.heights.device, t0.heights.dtype
+
+    def t(x, dtype=dt):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+    presence = t(rng.uniform(size=(n, 64)) < 0.3, torch.int8)
+    indicators = t((rng.uniform(size=56 * 55) < 0.9).astype(float))
+
+    class _Svs:
+        dtype = torch.float64
+        _svs_models = {"m": ("r", "ind", 56, 56 * 55)}
+
+    def injected(fn, uniforms, normals):
+        saved = (gibbs._uniform, gibbs._uniforms, gibbs._normal)
+        us, ns = list(uniforms), list(normals)
+
+        def take(seq):
+            return seq.pop(0) if len(seq) > 1 else seq[0]
+
+        gibbs._uniforms = lambda gen, like, shape=(): torch.full(
+            tuple(shape), take(us), dtype=like.dtype, device=like.device)
+        gibbs._uniform = lambda gen, like: gibbs._uniforms(gen, like)
+        gibbs._normal = lambda gen, like, shape=(): t(take(ns)).reshape(
+            shape)
+        try:
+            return fn()
+        finally:
+            gibbs._uniform, gibbs._uniforms, gibbs._normal = saved
+
+    block = gibbs.GmrfBlockUpdateOperator(
+        field="sg.logPop", precision="sg.prec", n_taxa=n,
+        cut_points=tuple(np.linspace(2.0 / 49, 2.0, 49)))
+
+    def gmrf():
+        p, _, h = injected(lambda: block.propose(p0, t0, None, t(2.0)),
+                           [0.3, 0.6], [rng_gmrf])
+        return torch.cat([p["sg.logPop"], p["sg.prec"].reshape(1),
+                          h.reshape(1)])
+
+    rng_gmrf = np.random.default_rng(P16_SEED + 1).normal(size=50)
+    mean, prec = np.array([0.5, -0.5]), np.array([[2.0, 0.5], [0.5, 1.0]])
+    prec_t = t(prec)
+    ess = gibbs.EllipticalSliceOperator(
+        parameter="x", prior_mean=mean,
+        prior_chol=np.linalg.cholesky(np.linalg.inv(prec)),
+        prior_logpdf=lambda v, mu: -0.5 * torch.einsum(
+            "...i,ij,...j->...", v - mu, prec_t, v - mu))
+    ess.bind_log_posterior(lambda p, tr: (
+        -0.5 * (p["x"] - t(mean)) @ prec_t @ (p["x"] - t(mean))
+        - 0.5 * torch.sum((p["x"] - t([1.0, 0.4])) ** 2) / 0.05))
+
+    def ess_draw():
+        p, _, _ = injected(lambda: ess.propose({"x": t([0.2, 0.1])}, t0,
+                                               None, None),
+                           [0.999, 0.45, 0.97], [[1.3, -0.7]])
+        return p["x"]
+
+    s0 = _StateShim(p0, t0)
+    return {
+        **{k: (lambda k=k: built[k].fn(p0, t0)) for k in (
+            "skygrid", "ebl", "lkj", "lkjc", "sb", "ht", "hn", "bin", "emp",
+            "mvou")},
+        "ac density": lambda: built["ac"].density(p0, t0),
+        "ac rates": lambda: built["ac"].rates(p0, t0),
+        "grid rates": lambda: built["grid"].rates(p0, t0),
+        "coalescent intervals": lambda: built["ci"](s0),
+        "vector sum": lambda: built["vs"].fn(p0),
+        "compound symmetric matrix": lambda: csm.fn(p0),
+        "stochastic dollo": lambda: stochastic_dollo_loglik(
+            presence, t0.parent, t0.children, t0.heights, 0.7,
+            gain_rate=0.3, branch_rates=1.2),
+        "svs connectivity 56": lambda: xml_geo.svs_connectivity_prior(
+            _Svs(), "m").fn({"ind": indicators}, None),
+        "gmrf block update": gmrf,
+        "elliptical slice": ess_draw,
+    }
+
+
+def p16_functions_path(out_dir, dev, n_taxa=SPEC_TAXA):
+    """Phase 16d: p16_function_cases on the card and on the CPU (an
+    XmlAnalysis of p16_functions_document on each), each output's largest
+    deviation over its largest magnitude held to P16_REL_TOL. Returns the
+    record."""
+    import torch
+
+    from beast_mcmc_tpu_torch.config.interpreter import XmlAnalysis
+
+    path = p16_functions_document(os.path.join(out_dir,
+                                               "p16_functions.xml"), n_taxa)
+    t0 = time.perf_counter()
+    got = {k: fn().detach().cpu().double() for k, fn in p16_function_cases(
+        XmlAnalysis(path, device=dev)).items()}
+    want = {k: fn().detach().double() for k, fn in p16_function_cases(
+        XmlAnalysis(path, device="cpu")).items()}
+    worst = {}
+    for label, w in want.items():
+        g = got[label]
+        fin = torch.isfinite(w)
+        if not bool(torch.equal(fin, torch.isfinite(g))) or not bool(
+                torch.equal(g[~fin], w[~fin])):
+            raise AssertionError(f"P16d {label}: non-finite entries differ")
+        scale = max(float(w[fin].abs().max()) if bool(fin.any()) else 0.0,
+                    1e-300)
+        worst[label] = (float((g[fin] - w[fin]).abs().max()) / scale
+                        if bool(fin.any()) else 0.0)
+        if not worst[label] <= P16_REL_TOL:
+            raise AssertionError(f"P16d {label}: {worst[label]!r} > "
+                                 f"{P16_REL_TOL}")
+    top = max(worst, key=worst.get)
+    rec = {"functions": len(worst), "nodes": 2 * n_taxa - 1,
+           "max_rel_err": worst[top], "worst": top, "rel_err": worst,
+           "seconds": time.perf_counter() - t0}
+    log(f"[P16d] {len(worst)} functions of items 6 to 9 at "
+        f"{rec['nodes']} nodes on the card against the CPU in "
+        f"{rec['seconds']:.2f} s: largest deviation {worst[top]!r} ({top}; "
+        f"tolerance {P16_REL_TOL})")
+    return rec
+
+
 def chain_gradient_checks(peel_cases, post_cases, chain_inputs, analyses,
                           reset_counts, read_counts, dev):
     """Phase 10g: the chain-axis gradients. peel_cases: [(kernel, label,
@@ -3146,8 +3673,9 @@ def codon_gamma_path(analysis, kname, reset_counts, read_counts, device_ms,
                "aggregate_states_per_s": b_n * n_steps / secs,
                "launches": counts, "log_posterior": lps}
         if dev != "cpu":
-            wall, busy = device_ms(lambda: run_chain(step, state, 20),
-                                   f"P11 {label}", 20, 8)
+            wall, busy = device_ms(
+                lambda: run_chain(step, state, PROFILE_STEPS),
+                f"P11 {label}", PROFILE_STEPS, 8)
             rec.update({"profiled_ms_per_step": wall,
                         "device_busy_ms_per_step": busy or "not measured",
                         "device_busy_share": (busy / wall if busy
@@ -4330,15 +4858,15 @@ def main():
             wall = time.perf_counter() - t0
         # device-side events only (kernels, copies): an operator's own
         # entry would count its kernels' time a second time
-        kern = sorted((e for e in prof.key_averages()
+        averages = prof.key_averages()  # parsed once: seconds a window
+        kern = sorted((e for e in averages
                        if e.device_type == DeviceType.CUDA),
                       key=lambda e: e.self_device_time_total, reverse=True)
         busy = sum(e.self_device_time_total for e in kern) / 1e6
         if busy <= 0:
             log(f"[profile {label}] device time not measured by the profiler")
             return
-        sorts = sum(e.count for e in prof.key_averages()
-                    if e.key == "aten::sort")
+        sorts = sum(e.count for e in averages if e.key == "aten::sort")
         log(f"[profile {label}] {n_steps} steps, wall {wall:.4f} s "
             f"(profiled), device busy {busy:.4f} s = "
             f"{100 * busy / wall:.1f}%, idle {100 * (1 - busy / wall):.1f}%, "
@@ -4348,18 +4876,19 @@ def main():
             log(f"[profile {label}]   {e.self_device_time_total / 1e3:9.3f} ms"
                 f"  {e.count:6d}x  {e.key[:70]}")
         # the host side: the operators and launches with most own CPU time
-        host = sorted((e for e in prof.key_averages()
+        host = sorted((e for e in averages
                        if e.device_type != DeviceType.CUDA),
                       key=lambda e: e.self_cpu_time_total, reverse=True)
         for e in host[:5]:
             log(f"[profile {label}]   host {e.self_cpu_time_total / 1e3:9.3f}"
                 f" ms  {e.count:6d}x  {e.key[:70]}")
 
-    where_time_goes("benchmark2", b2_step, b2_state, 200)
-    where_time_goes("makona", mak_step, mak_state, 50)
-    where_time_goes("benchmark1", b1_step, b1_state, 50)
-    where_time_goes("protein", aa_step, aa_state, 50)
-    where_time_goes("codon", cod_step, cod_state, 50)
+    where_time_goes("benchmark2", b2_step, b2_state, 4 * PROFILE_STEPS)
+    for label, step_, state_ in (("makona", mak_step, mak_state),
+                                 ("benchmark1", b1_step, b1_state),
+                                 ("protein", aa_step, aa_state),
+                                 ("codon", cod_step, cod_state)):
+        where_time_goes(label, step_, state_, 2 * PROFILE_STEPS)
     mark("3 to 6 chains and profiles")
 
     # -- phase 6c: HMC on the node heights and on (clock.rate, pop.size) --
@@ -4394,8 +4923,8 @@ def main():
             torch.cuda.synchronize()
             wall = 1e3 * (time.perf_counter() - t0) / HMC_ALONE
             counts = read_counts()
-            _, busy = device_ms(lambda: run_chain(alone, st, 2),
-                                f"hmc {label} {name}", 2, 10)
+            _, busy = device_ms(lambda: run_chain(alone, st, 1),
+                                f"hmc {label} {name}", 1, 10)
             # st's statistics count every proposal made from it: warm-up,
             # measured and profiled
             rec[name] = {"ms_per_proposal": wall,
@@ -4715,6 +5244,12 @@ def main():
     p15_launches.update(p15d_launches)
     mark("15 interpreter route")
 
+    # -- phase 16: the north-star document through the interpreter ------
+    p16, p16_launches = north_star_path(SMOKE_OUT, reset_counts,
+                                        read_counts, device_ms, dev)
+    p16["16d"] = p16_functions_path(SMOKE_OUT, dev)
+    mark("16 north-star document")
+
     # -- summary ------------------------------------------------------
     def entry(kname, source, replaces, launches, label):
         rec = next(r for r in checks[kname] if r["label"] == label)
@@ -4851,6 +5386,29 @@ def main():
         f"{p15['15d']['mean']!r} (SE {p15['15d']['se']!r}, expected "
         f"1.9934); phase {phases['15 interpreter route']:.2f} s; on "
         f"{smi_line}")
+    p16a, p16b, p16c = p16["16a"], p16["16b"], p16["16c"]
+    log(f"[summary p16] north-star document {p16['taxa']} taxa x "
+        f"{p16['sites']} sites, {p16['patterns']} patterns "
+        f"({p16['patterns_padded']} padded), {p16['locations']} locations: "
+        f"16a CLI {p16a['steps']} states {p16a['states_per_s']} states/s "
+        f"({p16a['cli_seconds']:.2f} s of CLI, {p16a['chain_seconds']:.2f} s "
+        f"of chain), peel_stream launches {p16a['predicted_launches']} "
+        f"(predicted), {p16a['trees']} annotated trees; 16b "
+        f"measure_makona_joint {p16b['states_per_s']:.2f} states/s (phase "
+        f"9's fixed reader {j_rec['states_per_s']:.2f}), peel_stream "
+        f"launches {p16b['launches']['peel_stream']} = treeLikelihood "
+        f"steps {p16b['tree_likelihood_steps']}, deviation "
+        f"{p16b['deviation']!r}, busy share {p16b['device_busy_share']}, "
+        f"{p16b['device_events_per_step']} device events a step, host ms "
+        f"of an annotated tree {[round(x, 3) for x in p16b['tree_sample_ms']]}"
+        f"; 16c copy built in {p16c['build_seconds']:.2f} s, block update "
+        f"acceptance {p16c['acceptance']:.3f}, {p16c['ms_per_proposal']:.3f}"
+        f" ms a proposal ({p16c['device_events_per_proposal']} device "
+        f"events, busy share {p16c['device_busy_share']}), deviation "
+        f"{p16c['full_evaluation_deviation']!r}; 16d "
+        f"{p16['16d']['functions']} functions, largest deviation "
+        f"{p16['16d']['max_rel_err']!r} ({p16['16d']['worst']}); phase "
+        f"{phases['16 north-star document']:.2f} s; on {smi_line}")
     log(f"[phases] {json.dumps(phases)}")
     log(smi_line)
     print(json.dumps({"kernels": [
@@ -4882,7 +5440,8 @@ def main():
                              "makona joint": j_launches,
                              **p10_launches, **p11_launches,
                              **p12_launches, **p13_launches,
-                             **p14_launches, **p15_launches}}), flush=True)
+                             **p14_launches, **p15_launches,
+                             **p16_launches}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

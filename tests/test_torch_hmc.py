@@ -403,7 +403,16 @@ def test_operator_settings_carry_across():
                                                      lower=0.5, upper=2.0))
     assert (type(uniform).__name__, uniform.lower, uniform.upper) == (
         "UniformRealOperator", 0.5, 2.0)
-    # inference/gibbs.py is queue item 4f: no counterpart yet
+    # inference/gibbs.py's block update and elliptical slice sampler map to
+    # the port's gibbs.py; its other classes have no counterpart yet
     from beast_mcmc_tpu.inference import gibbs as jgibbs
+    from beast_mcmc_tpu_torch.inference import gibbs
+    block = operator_from(jgibbs.GmrfBlockUpdateOperator(
+        field="g", precision="tau", n_taxa=5, cut_points=(0.5, 1.0)))
+    assert isinstance(block, gibbs.GmrfBlockUpdateOperator)
+    assert (block.field, block.n_taxa, block.cut_points) == ("g", 5,
+                                                            (0.5, 1.0))
+    assert isinstance(operator_from(jgibbs.EllipticalSliceOperator()),
+                      gibbs.EllipticalSliceOperator)
     with pytest.raises(ValueError, match="no counterpart"):
-        operator_from(jgibbs.GmrfBlockUpdateOperator())
+        operator_from(jgibbs.InternalTraitGibbsOperator())

@@ -24,8 +24,20 @@ def test_import_every_module_without_jax():
     # component cache, the joint analysis's modules, the run surface
     # (config, runner, loggers, checkpoint, ancestral draw, the command
     # line), the post-processing apps, the AS91 copy, the XML
-    # interpreter and the epoch model are among the modules found
+    # interpreter and the epoch model, the XML extension modules and their
+    # helpers (xml_ext, the first part of xml_geo, xml_assert's initial
+    # state, xml_hmc's matrix parameters, xml_stats's current state, the
+    # GMRF block update and elliptical slice sampler, the Sericola series,
+    # the stochastic Dollo model) are among the modules found
     assert {"beast_mcmc_tpu_torch.apps.makona",
+            "beast_mcmc_tpu_torch.config.xml_ext",
+            "beast_mcmc_tpu_torch.config.xml_geo",
+            "beast_mcmc_tpu_torch.config.xml_assert",
+            "beast_mcmc_tpu_torch.config.xml_hmc",
+            "beast_mcmc_tpu_torch.config.xml_stats",
+            "beast_mcmc_tpu_torch.inference.gibbs",
+            "beast_mcmc_tpu_torch.ops.sericola",
+            "beast_mcmc_tpu_torch.models.dollo",
             "beast_mcmc_tpu_torch.config.interpreter",
             "beast_mcmc_tpu_torch.models.epoch",
             "beast_mcmc_tpu_torch.__main__",

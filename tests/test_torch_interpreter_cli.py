@@ -77,17 +77,17 @@ def test_cli_unported_tag_exits_nonzero_naming_its_module(tmp_path,
                                                           capsys):
     doc = RLC_DOC.replace(
         '<poissonPrior mean="1.0">',
-        '<halfTPrior scale="1.0" df="1"><parameter idref="kappa"/>'
-        '</halfTPrior>\n        <poissonPrior mean="1.0">')
+        '<determinantPrior id="det"><parameter idref="kappa"/>'
+        '</determinantPrior>\n        <poissonPrior mean="1.0">')
     (tmp_path / "ext.xml").write_text(doc)
     monkeypatch.chdir(tmp_path)
     for extra in ([], ["-testxml"]):
         rc = cli.main(["run", "ext.xml", "-device", "cpu"] + extra)
         err = capsys.readouterr().err
         assert rc == 1
-        assert "<halfTPrior>" in err
-        assert "beast_mcmc_tpu/config/xml_ext.py" in err
-        assert "queue item 4e" in err
+        assert "<determinantPrior>" in err
+        assert "beast_mcmc_tpu/config/xml_factor.py" in err
+        assert "queue item 4g" in err
 
 
 def test_cli_particles_stays_refused(tmp_path, capsys):
@@ -109,19 +109,39 @@ def _jax_modules():
             {t: path(f) for t, f in jinterp._OP_EXT.items()})
 
 
+# the JAX package's extension tags the port registers: all of
+# config/xml_ext.py's (dummyModel is xml_factor.py's in JAX's registry,
+# which registers it after xml_ext.py, with the same zero density) and the
+# discrete-phylogeography part of config/xml_geo.py
+PORTED_MODULES = ("config/xml_ext.py",)
+PORTED_GEO = {"generalDataType", "attributePatterns",
+              "generalSubstitutionModel", "svsGeneralSubstitutionModel",
+              "complexSubstitutionModel", "beagleSequenceSimulator",
+              "sequenceSimulator"}
+
+
+def _ported(builders):
+    return ({t for t, m in builders.items() if m in PORTED_MODULES}
+            | PORTED_GEO | {"dummyModel"})
+
+
 def test_base_registry_is_the_jax_base_registry():
-    builders, _ = _jax_modules()
+    builders, ops = _jax_modules()
     base = {t for t, m in builders.items() if m == "config/interpreter.py"}
-    assert set(interp._BUILDERS) == base
     assert len(base) == 91
-    assert not interp._OP_EXT
+    assert len(_ported(builders)) == 52
+    assert set(interp._BUILDERS) == base | _ported(builders)
+    assert set(interp._OP_EXT) == {t for t, m in ops.items()
+                                   if m in PORTED_MODULES}
+    assert len(interp._OP_EXT) == 3
 
 
 def test_every_jax_tag_is_registered_or_names_its_module(tmp_path):
     builders, ops = _jax_modules()
+    ported = _ported(builders)
     ext = sorted(t for t, m in builders.items()
-                 if m != "config/interpreter.py")
-    op_tags = sorted(ops)
+                 if m != "config/interpreter.py" and t not in ported)
+    op_tags = sorted(t for t, m in ops.items() if m not in PORTED_MODULES)
     body = "".join(f'<{t} id="n{i}"/>' for i, t in enumerate(ext))
     body += "<operators>" + "".join(f"<{t}/>" for t in op_tags) + \
         "</operators>"
@@ -142,7 +162,11 @@ def test_every_jax_tag_is_registered_or_names_its_module(tmp_path):
             interp._build_operator(ax, el)
         assert f"beast_mcmc_tpu/{ops[el.tag]}" in str(e.value)
         checked += 1
-    assert checked == len(ext) + len(op_tags) == 181 + 27
+    assert checked == len(ext) + len(op_tags) == 181 + 27 - 52 - 3
+    # no tag of config/xml_ext.py, and none of the ported xml_geo.py ones,
+    # is left among the unported
+    assert not set(interp._TAG_MODULE) & ported
+    assert "config/xml_ext.py" not in interp.EXTENSION_TAGS
 
 
 def test_importer_vocabulary_is_covered():
@@ -157,8 +181,11 @@ def test_importer_vocabulary_is_covered():
 
 def test_base_file_branches_into_unported_modules_raise(tmp_path):
     """The base handlers' branches into unported modules raise their
-    Unsupported: the marginal-likelihood estimator, matrix logging, the
-    rewards-aware tree likelihood and the GMRF block update."""
+    Unsupported (the marginal-likelihood estimator); the GMRF block update
+    of an ungrouped field, which raised before inference/gibbs.py was
+    ported, builds that operator as JAX's registry does."""
+    from beast_mcmc_tpu_torch.inference.gibbs import GmrfBlockUpdateOperator
+
     doc = ET.fromstring(RLC_DOC)
     mle = ET.SubElement(doc, "marginalLikelihoodEstimator")
     mle.set("id", "mle")
@@ -176,8 +203,12 @@ def test_base_file_branches_into_unported_modules_raise(tmp_path):
         tree_prior='<gmrfSkyrideLikelihood idref="skyride"/>')
     (tmp_path / "sky.xml").write_text(sky)
     ax = interp.XmlAnalysis(str(tmp_path / "sky.xml"), device="cpu")
-    with pytest.raises(interp.Unsupported, match="inference/gibbs.py"):
-        ax.run()
+    ax.build(ax._ids["treeModel"])
+    ops, tids = ax.build(ax.root.find("operators"))
+    (block,) = [op for op in ops if isinstance(op, GmrfBlockUpdateOperator)]
+    assert (block.field, block.precision, block.n_taxa) == ("g", "tau", 6)
+    assert block.time_aware and block.cut_points is None
+    assert tids[ops.index(block)] == "treeModel"
 
 
 def test_phase15_rehearsal(tmp_path):

@@ -19,6 +19,16 @@ its annotation tag and labels; the annotation draw's site log-likelihood
 to JAX's geoLikelihood (1e-9); a chain that writes the log and the
 annotated trees (apps/makona.py::run_joint_logged) ends in the state of
 the same chain unlogged, and its tree file reads back.
+
+The same documents through the port's own XML interpreter
+(config/interpreter.py with config/xml_geo.py and xml_ext.py;
+apps/benchmarks.py::xml_joint_chain, the chain of measure_makona_joint):
+its simulated alignment and patterns equal JAX's state for state; every
+leaf of the decomposed posterior equals JAX's at the start and after the
+20 JAX steps (1e-10, the expm leaf 1e-9); the components' dependency sets
+equal JAX's trace_deps; a 200-step component-cached chain passes the 0.1
+check; and `python -m beast_mcmc_tpu_torch run` on the document writes
+its log and its trees with every node's location annotated.
 """
 
 import subprocess
@@ -46,6 +56,7 @@ from beast_mcmc_tpu.inference.mcmc import (
 
 from beast_mcmc_tpu_torch.apps.benchmarks import (
     build_joint_analysis,
+    xml_joint_chain,
     clock_rates,
     gtr_site_model,
 )
@@ -136,7 +147,9 @@ def joint(request, tmp_path_factory):
     for _ in range(20):
         state = step(state)
     parts = ax._treelik_parts
+    port = xml_joint_chain(str(path), "cpu")
     return {"name": request.param, "path": path, "ax": ax, "ops": ops,
+            "port": port,
             "tids": tids, "leaves": leaves, "comps": comps,
             "states": [(p0, t0), (state.params, state.tree)],
             "seq": (np.asarray(parts["treeLikelihood"]["tips"]),
@@ -419,3 +432,201 @@ def test_tree_logger_leaves_the_chain_alone(joint, tmp_path):
     assert [int(r[0]) for r in rows] == list(range(10, 101, 10))
     assert float(rows[-1][1]) == pytest.approx(float(plain.log_posterior),
                                                rel=1e-9)
+
+
+def _port_params(params):
+    """JAX's params (the component cache left out) as CPU tensors of the
+    port's XmlAnalysis, whose names are the document's, as JAX's."""
+    return {k: torch.tensor(np.asarray(v)) for k, v in params.items()
+            if k != "__comp_cache__"}
+
+
+def _port_tree(tree):
+    return make_tree_state(*_np((tree.parent, tree.children, tree.heights,
+                                 tree.root)), dtype=torch.float64,
+                           device="cpu")
+
+
+def test_interpreter_alignment_equals_jax(joint):
+    """The port's <beagleSequenceSimulator> draws JAX's alignment state for
+    state, so the patterns, their weights and both partitions' tips are
+    JAX's."""
+    ax, jax_ax = joint["port"]["analysis"], joint["ax"]
+    for tag in ("simulator", "patterns"):
+        got, want = ax.build(ax._ids[tag]), jax_ax.build(jax_ax._ids[tag])
+        assert got.taxa == want.taxa
+        np.testing.assert_array_equal(got.states, np.asarray(want.states))
+    np.testing.assert_array_equal(
+        ax.build(ax._ids["patterns"]).weights,
+        jax_ax.build(jax_ax._ids["patterns"]).weights)
+    for lik in ("treeLikelihood", "geoLikelihood"):
+        got = ax._treelik_parts[lik]
+        want = jax_ax._treelik_parts[lik]
+        np.testing.assert_array_equal(got["tips"].numpy(),
+                                      np.asarray(want["tips"]))
+        np.testing.assert_array_equal(got["w"].numpy(),
+                                      np.asarray(want["w"]))
+
+
+def test_interpreter_components_match_jax(joint):
+    """Each leaf of the port's decomposed posterior, and their sum, at
+    JAX's start state and after 20 JAX steps (JAX's under jit)."""
+    comps = joint["port"]["components"]
+    assert [c.name for c in comps] == NAMES
+    for params, tree in joint["states"]:
+        p, t = _port_params(params), _port_tree(tree)
+        total = 0.0
+        for lf, c in zip(joint["leaves"], comps):
+            ref = float(jax.jit(lf.fn)(params, tree))
+            tol = RTOL_EXPM if c.name == "geoLikelihood" else RTOL
+            assert float(c.fn(p, t)) == pytest.approx(
+                ref, rel=tol, abs=1e-300), (joint["name"], c.name)
+            total += ref
+        assert float(joint["port"]["log_post"](p, t)) == pytest.approx(
+            total, rel=RTOL)
+
+
+def test_interpreter_dependency_sets_match_jax(joint):
+    """The port's trace_deps over its interpreter's leaves reads JAX's
+    jaxpr slices' params (the same names), and the same leaves read the
+    tree; the operators' tree flags are JAX's."""
+    for jc, c in zip(joint["comps"], joint["port"]["components"]):
+        assert c.deps == set(jc.deps), c.name
+        assert c.uses_tree == jc.uses_tree, c.name
+    assert len(joint["port"]["operators"]) == len(joint["ops"]) == 14
+    for j_op, op in zip(joint["ops"], joint["port"]["operators"]):
+        assert type(op).__name__ == type(j_op).__name__
+        assert op.weight == j_op.weight
+
+
+def test_interpreter_chain_full_evaluation(joint):
+    """200 steps of the interpreter's component-cached chain, then the
+    full-evaluation check over 50 more (tolerance 0.1)."""
+    step, log_post = joint["port"]["step"], joint["port"]["log_post"]
+    state, _ = run_chain(step, joint["port"]["state"], 200)
+    assert np.isfinite(float(state.log_posterior))
+    state, dev = full_evaluation_check(step, log_post, state, 50)
+    assert float(dev) <= 0.1
+    assert int(state.op_accept.sum()) > 0
+
+
+def test_interpreter_cli_writes_annotated_trees(joint, tmp_path,
+                                                monkeypatch, capsys):
+    """`python -m beast_mcmc_tpu_torch run small.xml -scale 5e-7`: the
+    importer refuses the simulated alignment and the interpreter runs 100
+    states, a log row and an annotated tree each; every node of every tree
+    carries one of the document's locations, each tip its own
+    (chip_smoke.check_joint_trees)."""
+    import chip_smoke
+
+    from beast_mcmc_tpu_torch import __main__ as cli
+
+    monkeypatch.chdir(tmp_path)
+    rc = cli.main(["run", str(joint["path"]), "-scale", "5e-7", "-device",
+                   "cpu", "-seed", "9"])
+    out = capsys.readouterr()
+    assert rc == 0, out.err[-2000:]
+    assert "running through the interpreter registry]" in out.out
+    cfg = read_makona_xml(str(joint["path"]))
+    log = (tmp_path / "makona_joint.log").read_text().splitlines()
+    assert log[0].split("\t") == ["state", "posterior", "ucld.mean",
+                                   "siteModel.alpha", "nonZeroRates",
+                                   "treeModel.rootHeight"]
+    assert len(log) == 101
+    trees = str(tmp_path / "makona_joint.trees")
+    assert chip_smoke.check_joint_trees(trees, cfg) == 100
+
+
+def test_annotation_drawn_only_on_kept_tree_rows(tmp_path, monkeypatch):
+    """With the tab log every 2 states and the tree log every 10, the
+    interpreter's collector runs every 2 states but draws the ancestral
+    states (and gathers the tree) only on the rows the tree log keeps:
+    40 states give 20 log rows, 4 trees and 4 draws."""
+    import chip_smoke
+
+    from beast_mcmc_tpu_torch.config.interpreter import (
+        XmlAnalysis as PortXmlAnalysis,
+    )
+    from beast_mcmc_tpu_torch.ops import ancestral
+
+    text = _write_xml(tmp_path / "src.xml",
+                      *SHAPES["6 locations"]).read_text()
+    for old, new in (('chainLength="200000000"', 'chainLength="40"'),
+                     ('<log logEvery="1000"', '<log logEvery="2"'),
+                     ('<logTree logEvery="10000"', '<logTree logEvery="10"')):
+        assert text.count(old) == 1
+        text = text.replace(old, new)
+    path = tmp_path / "strided.xml"
+    path.write_text(text)
+    draws = [0]
+    sample = ancestral.sample_ancestral_states
+
+    def counted(*a, **k):
+        draws[0] += 1
+        return sample(*a, **k)
+
+    monkeypatch.setattr(ancestral, "sample_ancestral_states", counted)
+    ax = PortXmlAnalysis(str(path), workdir=str(tmp_path), seed=3,
+                         device="cpu")
+    ax.run(full_eval_steps=0)
+    assert ax.runs[-1]["steps"] == 40
+    log = (tmp_path / "makona_joint.log").read_text().splitlines()
+    assert [int(r.split("\t")[0]) for r in log[1:]] == list(range(2, 41, 2))
+    trees = str(tmp_path / "makona_joint.trees")
+    assert chip_smoke.check_joint_trees(trees, read_makona_xml(str(path))) \
+        == 4
+    assert draws[0] == 4
+    states = [ln.split()[1] for ln in open(trees)
+              if ln.lstrip().startswith("tree ")]
+    assert states == ["STATE_10", "STATE_20", "STATE_30", "STATE_40"]
+
+
+def test_phase16_rehearsal(tmp_path, monkeypatch):
+    """chip_smoke.py's phase 16 on the CPU on the 24-taxon document: the
+    CLI's likelihood evaluations counted where the card counts
+    peel_stream launches, exactly as north_star_path predicts them, its
+    log and annotated trees read back; measure_makona_joint's evaluations
+    of the tree likelihood equal to the steps that refresh it; the block
+    update's proposals and check; 16d's functions on the CPU twice."""
+    import time
+
+    import chip_smoke
+    from beast_mcmc_tpu_torch.models import treelikelihood as tl
+
+    path = _write_xml(tmp_path / "small.xml", *SHAPES["6 locations"])
+    calls = [0]
+    site = tl._site_logliks
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return site(*a, **k)
+
+    def reset():
+        calls[0] = 0
+
+    def read():
+        return {"peel_stream": calls[0]}
+
+    def device_ms(fn, label, n=1, top=6):
+        t0 = time.perf_counter()
+        fn()
+        device_ms.events = 0.0
+        return 1e3 * (time.perf_counter() - t0) / n, None
+
+    monkeypatch.setattr(tl, "_site_logliks", counted)
+    rec, launches = chip_smoke.north_star_path(
+        str(tmp_path), reset, read, device_ms, "cpu", doc=str(path),
+        scale=3e-7, n_warm=4, n_steps=20, n_profile=3, n_block=6,
+        block_check=5)
+    a, b, c = rec["16a"], rec["16b"], rec["16c"]
+    # the interpreter runs a debug chain of at most 64 states in full
+    assert a["steps"] == a["log_rows"] == a["trees"] == 64
+    assert launches["P16 16a CLI"] == {"peel_stream": 1 + 200 + 2 * 64}
+    assert a["full_evaluation_deviation"] == 0.0
+    assert launches["P16 16b timed steps"] == {
+        "peel_stream": b["tree_likelihood_steps"]}
+    assert sum(b["steps_per_operator"]) == 20 and b["deviation"] < 0.1
+    assert rec["taxa"] == 24 and rec["locations"] == 6
+    assert c["proposals"] == 6 and c["full_evaluation_deviation"] <= 0.1
+    d = chip_smoke.p16_functions_path(str(tmp_path), "cpu", n_taxa=24)
+    assert d["functions"] == 20 and d["max_rel_err"] == 0.0
