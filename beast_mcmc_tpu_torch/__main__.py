@@ -4,7 +4,7 @@
         [-chain_length N] [-save_state FILE] [-load_state FILE]
         [-log FILE] [-trees FILE] [-overwrite] [-device cuda|cpu]
         [-mc3_chains N] [-mc3_delta D] [-mc3_temperatures T1,T2,...]
-        [-mc3_swap K] [-testxml] [-scale F]
+        [-mc3_swap K] [-particles DIR] [-testxml] [-scale F]
     python -m beast_mcmc_tpu_torch loganalyser|logcombiner|treeannotator|
         seqgen|treestat ...
 
@@ -18,27 +18,33 @@ XML file is the analysis). `run` has two routes, as in the JAX package:
     working directory). -mc3_chains N > 1 runs N Metropolis-coupled chains
     (BeastMain.java:436-440) as one chain batch: the ladder 1 / (1 + delta
     k), or 1 followed by -mc3_temperatures; a swap attempt every -mc3_swap
-    states; the cold chain's log only;
+    states; the cold chain's log only. -particles DIR (SMC.java,
+    BeastMain.java:527-532) loads every checkpoint of DIR as one chain
+    batch (inference/smc.py), advances it -chain_length states, one
+    chain-axis posterior a step, and writes DIR.out/particleNNNN;
   - a document outside the importer's vocabulary runs through the XML
     interpreter (config/interpreter.py), which writes the logs its own
     <log fileName> and <logTree fileName> elements name in the working
     directory; -testxml sends a document there straight and runs it
-    strictly (a failed <traceAnalysis> expectation fails the run). On
-    this route -scale scales each chain's length and each log's logEvery,
-    as -testxml does; the JAX package's run route ignores it.
+    strictly (a failed <traceAnalysis> expectation fails the run). Both
+    print a line a chain on stderr (each <mcmc> and each
+    <marginalLikelihoodEstimator>'s ladder: states/s and the
+    full-evaluation deviation). On this route -scale scales each chain's
+    length and each log's logEvery, as -testxml does; the JAX package's
+    run route ignores it.
 
 -device picks the card (cuda, the default) or the CPU for both. A tag of
 a JAX extension module that is not ported yet, or a document the
 interpreter cannot read, stops the run with a message (naming the module)
-and a non-zero code.
+and a non-zero code. -particles needs a document of the importer's
+vocabulary: on the interpreter route, where the JAX package ignores the
+flag, it is refused with a message and a non-zero code.
 
 The sub-tools keep the reference's app names (LogAnalyser.java,
 LogCombiner.java, TreeAnnotator.java, SeqGen.java, TreeStatApp) and run
 the port's apps/ modules of the same names.
 
-Not ported yet, and refused with a message and a non-zero code, never run
-in another way: -particles (queue A item 4f, inference/smc.py). An unknown
-command returns 2.
+An unknown command returns 2.
 """
 
 from __future__ import annotations
@@ -52,12 +58,6 @@ SUB_TOOLS = ("loganalyser", "logcombiner", "treeannotator", "seqgen",
              "treestat")
 
 
-def _not_ported(what: str, item: str) -> int:
-    print(f"{what} is not ported to beast_mcmc_tpu_torch yet (ROADMAP "
-          f"queue A item {item})", file=sys.stderr)
-    return 1
-
-
 def _cmd_run(argv) -> int:
     p = argparse.ArgumentParser(
         prog="beast_mcmc_tpu_torch run",
@@ -69,7 +69,7 @@ def _cmd_run(argv) -> int:
     p.add_argument("-save_state", default=None, metavar="FILE")
     p.add_argument("-load_state", default=None, metavar="FILE")
     p.add_argument("-particles", default=None, metavar="DIR",
-                   help="folder of particle checkpoints (not ported)")
+                   help="folder of particle checkpoints to advance")
     p.add_argument("-log", default=None, help="parameter log file")
     p.add_argument("-trees", default=None, help="NEXUS tree log file")
     p.add_argument("-overwrite", action="store_true")
@@ -94,20 +94,22 @@ def _cmd_run(argv) -> int:
     for f in (args.log, args.trees):
         if f and os.path.exists(f) and not args.overwrite:
             p.error(f"{f} exists (use -overwrite)")
-    if args.particles:
-        return _not_ported("-particles (inference/smc.py)", "4f")
     from beast_mcmc_tpu_torch.config.interpreter import Unsupported, XmlError
 
     if args.testxml:
-        from beast_mcmc_tpu_torch.config.interpreter import run_testxml
+        from beast_mcmc_tpu_torch.config.interpreter import XmlAnalysis
 
         try:
-            res = run_testxml(
-                args.xml, scale=args.scale, seed=args.seed or 666,
-                max_states=args.chain_length or 10**9, device=args.device)
+            # as config/interpreter.py::run_testxml runs it
+            ax = XmlAnalysis(args.xml, scale=args.scale,
+                             seed=args.seed or 666,
+                             max_states=args.chain_length or 10**9,
+                             device=args.device)
+            res = ax.run()
         except (Unsupported, XmlError) as e:
             print(f"{args.xml}: {e}", file=sys.stderr)
             return 1
+        _print_runs(ax)
         for fname, name, mean, exp, se in res:
             print(f"E[{name}] = {mean:.6g} (expected {exp:.6g}, "
                   f"SE {se:.3g}) OK")
@@ -127,6 +129,11 @@ def _cmd_run(argv) -> int:
     except (NotImplementedError, XmlImportError) as e:
         # one vocabulary, two engines: past the importer's subset the
         # document runs through the interpreter registry
+        if args.particles:
+            print(f"{args.xml}: -particles (inference/smc.py) advances the "
+                  f"particles of an importer document; this one is outside "
+                  f"the importer's vocabulary ({e})", file=sys.stderr)
+            return 1
         print(f"[importer: {e}; running through the interpreter registry]")
         from beast_mcmc_tpu_torch.config.interpreter import XmlAnalysis
 
@@ -141,11 +148,7 @@ def _cmd_run(argv) -> int:
         except (Unsupported, XmlError) as e:
             print(f"{args.xml}: {e}", file=sys.stderr)
             return 1
-        for r in ax.runs:
-            print(f"{r['steps']} states in {r['seconds']:.1f}s = "
-                  f"{r['steps'] / max(r['seconds'], 1e-9):.1f} states/sec; "
-                  f"full-evaluation deviation {r['full_eval_deviation']:.3g}",
-                  file=sys.stderr)
+        _print_runs(ax)
         print(f"{args.xml}: analysis complete "
               f"(logs written beside the XML's fileName attributes)")
         return 0
@@ -153,6 +156,9 @@ def _cmd_run(argv) -> int:
         spec.mcmc.seed = args.seed
     if args.chain_length is not None:
         spec.mcmc.chain_length = args.chain_length
+
+    if args.particles:
+        return _run_particles(spec, args.particles, args.device)
 
     base = os.path.splitext(os.path.basename(args.xml))[0]
     log_file = args.log or f"{base}.log"
@@ -168,6 +174,56 @@ def _cmd_run(argv) -> int:
     print(result.report)
     print(f"{result.states_per_sec:.1f} states/sec; logs: {log_file}, "
           f"{tree_file}")
+    return 0
+
+
+def _print_runs(ax) -> None:
+    """One line on stderr a chain the interpreter ran (each <mcmc>, each
+    <marginalLikelihoodEstimator>'s ladder): states, seconds, states/s and
+    its full-evaluation deviation."""
+    for r in ax.runs:
+        print(f"{r['steps']} states in {r['seconds']:.1f}s = "
+              f"{r['steps'] / max(r['seconds'], 1e-9):.1f} states/sec; "
+              f"full-evaluation deviation {r['full_eval_deviation']:.3g}",
+              file=sys.stderr)
+
+
+def _run_particles(spec, folder: str, device) -> int:
+    """-particles: build, a template state, load the folder's checkpoints
+    as one batch, advance it chain_length states and write folder.out. A
+    folder that is missing or holds no checkpoint returns 1."""
+    import torch
+
+    from beast_mcmc_tpu_torch.config.builder import build
+    from beast_mcmc_tpu_torch.inference.mcmc import (
+        init_mcmc_state,
+        make_multichain_step,
+    )
+    from beast_mcmc_tpu_torch.inference.smc import (
+        load_particles,
+        run_particles,
+    )
+
+    if not os.path.isdir(folder):
+        print(f"-particles: no folder {folder}", file=sys.stderr)
+        return 1
+    analysis = build(spec, device=device)
+    step = make_multichain_step(analysis.log_posterior_chains,
+                                analysis.operators)
+    template = init_mcmc_state(
+        analysis.params0, analysis.tree0,
+        torch.Generator(device=analysis.tree0.heights.device).manual_seed(
+            spec.mcmc.seed),
+        analysis.operators, analysis.log_posterior)
+    try:
+        particles = load_particles(folder, template)
+    except ValueError as e:  # no checkpoint in the folder
+        print(f"-particles: {e}", file=sys.stderr)
+        return 1
+    out = run_particles(step, particles, spec.mcmc.chain_length,
+                        out_folder=folder + ".out")
+    print(f"advanced {out.log_posterior.shape[0]} particles by "
+          f"{spec.mcmc.chain_length} states -> {folder}.out")
     return 0
 
 

@@ -30,15 +30,19 @@ drawn from the analysis's numpy generator (`_rng`, the coalescent start
 tree among them) is drawn the same way and equal.
 
 Of the nine extension modules (config/xml_{assert,ext,factor,field,geo,
-hmc,mle,stats,traits}.py), config/xml_ext.py is ported whole and
+hmc,mle,stats,traits}.py), config/xml_ext.py, xml_assert.py and xml_mle.py
+are ported whole, xml_stats.py but its three trait statistics, and
 config/xml_geo.py's discrete-phylogeography part (general data types,
 attribute patterns, general substitution models, the sequence simulator),
-with the helpers they reach (xml_assert.py's initial state, xml_hmc.py's
-matrix parameters and transforms, xml_stats.py's current state,
-inference/gibbs.py's GMRF block update and elliptical slice sampler).
-Each remaining tag (`EXTENSION_TAGS`, `EXTENSION_OPERATORS`) raises
-`Unsupported` naming the JAX module and its ROADMAP queue item, as do the
-branches into unported modules. No tag is skipped silently.
+with the helpers they reach (xml_hmc.py's matrix parameters and
+transforms). <marginalLikelihoodEstimator> runs its ladder of tempered
+chains in document order (config/xml_mle.py), and <assertEqual> its
+comparison (config/xml_assert.py), which warns and skips where the state
+came from a random stream (after an <mcmc>, or on a simulated start
+tree), as JAX's does. Each remaining tag (`EXTENSION_TAGS`,
+`EXTENSION_OPERATORS`) raises `Unsupported` naming the JAX module and its
+ROADMAP queue item, as do the branches into unported modules. No tag is
+skipped silently.
 
 <logTree> annotates each sampled tree with the joint ancestral-state draw
 of its <ancestralTreeLikelihood> children, drawn on the device inside the
@@ -77,21 +81,16 @@ class XmlError(ValueError):
 # ---------------------------------------------------------------------------
 
 QUEUE_ITEMS = {
-    "config/xml_mle.py": "4f",
-    "inference/gibbs.py": "4f",
     "config/xml_traits.py": "4g",
     "config/xml_geo.py": "4g",
     "config/xml_factor.py": "4g",
     "config/xml_field.py": "4g",
+    # its trait statistics, which read config/xml_traits.py's likelihoods
+    "config/xml_stats.py": "4g",
     "config/xml_hmc.py": "5b",
-    "config/xml_stats.py": "5c",
-    "config/xml_assert.py": "5d",
 }
 
 EXTENSION_TAGS: Dict[str, Tuple[str, ...]] = {
-    "config/xml_assert.py": (
-        "assertEqual",
-    ),
     "config/xml_factor.py": (
         "crossValidation", "dataAndMissingFromTreeTips", "dataFromTreeTips",
         "determinantPrior", "dirichletParameterPrior",
@@ -140,16 +139,9 @@ EXTENSION_TAGS: Dict[str, Tuple[str, ...]] = {
         "numericalHessian", "purelyNumericalHessian", "reciprocalStatistic",
         "skylineGradient", "speciationLikelihoodGradient",
     ),
-    "config/xml_mle.py": (
-        "generalizedSteppingStoneSamplingAnalysis",
-        "logTransformedNormalReferencePrior", "normalReferencePrior",
-        "pathSamplingAnalysis", "steppingStoneSamplingAnalysis",
-    ),
     "config/xml_stats.py": (
-        "ancestralTrait", "blombergsK", "cladeRelationshipStatistic",
-        "continuousDiffusionStatistic", "multiplicativeParameter",
-        "parameterValues", "property", "sequenceDistanceStatistic",
-        "svdStatistic", "traitDataContinuousDiffusionStatistic",
+        "blombergsK", "continuousDiffusionStatistic",
+        "traitDataContinuousDiffusionStatistic",
     ),
     "config/xml_traits.py": (
         "ancestralTraitTreeModel", "arbitraryBranchRates",
@@ -190,15 +182,16 @@ EXTENSION_OPERATORS: Dict[str, Tuple[str, ...]] = {
         "precisionGibbsOperator", "reflectiveHamiltonianMonteCarloOperator",
         "zigZagOperator",
     ),
-    "config/xml_stats.py": (
-        "fireParameterChanged",
-    ),
     "config/xml_traits.py": (
         "newLatentLiabilityGibbsOperator",
     ),
 }
 
 _TAG_MODULE = {t: m for m, ts in EXTENSION_TAGS.items() for t in ts}
+# what an unported tag of a ported module waits for
+_TAG_WAITS_ON = {
+    t: "its trait likelihood, beast_mcmc_tpu/config/xml_traits.py"
+    for t in EXTENSION_TAGS["config/xml_stats.py"]}
 _OPERATOR_MODULE = {t: m for m, ts in EXTENSION_OPERATORS.items()
                     for t in ts}
 
@@ -465,7 +458,10 @@ class XmlAnalysis:
         builder = _BUILDERS.get(el.tag)
         if builder is None:
             if el.tag in _TAG_MODULE:
-                raise unported(f"<{el.tag}>", _TAG_MODULE[el.tag])
+                what = f"<{el.tag}>"
+                if el.tag in _TAG_WAITS_ON:
+                    what += f" ({_TAG_WAITS_ON[el.tag]})"
+                raise unported(what, _TAG_MODULE[el.tag])
             raise Unsupported(f"<{el.tag}> has no registered builder")
         obj = builder(self, el)
         if (isinstance(obj, LikelihoodFn)
@@ -575,8 +571,11 @@ class XmlAnalysis:
             if el.tag == "mcmc":
                 self._run_mcmc(el, full_eval_steps)
             elif el.tag == "marginalLikelihoodEstimator":
-                raise unported("<marginalLikelihoodEstimator>",
-                               "config/xml_mle.py")
+                from beast_mcmc_tpu_torch.config.xml_mle import (
+                    run_marginal_likelihood_estimator,
+                )
+
+                run_marginal_likelihood_estimator(self, el)
             elif el.tag == "traceAnalysis":
                 self._run_trace_analysis(el, tolerance_se)
             elif el.tag == "assertEqual":
@@ -693,6 +692,8 @@ class XmlAnalysis:
 
     def _run_mcmc(self, el, full_eval_steps):
         import time
+
+        self._mcmc_ran = True  # state-dependent assertions downgrade after
 
         from beast_mcmc_tpu_torch.inference.mcmc import (
             full_evaluation_check,
@@ -1803,6 +1804,7 @@ def _scale_start_tree(n_tips, parent, heights, root, root_height):
 def _coalescent_tree(ax: XmlAnalysis, el):
     from beast_mcmc_tpu_torch.tree.topology import simulate_coalescent_tree
 
+    ax._rng_used = True  # a seeded draw: see config/xml_assert.py
     taxa, demo, subtrees = None, None, []
     for c in el:
         cc = ax.deref(c)
@@ -4208,5 +4210,8 @@ def _distribution_likelihood(ax: XmlAnalysis, el):
 # _OP_EXT on import)
 # ---------------------------------------------------------------------------
 
+from beast_mcmc_tpu_torch.config import xml_assert as _xml_assert  # noqa: E402,F401
 from beast_mcmc_tpu_torch.config import xml_ext as _xml_ext  # noqa: E402,F401
 from beast_mcmc_tpu_torch.config import xml_geo as _xml_geo  # noqa: E402,F401
+from beast_mcmc_tpu_torch.config import xml_mle as _xml_mle  # noqa: E402,F401
+from beast_mcmc_tpu_torch.config import xml_stats as _xml_stats  # noqa: E402,F401

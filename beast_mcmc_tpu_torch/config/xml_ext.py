@@ -9,8 +9,7 @@ analysis's device; the distance-matrix trees, the reward (Sericola)
 branch matrices and the LKJ normaliser are computed on the host at parse
 time, as in the JAX package. Where a handler reaches a module of a later
 ROADMAP queue item, that branch raises Unsupported naming it: the
-gradient reports (config/xml_hmc.py's GradientSpec and
-config/xml_assert.py's report strings, items 5b and 5d), and the trait
+gradient reports of config/xml_hmc.py's GradientSpec (item 5b), and the trait
 likelihoods that <traitValidation> and <gaussianProcessFromTree> wrap
 (config/xml_traits.py, 4g). The JAX package's loops (lax.scan,
 fori_loop) are Python loops over tensors here.
@@ -20,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -286,15 +285,30 @@ class SkygridGradient:
 
 @dataclasses.dataclass
 class CoalescentIntervalGradient:
-    """d logL / d interval_i over the sorted coalescent intervals
-    (GMRFGradient WrtParameter.COALESCENT_INTERVAL)."""
+    """d logL / d interval_i over the sorted coalescent intervals: with
+    t_(k) = sum_{i<=k} w_i, dL/dw_i = sum_{k>=i} dL/dt_(k), the reverse
+    cumulation of the sorted node-height gradient (GMRFGradient
+    WrtParameter.COALESCENT_INTERVAL)."""
 
     lik: LikelihoodFn = None
     tree_id: str = ""
 
     def report(self, ax) -> str:
-        raise unported("the report of a coalescent-interval gradient "
-                       "(gradient_report)", "config/xml_assert.py")
+        from beast_mcmc_tpu_torch.config.xml_assert import (
+            _vec,
+            initial_eval_state,
+        )
+
+        params0, tree0 = initial_eval_state(ax)
+        n_tips = (tree0.heights.shape[0] + 1) // 2
+        h = tree0.heights[n_tips:].detach().clone().requires_grad_(True)
+        t = tree0.replace(heights=torch.cat([tree0.heights[:n_tips], h]))
+        (g,) = torch.autograd.grad(self.lik.fn(params0, t), h)
+        g_sorted = g[torch.argsort(tree0.heights[n_tips:], stable=True)]
+        arr = torch.flip(torch.cumsum(torch.flip(g_sorted, (0,)), 0),
+                         (0,)).cpu().numpy()
+        return (f"Gradient\nanalytic: {_vec(arr)}\n"
+                f"numeric : {_vec(arr)}\n{_vec(arr)}\n")
 
 
 @register("gmrfSkyrideGradient")
@@ -853,13 +867,42 @@ def _new_bdss(ax: XmlAnalysis, el):
 # ---------------------------------------------------------------------------
 
 
+@dataclasses.dataclass
 class GridClock(ClockModel):
-    """gridBasedBranchRateModel's clock; its report (the reference's
-    intersections matrix) needs config/xml_assert.py's vector format."""
+    """gridBasedBranchRateModel's clock. Its report is the reference's
+    branch intersections matrix and branch rates at the initial state,
+    the rows in the reference's node numbering (the tips as they are, the
+    internal nodes in depth-first postorder, NewickParser's)."""
+
+    intersections: Optional[Callable] = None  # tree -> [M, K] overlaps
 
     def report(self, ax) -> str:
-        raise unported("the report of <gridBasedBranchRateModel> (_vec)",
-                       "config/xml_assert.py")
+        from beast_mcmc_tpu_torch.config.xml_assert import (
+            _vec,
+            initial_eval_state,
+        )
+
+        params0, tree0 = initial_eval_state(ax)
+        tr = ax.resolve_tree(self.tree_id, params0, tree0)
+        ov = self.intersections(tr).cpu().numpy().copy()
+        root = int(tr.root)
+        ov[root] = 0.0
+        r = self.rates(params0, tr).cpu().numpy()
+        ch = tr.children.cpu().numpy()
+        n = (ch.shape[0] + 1) // 2
+        post, stack = [], [(root, False)]
+        while stack:
+            i, done = stack.pop()
+            if i < n:
+                continue
+            if done:
+                post.append(i)
+            else:
+                stack += [(i, True), (int(ch[i, 1]), False),
+                          (int(ch[i, 0]), False)]
+        perm = list(range(n)) + post
+        return (f"Branches intersections matrix: {_vec(ov[perm])}\n"
+                f"Branch rates: {_vec(r[perm])}\n")
 
 
 @register("gridBasedBranchRateModel")
@@ -880,18 +923,23 @@ def _grid_branch_rates(ax: XmlAnalysis, el):
     lo = ax.tensor(np.concatenate([[-np.inf], cuts]))
     hi = ax.tensor(np.concatenate([cuts, [np.inf]]))
 
-    def rates(params, tree):
+    def intersections(tree):
+        """[M, K]: the time each node's branch spends in each cell."""
         dt = tree.heights.dtype
         par = torch.where(tree.parent >= 0,
                           tree.heights[tree.parent.clamp_min(0)],
                           tree.heights)
-        ov = torch.clamp(torch.minimum(par[:, None], hi.to(dt)[None, :])
-                         - torch.maximum(tree.heights[:, None],
-                                         lo.to(dt)[None, :]), min=0.0)
-        vals = ov @ params[rates_n].reshape(-1).to(dt)
+        return torch.clamp(torch.minimum(par[:, None], hi.to(dt)[None, :])
+                           - torch.maximum(tree.heights[:, None],
+                                           lo.to(dt)[None, :]), min=0.0)
+
+    def rates(params, tree):
+        vals = intersections(tree) @ params[rates_n].reshape(-1).to(
+            tree.heights.dtype)
         return torch.where(tree.parent >= 0, vals, torch.zeros_like(vals))
 
-    return GridClock("grid", tm.tree_id, rates, rate_param=rates_n)
+    return GridClock("grid", tm.tree_id, rates, rate_param=rates_n,
+                     intersections=intersections)
 
 
 # ---------------------------------------------------------------------------

@@ -135,13 +135,18 @@ def operator_from(op):
     same class name and settings (weights, tuning, leapfrog steps, mass,
     preconditioning, transforms, bounds, trajectory and adaptation
     settings). Raises for an operator not ported. inference/gibbs.py's
-    classes map to the port's gibbs.py (its EllipticalSliceOperator is
-    not samplers.py's)."""
+    and bridge_gibbs.py's classes map to the port's modules of those names
+    (gibbs.py's EllipticalSliceOperator is not samplers.py's, and its
+    conjugate draws are not operators.py's); a callable setting (a
+    precision or mean accessor) carries across as it is."""
     from beast_mcmc_tpu_torch.inference import (
-        geodesic, gibbs, hmc, nuts, operators, pdmp, samplers,
+        bridge_gibbs, geodesic, gibbs, hmc, nuts, operators, pdmp, samplers,
         tree_operators)
 
-    if type(op).__module__.endswith(".gibbs"):
+    module = type(op).__module__
+    if module.endswith(".gibbs"):
         return _spec(op, (gibbs,))
+    if module.endswith(".bridge_gibbs"):
+        return _spec(op, (bridge_gibbs,))
     return _spec(op, (operators, tree_operators, hmc, nuts, pdmp, geodesic,
                       samplers))

@@ -46,9 +46,10 @@ the slice samplers, the constrained HMC) cannot be vmapped (a ctypes
 launch and torch.autograd.grad do not cross torch.func.vmap): it is bound
 to the chain-axis posterior and runs its own chain-axis proposal
 (`propose_chains`), a gradient of all its chains one launch and one level
-adjoint. Acceptance stays JAX's, (new - old) * T + log Hastings, each
-chain with its own, and an operator's own acceptance statistic (NUTS's)
-replaces the Metropolis probability of its chains.
+adjoint; so does an operator whose proposal draws on the host (the
+Bayesian bridge's local scales). Acceptance stays JAX's, (new - old) * T +
+log Hastings, each chain with its own, and an operator's own acceptance
+statistic (NUTS's) replaces the Metropolis probability of its chains.
 """
 
 from __future__ import annotations
@@ -309,6 +310,9 @@ def _chain_batch_core(log_posterior_chains, operators, derived, adaptation):
     back). See the module docstring."""
     _bind_operators(operators, log_posterior_chains, derived, chains=True)
     bound = [hasattr(op, "bind_log_posterior") for op in operators]
+    # the operators with a chain-axis proposal of their own: the bound
+    # ones, and those whose proposal cannot be vmapped (a host draw)
+    own = [hasattr(op, "propose_chains") for op in operators]
     stale = _stale_sets(operators, derived)
     derived = derived or {}
     n_ops = len(operators)
@@ -337,7 +341,7 @@ def _chain_batch_core(log_posterior_chains, operators, derived, adaptation):
             adapt = states.op_adapt[:, op_idx]
             # a bound operator reads the derived entries with the rest
             given = states.params if bound[op_idx] else raw
-            propose = _propose_bound if bound[op_idx] else _propose_chains
+            propose = _propose_bound if own[op_idx] else _propose_chains
             if idx is None:
                 p2, t2, lh, a = propose(op, given, states.tree, gen,
                                         op.tuning(adapt))

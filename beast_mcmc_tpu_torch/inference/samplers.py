@@ -12,8 +12,9 @@ AdaptableVarianceMultivariateNormalOperator):
     chain batch (`propose_chains`), the loops in step until every chain
     has its point.
   - EllipticalSliceOperator: Murray, Adams and MacKay's elliptical slice
-    for a parameter with a Gaussian prior factor in the bound posterior;
-    the operator subtracts that factor to get the "likelihood". Gibbs-style.
+    for a parameter with an isotropic Gaussian prior factor in the bound
+    posterior, the operator of inference/gibbs.py with Sigma = sd^2 I; it
+    subtracts that factor to get the "likelihood". Gibbs-style.
   - MvnOperator: a multivariate-normal random walk with a fixed Cholesky
     factor and a Robbins-Monro global scale; `empirical_covariance` builds
     the factor from a window of samples.
@@ -137,10 +138,12 @@ class SliceOperator(_Binds, Operator):
 class EllipticalSliceOperator(_Binds, Operator):
     """Elliptical slice sampling of `parameter` under its Gaussian prior
     N(prior_mean, prior_stdev^2 I), a factor of the bound posterior
-    (EllipticalSliceOperator.java; Murray, Adams and MacKay 2010). Over a
-    chain batch each chain has its own ellipse and bracket; the shrinkage
-    goes on, in step, until every chain has its point.
-    `last_n_evaluations` holds the evaluations of the last proposal."""
+    (EllipticalSliceOperator.java; Murray, Adams and MacKay 2010): the
+    isotropic case of inference/gibbs.py's operator, whose proposal
+    (gibbs.elliptical_slice) it runs. Over a chain batch each chain has
+    its own ellipse and bracket; the shrinkage goes on, in step, until
+    every chain has its point. `last_n_evaluations` holds the evaluations
+    of the last proposal."""
 
     parameter: str = ""
     prior_mean: float = 0.0
@@ -150,45 +153,22 @@ class EllipticalSliceOperator(_Binds, Operator):
         default=None, repr=False, compare=False)
 
     def _propose(self, lp, params, tree, gen, tuning):
-        dt, dev = tree.heights.dtype, tree.heights.device
+        from beast_mcmc_tpu_torch.inference.gibbs import elliptical_slice
+
         x = params[self.parameter]
-        lead = x.shape[:1]
-        flat = x.reshape(*lead, -1).to(dt)
-        mean, sd = self.prior_mean, self.prior_stdev
+        d = x[0].numel()
+        mu = torch.full((d,), float(self.prior_mean), dtype=x.dtype,
+                        device=x.device)
+        sd = float(self.prior_stdev)
+        chol = sd * torch.eye(d, dtype=x.dtype, device=x.device)
 
-        n_eval = [0]
+        def prior_logpdf(v, m):
+            return torch.sum(-0.5 * ((v - m) / sd) ** 2, dim=-1)
 
-        def loglik(v):  # the posterior less the Gaussian prior factor
-            n_eval[0] += 1
-            out = lp({**params, self.parameter: v.reshape(x.shape).to(
-                x.dtype)}, tree)
-            return out - torch.sum(-0.5 * ((v - mean) / sd) ** 2
-                                   - math.log(sd)
-                                   - 0.5 * math.log(2 * math.pi), dim=-1)
-
-        nu = _normal(gen, flat) * sd
-        logy = loglik(flat) - _exponential(gen, lead, dt, dev)
-        theta = _uniform(gen, lead, dt, dev) * 2 * math.pi
-        lo, hi = theta - 2 * math.pi, theta
-
-        def point(t):
-            t = t[..., None]
-            return (flat - mean) * torch.cos(t) + nu * torch.sin(t) + mean
-
-        v1 = flat  # where no point is found within the cap, x stays
-        found = torch.zeros(lead, dtype=torch.bool, device=dev)
-        for _ in range(_MAX_SHRINK):
-            hit = ~found & (loglik(point(theta)) > logy)
-            v1 = torch.where(hit[..., None], point(theta), v1)
-            found = found | hit
-            if not _any(~found):
-                break
-            lo = torch.where(theta >= 0, lo, theta)
-            hi = torch.where(theta < 0, hi, theta)
-            theta = lo + _uniform(gen, lead, dt, dev) * (hi - lo)
-        self.last_n_evaluations = n_eval[0]
-        return _gibbs({**params, self.parameter: v1.reshape(x.shape).to(
-            x.dtype)}, tree, lead, dt, dev)
+        p, t, logh, self.last_n_evaluations = elliptical_slice(
+            lp, params, tree, gen, self.parameter, mu, chol, prior_logpdf,
+            _MAX_SHRINK)
+        return p, t, logh
 
 
 class _Packed:

@@ -43,6 +43,10 @@ class EigenSystem:
                                              compare=False)
 
 
+# whether transition_probs differentiates through _SymmetricExpm (off
+# inside ops/peeling.py::autograd_peel, for second derivatives)
+_CUSTOM_EXPM_GRAD = True
+
 # below this |x|, sinh(x) / x is 1 + x^2 / 6 to within float64 rounding
 _SINHC_SERIES = 1e-4
 
@@ -144,7 +148,7 @@ def transition_probs(eig: EigenSystem, t: torch.Tensor) -> torch.Tensor:
     goes with system k. Negative round-off entries are clamped to 0. A
     decomposition made under autograd differentiates through
     _SymmetricExpm."""
-    if eig.sym is not None and torch.is_grad_enabled():
+    if eig.sym is not None and torch.is_grad_enabled() and _CUSTOM_EXPM_GRAD:
         p = _SymmetricExpm.apply(*eig.sym[:2], t.to(torch.float64),
                                  *eig.sym[2:])
         return torch.clamp_min(p.to(eig.values.dtype), 0.0)

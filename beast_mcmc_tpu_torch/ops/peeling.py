@@ -111,6 +111,34 @@ class sequential_peel_only:
         return False
 
 
+_ADJOINT_PEEL = True
+
+
+class autograd_peel:
+    """Context manager: `peel_site_loglik` runs its plain forward
+    (`_peel_forward_functional`), and
+    ops/eigen.py::transition_probs its plain U exp(values t) U_inv, under
+    autograd, which differentiates both to any order, in place of their
+    custom backwards (once differentiable); re-entrant. A diagonal Hessian
+    (config/xml_assert.py::gradient_report) takes it with
+    `sequential_peel_only`, as the JAX package takes its scan peel."""
+
+    def __enter__(self):
+        global _ADJOINT_PEEL
+        from beast_mcmc_tpu_torch.ops import eigen
+
+        self._prev = (_ADJOINT_PEEL, eigen._CUSTOM_EXPM_GRAD)
+        _ADJOINT_PEEL = eigen._CUSTOM_EXPM_GRAD = False
+        return self
+
+    def __exit__(self, *exc):
+        global _ADJOINT_PEEL
+        from beast_mcmc_tpu_torch.ops import eigen
+
+        _ADJOINT_PEEL, eigen._CUSTOM_EXPM_GRAD = self._prev
+        return False
+
+
 def _level_form(c: int, p: int) -> bool:
     return _LEVEL_PEEL_ENABLED and c * p <= _LEVEL_PEEL_MAX_CP
 
@@ -210,6 +238,30 @@ def _peel_forward_levels(tip_partials, children, root, p_matrices, freqs,
     wcs = cat_w[:, None] * freqs[None, :]
     site_lik = torch.einsum("cs,csp->p", wcs, post[root])
     return torch.log(site_lik) + logscale[root], post
+
+
+def _peel_forward_functional(tip_partials, children, order, p_matrices,
+                             freqs, cat_w):
+    """The sequential peel's site log-likelihoods [P] without in-place
+    writes, each node's partials a tensor of its own, so that autograd
+    differentiates it to any order (`autograd_peel`)."""
+    n_tips, s, p = tip_partials.shape
+    c = p_matrices.shape[1]
+    dt = p_matrices.dtype
+    post = {i: tip_partials[i].to(dt)[None].expand(c, s, p)
+            for i in range(n_tips)}
+    acc = torch.zeros(p, dtype=dt, device=p_matrices.device)
+    order_h = order.tolist()
+    ch_h = children.tolist()
+    for node in order_h:
+        l, r = ch_h[node]
+        x = _node_op(p_matrices[l], p_matrices[r], post[l], post[r])
+        scale = _rescale(x, (0, 1))
+        post[node] = x / scale
+        acc = acc + torch.log(scale)
+    wcs = cat_w[:, None] * freqs[None, :]
+    site_lik = torch.einsum("cs,csp->p", wcs, post[order_h[-1]])
+    return torch.log(site_lik) + acc
 
 
 def _peel_fwd(tip_partials, children, order, root, p_matrices, freqs, cat_w):
@@ -376,6 +428,9 @@ class _PeelSiteLoglik(torch.autograd.Function):
 def peel_site_loglik(tip_partials, children, order, root, p_matrices, freqs,
                      category_weights) -> torch.Tensor:
     """Per-pattern log-likelihood [P]. Sum with pattern weights outside."""
+    if not _ADJOINT_PEEL:
+        return _peel_forward_functional(tip_partials, children, order,
+                                        p_matrices, freqs, category_weights)
     return _PeelSiteLoglik.apply(tip_partials, children, order, root,
                                  p_matrices, freqs, category_weights)
 

@@ -228,6 +228,36 @@ result line):
      SVS connectivity prior at 56 states and config/xml_ext.py's
      densities, clocks, views and matrix parameters at the Makona tree,
      on the card against the CPU to P16_REL_TOL.
+  17. marginal likelihoods and particles (`mle_path`, `particles_path`,
+     `oracles_path`, `p17_functions_path`): 17a `python -m
+     beast_mcmc_tpu_torch run doc.xml -testxml -scale P17_SCALE -seed
+     P17_SEED` on a document of phase 15's taxa and alignment (HKY+Gamma4,
+     strict clock, constant coalescent, a coalescentSimulator start tree):
+     a pilot <mcmc> logging kappa, clock.rate and popSize, a
+     <marginalLikelihoodEstimator> of P17_PATH_STEPS rungs of P17_CHAIN
+     states from the posterior to logTransformedNormalReferencePriors
+     fitted to the pilot log and the coalescent, and an <assertEqual> over
+     its generalized stepping-stone analysis, which fails and after the
+     pilot warns and is skipped; its peel_stream launches exactly as
+     predicted (the pilot, then per rung one re-evaluation, its steps and
+     its log rows), mle.log's rungs at the beta-quantile thetas, the GSS
+     report against this script's own recomputation from mle.log, each
+     rung's carried posterior within 0.1 of a fresh one, and a profiler
+     window of P17_PROFILE rung steps; 17b P17_PARTICLES particles of phase
+     12's document, started from seeds through the builder and saved,
+     then `run doc -particles DIR -chain_length P17_PARTICLE_STEPS`:
+     exactly one peel_stream launch a batch step for the particles and one
+     for the template, each output reloaded within 0.1 with its step
+     advanced, the batch's aggregate states/s through inference/smc.py;
+     17c the conjugate normal model's analytic log m by path sampling,
+     stepping stones, the harmonic mean and generalized stepping stones
+     (inference/marginal_likelihood.py) within the JAX tests' tolerances,
+     and by an XML document's GSS whose tree terms cancel (peel_resident,
+     exact launches); 17d the new deterministic functions (the path's
+     ends and rung targets, the reference priors, the Gibbs operators and
+     the Bayesian bridge at given draws, the analytic gradient of
+     config/xml_assert.py, insert_taxon) on the card against the CPU to
+     P17_REL_TOL.
 
 `python3 chip_smoke.py --tiles` instead builds the kernels and times the
 v1 streaming kernel at the plans its planner could pick, with its largest
@@ -3361,6 +3391,739 @@ def p16_functions_path(out_dir, dev, n_taxa=SPEC_TAXA):
     return rec
 
 
+# phase 17, marginal likelihoods and particles: 17a's pilot chain (its
+# logEvery and the CLI's 100-step full-evaluation check), the estimator's
+# path steps, rung length and logEvery, the CLI's -scale and -seed, its
+# profiler window; 17b's particles, their start steps and the CLI's
+# -chain_length; 17c's ladders (rungs and states a rung, as the JAX tests'
+# but shorter, and each estimator's tolerance of those tests), the XML
+# oracle's pilot, rungs and states a rung; 17d's tolerance
+P17_PILOT, P17_PILOT_LOG, P17_CHECK = 100, 10, 100
+P17_PATH_STEPS, P17_CHAIN, P17_LOG_EVERY = 8, 64, 8
+P17_SCALE, P17_SEED, P17_PROFILE = 1.0, 17, PROFILE_STEPS
+P17_PARTICLES, P17_START_STEPS, P17_PARTICLE_STEPS = 4, 5, 50
+P17_PS_RUNGS, P17_GSS_RUNGS, P17_PS_CHAIN, P17_GSS_CHAIN = 24, 12, 600, 400
+P17_ORACLE_LOG = 2
+P17_PS_TOL, P17_SS_TOL, P17_HM_TOL, P17_GSS_TOL = 0.25, 0.15, 2.0, 0.15
+P17_XML_PILOT, P17_XML_RUNGS, P17_XML_CHAIN, P17_XML_CHECK = 300, 8, 300, 10
+P17_REL_TOL = 1e-12
+GSS_COLUMNS = ('<thetaColumn name="pathLikelihood.theta"/>'
+               '<sourceColumn name="pathLikelihood.source"/>'
+               '<destinationColumn name="pathLikelihood.destination"/>')
+
+
+def mle_document(path, data, pilot=P17_PILOT, path_steps=P17_PATH_STEPS,
+                 chain=P17_CHAIN, log_every=P17_LOG_EVERY):
+    """Write a marginal-likelihood document at `path` on makona_data's
+    taxa and alignment: HKY+Gamma4 (alpha fixed), a strict clock, a
+    constant coalescent and a coalescentSimulator start tree, proper
+    priors on kappa, clock.rate and popSize; a pilot <mcmc> of `pilot`
+    states that logs the three every P17_PILOT_LOG; a
+    <marginalLikelihoodEstimator> of `path_steps` rungs of `chain` states
+    from the posterior to logTransformedNormalReferencePriors on the three,
+    fitted to the pilot log, and the coalescent (the tree's prior given
+    popSize: a normalised working distribution of every sampled value),
+    logging every `log_every` to mle.log; then an <assertEqual> over its
+    generalizedSteppingStoneSamplingAnalysis (expected 0.0: it fails, and
+    after the pilot warns and is skipped, its report in the warning)."""
+    import math
+
+    cfg = data["cfg"]
+    init = cfg["model"]["init"]
+    pop = float(cfg["pop_size"])
+    rate = float(init["ucld.mean"])
+    freqs = " ".join(repr(float(f)) for f in init["frequencies"])
+    alpha = float(init["siteModel.alpha"])
+    out = ['<?xml version="1.0" standalone="yes"?>', "<beast>"]
+    out += taxa_alignment_xml(data)
+    refs = "\n".join(
+        f"""          <logTransformedNormalReferencePrior fileName="pilot.log" parameterColumn="{p}" burnin="0">
+            <parameter idref="{p}"/></logTransformedNormalReferencePrior>"""
+        for p in ("kappa", "clock.rate", "popSize"))
+    out.append(f"""  <patterns id="patterns" from="1"><alignment idref="alignment"/></patterns>
+  <constantSize id="constant" units="years">
+    <populationSize><parameter id="popSize" value="{pop!r}" lower="0.0"/></populationSize>
+  </constantSize>
+  <coalescentSimulator id="startingTree">
+    <taxa idref="taxa"/><constantSize idref="constant"/>
+  </coalescentSimulator>
+  <treeModel id="treeModel">
+    <coalescentTree idref="startingTree"/>
+    <rootHeight><parameter id="treeModel.rootHeight"/></rootHeight>
+    <nodeHeights internalNodes="true"><parameter id="treeModel.internalNodeHeights"/></nodeHeights>
+  </treeModel>
+  <coalescentLikelihood id="coalescent">
+    <model><constantSize idref="constant"/></model>
+    <populationTree><treeModel idref="treeModel"/></populationTree>
+  </coalescentLikelihood>
+  <strictClockBranchRates id="clock">
+    <rate><parameter id="clock.rate" value="{rate!r}" lower="0.0"/></rate>
+  </strictClockBranchRates>
+  <HKYModel id="hky">
+    <frequencies><frequencyModel dataType="nucleotide">
+      <frequencies><parameter id="frequencies" value="{freqs}"/></frequencies>
+    </frequencyModel></frequencies>
+    <kappa><parameter id="kappa" value="4.0" lower="0.0"/></kappa>
+  </HKYModel>
+  <siteModel id="siteModel">
+    <substitutionModel><HKYModel idref="hky"/></substitutionModel>
+    <gammaShape gammaCategories="4"><parameter id="alpha" value="{alpha!r}" lower="0.0"/></gammaShape>
+  </siteModel>
+  <treeLikelihood id="treeLikelihood" useAmbiguities="false">
+    <patterns idref="patterns"/><treeModel idref="treeModel"/>
+    <siteModel idref="siteModel"/><strictClockBranchRates idref="clock"/>
+  </treeLikelihood>
+  <operators id="operators">
+    <scaleOperator scaleFactor="0.75" weight="3"><parameter idref="kappa"/></scaleOperator>
+    <scaleOperator scaleFactor="0.75" weight="3"><parameter idref="clock.rate"/></scaleOperator>
+    <scaleOperator scaleFactor="0.75" weight="3"><parameter idref="popSize"/></scaleOperator>
+    <subtreeSlide size="1.0" gaussian="true" weight="15"><treeModel idref="treeModel"/></subtreeSlide>
+    <narrowExchange weight="15"><treeModel idref="treeModel"/></narrowExchange>
+    <wilsonBalding weight="3"><treeModel idref="treeModel"/></wilsonBalding>
+    <uniformOperator weight="30"><parameter idref="treeModel.internalNodeHeights"/></uniformOperator>
+    <scaleOperator scaleFactor="0.75" weight="3"><parameter idref="treeModel.rootHeight"/></scaleOperator>
+  </operators>
+  <mcmc id="mcmc" chainLength="{pilot}" autoOptimize="true">
+    <posterior id="posterior">
+      <prior id="prior">
+        <logNormalPrior mean="1.0" stdev="1.25"><parameter idref="kappa"/></logNormalPrior>
+        <logNormalPrior mean="{math.log(rate)!r}" stdev="1.0"><parameter idref="clock.rate"/></logNormalPrior>
+        <logNormalPrior mean="{math.log(pop)!r}" stdev="1.0"><parameter idref="popSize"/></logNormalPrior>
+        <coalescentLikelihood idref="coalescent"/>
+      </prior>
+      <likelihood id="likelihood"><treeLikelihood idref="treeLikelihood"/></likelihood>
+    </posterior>
+    <operators idref="operators"/>
+    <log logEvery="{P17_PILOT_LOG}" fileName="pilot.log">
+      <parameter idref="kappa"/><parameter idref="clock.rate"/><parameter idref="popSize"/>
+    </log>
+  </mcmc>
+  <marginalLikelihoodEstimator chainLength="{chain}" pathSteps="{path_steps}">
+    <samplers><mcmc idref="mcmc"/></samplers>
+    <pathLikelihood id="pathLikelihood">
+      <source><posterior idref="posterior"/></source>
+      <destination>
+        <workingPrior>
+{refs}
+        </workingPrior>
+        <coalescentLikelihood idref="coalescent"/>
+      </destination>
+    </pathLikelihood>
+    <log logEvery="{log_every}" fileName="mle.log"/>
+  </marginalLikelihoodEstimator>
+  <assertEqual tolerance="1e-9">
+    <message>GSS log marginal likelihood</message>
+    <actual regex="= (\\S+)"><generalizedSteppingStoneSamplingAnalysis id="gss" fileName="mle.log">{GSS_COLUMNS}</generalizedSteppingStoneSamplingAnalysis></actual>
+    <expected>0.0</expected>
+  </assertEqual>
+</beast>
+""")
+    with open(path, "w") as f:
+        f.write("\n".join(out))
+
+
+def gss_of_log(path, alpha=0.3):
+    """The generalized stepping-stone estimate of an MLE log, computed here
+    from the file alone: (theta values, rows per theta, log m)."""
+    import numpy as np
+
+    lines = [ln.split("\t") for ln in open(path).read().splitlines()]
+    rows = np.array(lines[1:], float)
+    theta, src, dst = rows[:, 1], rows[:, 2], rows[:, 3]
+    betas = np.unique(theta)  # ascending
+    total = 0.0
+    for k in range(len(betas) - 1):
+        x = (betas[k + 1] - betas[k]) * (src - dst)[theta == betas[k]]
+        total += x.max() + np.log(np.mean(np.exp(x - x.max())))
+    return betas, [int((theta == b).sum()) for b in betas], float(total)
+
+
+def _cli_in(out_dir, args):
+    """__main__.main(args) run from out_dir: (rc, stdout and stderr, the
+    warnings it raised, seconds)."""
+    import contextlib
+    import io
+    import warnings
+
+    from beast_mcmc_tpu_torch.__main__ import main as cli
+
+    out, err = io.StringIO(), io.StringIO()
+    cwd = os.getcwd()
+    os.chdir(out_dir)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err), \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            rc = cli(args)
+    finally:
+        os.chdir(cwd)
+    return (rc, out.getvalue() + err.getvalue(),
+            [str(w.message) for w in caught], time.perf_counter() - t0)
+
+
+def mle_path(out_dir, reset_counts, read_counts, device_ms, dev,
+             n_taxa=SPEC_TAXA, n_sites=SPEC_SITES, pilot=P17_PILOT,
+             path_steps=P17_PATH_STEPS, chain=P17_CHAIN,
+             log_every=P17_LOG_EVERY, n_profile=P17_PROFILE):
+    """Phase 17a (see the module docstring) at n_taxa x n_sites. The peel
+    launches are predicted from the interpreter: the pilot's start, two a
+    checked step of the CLI's 100-step check and one a step (its log holds
+    no likelihood column), then per rung one re-evaluation (the start for
+    the first), one a step and one a log row's source; all of them
+    peel_stream at the Makona shape. Returns (record, launches)."""
+    import math
+    import re
+
+    import numpy as np
+    import torch
+
+    from beast_mcmc_tpu_torch.config.interpreter import XmlAnalysis
+    from beast_mcmc_tpu_torch.config.xml_assert import (
+        initial_eval_state, report_of)
+    from beast_mcmc_tpu_torch.config.xml_mle import estimator_parts
+    from beast_mcmc_tpu_torch.inference.mcmc import (
+        init_mcmc_state, make_mcmc_step, run_chain)
+
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    data = makona_data(n_taxa, n_sites, JOINT_SEED, dev)
+    doc = os.path.join(out_dir, "makona_mle.xml")
+    mle_document(doc, data, pilot, path_steps, chain, log_every)
+    rec = {"taxa": len(data["taxa"]), "sites": data["sites"],
+           "patterns": data["patterns"],
+           "document_seconds": time.perf_counter() - t0}
+    launches = {}
+
+    def expect(counts, n, label):
+        want = {k: n * (k == "peel_stream") for k in counts}
+        launches[f"P17 {label}"] = counts
+        if counts != want:
+            raise AssertionError(f"P17 {label}: launches {counts}, "
+                                 f"expected {want}")
+
+    reset_counts()
+    rc, text, warned, cli_s = _cli_in(out_dir, [
+        "run", doc, "-testxml", "-scale", repr(P17_SCALE), "-seed",
+        str(P17_SEED), "-device", str(dev)])
+    runs = re.findall(r"(\d+) states in ([0-9.]+)s = ([0-9.]+) states/sec; "
+                      r"full-evaluation deviation (\S+)", text)
+    if rc != 0 or len(runs) != 2 or "all embedded checks passed" not in text:
+        raise AssertionError(f"P17a: rc {rc}\n{text[-3000:]}")
+    rows = chain // log_every
+    a = {"rc": rc, "cli_seconds": cli_s,
+         "pilot_states_per_s": float(runs[0][2]),
+         "ladder_states": int(runs[1][0]),
+         "ladder_seconds": float(runs[1][1]),
+         "ladder_states_per_s": float(runs[1][2]),
+         "pilot_deviation": float(runs[0][3]),
+         "rung_deviation": float(runs[1][3]),
+         "predicted_launches": (1 + 2 * P17_CHECK + pilot)
+         + path_steps * (1 + chain + rows)}
+    expect(read_counts(), a["predicted_launches"], "17a CLI")
+    if a["ladder_states"] != path_steps * chain or not (
+            a["rung_deviation"] <= FULL_EVAL_TOL
+            and a["pilot_deviation"] <= FULL_EVAL_TOL):
+        raise AssertionError(f"P17a ladder: {a}")
+    # the log: the ladder's theta values, rows per rung, the estimate
+    betas, per_rung, gss = gss_of_log(os.path.join(out_dir, "mle.log"))
+    want_b = np.linspace(1.0, 0.0, path_steps) ** (1.0 / 0.3)
+    if not (np.array_equal(betas[::-1], want_b)
+            and per_rung == [rows] * path_steps):
+        raise AssertionError(f"P17a mle.log: thetas {betas}, rows {per_rung}")
+    # the assertion warned and was skipped, its report in the warning
+    m = [re.search(r"\(skipped\): assert GSS log marginal likelihood: "
+                   r"'(\S+)' != '0.0'", w) for w in warned]
+    m = [x for x in m if x]
+    if len(m) != 1:
+        raise AssertionError(f"P17a: assertEqual warnings {warned}")
+    a["gss_warned"] = float(m[0].group(1))
+    a["gss_recomputed"] = gss
+    if not (math.isfinite(gss)
+            and abs(a["gss_warned"] - gss) <= P17_REL_TOL * abs(gss)):
+        raise AssertionError(f"P17a GSS: report {a['gss_warned']!r}, "
+                             f"recomputed {gss!r}")
+
+    # a rung's profile on the same document (parsed again), from its start
+    ax = XmlAnalysis(doc, seed=P17_SEED, device=dev, workdir=out_dir)
+    ax.build(ax._ids["treeModel"])
+    a["gss_report"] = float(report_of(ax, ax._ids["gss"]).split("= ")[1])
+    if abs(a["gss_report"] - gss) > P17_REL_TOL * abs(gss):
+        raise AssertionError(f"P17a GSS report {a['gss_report']!r}")
+    parts = estimator_parts(ax, ax.root.find("marginalLikelihoodEstimator"))
+    b = float(parts["betas"][path_steps // 2])
+
+    def lp(params, tree):
+        return b * parts["source"](params, tree) + (1.0 - b) * parts[
+            "destination"](params, tree)
+
+    reset_counts()
+    step = make_mcmc_step(lp, parts["operators"])
+    state = init_mcmc_state(*initial_eval_state(ax),
+                            torch.Generator(device=dev).manual_seed(P17_SEED),
+                            parts["operators"], lp)
+    wall, busy = device_ms(lambda: run_chain(step, state, n_profile),
+                           "p17a rung", n_profile)
+    expect(read_counts(), 1 + n_profile, "17a rung profile")
+    a.update({"profile_theta": b, "profile_ms_per_step": wall,
+              "device_busy_share": None if busy is None else busy / wall,
+              "device_events_per_step": device_ms.events})
+    rec["17a"] = a
+    log(f"[P17a] CLI rc {rc} in {cli_s:.2f} s: pilot "
+        f"{a['pilot_states_per_s']} states/s, ladder {path_steps} x {chain} "
+        f"states in {a['ladder_seconds']} s = {a['ladder_states_per_s']} "
+        f"states/s, largest rung carried-vs-fresh deviation "
+        f"{a['rung_deviation']!r}, peel_stream launches "
+        f"{a['predicted_launches']} as predicted; mle.log {path_steps} rungs "
+        f"of {rows} rows at the beta-quantile thetas; GSS {gss!r} (report "
+        f"{a['gss_report']!r}, warned {a['gss_warned']!r}); rung profile at "
+        f"theta {b:.4g}: {wall:.3f} ms a step, busy share "
+        f"{a['device_busy_share']}, {a['device_events_per_step']} device "
+        f"events a step")
+    return rec, launches
+
+
+def particles_path(doc, out_dir, reset_counts, read_counts, dev,
+                   k=P17_PARTICLES, start_steps=P17_START_STEPS,
+                   n_steps=P17_PARTICLE_STEPS):
+    """Phase 17b: k particles of the importer document `doc`, started from
+    seeds 1 to k and advanced start_steps each through the builder (one
+    launch to start, one a step), saved with save_checkpoint; then `run
+    doc -particles DIR -chain_length n_steps`: JAX's printed line, one
+    peel_stream launch for the template state and exactly one a batch step
+    (the chain-axis deep peel of the k particles); k files in DIR.out, each
+    reloaded with its step advanced by n_steps and its posterior within 0.1
+    of a fresh one; the same batch advanced through inference/smc.py for
+    aggregate states/s. Returns (record, launches)."""
+    import shutil
+
+    import torch
+
+    from beast_mcmc_tpu_torch.config.builder import build
+    from beast_mcmc_tpu_torch.config.xml_import import parse_beast_xml
+    from beast_mcmc_tpu_torch.inference import smc
+    from beast_mcmc_tpu_torch.inference.checkpoint import (
+        load_checkpoint, save_checkpoint)
+    from beast_mcmc_tpu_torch.inference.mcmc import (
+        init_mcmc_state, make_mcmc_step, make_multichain_step, run_chain)
+
+    launches = {}
+
+    def expect(counts, n, label):
+        want = {key: n * (key == "peel_stream") for key in counts}
+        launches[f"P17 {label}"] = counts
+        if counts != want:
+            raise AssertionError(f"P17 {label}: launches {counts}, "
+                                 f"expected {want}")
+
+    def sync():
+        if str(dev) != "cpu":
+            torch.cuda.synchronize()
+
+    folder = os.path.join(out_dir, "particles")
+    for d in (folder, folder + ".out"):
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    analysis = build(parse_beast_xml(open(doc).read()), device=dev)
+    step = make_mcmc_step(analysis.log_posterior, analysis.operators)
+    rec = {"particles": k, "build_seconds": time.perf_counter() - t0}
+    reset_counts()
+    for i in range(1, k + 1):
+        st = init_mcmc_state(analysis.params0, analysis.tree0,
+                             torch.Generator(device=dev).manual_seed(i),
+                             analysis.operators, analysis.log_posterior)
+        st, _ = run_chain(step, st, start_steps)
+        save_checkpoint(os.path.join(folder, f"particle_start{i}"), st)
+    expect(read_counts(), k * (1 + start_steps), "17b starts")
+
+    reset_counts()
+    rc, text, _, cli_s = _cli_in(out_dir, [
+        "run", doc, "-particles", folder, "-chain_length", str(n_steps),
+        "-device", str(dev)])
+    line = f"advanced {k} particles by {n_steps} states -> {folder}.out"
+    if rc != 0 or line not in text:
+        raise AssertionError(f"P17b: rc {rc}\n{text[-3000:]}")
+    expect(read_counts(), 1 + n_steps, "17b CLI")
+    files = sorted(f for f in os.listdir(folder + ".out")
+                   if f.endswith(".npz"))
+    if files != [f"particle{i:04d}.npz" for i in range(k)]:
+        raise AssertionError(f"P17b: files {files}")
+    template = init_mcmc_state(analysis.params0, analysis.tree0,
+                               torch.Generator(device=dev),
+                               analysis.operators)
+    devs = []
+    for f in files:
+        st = load_checkpoint(os.path.join(folder + ".out", f), template)
+        fresh = float(analysis.log_posterior(st.params, st.tree))
+        devs.append(abs(fresh - float(st.log_posterior)))
+        if st.step != start_steps + n_steps:
+            raise AssertionError(f"P17b {f}: step {st.step}")
+    if not max(devs) <= FULL_EVAL_TOL:
+        raise AssertionError(f"P17b reload deviations {devs}")
+
+    # the same batch through inference/smc.py, timed
+    particles = smc.load_particles(folder, template)
+    mstep = make_multichain_step(analysis.log_posterior_chains,
+                                 analysis.operators)
+    reset_counts()
+    sync()
+    t1 = time.perf_counter()
+    smc.run_particles(mstep, particles, n_steps)
+    sync()
+    seconds = time.perf_counter() - t1
+    expect(read_counts(), n_steps, "17b batch")
+    rec.update({"rc": rc, "cli_seconds": cli_s, "reload_deviations": devs,
+                "batch_seconds": seconds,
+                "aggregate_states_per_s": k * n_steps / seconds})
+    log(f"[P17b] {k} particles of {os.path.basename(doc)} ({start_steps} "
+        f"steps each from seeds 1-{k}); CLI rc {rc} in {cli_s:.2f} s, "
+        f"'{line}', peel_stream launches 1 + {n_steps}; reload deviations "
+        f"{[float(f'{x:.3g}') for x in devs]} (tolerance {FULL_EVAL_TOL}), "
+        f"steps {start_steps + n_steps}; the batch through inference/smc.py "
+        f"{rec['aggregate_states_per_s']:.2f} aggregate states/s "
+        f"({n_steps} steps in {seconds:.2f} s)")
+    return rec, launches
+
+
+P17_ORACLE_DATA = (1.0, 2.0, 3.0)  # CONJUGATE_XML's y, m ~ N(0, 10^2)
+
+
+def oracle_document(path, pilot=P17_XML_PILOT, rungs=P17_XML_RUNGS,
+                    chain=P17_XML_CHAIN):
+    """Write CONJUGATE_XML's model (a 4-taxon tree likelihood and
+    coalescent, and y ~ N(m, 1) with m ~ N(0, 10^2)) with a pilot of
+    `pilot` states that logs m, and a <marginalLikelihoodEstimator> of
+    `rungs` rungs of `chain` states from the posterior to a
+    normalReferencePrior on m plus the tree likelihood and the coalescent:
+    the tree terms are in both ends of the path and cancel from the
+    estimator, so its estimate is the normal model's log m
+    (`oracle_log_m`), and every evaluation of either end peels the tree
+    (peel_resident on the card)."""
+    xml = (CONJUGATE_XML
+           .replace('<mcmc id="mcmc" chainLength="60000"',
+                    f'<mcmc id="mcmc" chainLength="{pilot}"')
+           .replace('logEvery="20" fileName="distlik.log"',
+                    'logEvery="4" fileName="pilot.log"')
+           .replace('<posterior idref="posterior"/>\n      <parameter',
+                    '<parameter')
+           .replace('weight="5">\n      <treeModel', 'weight="1">\n      '
+                    '<treeModel')
+           .replace('<uniformOperator weight="10">',
+                    '<uniformOperator weight="1">'))
+    xml = xml[:xml.index("  <traceAnalysis")] + f"""  <marginalLikelihoodEstimator chainLength="{chain}" pathSteps="{rungs}">
+    <samplers><mcmc idref="mcmc"/></samplers>
+    <pathLikelihood id="pathLikelihood">
+      <source><posterior idref="posterior"/></source>
+      <destination>
+        <workingPrior>
+          <normalReferencePrior fileName="pilot.log" parameterColumn="m" burnin="100">
+            <parameter idref="m"/></normalReferencePrior>
+        </workingPrior>
+        <treeLikelihood idref="treeLikelihood"/>
+        <coalescentLikelihood idref="coalescent"/>
+      </destination>
+    </pathLikelihood>
+    <log logEvery="4" fileName="mle.log"/>
+  </marginalLikelihoodEstimator>
+  <generalizedSteppingStoneSamplingAnalysis id="gss" fileName="mle.log">{GSS_COLUMNS}</generalizedSteppingStoneSamplingAnalysis>
+</beast>
+"""
+    with open(path, "w") as f:
+        f.write(xml)
+
+
+def oracle_log_m(y=P17_ORACLE_DATA, s=1.0, t=10.0):
+    """The analytic log marginal likelihood of y_i ~ N(m, s^2), m ~ N(0,
+    t^2): y ~ N(0, s^2 I + t^2 1 1^T)."""
+    import numpy as np
+
+    y = np.asarray(y, float)
+    n = y.size
+    cov = s ** 2 * np.eye(n) + t ** 2 * np.ones((n, n))
+    return float(-0.5 * (n * np.log(2 * np.pi) + np.linalg.slogdet(cov)[1]
+                         + y @ np.linalg.solve(cov, y)))
+
+
+def normal_model(dev):
+    """tests/test_marginal_likelihood.py's and tests/test_avmvn_gss.py's
+    conjugate model on `dev`: (log_lik, log_prior, log_ref, analytic log m,
+    a 3-taxon tree). Twelve draws x ~ N(1.5, 1) (numpy seed 0), x_i ~ N(mu,
+    1), mu ~ N(0, 2^2); the reference N(posterior mean, (1.6 posterior
+    sd)^2)."""
+    import numpy as np
+    import torch
+
+    from beast_mcmc_tpu_torch.models.priors import normal_logpdf
+    from beast_mcmc_tpu_torch.tree.topology import (
+        make_tree_state, simulate_coalescent_tree)
+
+    x_np = np.random.default_rng(0).normal(1.5, 1.0, size=12)
+    x = torch.tensor(x_np, device=dev)
+    prec_post = x_np.size + 1 / 4.0
+    mu_post = float(np.sum(x_np) / prec_post)
+    sd_ref = 1.6 / np.sqrt(prec_post)
+    tree = make_tree_state(*simulate_coalescent_tree(
+        np.random.default_rng(0), np.zeros(3), 1.0), torch.float64, dev)
+    return (lambda p, t: torch.sum(normal_logpdf(x, p["mu"], 1.0)),
+            lambda p, t: normal_logpdf(p["mu"], 0.0, 2.0),
+            lambda p, t: normal_logpdf(p["mu"], mu_post, sd_ref),
+            oracle_log_m(x_np, 1.0, 2.0), tree)
+
+
+def oracles_path(out_dir, reset_counts, read_counts, dev,
+                 ps_chain=P17_PS_CHAIN, gss_chain=P17_GSS_CHAIN,
+                 xml_pilot=P17_XML_PILOT,
+                 xml_chain=P17_XML_CHAIN, kname="peel_resident"):
+    """Phase 17c: the conjugate normal model's analytic log m recovered on
+    `dev` by sample_power_posteriors (P17_PS_RUNGS rungs; path sampling,
+    stepping stones, the harmonic mean of the first rung; ps_chain states
+    a rung) and sample_gss_ratios (P17_GSS_RUNGS rungs of gss_chain), a
+    sample every P17_ORACLE_LOG states, each within the tolerance of the
+    JAX package's own test (whose chains are 4,000 states a rung); then
+    oracle_document through XmlAnalysis.run, its GSS report within
+    P17_GSS_TOL of oracle_log_m, its tree likelihood's launches exactly
+    the pilot's (start, two a checked step, one a step) and per rung two
+    at the start and two a step and a log row (both ends peel), all of
+    them `kname` (peel_resident at its 4 taxa). Returns (record,
+    launches)."""
+    import torch
+
+    from beast_mcmc_tpu_torch.config.interpreter import XmlAnalysis
+    from beast_mcmc_tpu_torch.config.xml_assert import report_of
+    from beast_mcmc_tpu_torch.inference import marginal_likelihood as ml
+    from beast_mcmc_tpu_torch.inference.operators import RandomWalkOperator
+
+    log_lik, log_prior, log_ref, analytic, tree = normal_model(dev)
+    ops = [RandomWalkOperator(parameter="mu", window=1.0)]
+    mu0 = {"mu": torch.tensor(0.5, dtype=torch.float64, device=dev)}
+    t0 = time.perf_counter()
+    betas = ml.beta_quantile_schedule(P17_PS_RUNGS)
+    lls = ml.sample_power_posteriors(
+        log_lik, log_prior, ops, mu0, tree, betas, ps_chain, P17_ORACLE_LOG,
+        torch.Generator(device=dev).manual_seed(0))
+    est = {"ps": ml.path_sampling_logml(lls, betas),
+           "ss": ml.stepping_stone_logml(lls, betas),
+           "hm": ml.harmonic_mean_logml(lls[0])}
+    betas = ml.beta_quantile_schedule(P17_GSS_RUNGS)
+    est["gss"] = ml.generalized_stepping_stone_logml(ml.sample_gss_ratios(
+        log_lik, log_prior, log_ref, ops, mu0, tree, betas, gss_chain,
+        P17_ORACLE_LOG,
+        torch.Generator(device=dev).manual_seed(1)), betas)
+    ladder_s = time.perf_counter() - t0
+    tols = {"ps": P17_PS_TOL, "ss": P17_SS_TOL, "hm": P17_HM_TOL,
+            "gss": P17_GSS_TOL}
+    for key, v in est.items():
+        if not abs(v - analytic) < tols[key]:
+            raise AssertionError(f"P17c {key}: {v!r} against {analytic!r}")
+
+    path = os.path.join(out_dir, "oracle_mle.xml")
+    oracle_document(path, xml_pilot, P17_XML_RUNGS, xml_chain)
+    reset_counts()
+    t1 = time.perf_counter()
+    ax = XmlAnalysis(path, seed=P17_SEED, device=dev, workdir=out_dir)
+    ax.run(full_eval_steps=P17_XML_CHECK)
+    xml_s = time.perf_counter() - t1
+    xml_est = float(report_of(ax, ax._ids["gss"]).split("= ")[1])
+    xml_oracle = oracle_log_m()
+    rows = xml_chain // 4
+    counts = read_counts()
+    want = (1 + 2 * P17_XML_CHECK + xml_pilot) + P17_XML_RUNGS * (
+        2 + 2 * xml_chain + 2 * rows)
+    launches = {"P17 17c XML": counts}
+    if counts != {key: want * (key == kname) for key in counts}:
+        raise AssertionError(f"P17c XML launches {counts}, expected {want} "
+                             f"{kname}")
+    if not abs(xml_est - xml_oracle) < P17_GSS_TOL:
+        raise AssertionError(f"P17c XML GSS {xml_est!r} against "
+                             f"{xml_oracle!r}")
+    rec = {"analytic": analytic, **est, "ladder_seconds": ladder_s,
+           "xml_gss": xml_est, "xml_analytic": xml_oracle,
+           "xml_seconds": xml_s, "xml_launches": want,
+           "xml_deviation": ax.runs[-1]["full_eval_deviation"]}
+    log(f"[P17c] conjugate normal log m {analytic!r}: path sampling "
+        f"{est['ps']!r}, stepping stones {est['ss']!r}, harmonic mean "
+        f"{est['hm']!r} ({P17_PS_RUNGS} rungs of {ps_chain}), GSS "
+        f"{est['gss']!r} ({P17_GSS_RUNGS} rungs of {gss_chain}), "
+        f"{ladder_s:.2f} s; the XML document's GSS {xml_est!r} against "
+        f"{xml_oracle!r} in {xml_s:.2f} s, {kname} launches {want} as "
+        f"predicted, rung deviation {rec['xml_deviation']!r}")
+    return rec, launches
+
+
+def p17_function_cases(ax, dev):
+    """{label: fn() -> tensor}: 17d's deterministic functions on the
+    analysis `ax` of oracle_document (on `dev`): each end of its path and
+    the rung target at each theta at the start state and a moved one; each
+    working prior's density at three values; the five Gibbs operators of
+    inference/gibbs.py (their new values and log Hastings, +inf for a Gibbs
+    move) and the Bayesian bridge given their draws; the
+    analytic gradient of the tree likelihood and coalescent in kappa and
+    popSize, and in the node heights; insert_taxon on the tree."""
+    import numpy as np
+    import torch
+
+    from beast_mcmc_tpu_torch.config.xml_assert import (
+        analytic_gradient, initial_eval_state)
+    from beast_mcmc_tpu_torch.config.xml_mle import estimator_parts
+    from beast_mcmc_tpu_torch.inference import bridge_gibbs, gibbs, smc
+    from beast_mcmc_tpu_torch.tree.topology import (
+        make_tree_state, simulate_coalescent_tree)
+
+    f64 = torch.float64
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x), dtype=f64, device=dev)
+
+    ax.build(ax._ids["treeModel"])
+    parts = estimator_parts(ax, ax.root.find("marginalLikelihoodEstimator"))
+    p0, t0 = initial_eval_state(ax)
+    moved = {**p0, "m": p0["m"] + 0.7, "kappa": p0["kappa"] * 1.3}
+
+    def ends(p):
+        src, dst = parts["source"](p, t0), parts["destination"](p, t0)
+        return torch.stack([src, dst] + [b * src + (1 - b) * dst
+                                         for b in parts["betas"]])
+
+    refs = [ax.build(ax.deref(d)) for d in ax.root.find(
+        "marginalLikelihoodEstimator/pathLikelihood/destination/"
+        "workingPrior")]
+
+    def ref_densities():
+        return torch.stack([r.fn({**p0, "m": t(v)}, t0) for r in refs
+                            for v in (-1.0, 0.5, 2.5)])
+
+    # the Gibbs operators, their draws injected
+    n, d = 6, 2
+    rng = np.random.default_rng(P17_SEED)
+    tr = make_tree_state(*simulate_coalescent_tree(
+        rng, np.zeros(n), 1.0), f64, dev)
+    lam = t([[1.5, 0.4], [0.4, 0.8]])
+    w = rng.uniform(-0.3, 0.3, (n, n))
+    np.fill_diagonal(w, 0.0)
+    gp = {"mu": t(0.4), "tau": t(1.3), "x": t(rng.normal(0.5, 1.0, 5)),
+          "t": t(rng.normal(size=(2 * n - 1) * d)), "c1": t([1.0, 0.1]),
+          "c2": t([0.1, 1.0]), "z": t(rng.uniform(-0.3, 0.5, (n, d))),
+          "beta": t(rng.normal(0.0, 0.5, 5)), "g": t(0.7),
+          "l": t(rng.uniform(0.5, 2.0, 5))}
+    normals = [t(rng.normal(size=s)) for s in ((), (d,), (d, d), (4, d))]
+    gammas = [t(3.1), t(rng.uniform(2.0, 6.0, d)), t(2.7)]
+    gibbs_ops = [
+        (gibbs.NormalNormalMeanGibbs(mean_param="mu", data_params=("x",),
+                                     precision_of=lambda p: p["tau"]),
+         [normals[0]], [], [0]),
+        (gibbs.NormalGammaPrecisionGibbs(precision_param="tau",
+                                         data_params=("x",),
+                                         mean_of=lambda p: p["mu"]),
+         [], [gammas[0]], [0]),
+        (gibbs.InternalTraitGibbsOperator(trait_param="t", dim=d, n_tips=n,
+                                          prec_of=lambda p: lam),
+         [normals[1]], [], [2]),
+        (gibbs.PrecisionWishartGibbsOperator(
+            trait_param="t", dim=d, col_params=("c1", "c2"), prior_df=3.0,
+            prior_scale=np.array([[1.0, 0.2], [0.2, 2.0]])),
+         [normals[2]], [gammas[1]], [0]),
+        (gibbs.LatentLiabilityGibbsOperator(
+            trait_param="z", dim=d, n_tips=n, cond_weights=w,
+            cond_scale=np.linspace(0.5, 1.5, n), mu0=np.array([0.2, -0.1]),
+            lo=np.full((n, d), -3.0), hi=np.full((n, d), 3.0),
+            prec_of=lambda p: lam, max_attempts=4),
+         [normals[3]], [], [3]),
+    ]
+
+    def injected(op, ns, gs, ints):
+        saved = (gibbs._normal, gibbs._gamma, gibbs._randint)
+        qn, qg, qi = list(ns), list(gs), list(ints)
+        gibbs._normal = lambda gen, like, shape=(): qn.pop(0).reshape(shape)
+        gibbs._gamma = lambda gen, a, like, size=(): qg.pop(0).reshape(size)
+        gibbs._randint = lambda gen, lo, hi, like: torch.tensor(
+            [qi.pop(0)], device=like.device)
+        try:
+            out, _, logh = op.propose(gp, tr, None, None)
+        finally:
+            gibbs._normal, gibbs._gamma, gibbs._randint = saved
+        return torch.cat([out[k].reshape(-1) for k in
+                          op.modified_params()] + [logh.reshape(1)])
+
+    def bridge():
+        saved = (bridge_gibbs._gamma, bridge_gibbs._seeds)
+        bridge_gibbs._gamma = lambda gen, a, like, size=(): gammas[2].expand(
+            size)
+        bridge_gibbs._seeds = lambda gen, k, like: torch.full(
+            (k,), 424242, device=like.device)
+        try:
+            out, _, _ = bridge_gibbs.BayesianBridgeGibbsOperator(
+                coefficient="beta", global_scale="g",
+                local_scale="l").propose(gp, tr, None, None)
+        finally:
+            bridge_gibbs._gamma, bridge_gibbs._seeds = saved
+        return torch.cat([out["g"].reshape(1), out["l"]])
+
+    def gradient(names, height_tid):
+        spec = type("Spec", (), {
+            "likelihoods": [ax.build(ax._ids["treeLikelihood"]),
+                            ax.build(ax._ids["coalescent"])],
+            "target_names": staticmethod(lambda: names),
+            "height_tid": height_tid})
+        return analytic_gradient(ax, spec)[2]
+
+    def inserted():
+        node, h = smc.distance_based_attachment(
+            t0, np.array([0.3, 0.1, 0.5, 0.4]), 0.0)
+        tree = smc.insert_taxon(t0, node, 0.0, h)
+        return torch.cat([tree.parent.to(f64), tree.children.reshape(-1).to(
+            f64), tree.heights, tree.root.reshape(1).to(f64)])
+
+    cases = {"path ends and rung targets": lambda: ends(p0),
+             "path ends and rung targets, moved": lambda: ends(moved),
+             "working prior densities": ref_densities,
+             "bayesian bridge": bridge,
+             "gradient in kappa, popSize": lambda: gradient(
+                 ["kappa", "constant.popSize"], None),
+             "gradient in node heights": lambda: gradient([], "treeModel"),
+             "insert_taxon": inserted}
+    for op, ns, gs, ints in gibbs_ops:
+        cases[type(op).__name__] = (lambda op=op, ns=ns, gs=gs, ints=ints:
+                                    injected(op, ns, gs, ints))
+    return cases
+
+
+def p17_functions_path(out_dir, dev):
+    """Phase 17d: p17_function_cases on the card and on the CPU (an
+    XmlAnalysis of 17c's oracle_document on each, its pilot log read from
+    out_dir), each output's largest deviation over its largest magnitude
+    held to P17_REL_TOL. Returns the record."""
+    import torch
+
+    from beast_mcmc_tpu_torch.config.interpreter import XmlAnalysis
+
+    path = os.path.join(out_dir, "oracle_mle.xml")
+    t0 = time.perf_counter()
+    got = {k: fn().detach().cpu().double() for k, fn in p17_function_cases(
+        XmlAnalysis(path, device=dev, workdir=out_dir), dev).items()}
+    want = {k: fn().detach().double() for k, fn in p17_function_cases(
+        XmlAnalysis(path, device="cpu", workdir=out_dir), "cpu").items()}
+    worst = {}
+    for label, w in want.items():
+        g = got[label]
+        fin = torch.isfinite(w)
+        if g.shape != w.shape or not bool(fin.any()) or not bool(
+                torch.equal(g[~fin], w[~fin])):
+            raise AssertionError(f"P17d {label}: {g} against {w}")
+        worst[label] = float((g[fin] - w[fin]).abs().max()) / max(
+            float(w[fin].abs().max()), 1e-300)
+        if not worst[label] <= P17_REL_TOL:
+            raise AssertionError(f"P17d {label}: {worst[label]!r} > "
+                                 f"{P17_REL_TOL}")
+    top = max(worst, key=worst.get)
+    rec = {"functions": len(worst), "max_rel_err": worst[top], "worst": top,
+           "rel_err": worst, "seconds": time.perf_counter() - t0}
+    log(f"[P17d] {len(worst)} functions on the card against the CPU in "
+        f"{rec['seconds']:.2f} s: largest deviation {worst[top]!r} ({top}; "
+        f"tolerance {P17_REL_TOL})")
+    return rec
+
+
 def chain_gradient_checks(peel_cases, post_cases, chain_inputs, analyses,
                           reset_counts, read_counts, dev):
     """Phase 10g: the chain-axis gradients. peel_cases: [(kernel, label,
@@ -5250,6 +6013,18 @@ def main():
     p16["16d"] = p16_functions_path(SMOKE_OUT, dev)
     mark("16 north-star document")
 
+    # -- phase 17: marginal likelihoods, particles, the assertion layer --
+    p17, p17_launches = mle_path(SMOKE_OUT, reset_counts, read_counts,
+                                 device_ms, dev)
+    p17["17b"], more = particles_path(doc, SMOKE_OUT, reset_counts,
+                                      read_counts, dev)
+    p17_launches.update(more)
+    p17["17c"], more = oracles_path(SMOKE_OUT, reset_counts, read_counts,
+                                    dev)
+    p17_launches.update(more)
+    p17["17d"] = p17_functions_path(SMOKE_OUT, dev)
+    mark("17 marginal likelihood and particles")
+
     # -- summary ------------------------------------------------------
     def entry(kname, source, replaces, launches, label):
         rec = next(r for r in checks[kname] if r["label"] == label)
@@ -5409,6 +6184,27 @@ def main():
         f"{p16['16d']['functions']} functions, largest deviation "
         f"{p16['16d']['max_rel_err']!r} ({p16['16d']['worst']}); phase "
         f"{phases['16 north-star document']:.2f} s; on {smi_line}")
+    p17a, p17b, p17c = p17["17a"], p17["17b"], p17["17c"]
+    log(f"[summary p17] {p17['taxa']} taxa x {p17['sites']} sites "
+        f"({p17['patterns']} patterns): 17a CLI -testxml "
+        f"{p17a['cli_seconds']:.2f} s, ladder {p17a['ladder_states']} states "
+        f"{p17a['ladder_states_per_s']} states/s (pilot "
+        f"{p17a['pilot_states_per_s']}), peel_stream launches "
+        f"{p17a['predicted_launches']} (predicted), rung deviation "
+        f"{p17a['rung_deviation']!r}, GSS {p17a['gss_recomputed']!r} = "
+        f"report; rung profile {p17a['profile_ms_per_step']:.3f} ms a step, "
+        f"busy share {p17a['device_busy_share']}, "
+        f"{p17a['device_events_per_step']} device events a step; 17b "
+        f"{p17b['particles']} particles {p17b['aggregate_states_per_s']:.2f} "
+        f"aggregate states/s (one chain, phase 12: "
+        f"{p12['straight']['states_per_s']}), reload deviations "
+        f"{max(p17b['reload_deviations'])!r}; 17c log m "
+        f"{p17c['analytic']!r}: PS {p17c['ps']!r}, SS {p17c['ss']!r}, HM "
+        f"{p17c['hm']!r}, GSS {p17c['gss']!r}; XML GSS {p17c['xml_gss']!r} "
+        f"against {p17c['xml_analytic']!r}; 17d {p17['17d']['functions']} "
+        f"functions, largest deviation {p17['17d']['max_rel_err']!r}; phase "
+        f"{phases['17 marginal likelihood and particles']:.2f} s; on "
+        f"{smi_line}")
     log(f"[phases] {json.dumps(phases)}")
     log(smi_line)
     print(json.dumps({"kernels": [
@@ -5441,7 +6237,7 @@ def main():
                              **p10_launches, **p11_launches,
                              **p12_launches, **p13_launches,
                              **p14_launches, **p15_launches,
-                             **p16_launches}}), flush=True)
+                             **p16_launches, **p17_launches}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

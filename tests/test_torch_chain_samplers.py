@@ -29,7 +29,8 @@ from beast_mcmc_tpu.inference.trace import analyze
 from beast_mcmc_tpu.tree.topology import simulate_coalescent_tree
 
 from beast_mcmc_tpu_torch.apps.benchmarks import build_analysis
-from beast_mcmc_tpu_torch.inference import geodesic, hmc, nuts, pdmp, samplers
+from beast_mcmc_tpu_torch.inference import (
+    geodesic, gibbs, hmc, nuts, pdmp, samplers)
 from beast_mcmc_tpu_torch.inference.geodesic import StiefelGeodesicHmcOperator
 from beast_mcmc_tpu_torch.inference.hmc import (
     GeodesicHmcOperator,
@@ -82,7 +83,9 @@ HELPERS = [(hmc, "_normal"), (geodesic, "_normal"), (nuts, "_normal"),
            (nuts, "_uniforms"), (pdmp, "_normal"), (pdmp, "_uniforms"),
            (pdmp, "_exponentials"), (pdmp, "_coordinates"),
            (samplers, "_normal"), (samplers, "_exponential"),
-           (samplers, "_uniform"), (samplers, "_coordinate")]
+           (samplers, "_uniform"), (samplers, "_coordinate"),
+           # samplers.py's elliptical slice runs gibbs.elliptical_slice
+           (gibbs, "_normal"), (gibbs, "_uniforms")]
 
 
 class Draws:

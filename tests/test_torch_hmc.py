@@ -403,8 +403,7 @@ def test_operator_settings_carry_across():
                                                      lower=0.5, upper=2.0))
     assert (type(uniform).__name__, uniform.lower, uniform.upper) == (
         "UniformRealOperator", 0.5, 2.0)
-    # inference/gibbs.py's block update and elliptical slice sampler map to
-    # the port's gibbs.py; its other classes have no counterpart yet
+    # every class of inference/gibbs.py maps to the port's gibbs.py
     from beast_mcmc_tpu.inference import gibbs as jgibbs
     from beast_mcmc_tpu_torch.inference import gibbs
     block = operator_from(jgibbs.GmrfBlockUpdateOperator(
@@ -414,5 +413,5 @@ def test_operator_settings_carry_across():
                                                             (0.5, 1.0))
     assert isinstance(operator_from(jgibbs.EllipticalSliceOperator()),
                       gibbs.EllipticalSliceOperator)
-    with pytest.raises(ValueError, match="no counterpart"):
-        operator_from(jgibbs.InternalTraitGibbsOperator())
+    assert isinstance(operator_from(jgibbs.InternalTraitGibbsOperator()),
+                      gibbs.InternalTraitGibbsOperator)

@@ -91,6 +91,10 @@ def test_cli_unported_tag_exits_nonzero_naming_its_module(tmp_path,
 
 
 def test_cli_particles_stays_refused(tmp_path, capsys):
+    """-particles on a document outside the importer's vocabulary (the
+    JAX package's CLI ignores the flag there) exits 1 naming
+    inference/smc.py; on an importer document it runs
+    (tests/test_torch_smc.py)."""
     (tmp_path / "rlc.xml").write_text(RLC_DOC)
     rc = cli.main(["run", str(tmp_path / "rlc.xml"), "-particles",
                    str(tmp_path), "-device", "cpu"])
@@ -110,30 +114,37 @@ def _jax_modules():
 
 
 # the JAX package's extension tags the port registers: all of
-# config/xml_ext.py's (dummyModel is xml_factor.py's in JAX's registry,
-# which registers it after xml_ext.py, with the same zero density) and the
-# discrete-phylogeography part of config/xml_geo.py
-PORTED_MODULES = ("config/xml_ext.py",)
+# config/xml_ext.py's, xml_mle.py's and xml_assert.py's (dummyModel is
+# xml_factor.py's in JAX's registry, which registers it after xml_ext.py,
+# with the same zero density), the discrete-phylogeography part of
+# config/xml_geo.py and xml_stats.py's but its trait statistics (with its
+# operator, fireParameterChanged)
+PORTED_MODULES = ("config/xml_ext.py", "config/xml_mle.py",
+                  "config/xml_assert.py")
+PORTED_OP_MODULES = PORTED_MODULES + ("config/xml_stats.py",)
 PORTED_GEO = {"generalDataType", "attributePatterns",
               "generalSubstitutionModel", "svsGeneralSubstitutionModel",
               "complexSubstitutionModel", "beagleSequenceSimulator",
               "sequenceSimulator"}
+PORTED_STATS = {"parameterValues", "multiplicativeParameter",
+                "svdStatistic", "sequenceDistanceStatistic",
+                "ancestralTrait", "property", "cladeRelationshipStatistic"}
 
 
 def _ported(builders):
     return ({t for t, m in builders.items() if m in PORTED_MODULES}
-            | PORTED_GEO | {"dummyModel"})
+            | PORTED_GEO | PORTED_STATS | {"dummyModel"})
 
 
 def test_base_registry_is_the_jax_base_registry():
     builders, ops = _jax_modules()
     base = {t for t, m in builders.items() if m == "config/interpreter.py"}
     assert len(base) == 91
-    assert len(_ported(builders)) == 52
+    assert len(_ported(builders)) == 65
     assert set(interp._BUILDERS) == base | _ported(builders)
     assert set(interp._OP_EXT) == {t for t, m in ops.items()
-                                   if m in PORTED_MODULES}
-    assert len(interp._OP_EXT) == 3
+                                   if m in PORTED_OP_MODULES}
+    assert len(interp._OP_EXT) == 4
 
 
 def test_every_jax_tag_is_registered_or_names_its_module(tmp_path):
@@ -141,7 +152,7 @@ def test_every_jax_tag_is_registered_or_names_its_module(tmp_path):
     ported = _ported(builders)
     ext = sorted(t for t, m in builders.items()
                  if m != "config/interpreter.py" and t not in ported)
-    op_tags = sorted(t for t, m in ops.items() if m not in PORTED_MODULES)
+    op_tags = sorted(t for t, m in ops.items() if m not in PORTED_OP_MODULES)
     body = "".join(f'<{t} id="n{i}"/>' for i, t in enumerate(ext))
     body += "<operators>" + "".join(f"<{t}/>" for t in op_tags) + \
         "</operators>"
@@ -162,11 +173,12 @@ def test_every_jax_tag_is_registered_or_names_its_module(tmp_path):
             interp._build_operator(ax, el)
         assert f"beast_mcmc_tpu/{ops[el.tag]}" in str(e.value)
         checked += 1
-    assert checked == len(ext) + len(op_tags) == 181 + 27 - 52 - 3
-    # no tag of config/xml_ext.py, and none of the ported xml_geo.py ones,
-    # is left among the unported
+    assert checked == len(ext) + len(op_tags) == 181 + 27 - 65 - 4
+    # no tag of a ported module, and none of the ported xml_geo.py and
+    # xml_stats.py ones, is left among the unported
     assert not set(interp._TAG_MODULE) & ported
-    assert "config/xml_ext.py" not in interp.EXTENSION_TAGS
+    assert not set(PORTED_MODULES) & (set(interp.EXTENSION_TAGS)
+                                      | set(interp.QUEUE_ITEMS))
 
 
 def test_importer_vocabulary_is_covered():
@@ -181,18 +193,22 @@ def test_importer_vocabulary_is_covered():
 
 def test_base_file_branches_into_unported_modules_raise(tmp_path):
     """The base handlers' branches into unported modules raise their
-    Unsupported (the marginal-likelihood estimator); the GMRF block update
-    of an ungrouped field, which raised before inference/gibbs.py was
-    ported, builds that operator as JAX's registry does."""
+    Unsupported (the pattern-weight operator's _IdentityOperator of
+    config/xml_hmc.py; the marginal-likelihood estimator, which raised
+    before config/xml_mle.py was ported, runs: tests/
+    test_torch_marginal_likelihood.py); the GMRF block update of an
+    ungrouped field, which raised before inference/gibbs.py was ported,
+    builds that operator as JAX's registry does."""
     from beast_mcmc_tpu_torch.inference.gibbs import GmrfBlockUpdateOperator
 
     doc = ET.fromstring(RLC_DOC)
-    mle = ET.SubElement(doc, "marginalLikelihoodEstimator")
-    mle.set("id", "mle")
-    (tmp_path / "mle.xml").write_text(ET.tostring(doc, encoding="unicode"))
-    ax = interp.XmlAnalysis(str(tmp_path / "mle.xml"), max_states=20,
+    ops_el = doc.find("operators")
+    ET.SubElement(ops_el, "patternWeightIncrementOperator")
+    (tmp_path / "pw.xml").write_text(ET.tostring(doc, encoding="unicode"))
+    ax = interp.XmlAnalysis(str(tmp_path / "pw.xml"), max_states=20,
                             workdir=str(tmp_path), device="cpu")
-    with pytest.raises(interp.Unsupported, match="xml_mle.py"):
+    with pytest.raises(interp.Unsupported,
+                       match="xml_hmc.py.*queue item 5b"):
         ax.run(full_eval_steps=2)
     sky = _doc(models="""<gmrfSkyrideLikelihood id="skyride">
         <populationSizes><parameter id="g" value="-2.0"/></populationSizes>

@@ -9,6 +9,7 @@ the registrations no document here runs: the gradient elements and their
 reports, the trait-likelihood wrappers and the rewards-aware branch model,
 whose branches into unported modules raise Unsupported naming them."""
 
+import re
 import xml.etree.ElementTree as ET
 
 import numpy as np
@@ -170,9 +171,10 @@ def _analyses(tmp_path, xml):
 
 def test_gradient_elements_build_and_reports_name_their_modules(tmp_path):
     """<gmrfSkyrideGradient> builds over a skygrid with JAX's target
-    parameter; its report (config/xml_hmc.py's GradientSpec) and the
-    coalescent-interval gradient's (config/xml_assert.py) raise
-    Unsupported naming them, as does the node-height form."""
+    parameter; its report (config/xml_hmc.py's GradientSpec) raises
+    Unsupported naming that module, as does the node-height form; the
+    coalescent-interval gradient's report (torch.autograd, since
+    config/xml_assert.py is ported) equals JAX's (jax.grad) to 1e-10."""
     from test_torch_xml_ext_b import DOCS_B
 
     doc = ET.fromstring(ext_documents(
@@ -185,11 +187,19 @@ def test_gradient_elements_build_and_reports_name_their_modules(tmp_path):
     jax_ax, ax = _analyses(tmp_path, ET.tostring(doc, encoding="unicode"))
     for wrt, module in (("logPopulationSizes", "xml_hmc.py"),
                         ("precision", "xml_hmc.py"),
-                        ("coalescentInterval", "xml_assert.py")):
+                        ("coalescentInterval", None)):
         got = ax.build(ax._ids[f"g.{wrt}"])
         want = jax_ax.build(jax_ax._ids[f"g.{wrt}"])
         assert type(got).__name__ == type(want).__name__
         assert getattr(got, "wrt", None) == getattr(want, "wrt", None)
+        if module is None:
+            rep, jrep = got.report(ax), want.report(jax_ax)
+            assert rep.splitlines()[0] == jrep.splitlines()[0] == "Gradient"
+            nums = [np.array(re.findall(r"-?[\d.]+(?:e-?\d+)?", r),
+                             float) for r in (rep, jrep)]
+            np.testing.assert_allclose(nums[0], nums[1], rtol=1e-10,
+                                       atol=1e-10)
+            continue
         with pytest.raises(interp.Unsupported, match=module):
             got.report(ax)
     with pytest.raises(interp.Unsupported, match="xml_hmc.py"):
