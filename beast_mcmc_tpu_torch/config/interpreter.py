@@ -30,16 +30,17 @@ drawn from the analysis's numpy generator (`_rng`, the coalescent start
 tree among them) is drawn the same way and equal.
 
 Of the nine extension modules (config/xml_{assert,ext,factor,field,geo,
-hmc,mle,stats,traits}.py), config/xml_ext.py, xml_assert.py and xml_mle.py
-are ported whole, xml_stats.py but its three trait statistics, and
-config/xml_geo.py's discrete-phylogeography part (general data types,
-attribute patterns, general substitution models, the sequence simulator),
-with the helpers they reach (xml_hmc.py's matrix parameters and
-transforms). <marginalLikelihoodEstimator> runs its ladder of tempered
-chains in document order (config/xml_mle.py), and <assertEqual> its
-comparison (config/xml_assert.py), which warns and skips where the state
-came from a random stream (after an <mcmc>, or on a simulated start
-tree), as JAX's does. Each remaining tag (`EXTENSION_TAGS`,
+hmc,mle,stats,traits}.py), config/xml_ext.py, xml_assert.py, xml_mle.py,
+xml_stats.py and xml_traits.py (the continuous-trait likelihoods) are
+ported whole, and config/xml_geo.py's discrete-phylogeography part
+(general data types, attribute patterns, general substitution models, the
+sequence simulator), with the parts of xml_hmc.py they reach (its matrix
+parameters and transforms, the Wishart prior, GradientSpec, the precision
+and internal-trait Gibbs operators). <marginalLikelihoodEstimator> runs
+its ladder of tempered chains in document order (config/xml_mle.py), and
+<assertEqual> its comparison (config/xml_assert.py), which warns and
+skips where the state came from a random stream (after an <mcmc>, or on
+a simulated start tree), as JAX's does. Each remaining tag (`EXTENSION_TAGS`,
 `EXTENSION_OPERATORS`) raises `Unsupported` naming the JAX module and its
 ROADMAP queue item, as do the branches into unported modules. No tag is
 skipped silently.
@@ -81,12 +82,9 @@ class XmlError(ValueError):
 # ---------------------------------------------------------------------------
 
 QUEUE_ITEMS = {
-    "config/xml_traits.py": "4g",
     "config/xml_geo.py": "4g",
     "config/xml_factor.py": "4g",
     "config/xml_field.py": "4g",
-    # its trait statistics, which read config/xml_traits.py's likelihoods
-    "config/xml_stats.py": "4g",
     "config/xml_hmc.py": "5b",
 }
 
@@ -127,38 +125,16 @@ EXTENSION_TAGS: Dict[str, Tuple[str, ...]] = {
     "config/xml_hmc.py": (
         "DiagonalMatrix", "autoRegressiveNormalDistributionModel",
         "branchSubstitutionParameterGradient", "cachedMatrixInverse",
-        "coalescentGradient", "compactGradient", "compoundEigenMatrix",
-        "compoundGradient", "compoundPriorPreconditioner",
-        "compoundSymmetricMatrix", "diagonalContrainedMatrixView",
-        "diagonalMatrix", "dummyLikelihood", "exponentialStatistic",
-        "gradient", "gradientWrtIncrements1D", "graphicalParameterBounds",
-        "hessian", "jointGradient", "matrixInverse",
-        "multivariateDistributionLikelihood",
-        "multivariateNormalDistributionModel", "multivariateWishartPrior",
-        "negativeStatistic", "nodeHeightGradient", "numericalGradient",
-        "numericalHessian", "purelyNumericalHessian", "reciprocalStatistic",
-        "skylineGradient", "speciationLikelihoodGradient",
-    ),
-    "config/xml_stats.py": (
-        "blombergsK", "continuousDiffusionStatistic",
-        "traitDataContinuousDiffusionStatistic",
-    ),
-    "config/xml_traits.py": (
-        "ancestralTraitTreeModel", "arbitraryBranchRates",
-        "attenuationGradient", "autoCorrelatedRatesPrior", "bayesianBridge",
-        "bayesianBridgeDistribution", "bayesianBridgeLikelihood",
-        "branchRateGradient", "branchRateGradientWrtIncrements",
-        "branchSpecificGradient", "continuousTraitDataModel",
-        "correlationGradient", "diffusionGradient", "gradientWrtIncrements",
-        "inhibitionLikelihood", "integratedFactorModel",
-        "latentLiabilityLikelihood", "locationScaledBranchRateModel",
-        "meanGradient", "multivariateDiffusionModel",
-        "multivariateTraitLikelihood", "optimaLikelihoodGradient",
-        "orderedLatentLiabilityLikelihood", "precisionGradient",
-        "repeatedMeasuresModel", "restrictedPartials",
-        "scaledByTreeTimeBranchRates", "timeIncrementBranchRateModel",
-        "traitDataLikelihood", "traitLogger", "varianceGradient",
-        "varianceProportionStatistic",
+        "coalescentGradient", "compactGradient", "compoundGradient",
+        "compoundPriorPreconditioner", "compoundSymmetricMatrix",
+        "diagonalContrainedMatrixView", "diagonalMatrix", "dummyLikelihood",
+        "exponentialStatistic", "gradient", "gradientWrtIncrements1D",
+        "graphicalParameterBounds", "hessian", "jointGradient",
+        "matrixInverse", "multivariateDistributionLikelihood",
+        "multivariateNormalDistributionModel", "negativeStatistic",
+        "nodeHeightGradient", "numericalGradient", "numericalHessian",
+        "purelyNumericalHessian", "reciprocalStatistic", "skylineGradient",
+        "speciationLikelihoodGradient",
     ),
 }
 
@@ -176,22 +152,14 @@ EXTENSION_OPERATORS: Dict[str, Tuple[str, ...]] = {
         "NoUTurnOperator", "bayesianBridgeGibbsOperator",
         "bouncyParticleOperator", "dirtyLikelihood",
         "geodesicHamiltonianMonteCarloOperator",
-        "hamiltonianMonteCarloOperator", "internalTraitGibbsOperator",
+        "hamiltonianMonteCarloOperator",
         "matrixVonMisesFisherGibbsOperator", "noUTurnOperator",
         "normalGammaPrecisionGibbsOperator", "normalNormalMeanGibbsOperator",
-        "precisionGibbsOperator", "reflectiveHamiltonianMonteCarloOperator",
-        "zigZagOperator",
-    ),
-    "config/xml_traits.py": (
-        "newLatentLiabilityGibbsOperator",
+        "reflectiveHamiltonianMonteCarloOperator", "zigZagOperator",
     ),
 }
 
 _TAG_MODULE = {t: m for m, ts in EXTENSION_TAGS.items() for t in ts}
-# what an unported tag of a ported module waits for
-_TAG_WAITS_ON = {
-    t: "its trait likelihood, beast_mcmc_tpu/config/xml_traits.py"
-    for t in EXTENSION_TAGS["config/xml_stats.py"]}
 _OPERATOR_MODULE = {t: m for m, ts in EXTENSION_OPERATORS.items()
                     for t in ts}
 
@@ -318,6 +286,21 @@ class JointTipAlias:
     """<jointParameter> over leaf-height views of several trees."""
 
     targets: tuple = ()  # (tree_id, tip_index)
+
+
+def per_state(fn):
+    """fn(s) computed once a state: the log columns of one collector row
+    are handed the same state object and share one evaluation (JAX's jit
+    merges such duplicate calls; eager PyTorch would repeat them)."""
+    memo = {"s": None, "v": None}
+
+    def wrapped(s):
+        if memo["s"] is not s:
+            memo["v"] = fn(s)
+            memo["s"] = s
+        return memo["v"]
+
+    return wrapped
 
 
 class _StateShim:
@@ -458,10 +441,7 @@ class XmlAnalysis:
         builder = _BUILDERS.get(el.tag)
         if builder is None:
             if el.tag in _TAG_MODULE:
-                what = f"<{el.tag}>"
-                if el.tag in _TAG_WAITS_ON:
-                    what += f" ({_TAG_WAITS_ON[el.tag]})"
-                raise unported(what, _TAG_MODULE[el.tag])
+                raise unported(f"<{el.tag}>", _TAG_MODULE[el.tag])
             raise Unsupported(f"<{el.tag}> has no registered builder")
         obj = builder(self, el)
         if (isinstance(obj, LikelihoodFn)
@@ -932,12 +912,22 @@ class XmlAnalysis:
             return [(f"{nm}{i + 1}{j + 1}",
                      lambda s, i=i, j=j, o=obj: o.fn(s.params)[i, j])
                     for i in range(obj.dim) for j in range(obj.dim)]
+        if type(obj).__name__ == "GradientSpec":
+            # the live analytic gradient (GradientWrtParameterProvider is
+            # Loggable)
+            cols = self._gradient_columns(nm, obj)
+            if cols is not None:
+                return cols
         if isinstance(obj, DerivedParam):
             return self._log_columns_derived(nm, obj)
         if isinstance(obj, JointTipAlias):
             tid0, tip0 = obj.targets[0]
             return [(nm, lambda s, t=tid0, i=tip0: self.resolve_tree(
                 t, s.params, s.tree).heights[i])]
+        if type(obj).__name__ == "IntegratedFactorModel":
+            # its density is counted inside the companion traitDataLikelihood
+            return [(nm, lambda s: torch.zeros((), dtype=self.dtype,
+                                               device=self.device))]
         if isinstance(obj, Param):
             val = np.atleast_1d(np.asarray(obj.value))
             if val.size == 1:
@@ -963,6 +953,39 @@ class XmlAnalysis:
             ]
         return [(nm, lambda s, f=obj.fn: f(
             self.inject_derived(s.params)).reshape(()))]
+
+    def _gradient_columns(self, nm, spec):
+        """Live gradient columns of a config/xml_hmc.py GradientSpec (its
+        parameter targets, then the internal node heights), one
+        torch.autograd pass a collector row shared by its columns."""
+        names = list(spec.target_names())
+        height_tid = getattr(spec, "height_tid", None)
+        if not names and height_tid is None:
+            return None
+        sizes = [int(np.asarray(self._params[n].value).size) for n in names]
+
+        @per_state
+        def grad_flat(s):
+            p = self.inject_derived(s.params)
+            t = s.tree
+            n_tips = (t.heights.shape[0] + 1) // 2
+            xs = [p[n].detach().clone().requires_grad_(True) for n in names]
+            pp = dict(p)
+            pp.update(zip(names, xs))
+            if height_tid is not None:
+                h = t.heights[n_tips:].detach().clone().requires_grad_(True)
+                xs.append(h)
+                t = t.replace(heights=torch.cat([t.heights[:n_tips], h]))
+            with torch.enable_grad():
+                dens = sum(lk.fn(pp, t) for lk in spec.likelihoods)
+                grads = torch.autograd.grad(dens, xs)
+            return torch.cat([g.reshape(-1) for g in grads])
+
+        n_h = 0
+        if height_tid is not None:
+            n_h = len(self.build(self._ids[height_tid]).taxa) - 1
+        return [(f"{nm}{i + 1}", lambda s, i=i: grad_flat(s)[i])
+                for i in range(sum(sizes) + n_h)]
 
     def _alias_reader(self, a: TreeAlias):
         def tr(s):
@@ -3496,6 +3519,10 @@ def _compound_likelihood(ax: XmlAnalysis, el):
             continue
         if isinstance(obj, JointTipAlias):
             continue  # a mirrored tip-height view is a reparameterisation
+        if type(obj).__name__ == "IntegratedFactorModel":
+            # its density is inside the companion traitDataLikelihood's
+            # integrated marginal (config/xml_traits.py)
+            continue
         if isinstance(obj, tuple) and obj and obj[0] in ("subst", "subst_q"):
             # an SVS substitution model inside <prior> adds its
             # indicator-connectivity density
@@ -4215,3 +4242,5 @@ from beast_mcmc_tpu_torch.config import xml_ext as _xml_ext  # noqa: E402,F401
 from beast_mcmc_tpu_torch.config import xml_geo as _xml_geo  # noqa: E402,F401
 from beast_mcmc_tpu_torch.config import xml_mle as _xml_mle  # noqa: E402,F401
 from beast_mcmc_tpu_torch.config import xml_stats as _xml_stats  # noqa: E402,F401
+from beast_mcmc_tpu_torch.config import xml_hmc as _xml_hmc  # noqa: E402,F401
+from beast_mcmc_tpu_torch.config import xml_traits as _xml_traits  # noqa: E402,F401

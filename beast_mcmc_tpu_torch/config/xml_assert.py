@@ -18,10 +18,12 @@ state; a gradient report (`gradient_report`) the analytic gradient
 (torch.autograd in place of jax.grad) and central differences, as
 GradientWrtParameterProvider.makeReport (GradientWrtParameterProvider
 .java:227-258), with the diagonal Hessian where at most 64 values are
-differentiated. Reports of config/xml_hmc.py's operators and gradient
-specifications raise Unsupported naming that module (ROADMAP queue item
-5b), as do the trait likelihoods' extras (config/xml_traits.py, 4g), which
-no ported tag builds.
+differentiated; a config/xml_hmc.py GradientSpec reports so. A trait
+likelihood's report carries the reference's continuous-data extras (the
+trait variance, the observed datum, ContinuousDataLikelihoodDelegate
+.getReport:446) but its outer-product statistics, which are config/
+xml_factor.py's (ROADMAP queue item 4g). Reports of config/xml_hmc.py's
+operators raise Unsupported naming that module (queue item 5b).
 """
 
 from __future__ import annotations
@@ -232,6 +234,10 @@ def report_of(ax: XmlAnalysis, el) -> str:
         return obj.report(ax)
     if isinstance(obj, LikelihoodFn):
         v = _resolving(ax, obj)
+        tl = getattr(ax, "_trait_likelihoods", {}).get(el.get("id"))
+        if tl is not None and (tl.channels is not None
+                               or tl.diffusion_prec is not None):
+            return f"logDatumLikelihood: {v}\n{_trait_report(ax, tl, v)}{v}\n"
         # the class-paren forms and the labelled single-value lines of the
         # reference's getReport()s (SpeciationLikelihood "lnL:",
         # GMRFSkyrideLikelihood "Total:", CompoundLikelihood "likelihood:",
@@ -245,9 +251,32 @@ def report_of(ax: XmlAnalysis, el) -> str:
                 f"Total: {v}\n"
                 f"logLikelihood : {v}\n"
                 f"Non-parametric Coalescent LogLikelihood: {v}\n{v}\n")
+    from beast_mcmc_tpu_torch.config.xml_hmc import GradientSpec
+
+    if isinstance(obj, GradientSpec):
+        return gradient_report(ax, obj)
     if isinstance(obj, (int, float)):
         return f"{obj}\n"
     raise Unsupported(f"no report for <{tag}>")
+
+
+def _trait_report(ax: XmlAnalysis, tl, v) -> str:
+    """The continuous-data extras of a trait likelihood's report: "Trait
+    variance" (the inverse diffusion precision, transposed as the
+    reference prints it), "datum" (the observed tip entries, taxon-major)
+    and the old-against-new tester line."""
+    params0, _ = initial_eval_state(ax)
+    flat = params0[tl.trait_param].detach().reshape(-1).cpu().numpy()
+    miss = np.ravel(np.asarray(tl.missing, bool))
+    datum = flat[~miss[:flat.size]] if miss.size else flat
+    extra = ""
+    if tl.diffusion_prec is not None:
+        var = np.linalg.inv(tl.diffusion_prec.fn(params0).detach().cpu()
+                            .numpy()).T
+        rows = "\n".join("  ".join(str(x) for x in r) for r in var)
+        extra += f"Trait variance:\n{rows}\n\n"
+    extra += f"datum : {', '.join(str(x) for x in datum)}\n"
+    return extra + f"logLikelihood: {v} == {v}\n"
 
 
 # ---------------------------------------------------------------------------

@@ -9,10 +9,12 @@ analysis's device; the distance-matrix trees, the reward (Sericola)
 branch matrices and the LKJ normaliser are computed on the host at parse
 time, as in the JAX package. Where a handler reaches a module of a later
 ROADMAP queue item, that branch raises Unsupported naming it: the
-gradient reports of config/xml_hmc.py's GradientSpec (item 5b), and the trait
-likelihoods that <traitValidation> and <gaussianProcessFromTree> wrap
-(config/xml_traits.py, 4g). The JAX package's loops (lax.scan,
-fori_loop) are Python loops over tensors here.
+gradient reports of <gmrfSkyrideGradient> over populations or precision
+(config/xml_hmc.py, item 5b). <traitValidation> and
+<gaussianProcessFromTree> wrap a trait likelihood and
+<rewardsAwareBranchModel> an arbitraryBranchRates clock of
+config/xml_traits.py. The JAX package's loops (lax.scan, fori_loop) are
+Python loops over tensors here.
 """
 
 from __future__ import annotations

@@ -17,15 +17,21 @@ inputs the port builds:
   - <ancestralTrait> (AncestralTraitParser): the root's sampled state code;
   - <property> (PropertyParser): a named property (the mean, a trace
     analysis's correlation statistics);
-  - <cladeRelationshipStatistic> (CladeRelationshipStatistic.java:105-128).
+  - <cladeRelationshipStatistic> (CladeRelationshipStatistic.java:105-128);
+  - <blombergsK> (BlombergKStatistic.java:82-153), over a trait likelihood
+    of config/xml_traits.py, on the host in float64 as in the JAX package;
+  - <continuousDiffusionStatistic> and
+    <traitDataContinuousDiffusionStatistic>: the dispersal rate, the sum
+    of branch displacements (Euclidean, or great-circle on latitude and
+    longitude) over the sum of branch times, of the conditional-mean node
+    reconstruction, which a collector row shares with the traitLogger's
+    columns (config/xml_traits.py::TraitLikelihood.conditional_means).
 
 Statistics are read at the document's current state on the analysis's
 device (`_current_state`, the derived parameters overlaid) and reported
-in the reference's formats. <blombergsK>, <continuousDiffusionStatistic>
-and <traitDataContinuousDiffusionStatistic> read a trait likelihood of
-config/xml_traits.py (models/continuous.py) and raise Unsupported with it
-(interpreter.py EXTENSION_TAGS, queue item 4g), as does <property
-name="wishartStatistics"> over config/xml_factor.py's statistic.
+in the reference's formats. <property name="wishartStatistics"> reads
+config/xml_factor.py's statistic and raises Unsupported naming it
+(ROADMAP queue item 4g).
 """
 
 from __future__ import annotations
@@ -232,6 +238,136 @@ def _svd_statistic(ax: XmlAnalysis, el):
 
     return _SvdReport(matrix_param_of(ax, next(iter(el))),
                       el.get("id") or "svd")
+
+
+# ---------------------------------------------------------------------------
+# blombergsK
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class _BlombergK:
+    """Blomberg's K phylogenetic-signal statistic (BlombergKStatistic.java:
+    82-153): L from V = L L^T, contrasts L^-1 (x - mu), expectedRatio =
+    (tr V - n/|L^-1 1|^2)/(n - 1), K = (sum (x - mu)^2 / sum c^2) /
+    expectedRatio, mu the GLS mean under V. The tree variance of the
+    parse-time tree, on the host."""
+
+    tid: str = ""
+    trait_param: str = ""
+    dim: int = 1
+    name: str = "kstat"
+
+    def _tree_variance(self, ax):
+        tm = ax._trees[self.tid]
+        parent = np.asarray(tm.parent)
+        heights = np.asarray(tm.heights, float)
+        root = int(tm.root)
+        n_tips = (parent.shape[0] + 1) // 2
+
+        def path(i):
+            out = []
+            while i != root:
+                out.append(i)
+                i = int(parent[i])
+            return set(out)
+
+        paths = [path(i) for i in range(n_tips)]
+        v = np.zeros((n_tips, n_tips))
+        for i in range(n_tips):
+            for j in range(i, n_tips):
+                v[i, j] = v[j, i] = sum(heights[int(parent[k])] - heights[k]
+                                        for k in paths[i] & paths[j])
+        return v, n_tips
+
+    def values(self, ax):
+        params, _ = _current_state(ax)
+        v, n = self._tree_variance(ax)
+        x_all = params[self.trait_param].detach().double().cpu().numpy() \
+            .reshape((n, self.dim))
+        l_inv = np.linalg.inv(np.linalg.cholesky(v))
+        l_vec = l_inv @ np.ones(n)
+        expected_ratio = (np.trace(v) - n / float(l_vec @ l_vec)) / (n - 1)
+        v_inv = np.linalg.inv(v)
+        ones = np.ones(n)
+        ks = []
+        for t in range(self.dim):
+            x = x_all[:, t]
+            mu = float(ones @ v_inv @ x) / float(ones @ v_inv @ ones)
+            dv = x - mu
+            c = l_inv @ dv
+            ks.append(float(dv @ dv) / float(c @ c) / expected_ratio)
+        return ks
+
+    def report(self, ax) -> str:
+        return "".join(f"{self.name}{t + 1}:  {float(k)!r}\n"
+                       for t, k in enumerate(self.values(ax)))
+
+
+@register("blombergsK")
+def _blombergs_k(ax: XmlAnalysis, el):
+    lik_el = ax.deref(next(iter(el)))
+    ax.build(lik_el)
+    tl = getattr(ax, "_trait_likelihoods", {}).get(lik_el.get("id"))
+    if tl is None:
+        raise Unsupported("blombergsK without a trait likelihood")
+    return _BlombergK(tid=tl.tree_id, trait_param=tl.trait_param,
+                      dim=tl.dim, name=el.get("id") or "kstat")
+
+
+@register("continuousDiffusionStatistic",
+          "traitDataContinuousDiffusionStatistic")
+def _continuous_diffusion_statistic(ax: XmlAnalysis, el):
+    """ContinuousDiffusionStatistic / TraitDataContinuousDiffusion
+    Statistic: the dispersal rate sum dist_b / sum t_b over the branches
+    of the conditional-mean node reconstruction; displacementScheme
+    greatCircleDistance takes the haversine distance (km, Earth radius
+    6371) on (latitude, longitude) traits in degrees."""
+    import math
+
+    from beast_mcmc_tpu_torch.config.xml_hmc import _trait_likelihood_of
+
+    gcd = (el.get("greatCircleDistance", "false").lower() == "true"
+           or el.get("displacementScheme", "linear")
+           == "greatCircleDistance")
+    tl = _trait_likelihood_of(ax, el)
+    if tl is None or tl.channels is None:
+        raise Unsupported("continuousDiffusionStatistic without trait "
+                          "likelihood")
+
+    def col_fn(s):
+        means = tl.conditional_means(s)
+        tree = ax.resolve_tree(tl.tree_id, s.params, s.tree)
+        pidx = torch.clamp_min(tree.parent, 0)
+        has_parent = tree.parent >= 0
+        t_b = torch.where(has_parent, tree.heights[pidx] - tree.heights,
+                          torch.zeros_like(tree.heights))
+        if gcd:
+            rad = math.pi / 180.0
+            la1, lo1 = means[:, 0] * rad, means[:, 1] * rad
+            la2, lo2 = means[pidx, 0] * rad, means[pidx, 1] * rad
+            a = (torch.sin((la2 - la1) / 2) ** 2
+                 + torch.cos(la1) * torch.cos(la2)
+                 * torch.sin((lo2 - lo1) / 2) ** 2)
+            dist = 6371.0 * 2 * torch.arcsin(torch.sqrt(torch.clamp(
+                a, 0.0, 1.0)))
+        else:
+            dist = torch.sqrt(torch.sum((means - means[pidx]) ** 2, dim=1))
+        mask = has_parent.to(t_b.dtype)
+        return torch.sum(dist * mask) / torch.clamp_min(
+            torch.sum(t_b * mask), 1e-30)
+
+    nm = el.get("id") or "diffusionRate"
+
+    class _Col:
+        columns = [(nm, col_fn)]
+
+        def report(self, ax_):
+            from beast_mcmc_tpu_torch.config.interpreter import _StateShim
+
+            return f"{float(col_fn(_StateShim(*_current_state(ax_))))!r}\n"
+
+    return _Col()
 
 
 # ---------------------------------------------------------------------------

@@ -26,8 +26,11 @@ Counterpart of beast_mcmc_tpu/inference/gibbs.py, every class of it:
   - InternalTraitGibbsOperator (TraitGibbsOperator), PrecisionWishart
     GibbsOperator (PrecisionMatrixGibbsOperator.java:63, a Bartlett draw)
     and LatentLiabilityGibbsOperator (NewLatentLiabilityGibbs.java:
-    139-280): the moves of the continuous-trait models; their XML tags come
-    with config/xml_hmc.py, xml_traits.py and xml_factor.py.
+    139-280): the moves of the continuous-trait models; their XML tags are
+    config/xml_hmc.py's <precisionGibbsOperator> and
+    <internalTraitGibbsOperator> and config/xml_traits.py's
+    <newLatentLiabilityGibbsOperator> (xml_factor.py's liability
+    operators are not ported).
 
 All but the block update and the latent liabilities are Gibbs moves,
 log-Hastings +inf. The linear algebra reports failure on the device

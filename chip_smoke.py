@@ -258,6 +258,23 @@ result line):
      the Bayesian bridge at given draws, the analytic gradient of
      config/xml_assert.py, insert_taxon) on the card against the CPU to
      P17_REL_TOL.
+  18. continuous phylogeography (`rrw_path`, `p18_functions_path`): 18a
+     `python -m beast_mcmc_tpu_torch run makona_rrw.xml` on phase 15's
+     taxa and alignment (HKY+Gamma4, strict clock, constant coalescent, a
+     coalescentSimulator start tree) with a 2-D location on each taxon (a
+     Brownian motion down makona_data's tree from West Africa, about 5% of
+     tips NA NA) under BEAUti's relaxed-random-walk vocabulary (a
+     multivariateDiffusionModel with a Wishart prior and a
+     precisionGibbsOperator, arbitraryBranchRates under a gamma prior, a
+     traitDataLikelihood with a conjugate root prior), P18_STEPS states
+     after the CLI's 100-step check: peel_stream launches exactly as
+     predicted from _run_mcmc, the deviation, states/s, the log's
+     great-circle diffusion rate and root location read back, the trait
+     likelihood's ms by CUDA events and a profiler window of P18_PROFILE
+     steps; 18b models/continuous.py's, factor.py's and liability.py's
+     functions at 1,610 taxa and the trait likelihood's gradient in its
+     precision and branch rates, on the card against the CPU to
+     P18_REL_TOL.
 
 `python3 chip_smoke.py --tiles` instead builds the kernels and times the
 v1 streaming kernel at the plans its planner could pick, with its largest
@@ -4124,6 +4141,456 @@ def p17_functions_path(out_dir, dev):
     return rec
 
 
+P18_STEPS, P18_CHECK, P18_LOG_EVERY = 200, 100, 10
+P18_PROFILE, P18_SEED, P18_TRAIT_SEED = PROFILE_STEPS, 18, 1818
+P18_MISSING, P18_SIGMA = 0.05, 2.0  # NA share of tips; degrees a sqrt(year)
+P18_CENTRE = (8.5, -11.5)  # latitude, longitude: West Africa
+P18_TRAIT_REPS, P18_REL_TOL = 20, 1e-12
+
+
+def rrw_locations(data, seed=P18_TRAIT_SEED):
+    """[taxa, 2] (latitude, longitude) of makona_data's taxa: a Brownian
+    motion of P18_SIGMA degrees a square-root year from P18_CENTRE down
+    makona_data's own tree (its tips' heights, its population size, its
+    seed), drawn with numpy from `seed`; about P18_MISSING of the tips
+    NaN in both dimensions (written NA NA). Returns (locations, the tree's
+    length in years)."""
+    import numpy as np
+
+    from beast_mcmc_tpu_torch.apps.makona import tip_heights
+    from beast_mcmc_tpu_torch.tree.topology import simulate_coalescent_tree
+
+    parent, children, heights, root = simulate_coalescent_tree(
+        np.random.default_rng(JOINT_SEED), tip_heights(data["dates"]),
+        data["cfg"]["pop_size"])
+    rng = np.random.default_rng(seed)
+    n = len(data["taxa"])
+    loc = np.zeros((parent.shape[0], 2))
+    loc[root] = P18_CENTRE
+    for node in np.argsort(-heights):  # parents before children
+        if parent[node] >= 0:
+            t = heights[parent[node]] - heights[node]
+            loc[node] = loc[parent[node]] + rng.normal(
+                0.0, P18_SIGMA * np.sqrt(t), 2)
+    loc = loc[:n]
+    loc[rng.uniform(size=n) < P18_MISSING] = np.nan
+    length = float(np.sum(heights[parent[parent >= 0]]
+                          - heights[parent >= 0]))
+    return loc, length
+
+
+def rrw_document(path, data, n_steps=P18_STEPS, log_every=P18_LOG_EVERY):
+    """Write the continuous-phylogeography document of phase 18a at `path`
+    on makona_data's taxa and alignment, in the vocabulary BEAUti writes:
+    HKY+Gamma4, a strict clock and a constant coalescent for the sequences
+    (a coalescentSimulator start tree), a 2-D location on each taxon
+    (`rrw_locations`) under a <multivariateDiffusionModel> on a 2 x 2
+    <matrixParameter> precision (starting at the one that generated the
+    locations) with a <multivariateWishartPrior> (df 2, identity scale), an <arbitraryBranchRates> relaxed random walk (one
+    rate a branch) under a gamma distributionLikelihood, and a
+    <traitDataLikelihood> (integrateInternalTraits, useTreeLength,
+    scaleByTime, a <conjugateRootPrior>); the tree operators, scale
+    operators on the sequence parameters and the branch rates, a
+    <precisionGibbsOperator>; <log logEvery> of the posterior, a
+    great-circle <continuousDiffusionStatistic> and a root <traitLogger>.
+    Returns the log's file name."""
+    import math
+
+    cfg = data["cfg"]
+    init = cfg["model"]["init"]
+    pop = float(cfg["pop_size"])
+    rate = float(init["ucld.mean"])
+    freqs = " ".join(repr(float(f)) for f in init["frequencies"])
+    alpha = float(init["siteModel.alpha"])
+    loc, length = rrw_locations(data)
+    # scaleByTime with useTreeLength measures time in tree lengths: the
+    # precision that generated the locations, in those units
+    prec0 = 1.0 / (P18_SIGMA ** 2 * length)
+    out = ['<?xml version="1.0" standalone="yes"?>', "<beast>"]
+    taxa = taxa_alignment_xml(data)
+    for i in range(len(data["taxa"])):
+        attr = " ".join("NA" if math.isnan(v) else repr(float(v))
+                        for v in loc[i])
+        taxa[1 + i] = taxa[1 + i].replace(
+            "</taxon>", f'<attr name="location">{attr}</attr></taxon>')
+    out += taxa
+    name = "makona_rrw"
+    out.append(f"""  <patterns id="patterns" from="1"><alignment idref="alignment"/></patterns>
+  <constantSize id="constant" units="years">
+    <populationSize><parameter id="popSize" value="{pop!r}" lower="0.0"/></populationSize>
+  </constantSize>
+  <coalescentSimulator id="startingTree">
+    <taxa idref="taxa"/><constantSize idref="constant"/>
+  </coalescentSimulator>
+  <treeModel id="treeModel">
+    <coalescentTree idref="startingTree"/>
+    <rootHeight><parameter id="treeModel.rootHeight"/></rootHeight>
+    <nodeHeights internalNodes="true"><parameter id="treeModel.internalNodeHeights"/></nodeHeights>
+  </treeModel>
+  <coalescentLikelihood id="coalescent">
+    <model><constantSize idref="constant"/></model>
+    <populationTree><treeModel idref="treeModel"/></populationTree>
+  </coalescentLikelihood>
+  <strictClockBranchRates id="clock">
+    <rate><parameter id="clock.rate" value="{rate!r}" lower="0.0"/></rate>
+  </strictClockBranchRates>
+  <HKYModel id="hky">
+    <frequencies><frequencyModel dataType="nucleotide">
+      <frequencies><parameter id="frequencies" value="{freqs}"/></frequencies>
+    </frequencyModel></frequencies>
+    <kappa><parameter id="kappa" value="4.0" lower="0.0"/></kappa>
+  </HKYModel>
+  <siteModel id="siteModel">
+    <substitutionModel><HKYModel idref="hky"/></substitutionModel>
+    <gammaShape gammaCategories="4"><parameter id="alpha" value="{alpha!r}" lower="0.0"/></gammaShape>
+  </siteModel>
+  <treeLikelihood id="treeLikelihood" useAmbiguities="false">
+    <patterns idref="patterns"/><treeModel idref="treeModel"/>
+    <siteModel idref="siteModel"/><strictClockBranchRates idref="clock"/>
+  </treeLikelihood>
+  <matrixParameter id="location.precision">
+    <parameter id="location.precision.col1" value="{prec0!r} 0.0"/>
+    <parameter id="location.precision.col2" value="0.0 {prec0!r}"/>
+  </matrixParameter>
+  <multivariateDiffusionModel id="location.diffusionModel">
+    <precisionMatrix><matrixParameter idref="location.precision"/></precisionMatrix>
+  </multivariateDiffusionModel>
+  <multivariateWishartPrior id="location.precisionPrior" df="2">
+    <scaleMatrix><matrixParameter>
+      <parameter value="1.0 0.0"/><parameter value="0.0 1.0"/>
+    </matrixParameter></scaleMatrix>
+    <data><matrixParameter idref="location.precision"/></data>
+  </multivariateWishartPrior>
+  <arbitraryBranchRates id="location.diffusion.branchRates">
+    <treeModel idref="treeModel"/>
+    <rates><parameter id="location.diffusion.rates" value="1.0" lower="0.0"/></rates>
+  </arbitraryBranchRates>
+  <distributionLikelihood id="location.diffusion.prior">
+    <data><parameter idref="location.diffusion.rates"/></data>
+    <distribution><gammaDistributionModel>
+      <shape><parameter value="0.5"/></shape><scale><parameter value="2.0"/></scale>
+    </gammaDistributionModel></distribution>
+  </distributionLikelihood>
+  <traitDataLikelihood id="location.traitLikelihood" traitName="location"
+      useTreeLength="true" scaleByTime="true" integrateInternalTraits="true">
+    <multivariateDiffusionModel idref="location.diffusionModel"/>
+    <treeModel idref="treeModel"/>
+    <traitParameter><parameter id="leaf.location"/></traitParameter>
+    <conjugateRootPrior>
+      <meanParameter><parameter value="{P18_CENTRE[0]!r} {P18_CENTRE[1]!r}"/></meanParameter>
+      <priorSampleSize><parameter value="0.000001"/></priorSampleSize>
+    </conjugateRootPrior>
+    <arbitraryBranchRates idref="location.diffusion.branchRates"/>
+  </traitDataLikelihood>
+  <continuousDiffusionStatistic id="location.diffusionRate" greatCircleDistance="true">
+    <traitDataLikelihood idref="location.traitLikelihood"/>
+  </continuousDiffusionStatistic>
+  <traitLogger id="location.root" traitName="location" nodes="root">
+    <traitDataLikelihood idref="location.traitLikelihood"/>
+  </traitLogger>
+  <operators id="operators">
+    <scaleOperator scaleFactor="0.75" weight="3"><parameter idref="kappa"/></scaleOperator>
+    <scaleOperator scaleFactor="0.75" weight="3"><parameter idref="clock.rate"/></scaleOperator>
+    <scaleOperator scaleFactor="0.75" weight="3"><parameter idref="popSize"/></scaleOperator>
+    <scaleOperator scaleFactor="0.75" weight="30"><parameter idref="location.diffusion.rates"/></scaleOperator>
+    <precisionGibbsOperator weight="2">
+      <traitDataLikelihood idref="location.traitLikelihood"/>
+      <multivariateWishartPrior idref="location.precisionPrior"/>
+    </precisionGibbsOperator>
+    <subtreeSlide size="1.0" gaussian="true" weight="15"><treeModel idref="treeModel"/></subtreeSlide>
+    <narrowExchange weight="15"><treeModel idref="treeModel"/></narrowExchange>
+    <wilsonBalding weight="3"><treeModel idref="treeModel"/></wilsonBalding>
+    <uniformOperator weight="30"><parameter idref="treeModel.internalNodeHeights"/></uniformOperator>
+    <scaleOperator scaleFactor="0.75" weight="3"><parameter idref="treeModel.rootHeight"/></scaleOperator>
+  </operators>
+  <mcmc id="mcmc" chainLength="{n_steps}" autoOptimize="true">
+    <posterior id="posterior">
+      <prior id="prior">
+        <logNormalPrior mean="1.0" stdev="1.25"><parameter idref="kappa"/></logNormalPrior>
+        <logNormalPrior mean="{math.log(rate)!r}" stdev="1.0"><parameter idref="clock.rate"/></logNormalPrior>
+        <logNormalPrior mean="{math.log(pop)!r}" stdev="1.0"><parameter idref="popSize"/></logNormalPrior>
+        <coalescentLikelihood idref="coalescent"/>
+        <multivariateWishartPrior idref="location.precisionPrior"/>
+        <distributionLikelihood idref="location.diffusion.prior"/>
+      </prior>
+      <likelihood id="likelihood">
+        <treeLikelihood idref="treeLikelihood"/>
+        <traitDataLikelihood idref="location.traitLikelihood"/>
+      </likelihood>
+    </posterior>
+    <operators idref="operators"/>
+    <log logEvery="{log_every}" fileName="{name}.log">
+      <posterior idref="posterior"/>
+      <continuousDiffusionStatistic idref="location.diffusionRate"/>
+      <traitLogger idref="location.root"/>
+    </log>
+  </mcmc>
+</beast>
+""")
+    with open(path, "w") as f:
+        f.write("\n".join(out))
+    return f"{name}.log"
+
+
+def _event_ms(fn, n, dev):
+    """ms a call of fn over n calls after one warm-up: CUDA events on the
+    card, the host clock elsewhere."""
+    import torch
+
+    fn()
+    if str(dev).startswith("cuda"):
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / n
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def rrw_path(out_dir, reset_counts, read_counts, device_ms, dev,
+             n_taxa=SPEC_TAXA, n_sites=SPEC_SITES, n_steps=P18_STEPS,
+             log_every=P18_LOG_EVERY,
+             n_profile=P18_PROFILE, trait_reps=P18_TRAIT_REPS):
+    """Phase 18a (see the module docstring) at n_taxa x n_sites: `run
+    doc.xml` through the CLI, its peel_stream launches predicted from
+    _run_mcmc (the start, two a checked step of the CLI's P18_CHECK, one
+    a step, one a log row's posterior); the deviation, states/s, the log
+    read back (its diffusion rate finite and positive, the root's
+    location finite); the trait likelihood's ms at the start state (CUDA
+    events); a profiler window of n_profile steps. Returns (record,
+    launches)."""
+    import math
+    import re
+
+    import torch
+
+    from beast_mcmc_tpu_torch.config.interpreter import XmlAnalysis
+    from beast_mcmc_tpu_torch.inference.mcmc import run_chain
+
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    data = makona_data(n_taxa, n_sites, JOINT_SEED, dev)
+    doc = os.path.join(out_dir, "makona_rrw.xml")
+    log_name = rrw_document(doc, data, n_steps, log_every)
+    rec = {"taxa": len(data["taxa"]), "sites": data["sites"],
+           "patterns": data["patterns"],
+           "document_seconds": time.perf_counter() - t0}
+    launches = {}
+
+    def expect(counts, n, label):
+        want = {k: n * (k == "peel_stream") for k in counts}
+        launches[f"P18 {label}"] = counts
+        if counts != want:
+            raise AssertionError(f"P18 {label}: launches {counts}, "
+                                 f"expected {want}")
+
+    reset_counts()
+    rc, text, _, cli_s = _cli_in(out_dir, [
+        "run", doc, "-seed", str(P18_SEED), "-device", str(dev)])
+    m = re.search(r"(\d+) states in ([0-9.]+)s = ([0-9.]+) states/sec; "
+                  r"full-evaluation deviation (\S+)", text)
+    if rc != 0 or m is None:
+        raise AssertionError(f"P18a: rc {rc}\n{text[-3000:]}")
+    rows = n_steps // log_every
+    a = {"rc": rc, "cli_seconds": cli_s, "steps": int(m.group(1)),
+         "chain_seconds": float(m.group(2)),
+         "states_per_s": float(m.group(3)),
+         "full_evaluation_deviation": float(m.group(4).rstrip(";,")),
+         "predicted_launches": 1 + 2 * P18_CHECK + n_steps + rows}
+    expect(read_counts(), a["predicted_launches"], "18a CLI")
+    if not (a["steps"] == n_steps
+            and a["full_evaluation_deviation"] <= FULL_EVAL_TOL):
+        raise AssertionError(f"P18a chain: {a}")
+    lines = open(os.path.join(out_dir, log_name)).read().splitlines()
+    header = lines[0].split("\t")
+    body = [[float(v) for v in ln.split("\t")] for ln in lines[1:]]
+    loc_cols = [i for i, h in enumerate(header)
+                if h.startswith("location.") and h.count(".") == 2]
+    rate_col = header.index("location.diffusionRate")
+    if (len(body) != rows or len(loc_cols) != 2
+            or not all(math.isfinite(v) for r in body for v in r)
+            or not all(r[rate_col] > 0 for r in body)):
+        raise AssertionError(f"P18a log: {header} {body[:2]}")
+    a["log_rows"] = len(body)
+    a["diffusion_rate_km_per_year"] = [body[0][rate_col], body[-1][rate_col]]
+    a["root_location"] = [body[-1][i] for i in loc_cols]
+
+    # the trait likelihood alone at the start state, and a chain window
+    ax = XmlAnalysis(doc, seed=P18_SEED, device=dev, workdir=out_dir)
+    chain = ax.prepare_chain()
+    trait = ax.build(ax._ids["location.traitLikelihood"])
+    st = chain["state"]
+    with torch.no_grad():
+        a["trait_ms"] = _event_ms(lambda: trait.fn(st.params, st.tree),
+                                  trait_reps, dev)
+        a["trait_loglik"] = float(trait.fn(st.params, st.tree))
+    if not math.isfinite(a["trait_loglik"]):
+        raise AssertionError(f"P18a trait likelihood {a['trait_loglik']}")
+    reset_counts()
+    chain = ax.prepare_chain()
+    wall, busy = device_ms(lambda: run_chain(
+        chain["step"], chain["state"], n_profile), "p18a rrw chain",
+        n_profile)
+    expect(read_counts(), 1 + n_profile, "18a profile")
+    a.update({"profile_ms_per_step": wall,
+              "device_busy_share": None if busy is None else busy / wall,
+              "device_events_per_step": device_ms.events})
+    rec["18a"] = a
+    log(f"[P18a] CLI rc {rc} in {cli_s:.2f} s: {a['steps']} states in "
+        f"{a['chain_seconds']:.2f} s = {a['states_per_s']} states/s, "
+        f"full-evaluation deviation {a['full_evaluation_deviation']!r} "
+        f"(tolerance {FULL_EVAL_TOL}), peel_stream launches "
+        f"{a['predicted_launches']} as predicted, {a['log_rows']} log rows "
+        f"(diffusion rate {a['diffusion_rate_km_per_year']} km a year, "
+        f"root {a['root_location']}); trait likelihood "
+        f"{a['trait_loglik']!r} in {a['trait_ms']:.3f} ms; profile "
+        f"{a['profile_ms_per_step']:.3f} ms a step, busy share "
+        f"{a['device_busy_share']}, {a['device_events_per_step']} device "
+        f"events a step")
+    return rec, launches
+
+
+def p18_function_cases(doc, out_dir, dev):
+    """{label: fn() -> tensor}: 18b's functions on `dev` at the tree of
+    phase 18a's document (its interpreter's start tree): every function of
+    models/continuous.py (Brownian, drift, OU, missing dims, the affine
+    channels and the node conditionals), models/factor.py (the potentials,
+    the integrated factor likelihood, the propagation with delta tips) and
+    models/liability.py on inputs drawn with numpy from P18_SEED, and the
+    gradient of the document's trait likelihood in its precision and
+    branch rates (torch.autograd) at the start state."""
+    import numpy as np
+    import torch
+
+    from beast_mcmc_tpu_torch.config.interpreter import XmlAnalysis
+    from beast_mcmc_tpu_torch.config.xml_assert import initial_eval_state
+    from beast_mcmc_tpu_torch.models import continuous as C
+    from beast_mcmc_tpu_torch.models import factor as F
+    from beast_mcmc_tpu_torch.models import liability as L
+
+    f64 = torch.float64
+    ax = XmlAnalysis(doc, seed=P18_SEED, device=dev, workdir=out_dir)
+    trait = ax.build(ax._ids["location.traitLikelihood"])
+    params0, tree = initial_eval_state(ax)
+    n = (tree.parent.shape[0] + 1) // 2
+    m, d = 2 * n - 1, 2
+    rng = np.random.default_rng(P18_SEED)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x), dtype=f64, device=dev)
+
+    a = rng.normal(size=(d, d))
+    prec = t(a @ a.T + d * np.eye(d))
+    y = t(rng.normal(size=(n, d)))
+    miss = torch.as_tensor(rng.uniform(size=(n, d)) < 0.05, device=dev)
+    scal, drift = t(rng.uniform(0.5, 2.0, m)), t(rng.normal(size=(m, d)))
+    mean0 = t(rng.normal(size=d))
+    tr = (tree.parent, tree.children, tree.heights, tree.root)
+    bl = C._branch_times(tree.parent, tree.heights)
+    lam_inv = torch.linalg.inv(prec)
+    q = torch.eye(d, dtype=f64, device=dev).expand(m, d, d) + 0.05 * t(
+        rng.normal(size=(m, d, d)))
+    r = drift * bl[:, None]
+    sig = bl[:, None, None] * lam_inv + 1e-3 * torch.eye(d, dtype=f64,
+                                                         device=dev)
+    chans = (q, r, sig, mean0, lam_inv / 0.5)
+    k, p = 2, 5
+    load, gam = t(rng.normal(size=(k, p))), t(rng.uniform(0.5, 3.0, p))
+    ydat = t(rng.normal(size=(n, p)))
+    fmiss = torch.as_tensor(rng.uniform(size=(n, p)) < 0.1, device=dev)
+    pot = F.factor_tip_potentials(ydat, fmiss, load, gam)
+    dmask = torch.as_tensor(rng.uniform(size=(n, k)) < 0.3, device=dev)
+    latent = t(rng.normal(size=(n, d)))
+    thr = t(np.sort(rng.normal(size=(d, 2)), axis=1))
+    cats = torch.as_tensor(rng.integers(0, 3, (n, d)), device=dev)
+    names = ("location.precision.col1", "location.precision.col2",
+             "location.diffusion.rates")
+
+    def trait_gradient():
+        xs = [params0[nm].detach().clone().requires_grad_(True)
+              for nm in names]
+        pp = {**params0, **dict(zip(names, xs))}
+        return torch.cat([g.reshape(-1) for g in torch.autograd.grad(
+            trait.fn(pp, tree), xs)])
+
+    def stacked(fn):
+        return lambda: torch.stack([v.reshape(()) for v in fn()])
+
+    return {
+        "brownian_loglikelihood": lambda: C.brownian_loglikelihood(
+            y, *tr, prec, scal, mean0, 2.0, 0.01),
+        "drift_brownian_loglikelihood":
+            lambda: C.drift_brownian_loglikelihood(y, *tr, prec, drift, scal,
+                                                   mean0, 2.0),
+        "ou_loglikelihood": lambda: C.ou_loglikelihood(
+            y, *tr, prec, 0.7, mean0, scal),
+        "brownian_loglikelihood_missing":
+            lambda: C.brownian_loglikelihood_missing(y, miss, *tr, prec,
+                                                     scal, mean0, 2.0),
+        "affine_gaussian_tree_loglikelihood":
+            lambda: C.affine_gaussian_tree_loglikelihood(y, miss, *tr,
+                                                         *chans),
+        "affine_gaussian_node_conditionals": lambda: torch.cat([
+            v.reshape(-1) for v in C.affine_gaussian_node_conditionals(
+                y, miss, *tr, *chans)]),
+        "factor_tip_potentials": lambda: torch.cat(
+            [v.reshape(-1) for v in pot]),
+        "integrated_factor_loglikelihood":
+            lambda: F.integrated_factor_loglikelihood(
+                ydat, fmiss, *tr, load, gam, prec, scal, mean0, 1.5),
+        "canonical_bp_loglikelihood (delta tips)": stacked(lambda: (
+            F.canonical_bp_loglikelihood(*pot, *tr, lam_inv, scal, mean0,
+                                         1.5),
+            F.canonical_bp_loglikelihood(*pot, *tr, lam_inv, scal, mean0,
+                                         1.5, dmask, pot[1]))),
+        "liability_consistency_loglik": stacked(lambda: (
+            L.liability_consistency_loglik(latent, cats, thr, 0.1),
+            L.liability_consistency_loglik(latent, cats, thr))),
+        "trait likelihood gradient (precision, branch rates)":
+            trait_gradient,
+    }
+
+
+def p18_functions_path(out_dir, dev):
+    """Phase 18b: p18_function_cases on the card and on the CPU, each
+    output's largest deviation over its largest magnitude held to
+    P18_REL_TOL. Returns the record."""
+    import torch
+
+    doc = os.path.join(out_dir, "makona_rrw.xml")
+    t0 = time.perf_counter()
+    got = {k: fn().detach().cpu().double() for k, fn in p18_function_cases(
+        doc, out_dir, dev).items()}
+    want = {k: fn().detach().double() for k, fn in p18_function_cases(
+        doc, out_dir, "cpu").items()}
+    worst = {}
+    for label, w in want.items():
+        g = got[label]
+        fin = torch.isfinite(w)
+        if g.shape != w.shape or not bool(fin.any()) or not bool(
+                torch.equal(g[~fin], w[~fin])):
+            raise AssertionError(f"P18b {label}: {g} against {w}")
+        worst[label] = float((g[fin] - w[fin]).abs().max()) / max(
+            float(w[fin].abs().max()), 1e-300)
+        if not worst[label] <= P18_REL_TOL:
+            raise AssertionError(f"P18b {label}: {worst[label]!r} > "
+                                 f"{P18_REL_TOL}")
+    top = max(worst, key=worst.get)
+    rec = {"functions": len(worst), "max_rel_err": worst[top], "worst": top,
+           "rel_err": worst, "seconds": time.perf_counter() - t0}
+    log(f"[P18b] {len(worst)} functions on the card against the CPU in "
+        f"{rec['seconds']:.2f} s: largest deviation {worst[top]!r} ({top}; "
+        f"tolerance {P18_REL_TOL})")
+    return rec
+
+
 def chain_gradient_checks(peel_cases, post_cases, chain_inputs, analyses,
                           reset_counts, read_counts, dev):
     """Phase 10g: the chain-axis gradients. peel_cases: [(kernel, label,
@@ -6025,6 +6492,12 @@ def main():
     p17["17d"] = p17_functions_path(SMOKE_OUT, dev)
     mark("17 marginal likelihood and particles")
 
+    # -- phase 18: continuous phylogeography, the relaxed random walk ----
+    p18, p18_launches = rrw_path(SMOKE_OUT, reset_counts, read_counts,
+                                 device_ms, dev)
+    p18["18b"] = p18_functions_path(SMOKE_OUT, dev)
+    mark("18 continuous phylogeography")
+
     # -- summary ------------------------------------------------------
     def entry(kname, source, replaces, launches, label):
         rec = next(r for r in checks[kname] if r["label"] == label)
@@ -6205,6 +6678,18 @@ def main():
         f"functions, largest deviation {p17['17d']['max_rel_err']!r}; phase "
         f"{phases['17 marginal likelihood and particles']:.2f} s; on "
         f"{smi_line}")
+    p18a = p18["18a"]
+    log(f"[summary p18] {p18['taxa']} taxa x {p18['sites']} sites "
+        f"({p18['patterns']} patterns) with 2-D locations: 18a CLI "
+        f"{p18a['cli_seconds']:.2f} s, {p18a['states_per_s']} states/s, "
+        f"peel_stream launches {p18a['predicted_launches']} (predicted), "
+        f"deviation {p18a['full_evaluation_deviation']!r}, trait likelihood "
+        f"{p18a['trait_ms']:.3f} ms, profile "
+        f"{p18a['profile_ms_per_step']:.3f} ms a step, busy share "
+        f"{p18a['device_busy_share']}, {p18a['device_events_per_step']} "
+        f"device events a step; 18b {p18['18b']['functions']} functions, "
+        f"largest deviation {p18['18b']['max_rel_err']!r}; phase "
+        f"{phases['18 continuous phylogeography']:.2f} s; on {smi_line}")
     log(f"[phases] {json.dumps(phases)}")
     log(smi_line)
     print(json.dumps({"kernels": [
@@ -6237,7 +6722,8 @@ def main():
                              **p10_launches, **p11_launches,
                              **p12_launches, **p13_launches,
                              **p14_launches, **p15_launches,
-                             **p16_launches, **p17_launches}}), flush=True)
+                             **p16_launches, **p17_launches,
+                             **p18_launches}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

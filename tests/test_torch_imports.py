@@ -28,7 +28,8 @@ def test_import_every_module_without_jax():
     # helpers (xml_ext, the first part of xml_geo, xml_assert's initial
     # state, xml_hmc's matrix parameters, xml_stats's current state, the
     # GMRF block update and elliptical slice sampler, the Sericola series,
-    # the stochastic Dollo model) are among the modules found
+    # the stochastic Dollo model, the continuous-trait models and
+    # config/xml_traits.py) are among the modules found
     assert {"beast_mcmc_tpu_torch.apps.makona",
             "beast_mcmc_tpu_torch.config.xml_ext",
             "beast_mcmc_tpu_torch.config.xml_geo",
@@ -38,6 +39,10 @@ def test_import_every_module_without_jax():
             "beast_mcmc_tpu_torch.inference.gibbs",
             "beast_mcmc_tpu_torch.ops.sericola",
             "beast_mcmc_tpu_torch.models.dollo",
+            "beast_mcmc_tpu_torch.models.continuous",
+            "beast_mcmc_tpu_torch.models.factor",
+            "beast_mcmc_tpu_torch.models.liability",
+            "beast_mcmc_tpu_torch.config.xml_traits",
             "beast_mcmc_tpu_torch.config.interpreter",
             "beast_mcmc_tpu_torch.models.epoch",
             "beast_mcmc_tpu_torch.__main__",

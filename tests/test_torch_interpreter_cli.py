@@ -114,37 +114,42 @@ def _jax_modules():
 
 
 # the JAX package's extension tags the port registers: all of
-# config/xml_ext.py's, xml_mle.py's and xml_assert.py's (dummyModel is
-# xml_factor.py's in JAX's registry, which registers it after xml_ext.py,
-# with the same zero density), the discrete-phylogeography part of
-# config/xml_geo.py and xml_stats.py's but its trait statistics (with its
-# operator, fireParameterChanged)
+# config/xml_ext.py's, xml_mle.py's, xml_assert.py's, xml_stats.py's (with
+# its operator, fireParameterChanged) and xml_traits.py's (with its
+# operator, newLatentLiabilityGibbsOperator; dummyModel is xml_factor.py's
+# in JAX's registry, which registers it after xml_ext.py, with the same
+# zero density), the discrete-phylogeography part of config/xml_geo.py and
+# the parts of config/xml_hmc.py the trait vocabulary reaches
 PORTED_MODULES = ("config/xml_ext.py", "config/xml_mle.py",
-                  "config/xml_assert.py")
-PORTED_OP_MODULES = PORTED_MODULES + ("config/xml_stats.py",)
+                  "config/xml_assert.py", "config/xml_stats.py",
+                  "config/xml_traits.py")
+PORTED_OP_MODULES = PORTED_MODULES
+PORTED_HMC = {"compoundEigenMatrix", "multivariateWishartPrior"}
+PORTED_HMC_OPS = {"precisionGibbsOperator", "internalTraitGibbsOperator"}
 PORTED_GEO = {"generalDataType", "attributePatterns",
               "generalSubstitutionModel", "svsGeneralSubstitutionModel",
               "complexSubstitutionModel", "beagleSequenceSimulator",
               "sequenceSimulator"}
-PORTED_STATS = {"parameterValues", "multiplicativeParameter",
-                "svdStatistic", "sequenceDistanceStatistic",
-                "ancestralTrait", "property", "cladeRelationshipStatistic"}
 
 
 def _ported(builders):
     return ({t for t, m in builders.items() if m in PORTED_MODULES}
-            | PORTED_GEO | PORTED_STATS | {"dummyModel"})
+            | PORTED_GEO | PORTED_HMC | {"dummyModel"})
+
+
+def _ported_ops(ops):
+    return {t for t, m in ops.items() if m in PORTED_OP_MODULES} \
+        | PORTED_HMC_OPS
 
 
 def test_base_registry_is_the_jax_base_registry():
     builders, ops = _jax_modules()
     base = {t for t, m in builders.items() if m == "config/interpreter.py"}
     assert len(base) == 91
-    assert len(_ported(builders)) == 65
+    assert len(_ported(builders)) == 102
     assert set(interp._BUILDERS) == base | _ported(builders)
-    assert set(interp._OP_EXT) == {t for t, m in ops.items()
-                                   if m in PORTED_OP_MODULES}
-    assert len(interp._OP_EXT) == 4
+    assert set(interp._OP_EXT) == _ported_ops(ops)
+    assert len(interp._OP_EXT) == 7
 
 
 def test_every_jax_tag_is_registered_or_names_its_module(tmp_path):
@@ -152,7 +157,7 @@ def test_every_jax_tag_is_registered_or_names_its_module(tmp_path):
     ported = _ported(builders)
     ext = sorted(t for t, m in builders.items()
                  if m != "config/interpreter.py" and t not in ported)
-    op_tags = sorted(t for t, m in ops.items() if m not in PORTED_OP_MODULES)
+    op_tags = sorted(t for t in ops if t not in _ported_ops(ops))
     body = "".join(f'<{t} id="n{i}"/>' for i, t in enumerate(ext))
     body += "<operators>" + "".join(f"<{t}/>" for t in op_tags) + \
         "</operators>"
@@ -173,9 +178,10 @@ def test_every_jax_tag_is_registered_or_names_its_module(tmp_path):
             interp._build_operator(ax, el)
         assert f"beast_mcmc_tpu/{ops[el.tag]}" in str(e.value)
         checked += 1
-    assert checked == len(ext) + len(op_tags) == 181 + 27 - 65 - 4
+    assert checked == len(ext) + len(op_tags) == 181 + 27 - 102 - 7
+    assert (len(ext), len(op_tags)) == (79, 20)
     # no tag of a ported module, and none of the ported xml_geo.py and
-    # xml_stats.py ones, is left among the unported
+    # xml_hmc.py ones, is left among the unported
     assert not set(interp._TAG_MODULE) & ported
     assert not set(PORTED_MODULES) & (set(interp.EXTENSION_TAGS)
                                       | set(interp.QUEUE_ITEMS))

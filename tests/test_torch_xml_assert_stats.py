@@ -23,8 +23,9 @@ is deterministic).
     a distance and as a likelihood), <ancestralTrait>'s column,
     <property> (a trace analysis's correlation statistics and their mean)
     and <cladeRelationshipStatistic> (sister and aInB); the trait
-    statistics raise Unsupported naming config/xml_traits.py and queue item
-    4g, and <property name="wishartStatistics"> config/xml_factor.py.
+    statistics (<blombergsK>, <continuousDiffusionStatistic> and
+    <traitDataContinuousDiffusionStatistic>) over a small trait document;
+    <property name="wishartStatistics"> raises naming config/xml_factor.py.
 """
 
 import re
@@ -256,13 +257,47 @@ def test_fire_parameter_changed_equals_jax(target, value, tmp_path):
         "operator type: fireParameterChanged\nfireParameterChanged\n")
 
 
+TRAIT_X = {"a": "0.3 1.2", "b": "0.5 0.9", "c": "-0.4 0.1", "d": "1.1 -0.2",
+           "e": "0.8 0.4"}
+TRAIT_LIK = """
+  <matrixParameter id="prec">
+    <parameter id="prec.c1" value="1.2 0.3"/><parameter id="prec.c2" value="0.3 0.9"/>
+  </matrixParameter>
+  <multivariateDiffusionModel id="diffusion">
+    <precisionMatrix><matrixParameter idref="prec"/></precisionMatrix>
+  </multivariateDiffusionModel>
+  <traitDataLikelihood id="traitLik" traitName="X">
+    <multivariateDiffusionModel idref="diffusion"/>
+    <treeModel idref="treeModel"/>
+    <traitParameter><parameter id="leaf.X"/></traitParameter>
+    <conjugateRootPrior>
+      <meanParameter><parameter value="0.5 0.5"/></meanParameter>
+      <priorSampleSize><parameter value="0.2"/></priorSampleSize>
+    </conjugateRootPrior>
+  </traitDataLikelihood>"""
+
+
 @pytest.mark.parametrize("tag", ["blombergsK", "continuousDiffusionStatistic",
                                  "traitDataContinuousDiffusionStatistic"])
 def test_trait_statistics_raise_naming_xml_traits(tag, tmp_path):
-    _, ax = _analyses(tmp_path, HEAD + f'<{tag} id="s"/></beast>')
-    with pytest.raises(interp.Unsupported,
-                       match=r"xml_traits\.py.*queue item 4g"):
-        ax.build(ax._ids["s"])
+    """The trait statistics, once waiting for config/xml_traits.py, now
+    build over its trait likelihood: their reports (Blomberg's K a trait
+    dimension; the dispersal rate of the conditional-mean reconstruction)
+    equal JAX's on a small trait document, to 1e-10 relative."""
+    head = HEAD
+    for t, v in TRAIT_X.items():
+        head = head.replace(f'<taxon id="{t}"/>',
+                            f'<taxon id="{t}"><attr name="X">{v}</attr>'
+                            '</taxon>')
+    jax_ax, ax = _analyses(tmp_path, head + TRAIT_LIK + (
+        f'<{tag} id="s"><traitDataLikelihood idref="traitLik"/></{tag}>'
+        '</beast>'))
+    got = xml_assert.report_of(ax, ax._ids["s"])
+    want = jassert.report_of(jax_ax, jax_ax._ids["s"])
+    assert NUM.sub("#", got) == NUM.sub("#", want)
+    np.testing.assert_allclose([float(x) for x in NUM.findall(got)],
+                               [float(x) for x in NUM.findall(want)],
+                               rtol=1e-10)
 
 
 def test_wishart_statistics_property_raises_naming_xml_factor(tmp_path):

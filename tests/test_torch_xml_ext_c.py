@@ -6,8 +6,9 @@ posterior likelihood, the multivariate OU model, and the product and
 transmission statistics, with the checks of tests/test_torch_xml_ext_a.py
 (tests/test_torch_interpreter.py::check_against_jax and check_chain). Then
 the registrations no document here runs: the gradient elements and their
-reports, the trait-likelihood wrappers and the rewards-aware branch model,
-whose branches into unported modules raise Unsupported naming them."""
+reports (whose branches into unported modules raise Unsupported naming
+them), the trait-likelihood wrappers and the rewards-aware branch model
+over config/xml_traits.py's likelihood and clock."""
 
 import re
 import xml.etree.ElementTree as ET
@@ -209,19 +210,68 @@ def test_gradient_elements_build_and_reports_name_their_modules(tmp_path):
 def test_wrappers_of_unported_modules_raise_naming_them(tmp_path):
     """<traitValidation> and <gaussianProcessFromTree> wrap a
     traitDataLikelihood and <rewardsAwareBranchModel> an
-    arbitraryBranchRates clock: config/xml_traits.py's (queue item 4g)."""
-    doc = ET.fromstring(ext_documents({"x": {}})["x"])
-    tv = ET.SubElement(doc, "traitValidation", id="tv")
-    ET.SubElement(tv, "traitDataLikelihood", id="tdl")
-    gp = ET.SubElement(doc, "gaussianProcessFromTree", id="gp")
-    ET.SubElement(gp, "traitDataLikelihood", idref="tdl")
-    rw = ET.SubElement(doc, "rewardsAwareBranchModel", id="rw")
-    ET.SubElement(rw, "arbitraryBranchRates", id="abr")
-    _, ax = _analyses(tmp_path, ET.tostring(doc, encoding="unicode"))
-    for name in ("tv", "gp", "rw"):
-        with pytest.raises(interp.Unsupported,
-                           match="xml_traits.py.*queue item 4g"):
-            ax.build(ax._ids[name])
+    arbitraryBranchRates clock, which waited for config/xml_traits.py:
+    they build now, as JAX's do. The validation's columns (each missing
+    entry's squared error and their sum) equal JAX's at the start state;
+    the Gaussian process has no columns; the rewards-aware model's report
+    (its branch W matrices) equals JAX's to 1e-10 relative."""
+    from beast_mcmc_tpu.config import xml_assert as jassert
+    from beast_mcmc_tpu_torch.config import xml_assert
+
+    from test_torch_xml_traits_a import LOC_MISSING, PRECISION, ROOT, \
+        with_attrs
+
+    doc = ext_documents({"x": {"models": PRECISION + f"""
+      <traitDataLikelihood id="tdl" traitName="location">
+        <multivariateDiffusionModel idref="diffusion"/>
+        <treeModel idref="treeModel"/>
+        <traitParameter><parameter id="leaf.location"/></traitParameter>
+        {ROOT}
+      </traitDataLikelihood>
+      <traitValidation id="tv">
+        <traitDataLikelihood idref="tdl"/>
+        <traitParameter><parameter id="truth"
+          value="8.1 -10.9 7.6 -11.8 9.3 -12.6 6.8 -10.1 8.9 -13.2 7.2 -12.0"/>
+        </traitParameter>
+      </traitValidation>
+      <gaussianProcessFromTree id="gp"><traitDataLikelihood idref="tdl"/>
+      </gaussianProcessFromTree>
+      <arbitraryBranchRates id="abr"><treeModel idref="treeModel"/>
+        <rates><parameter id="abr.rates" value="1.0"/></rates>
+      </arbitraryBranchRates>
+      <generalSubstitutionModel id="gsm">
+        <generalDataType><state code="0"/><state code="1"/></generalDataType>
+        <frequencies><frequencyModel><frequencies>
+          <parameter value="0.4 0.6"/></frequencies></frequencyModel></frequencies>
+        <rates><parameter id="gsm.rates" value="1.0"/></rates>
+      </generalSubstitutionModel>
+      <rewardsAwareBranchModel id="rw">
+        <arbitraryBranchRates idref="abr"/>
+        <rewardRates><parameter value="0.0 1.0"/></rewardRates>
+        <generalSubstitutionModel idref="gsm"/>
+      </rewardsAwareBranchModel>"""}})["x"]
+    jax_ax, ax = _analyses(tmp_path, with_attrs(doc, LOC_MISSING))
+    for a in (jax_ax, ax):
+        for el in a.root.iter("treeModel"):
+            if el.get("id"):
+                a.build(el)
+    tv, jtv = ax.build(ax._ids["tv"]), jax_ax.build(jax_ax._ids["tv"])
+    assert [c for c, _ in tv.columns] == [c for c, _ in jtv.columns]
+    assert len(tv.columns) == 4  # three missing entries and their sum
+    p0, t0 = xml_assert.initial_eval_state(ax)
+    jp0, jt0 = jassert.initial_eval_state(jax_ax)
+    s, js = interp._StateShim(p0, t0), jinterp._StateShim(jp0, jt0)
+    np.testing.assert_allclose([float(f(s)) for _, f in tv.columns],
+                               [float(f(js)) for _, f in jtv.columns],
+                               rtol=1e-12)
+    gp, jgp = ax.build(ax._ids["gp"]), jax_ax.build(jax_ax._ids["gp"])
+    assert list(gp.columns) == [] and type(gp).__name__ == "_Gp"
+    rep = ax.build(ax._ids["rw"]).report(ax)
+    jrep = jax_ax.build(jax_ax._ids["rw"]).report(jax_ax)
+    nums = [np.array(re.findall(r"-?[\d.]+(?:e-?\d+)?", r), float)
+            for r in (rep, jrep)]
+    assert rep.split(":")[0] == jrep.split(":")[0]
+    np.testing.assert_allclose(nums[0], nums[1], rtol=1e-10, atol=1e-12)
 
 
 def test_small_registrations_match_jax(tmp_path):
