@@ -30,13 +30,14 @@ drawn from the analysis's numpy generator (`_rng`, the coalescent start
 tree among them) is drawn the same way and equal.
 
 Of the nine extension modules (config/xml_{assert,ext,factor,field,geo,
-hmc,mle,stats,traits}.py), config/xml_ext.py, xml_assert.py, xml_mle.py,
-xml_stats.py and xml_traits.py (the continuous-trait likelihoods) are
-ported whole, and config/xml_geo.py's discrete-phylogeography part
-(general data types, attribute patterns, general substitution models, the
-sequence simulator), with the parts of xml_hmc.py they reach (its matrix
-parameters and transforms, the Wishart prior, GradientSpec, the precision
-and internal-trait Gibbs operators). <marginalLikelihoodEstimator> runs
+hmc,mle,stats,traits}.py), all but xml_factor.py and xml_field.py are
+ported whole: xml_hmc.py's gradient and HMC vocabulary, xml_geo.py's
+discrete phylogeography with the GLM and the structured coalescent, and
+the continuous traits of xml_traits.py among them. A tree likelihood
+registers beside itself its first-order surrogate (`_surrogate_liks`:
+models/treelikelihood.py::tree_loglikelihood_q_approx_grad, the
+generator reassembled from an eigen model), which the approximate
+CTMC-rate gradient elements report. <marginalLikelihoodEstimator> runs
 its ladder of tempered chains in document order (config/xml_mle.py), and
 <assertEqual> its comparison (config/xml_assert.py), which warns and
 skips where the state came from a random stream (after an <mcmc>, or on
@@ -82,10 +83,8 @@ class XmlError(ValueError):
 # ---------------------------------------------------------------------------
 
 QUEUE_ITEMS = {
-    "config/xml_geo.py": "4g",
     "config/xml_factor.py": "4g",
     "config/xml_field.py": "4g",
-    "config/xml_hmc.py": "5b",
 }
 
 EXTENSION_TAGS: Dict[str, Tuple[str, ...]] = {
@@ -112,30 +111,6 @@ EXTENSION_TAGS: Dict[str, Tuple[str, ...]] = {
         "multilocusNPCoalescentLikelihoodGradient", "randomField",
         "randomFieldGradient", "weightProvider",
     ),
-    "config/xml_geo.py": (
-        "approximateLogCtmcRateGradient", "glmModel",
-        "glmSubstitutionModel", "glmSubstitutionModelGradient",
-        "instantaneousMixtureSubstitutionModel", "logCtmcRateGradient",
-        "logRateSubstitutionModel", "oldGLMSubstitutionModel", "stateSet",
-        "stronglyLumpableCtmcRates", "structuredCoalescent",
-        "structuredCoalescentLikelihoodGradient",
-        "substitutionGeneratorGradient", "timeVaryingFrequences",
-        "timeVaryingFrequencies",
-    ),
-    "config/xml_hmc.py": (
-        "DiagonalMatrix", "autoRegressiveNormalDistributionModel",
-        "branchSubstitutionParameterGradient", "cachedMatrixInverse",
-        "coalescentGradient", "compactGradient", "compoundGradient",
-        "compoundPriorPreconditioner", "compoundSymmetricMatrix",
-        "diagonalContrainedMatrixView", "diagonalMatrix", "dummyLikelihood",
-        "exponentialStatistic", "gradient", "gradientWrtIncrements1D",
-        "graphicalParameterBounds", "hessian", "jointGradient",
-        "matrixInverse", "multivariateDistributionLikelihood",
-        "multivariateNormalDistributionModel", "negativeStatistic",
-        "nodeHeightGradient", "numericalGradient", "numericalHessian",
-        "purelyNumericalHessian", "reciprocalStatistic", "skylineGradient",
-        "speciationLikelihoodGradient",
-    ),
 }
 
 EXTENSION_OPERATORS: Dict[str, Tuple[str, ...]] = {
@@ -144,18 +119,6 @@ EXTENSION_OPERATORS: Dict[str, Tuple[str, ...]] = {
         "integratedFactorsGibbsOperator", "latentLiabilityGibbsOperator",
         "loadingsGibbsOperator", "loadingsScaleGibbsOperator",
         "newLatentLiabilityGibbsOperator2",
-    ),
-    "config/xml_geo.py": (
-        "tipStateOperator",
-    ),
-    "config/xml_hmc.py": (
-        "NoUTurnOperator", "bayesianBridgeGibbsOperator",
-        "bouncyParticleOperator", "dirtyLikelihood",
-        "geodesicHamiltonianMonteCarloOperator",
-        "hamiltonianMonteCarloOperator",
-        "matrixVonMisesFisherGibbsOperator", "noUTurnOperator",
-        "normalGammaPrecisionGibbsOperator", "normalNormalMeanGibbsOperator",
-        "reflectiveHamiltonianMonteCarloOperator", "zigZagOperator",
     ),
 }
 
@@ -3013,6 +2976,28 @@ def _tree_likelihood(ax: XmlAnalysis, el):
         tips=tips_t, w=w_t, site_kind=site_kind, eigen=eigen,
         freqs_of=freqs_of, rates_weights=rates_weights, clock=clock, tm=tm,
         dtype=dtype, n_taxa=len(tm.taxa))
+
+    # the same value with the reference's first-order generator gradient,
+    # which the approximate CTMC-rate gradient elements report
+    # (config/xml_geo.py, xml_hmc.py); an eigen model's generator is
+    # reassembled as Q = U diag(lambda) U^-1
+    def fn_approx(params, tree):
+        from beast_mcmc_tpu_torch.models.treelikelihood import (
+            tree_loglikelihood_q_approx_grad,
+        )
+
+        r, w = rates_weights(params, dtype)
+        es = eigen(params)
+        q_mat = es if site_kind == "site_q" else (
+            es.U @ (es.values[..., None] * es.U_inv))
+        return tree_loglikelihood_q_approx_grad(
+            tips_t, w_t, tree.parent, tree.children, tree.heights,
+            tree.root, q_mat, freqs_of(params), r, w,
+            clock.rates(params, tree))
+
+    ax._surrogate_liks = getattr(ax, "_surrogate_liks", {})
+    ax._surrogate_liks[el.get("id") or "treeLikelihood"] = LikelihoodFn(
+        fn_approx, tm.tree_id, el.get("id") or "treeLikelihood")
     return LikelihoodFn(fn, tm.tree_id, el.get("id") or "treeLikelihood")
 
 
@@ -3943,8 +3928,13 @@ def _build_operator(ax: XmlAnalysis, el):
                                     window=0.3), tid
 
     if tag in ("fireParameterChanged", "patternWeightIncrementOperator"):
-        raise unported(f"operator <{tag}> (its _IdentityOperator)",
-                       "config/xml_hmc.py")
+        # FireParameterChangedOperator (a model-graph cache poke) and
+        # PatternWeightIncrementOperator (online data arrival; the chain
+        # scores the full data from the start, the same target at the
+        # end): the chain re-evaluates every step, so a no-op accept
+        from beast_mcmc_tpu_torch.config.xml_hmc import _IdentityOperator
+
+        return _IdentityOperator(weight=w), None
 
     if tag == "deltaMixOperator":
         # DeltaMixOperator, as the JAX package substitutes it: the additive

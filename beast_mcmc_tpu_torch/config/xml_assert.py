@@ -22,8 +22,9 @@ differentiated; a config/xml_hmc.py GradientSpec reports so. A trait
 likelihood's report carries the reference's continuous-data extras (the
 trait variance, the observed datum, ContinuousDataLikelihoodDelegate
 .getReport:446) but its outer-product statistics, which are config/
-xml_factor.py's (ROADMAP queue item 4g). Reports of config/xml_hmc.py's
-operators raise Unsupported naming that module (queue item 5b).
+xml_factor.py's (ROADMAP queue item 4g). An operator's report is its
+config/xml_hmc.py::OP_REPORTS entry (the geodesic HMC's deterministic
+leapfrog, the log-rate model's generator) where it has one.
 """
 
 from __future__ import annotations
@@ -42,13 +43,8 @@ from beast_mcmc_tpu_torch.config.interpreter import (
     XmlError,
     _attr,
     register,
-    unported,
 )
 from beast_mcmc_tpu_torch.tree.topology import make_tree_state
-
-# the operator reports of config/xml_hmc.py (its OP_REPORTS)
-HMC_OP_REPORTS = ("geodesicHamiltonianMonteCarloOperator",)
-
 
 # ---------------------------------------------------------------------------
 # the parse-time state
@@ -176,11 +172,17 @@ def gradient_report(ax: XmlAnalysis, spec) -> str:
         with sequential_peel_only(), autograd_peel():
             x = x0_t.clone().requires_grad_(True)
             (g,) = torch.autograd.grad(density(x), x, create_graph=True)
+
+            def second(i):
+                # a gradient entry constant in x (a density linear in it)
+                # has no graph: its second derivative is 0, as jax.grad's
+                if not g[i].requires_grad:
+                    return 0.0
+                return float(torch.autograd.grad(g[i], x,
+                                                 retain_graph=True)[0][i])
+
             try:
-                hdiag_a = np.array([
-                    float(torch.autograd.grad(g[i], x,
-                                              retain_graph=True)[0][i])
-                    for i in range(x0.size)])
+                hdiag_a = np.array([second(i) for i in range(x0.size)])
             except RuntimeError as e:  # a once-differentiable kernel adjoint
                 raise Unsupported(f"the Hessian of this density on "
                                   f"{x0_t.device}: {e}") from e
@@ -221,8 +223,10 @@ def report_of(ax: XmlAnalysis, el) -> str:
             parts.append(report_of(ax, c))
             parts.append(c.tail or "")
         return "".join(parts)
-    if tag in HMC_OP_REPORTS:
-        raise unported(f"the report of <{tag}>", "config/xml_hmc.py")
+    from beast_mcmc_tpu_torch.config.xml_hmc import OP_REPORTS
+
+    if tag in OP_REPORTS:
+        return OP_REPORTS[tag](ax, el)
     if tag in _OP_EXT:
         # an operator as the `actual`: the reference's operator report
         # leads with "operator type: <parser name>" (BeastUnitTest on

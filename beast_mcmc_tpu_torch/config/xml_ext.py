@@ -7,10 +7,9 @@ Counterpart of beast_mcmc_tpu/config/xml_ext.py, every registration of it
 builder follows. Densities are closures over (params, tree) on the
 analysis's device; the distance-matrix trees, the reward (Sericola)
 branch matrices and the LKJ normaliser are computed on the host at parse
-time, as in the JAX package. Where a handler reaches a module of a later
-ROADMAP queue item, that branch raises Unsupported naming it: the
-gradient reports of <gmrfSkyrideGradient> over populations or precision
-(config/xml_hmc.py, item 5b). <traitValidation> and
+time, as in the JAX package. <gmrfSkyrideGradient> over populations or
+precision reports through config/xml_assert.py::gradient_report, and its
+node-height form is config/xml_hmc.py's GradientSpec. <traitValidation> and
 <gaussianProcessFromTree> wrap a trait likelihood and
 <rewardsAwareBranchModel> an arbitraryBranchRates clock of
 config/xml_traits.py. The JAX package's loops (lax.scan, fori_loop) are
@@ -43,7 +42,6 @@ from beast_mcmc_tpu_torch.config.interpreter import (
     _tree_model,
     register,
     register_operator,
-    unported,
 )
 
 
@@ -281,8 +279,10 @@ class SkygridGradient:
     wrt: str = ""
 
     def report(self, ax) -> str:
-        raise unported("the report of <gmrfSkyrideGradient> (GradientSpec)",
-                       "config/xml_hmc.py")
+        from beast_mcmc_tpu_torch.config.xml_assert import gradient_report
+        from beast_mcmc_tpu_torch.config.xml_hmc import GradientSpec
+
+        return gradient_report(ax, GradientSpec((self.wrt,), (self.lik,)))
 
 
 @dataclasses.dataclass
@@ -326,8 +326,9 @@ def _skygrid_gradient(ax: XmlAnalysis, el):
     if lik is None:
         raise XmlError("gmrfSkyrideGradient without skygrid likelihood")
     if wrt_attr == "nodeHeight":
-        raise unported("<gmrfSkyrideGradient wrtParameter=\"nodeHeight\"> "
-                       "(GradientSpec)", "config/xml_hmc.py")
+        from beast_mcmc_tpu_torch.config.xml_hmc import GradientSpec
+
+        return GradientSpec((), (lik,), height_tid=lik.tree_id)
     if wrt_attr == "coalescentInterval":
         return CoalescentIntervalGradient(lik, lik.tree_id)
     if wrt_attr.lower().startswith("prec"):

@@ -1,8 +1,8 @@
 """XML vocabulary of discrete phylogeography: general data types,
-attribute patterns, general substitution models and sequence simulation.
+attribute patterns, general, log-rate and GLM substitution models, the
+structured coalescent, and sequence simulation.
 
-Counterpart of beast_mcmc_tpu/config/xml_geo.py, its first part (:42-267,
-:598-743): the tags the Makona-class document reaches.
+Counterpart of beast_mcmc_tpu/config/xml_geo.py, whole:
 
   generalDataType             (GeneralDataTypeParser:45)
   attributePatterns           (AttributePatternsParser)
@@ -12,24 +12,33 @@ Counterpart of beast_mcmc_tpu/config/xml_geo.py, its first part (:42-267,
                               svs_connectivity_prior, added where the
                               model sits in a <prior>)
   complexSubstitutionModel    (ComplexSubstitutionModelParser)
+  logRateSubstitutionModel    (LogRateSubstitutionModelParser)
+  glmModel, glmSubstitutionModel, glmSubstitutionModelGradient
+                              (GeneralizedLinearModelParser,
+                              GLMSubstitutionModelParser,
+                              GlmSubstitutionModelGradientParser)
+  instantaneousMixtureSubstitutionModel, stateSet,
+  stronglyLumpableCtmcRates, approximateLogCtmcRateGradient
+  structuredCoalescent, timeVaryingFrequencies, tipStateOperator,
+  structuredCoalescentLikelihoodGradient (BASTA: models/basta.py)
   beagleSequenceSimulator, sequenceSimulator
                               (BeagleSequenceSimulatorParser,
                               SequenceSimulatorParser)
 
-A reversible model is ("subst", eigen, freqs, K); a non-reversible or
-BSSVS one ("subst_q", q_fn, freqs, K), its Q [K, K] built on the params'
-device. The simulator runs on the host in numpy with scipy's expm on the
+A reversible model is ("subst", eigen, freqs, K); a non-reversible, BSSVS,
+log-rate or GLM one ("subst_q", q_fn, freqs, K), its Q [K, K] built on the
+params' device. The GLM gradient element reports the interpreter's
+first-order surrogate (`_surrogate_liks`), as the reference's provider
+does. The simulator runs on the host in numpy with scipy's expm on the
 analysis's numpy generator (`_rng`), drawing the same numbers in the same
 order as the JAX package's: the categories, the root states, then one
 uniform a site of a node's category in preorder. So a document gives the
-JAX package's alignment state for state. The rest of the JAX module (the
-GLM and log-rate models, the structured coalescent, the gradients, ...)
-stays with ROADMAP queue item 4g, its tags raising Unsupported
-(config/interpreter.py EXTENSION_TAGS).
+JAX package's alignment state for state.
 """
 
 from __future__ import annotations
 
+import math
 from typing import List
 
 import numpy as np
@@ -43,6 +52,7 @@ from beast_mcmc_tpu_torch.config.interpreter import (
     XmlError,
     _attr,
     register,
+    register_operator,
 )
 from beast_mcmc_tpu_torch.models.substitution import (
     general_complex_q,
@@ -145,19 +155,31 @@ def _freq_model_of(ax, el, tag="frequencies"):
     return ax.param_from(fq)
 
 
-def _complex_q_fn(rates_of, fname, k):
+def _complex_q_fn(rates_of, fname, k, normalize=True,
+                  scale_by_freqs=True):
     """params -> Q [k, k] in the reference's complex ordering
     (models/substitution.py::general_complex_q, normalised to mean rate 1
-    under pi); a K(K-1)/2 rate vector fills both triangles."""
+    under pi unless normalize is false); a K(K-1)/2 rate vector fills
+    both triangles."""
     n_half = k * (k - 1) // 2
 
     def q_fn(params):
         r = rates_of(params)
         if r.shape[0] == n_half:
             r = torch.cat([r, r])
-        return general_complex_q(r, params[fname])
+        return general_complex_q(r, params[fname], normalize,
+                                 scale_by_freqs)
 
     return q_fn
+
+
+def _freqs_of(fname):
+    """params -> the normalised frequencies of parameter fname."""
+    def freqs(params):
+        f = params[fname]
+        return f / torch.sum(f)
+
+    return freqs
 
 
 @register("generalSubstitutionModel", "svsGeneralSubstitutionModel")
@@ -197,9 +219,7 @@ def _general_substitution_model(ax: XmlAnalysis, el):
             r = r * params[iname].reshape(-1)
         return r
 
-    def freqs(params):
-        f = params[fname]
-        return f / torch.sum(f)
+    freqs = _freqs_of(fname)
 
     if iname is not None:
         # the BSSVS bookkeeping of the connectivity prior
@@ -242,6 +262,283 @@ def _complex_substitution_model(ax: XmlAnalysis, el):
     """A non-reversible K(K-1)-rate CTMC on the expm path
     (ComplexSubstitutionModelParser)."""
     return _general_substitution_model(ax, el)
+
+
+def _q_of(model, params):
+    """The generator of a ("subst", eigen, ...) or ("subst_q", q, ...)
+    model at params."""
+    if model[0] == "subst_q":
+        return model[1](params)
+    es = model[1](params)
+    return es.U @ (es.values[..., None] * es.U_inv)
+
+
+@register("logRateSubstitutionModel")
+def _log_rate_substitution_model(ax: XmlAnalysis, el):
+    """LogRateSubstitutionModelParser: rates exp(logRates) in the complex
+    order, with the normalize and scaleRatesByFrequencies attributes; or
+    the real-space rates of a <rateProvider>
+    (LogRateSubstitutionModel.setupRelativeRates:69-71)."""
+    from beast_mcmc_tpu_torch.config.interpreter import Param
+
+    fname = _freq_model_of(ax, el, "rootFrequencies")
+    if fname is None:
+        fname = _freq_model_of(ax, el)
+    if fname is None:
+        raise XmlError("logRateSubstitutionModel without rootFrequencies")
+    k = int(np.size(ax.value_of(fname)))
+    normalize = _attr(el, "normalize", True, bool)
+    scale_by = _attr(el, "scaleRatesByFrequencies", True, bool)
+    lr = el.find("logRates")
+    if lr is None:
+        rp = el.find("rateProvider")
+        if rp is None:
+            raise XmlError("logRateSubstitutionModel without logRates")
+        provider = ax.build(ax.deref(next(iter(rp))))
+        return ("subst_q", _complex_q_fn(provider.rates, fname, k,
+                                         normalize, scale_by),
+                _freqs_of(fname), k)
+    lname = ax.param_from(lr)
+    if int(np.size(ax.value_of(lname))) != k * (k - 1):
+        # the reference sizes the parameter from the data type
+        p = ax._params[lname]
+        ax._params[lname] = Param(
+            lname, np.resize(np.atleast_1d(p.value), k * (k - 1)),
+            p.lower, p.upper)
+
+    def rates_of(params):
+        return torch.exp(params[lname].reshape(-1))
+
+    return ("subst_q", _complex_q_fn(rates_of, fname, k, normalize,
+                                     scale_by), _freqs_of(fname), k)
+
+
+# ---------------------------------------------------------------------------
+# GLM substitution models
+# ---------------------------------------------------------------------------
+
+
+@register("glmModel")
+def _glm_model(ax: XmlAnalysis, el):
+    """GeneralizedLinearModelParser. family logLinear (the default): the
+    rate builder ("glm", (design [R, P], column names), coefficient names,
+    indicator name) of a GLM substitution model, a scalar coefficient
+    expanded to its block's columns (GeneralizedLinearModel.
+    addIndependentParameter) and each design column live (a
+    build="true" maskedParameter fills and samples NA covariates,
+    MaskedParameterParser.java:60-86) or static (a mixture model's
+    columns, snapshotted at parse, name None). family logNormal: the
+    regression likelihood of the dependent variables, log y ~ N(X beta,
+    1 / tau) with the indicator-masked coefficients and the scaleVariables
+    precision (JAX writes it inline, config/xml_geo.py:425-452)."""
+    from beast_mcmc_tpu_torch.config.interpreter import (
+        CompoundParam,
+        _text_values,
+    )
+
+    family = el.get("family") or "logLinear"
+    if family not in ("logLinear", "logNormal"):
+        raise Unsupported(f"glmModel family {family!r}")
+    blocks = el.findall("independentVariables")
+    if not blocks:
+        raise XmlError("glmModel without independentVariables")
+    design_cols, design_names, coefs = [], [], []
+    ind = None
+    for iv in blocks:
+        block_start = len(design_cols)
+        coef = None
+        for c in iv:
+            cc = ax.deref(c)
+            if cc.tag == "parameter":
+                obj = ax.build(cc)
+                coef = obj.name if hasattr(obj, "name") else coef
+            elif cc.tag == "designMatrix":
+                for p in cc:
+                    pp = ax.deref(p)
+                    if pp.tag == "parameter":
+                        design_names.append(ax.param_from(pp))
+                        design_cols.append(_text_values(pp))
+            elif cc.tag in ("aminoAcidMixtureModel",
+                            "substitutionRateMatrixMixtureModel"):
+                # AminoAcidMixture.java:50-66, SubstitutionRateMatrixMixture
+                # .java:50-84: one static column a component,
+                # [log q_ij - log f_j]_{i<j} then [log q_ji - log f_i]_{i<j}
+                # (an empirical amino-acid model's log exchangeabilities
+                # in both halves)
+                for sm in cc:
+                    ss = ax.deref(sm)
+                    if ss.tag in ("aminoAcidModel", "empiricalAminoAcidModel"):
+                        from beast_mcmc_tpu_torch.models.data.aa_matrices \
+                            import AA_MODELS
+
+                        col = np.log(np.asarray(
+                            AA_MODELS[ss.get("type").upper()]["rates"],
+                            float))
+                        design_cols.append(np.concatenate([col, col]))
+                        design_names.append(None)
+                        continue
+                    obj = ax.build(ss)
+                    if not (isinstance(obj, tuple) and obj[0] == "subst"):
+                        raise Unsupported(f"mixture component <{ss.tag}>")
+                    p0 = {p.name: ax.tensor(p.value)
+                          for p in ax._params.values()}
+                    q0 = _host(_q_of(obj, p0)).astype(float)
+                    f0 = _host(obj[2](p0)).astype(float)
+                    iu = np.triu_indices(obj[3], 1)
+                    design_cols.append(np.concatenate([
+                        np.log(q0[iu]) - np.log(f0[iu[1]]),
+                        np.log(q0[(iu[1], iu[0])]) - np.log(f0[iu[0]])]))
+                    design_names.append(None)
+            elif cc.tag == "indicator":
+                ind = ax.param_from(cc)
+        n_b = len(design_cols) - block_start
+        if coef is None or n_b == 0:
+            raise XmlError("glmModel needs coefficients + designMatrix")
+        if coef in ax._params:
+            pv = np.ravel(ax._params[coef].value)
+            if pv.size == 1 and n_b > 1:
+                ax._params[coef].value = np.full(n_b, pv[0])
+        coefs.append(coef)
+    design = np.stack(design_cols, axis=1)  # [R, P]
+    if family == "logLinear":
+        return ("glm", (design, tuple(design_names)), tuple(coefs), ind)
+    dv = el.find("dependentVariables")
+    if dv is None:
+        raise XmlError("glmModel logNormal without dependentVariables")
+    dep_obj = ax.build(ax.deref(next(iter(dv))))
+    dep_names = (tuple(dep_obj.names) if isinstance(dep_obj, CompoundParam)
+                 else (dep_obj.name,))
+    sv = el.find("scaleVariables")
+    prec_name = ax.param_from(sv) if sv is not None else None
+    design_t = ax.tensor(design)
+
+    def fn(params, tree):
+        y = torch.cat([params[n].reshape(-1) for n in dep_names])
+        beta = torch.cat([params[c].reshape(-1) for c in coefs])
+        if ind is not None:
+            beta = beta * params[ind].reshape(-1)
+        mu = design_t.to(y.dtype) @ beta.to(y.dtype)
+        tau = (params[prec_name].reshape(-1)[0] if prec_name
+               else torch.ones((), dtype=y.dtype, device=y.device))
+        ly = torch.log(y)
+        return torch.sum(0.5 * torch.log(tau) - 0.5 * math.log(2 * math.pi)
+                         - ly - 0.5 * tau * (ly - mu) ** 2)
+
+    return LikelihoodFn(fn, None, el.get("id") or "glmModel", dep_names)
+
+
+@register("instantaneousMixtureSubstitutionModel")
+def _instantaneous_mixture_subst(ax: XmlAnalysis, el):
+    """InstantaneousMixtureSubstitutionModel.java:90-192: relative rates
+    the geometric mixture exp(sum_m w_m log r_m) of the components' (upper
+    then transposed lower order); a scalar weight is (p, 1 - p). A
+    component's raw rates differ from q_ij / f_j by a global scale, which
+    the normalisation cancels."""
+    w_name = fname = None
+    comps = []
+    for c in el:
+        cc = ax.deref(c)
+        if cc.tag == "mixtureWeights":
+            w_name = ax.param_from(cc)
+        elif cc.tag == "rootFrequencies":
+            continue
+        else:
+            try:
+                obj = ax.build(cc)
+            except (Unsupported, XmlError):
+                continue
+            if isinstance(obj, tuple) and obj[0] in ("subst", "subst_q"):
+                comps.append(obj)
+    fname = _freq_model_of(ax, el, "rootFrequencies")
+    if w_name is None or not comps or fname is None:
+        raise XmlError("instantaneousMixtureSubstitutionModel structure")
+    k = int(np.size(ax.value_of(fname)))
+    iu = np.triu_indices(k, 1)
+
+    def comp_log_rates(obj, params):
+        q, f = _q_of(obj, params), obj[2](params)
+        upper = q[iu] / f[iu[1]]
+        lower = q[(iu[1], iu[0])] / f[iu[0]]
+        return torch.log(torch.cat([upper, lower]))
+
+    def rates_of(params):
+        w = params[w_name].reshape(-1)
+        if w.shape[0] == 1 and len(comps) == 2:
+            w = torch.cat([w, 1.0 - w])
+        logr = torch.stack([comp_log_rates(o, params) for o in comps])
+        return torch.exp(torch.einsum("m,mr->r", w.to(logr.dtype), logr))
+
+    return ("subst_q", _complex_q_fn(rates_of, fname, k), _freqs_of(fname),
+            k)
+
+
+@register("glmSubstitutionModel", "oldGLMSubstitutionModel")
+def _glm_substitution_model(ax: XmlAnalysis, el):
+    """GLMSubstitutionModelParser: a CTMC whose off-diagonal rates are
+    exp(X beta) in the complex order (upper, then transposed lower), its
+    root frequencies the frequencyModel's."""
+    dt_obj = glm = None
+    for c in el:
+        cc = ax.deref(c)
+        if cc.tag == "generalDataType":
+            dt_obj = ax.build(cc)
+        elif cc.tag == "glmModel":
+            glm = ax.build(cc)
+    fname = _freq_model_of(ax, el, "rootFrequencies")
+    if fname is None:
+        fname = _freq_model_of(ax, el)
+    if fname is None or glm is None:
+        raise XmlError("glmSubstitutionModel needs rootFrequencies+glmModel")
+    k = (dt_obj.state_count if dt_obj is not None
+         else int(np.size(ax.value_of(fname))))
+    _, (design, design_names), coefs, ind = glm
+    normalize = _attr(el, "normalize", True, bool)
+    n_rates = design.shape[0]
+    design0 = ax.tensor(design)
+
+    def rates_of(params):
+        beta = torch.cat([params[c].reshape(-1) for c in coefs])
+        if ind is not None:
+            beta = beta * params[ind].reshape(-1)
+        # a live column reads its parameter; a static one (name None) the
+        # parse-time design
+        cols = [params[n].reshape(-1)[:n_rates].to(beta.dtype)
+                if n is not None else design0[:, i].to(beta.dtype)
+                for i, n in enumerate(design_names)]
+        return torch.exp(torch.stack(cols, dim=1) @ beta)
+
+    out = ("subst_q", _complex_q_fn(rates_of, fname, k, normalize, True),
+           _freqs_of(fname), k)
+    ax._glm_subst = getattr(ax, "_glm_subst", {})
+    ax._glm_subst[el.get("id") or "glm"] = (out, coefs)
+    return out
+
+
+@register("glmSubstitutionModelGradient", "substitutionGeneratorGradient")
+def _glm_substitution_gradient(ax: XmlAnalysis, el):
+    """GlmSubstitutionModelGradientParser: the tree likelihood's gradient
+    in the GLM coefficients as the reference provider reports it, the
+    first-order generator surrogate (the interpreter's
+    `_surrogate_liks`). An HMC operator that names it steps on the exact
+    posterior's gradient all the same (config/xml_hmc.py)."""
+    from beast_mcmc_tpu_torch.config.xml_hmc import GradientSpec
+
+    lik = coef = None
+    for c in el:
+        cc = ax.deref(c)
+        if cc.tag in ("treeDataLikelihood", "treeLikelihood"):
+            lik = ax.build(cc)
+            sur = getattr(ax, "_surrogate_liks", {}).get(cc.get("id"))
+            if sur is not None:
+                lik = sur
+        elif cc.tag == "glmSubstitutionModel":
+            ax.build(cc)
+            _, coef = getattr(ax, "_glm_subst", {}).get(
+                cc.get("id") or "glm", (None, None))
+    if lik is None or coef is None:
+        raise XmlError(
+            "glmSubstitutionModelGradient needs likelihood + glm model")
+    return GradientSpec(tuple(coef), (lik,))
 
 
 # ---------------------------------------------------------------------------
@@ -379,3 +676,332 @@ def _sequence_simulator(ax: XmlAnalysis, el):
             raise Unsupported(f"simulator output alphabet ({s_count} states)")
     return Alignment(list(taxa_names),
                      np.concatenate(cols, axis=1).astype(np.int16), datatype)
+
+
+# ---------------------------------------------------------------------------
+# the structured coalescent (BASTA)
+# ---------------------------------------------------------------------------
+
+
+@register("structuredCoalescent")
+def _structured_coalescent(ax: XmlAnalysis, el):
+    """StructuredCoalescentLikelihood type="BASTA": the approximate
+    structured-coalescent density of the tree and its tip demes under a
+    migration matrix (the substitution model's Q times the strict clock's
+    rate) and the demes' population sizes (models/basta.py). One tip's deme
+    may be sampled (<timeVaryingFrequencies>, <tipStateOperator>): the
+    closure reads ax._sampled_tip_state when it is called, so the order of
+    registration does not matter."""
+    from beast_mcmc_tpu_torch.models.basta import basta_loglikelihood
+
+    patterns = tm = subst = clock = pops = None
+    for c in el:
+        cc = ax.deref(c)
+        if cc.tag in ("attributePatterns", "patterns"):
+            patterns = ax.build(cc)
+        elif cc.tag in ("treeModel", "starTreeModel"):
+            tm = ax.build(cc)
+        elif cc.tag in ("generalSubstitutionModel", "glmSubstitutionModel",
+                        "complexSubstitutionModel",
+                        "svsGeneralSubstitutionModel"):
+            subst = ax.build(cc)
+        elif cc.tag == "strictClockBranchRates":
+            clock = ax.build(cc)
+        elif cc.tag == "parameter":
+            pops = ax.param_from(cc)
+    if patterns is None or tm is None or subst is None or pops is None:
+        raise XmlError("structuredCoalescent needs patterns + treeModel + "
+                       "substitutionModel + popSizes")
+    k = subst[3]
+    # the tips' deme rows (an ambiguity code spreads the mass)
+    amb = patterns.datatype.ambiguity_table()
+    tip_rows = amb[np.ravel(np.asarray(patterns.states))[:len(tm.taxa)]]
+    tip_rows = tip_rows / tip_rows.sum(axis=1, keepdims=True)
+    tip_rows_t = ax.tensor(tip_rows)
+    lid = el.get("id") or "structuredCoalescent"
+    rate_param = getattr(clock, "rate_param", None) if clock else None
+
+    def fn(params, tree):
+        dt = tree.heights.dtype
+        q = _q_of(subst, params).to(dt)
+        if rate_param is not None:
+            q = q * params[rate_param].reshape(()).to(dt)
+        tip_p = tip_rows_t.to(dt)
+        sts = getattr(ax, "_sampled_tip_state", {}).get(lid)
+        if sts is not None:
+            tip_idx, pname, _ = sts
+            state = torch.clamp(torch.round(params[pname].reshape(())), 0,
+                                k - 1).long()
+            tip_p = tip_p.index_copy(
+                0, torch.tensor([tip_idx], device=tip_p.device),
+                torch.nn.functional.one_hot(state, k).to(dt)[None])
+        return basta_loglikelihood(tip_p, tree.parent, tree.children,
+                                   tree.heights, q,
+                                   params[pops].reshape(-1).to(dt))
+
+    return LikelihoodFn(fn, tm.tree_id, lid, (pops,))
+
+
+@register("timeVaryingFrequencies", "timeVaryingFrequences")
+def _time_varying_frequencies(ax: XmlAnalysis, el):
+    """TimeVaryingFrequenciesModel:116-150: a prior on one taxon's sampled
+    tip state, log p[state]. The state parameter is registered here and
+    read by the structuredCoalescent closure and the <tipStateOperator>."""
+    from beast_mcmc_tpu_torch.config.interpreter import Param
+
+    taxon = lik_id = dt_obj = probs_name = tid = None
+    for c in el:
+        cc = ax.deref(c)
+        if cc.tag == "taxon":
+            taxon = cc.get("id") or cc.get("idref")
+        elif cc.tag == "structuredCoalescent":
+            lik_id = cc.get("id") or "structuredCoalescent"
+        elif cc.tag == "generalDataType":
+            dt_obj = ax.build(cc)
+        elif cc.tag == "parameter":
+            probs_name = ax.param_from(cc)
+        elif cc.tag in ("treeModel", "starTreeModel"):
+            tid = ax.build(cc).tree_id
+    if taxon is None or lik_id is None or probs_name is None:
+        raise XmlError("timeVaryingFrequencies structure")
+    k = (dt_obj.state_count if dt_obj
+         else int(np.size(ax.value_of(probs_name))))
+    tm = ax._trees[tid] if tid else None
+    tip_idx = tm.taxa.index(taxon) if tm else 0
+    sname = f"tipState.{taxon}"
+    if sname not in ax._params:
+        ax._params[sname] = Param(sname, np.asarray(0.0))
+    ax._sampled_tip_state = getattr(ax, "_sampled_tip_state", {})
+    ax._sampled_tip_state[lik_id] = (tip_idx, sname, k)
+    ax._tip_state_params = getattr(ax, "_tip_state_params", {})
+    ax._tip_state_params[el.get("id") or "tvf"] = (sname, k)
+
+    def fn(params, tree):
+        p = params[probs_name].reshape(-1).to(tree.heights.dtype)
+        p = p / torch.sum(p)
+        state = torch.clamp(torch.round(params[sname].reshape(())), 0,
+                            k - 1).long()
+        return torch.log(p[state])
+
+    return LikelihoodFn(fn, tid, el.get("id") or "tvf", (sname, probs_name))
+
+
+@register_operator("tipStateOperator")
+def _tip_state_operator(ax: XmlAnalysis, el, weight):
+    """TipStateOperator: a uniform redraw of the sampled tip state
+    (symmetric; the timeVaryingFrequencies prior and the structured
+    coalescent weigh its acceptance)."""
+    from beast_mcmc_tpu_torch.inference.operators import (
+        UniformIntegerOperator,
+    )
+
+    for c in el:
+        cc = ax.deref(c)
+        if cc.tag in ("timeVaryingFrequencies", "timeVaryingFrequences"):
+            ax.build(cc)
+            sname, k = ax._tip_state_params[cc.get("id") or "tvf"]
+            return UniformIntegerOperator(parameter=sname, lower=0,
+                                          upper=k - 1, weight=weight), None
+    raise XmlError("tipStateOperator without timeVaryingFrequencies")
+
+
+@register("structuredCoalescentLikelihoodGradient")
+def _structured_coalescent_gradient(ax: XmlAnalysis, el):
+    """BastaLikelihoodGradient: the BASTA density's gradient in the
+    population sizes or the migration rates (the substitution model's
+    rates, or its GLM coefficients)."""
+    from beast_mcmc_tpu_torch.config.xml_hmc import GradientSpec
+
+    wrt = el.get("wrtParameter", "migrationRate")
+    lik = subst_el = None
+    for c in el:
+        cc = ax.deref(c)
+        if cc.tag == "structuredCoalescent":
+            lik = ax.build(cc)
+        elif cc.tag in ("glmSubstitutionModel", "generalSubstitutionModel"):
+            subst_el = cc
+    if lik is None:
+        raise XmlError("structuredCoalescentLikelihoodGradient structure")
+    if wrt == "populationSize":
+        return GradientSpec(tuple(lik.data_params), (lik,))
+    names = []
+    if subst_el is not None:
+        glm = getattr(ax, "_glm_subst", {}).get(subst_el.get("id") or "glm")
+        if glm is not None:
+            names.extend(glm[1])
+        else:
+            r_el = subst_el.find("rates")
+            if r_el is not None:
+                names.append(ax.param_from(r_el))
+    if not names:
+        return GradientSpec(tuple(lik.data_params), (lik,))
+    return GradientSpec(tuple(names), (lik,))
+
+
+# ---------------------------------------------------------------------------
+# strongly lumpable CTMC rates (StronglyLumpableCtmcRates.java)
+# ---------------------------------------------------------------------------
+
+
+def _lump_build_map(n: int) -> np.ndarray:
+    """StronglyLumpableCtmcRates.buildMap: the upper triangle numbered
+    row-major first, then the lower triangle column-major; -1 on the
+    diagonal."""
+    m = -np.ones((n, n), int)
+    off = 0
+    for i in range(n):
+        for j in range(i + 1, n):
+            m[i, j] = off
+            off += 1
+    for j in range(n):
+        for i in range(j + 1, n):
+            m[i, j] = off
+            off += 1
+    return m
+
+
+@register("stateSet")
+def _state_set(ax: XmlAnalysis, el):
+    """StateSetParser: a named subset of a generalDataType's states."""
+    dt_obj, states = None, []
+    for c in el:
+        cc = ax.deref(c)
+        if cc.tag == "generalDataType":
+            dt_obj = ax.build(cc)
+        elif cc.tag == "state":
+            states.append(dt_obj.char_map[cc.get("code").upper()])
+    return ("stateSet", tuple(states))
+
+
+class _LumpableRates:
+    """A rate provider whose K(K-1) rates (complex order) gather the
+    within-lump rate parameters and the across-lump rate x proportion
+    products (StronglyLumpableCtmcRates SuperInfo.getRate:419-430)."""
+
+    def __init__(self, specs, k):
+        self.specs = specs
+        self.k = k
+
+    def rates(self, params):
+        vals = []
+        for s in self.specs:
+            if s[0] == "within":
+                _, name, idx = s
+                vals.append(params[name].reshape(-1)[idx])
+            else:
+                _, pname, pidx, aname, aidx = s
+                vals.append(params[pname].reshape(-1)[pidx]
+                            * params[aname].reshape(-1)[aidx])
+        return torch.stack(vals)
+
+    def report(self, ax) -> str:
+        from beast_mcmc_tpu_torch.config.xml_assert import _vec
+        from beast_mcmc_tpu_torch.config.xml_stats import _current_state
+
+        p0, _ = _current_state(ax)
+        return _vec(_host(self.rates(p0))) + "\n"
+
+
+@register("stronglyLumpableCtmcRates")
+def _strongly_lumpable_rates(ax: XmlAnalysis, el):
+    dt_obj = across_name = None
+    lumps = []  # (declared states, within-rates name, [(state, name)])
+    for c in el:
+        cc = ax.deref(c)
+        if cc.tag == "generalDataType":
+            dt_obj = ax.build(cc)
+        elif cc.tag == "rates":
+            across_name = ax.param_from(cc)
+        elif cc.tag == "lump":
+            states, wr, props = None, None, []
+            for d in cc:
+                dd = ax.deref(d)
+                if dd.tag == "stateSet":
+                    states = ax.build(dd)[1]
+                elif dd.tag == "rates":
+                    wr = ax.param_from(dd)
+                elif dd.tag == "proportions":
+                    src = pn = None
+                    for e in dd:
+                        ee = ax.deref(e)
+                        if ee.tag == "state":
+                            src = dt_obj.char_map[ee.get("code").upper()]
+                        elif ee.tag == "parameter":
+                            pn = ax.param_from(ee)
+                    props.append((src, pn))
+            lumps.append((tuple(states), wr, props))
+    if dt_obj is None or across_name is None:
+        raise XmlError("stronglyLumpableCtmcRates structure")
+    k = dt_obj.state_count
+    n_lumps = len(lumps)
+    lump_map = _lump_build_map(n_lumps)
+
+    def lump_index(state):
+        """(lump, index in the sorted lump, declared index, lump size)."""
+        for a, (declared, _, _) in enumerate(lumps):
+            if state in declared:
+                srt = sorted(declared)
+                return (a, srt.index(state), declared.index(state),
+                        len(declared))
+        raise XmlError(f"state {state} in no lump")
+
+    def super_spec(i, j):
+        a, ii, io, ca = lump_index(i)
+        b, jj, _, _ = lump_index(j)
+        if a == b:
+            return ("within", lumps[a][1], int(_lump_build_map(ca)[ii, jj]))
+        prop_index = b if a < b else b + 1
+        pname = lumps[a][2][io * (n_lumps - 1) + prop_index - 1][1]
+        return ("across", pname, jj, across_name, int(lump_map[a, b]))
+
+    specs = [super_spec(i, j) for i in range(k) for j in range(i + 1, k)]
+    specs += [super_spec(i, j) for j in range(k) for i in range(j + 1, k)]
+    return _LumpableRates(tuple(specs), k)
+
+
+@register("approximateLogCtmcRateGradient", "logCtmcRateGradient")
+def _approx_log_ctmc_rate_gradient(ax: XmlAnalysis, el):
+    """ApproximateLogCtmcRateGradientParser, LumpableCtmcRateGradient: the
+    discrete-trait likelihood's gradient in the rate parameters of its
+    lumpable or log-additive generator, exact by torch.autograd through
+    the expm path (the reference's linear-in-time form is its shortcut),
+    as JAX's jax.grad."""
+    from beast_mcmc_tpu_torch.config.interpreter import CompoundParam
+    from beast_mcmc_tpu_torch.config.xml_hmc import GradientSpec
+
+    lik, names = None, []
+    for c in el:
+        cc = ax.deref(c)
+        if cc.tag in ("treeDataLikelihood", "treeLikelihood",
+                      "ancestralTreeLikelihood"):
+            lik = ax.build(cc)
+        elif cc.tag in ("compoundParameter", "parameter"):
+            obj = ax.build(cc)
+            if isinstance(obj, CompoundParam):
+                names.extend(obj.names)
+            else:
+                names.append(obj.name)
+    if lik is None or not names:
+        raise XmlError("approximateLogCtmcRateGradient structure")
+    return GradientSpec(tuple(names), (lik,))
+
+
+def _log_rate_subst_report(ax, el):
+    """The generator's report (LogRateSubstitutionModel inherits
+    ComplexSubstitutionModel.getReport: the infinitesimal matrix)."""
+    from beast_mcmc_tpu_torch.config.xml_stats import _current_state
+
+    kind = ax.build(el)
+    p0, _ = _current_state(ax)
+    q = _host(kind[1](p0))
+    rows = "\n".join(" ".join(str(v) for v in r) for r in q)
+    return f"Infinitesimal rate matrix:\n{rows}\n"
+
+
+def _register_reports():
+    from beast_mcmc_tpu_torch.config.xml_hmc import OP_REPORTS
+
+    OP_REPORTS["logRateSubstitutionModel"] = _log_rate_subst_report
+
+
+_register_reports()

@@ -14,7 +14,11 @@ estimability), and mcmc settings.
 
 Elements outside this vocabulary raise a NotImplementedError naming the
 tag, or an XmlImportError: the contract of an unregistered parser in the
-reference.
+reference. Unlike the JAX package's importer, which reads any operator's
+parameters as estimable and moves them with the builder's own operators,
+an operator that steps on gradients (`GRADIENT_OPERATORS`) raises here too:
+the spec cannot carry it, and the run entry point then takes the document
+to the XML interpreter, which runs it.
 """
 
 from __future__ import annotations
@@ -31,6 +35,15 @@ from beast_mcmc_tpu_torch.data.datatype import AMINO_ACIDS, NUCLEOTIDES
 
 class XmlImportError(ValueError):
     pass
+
+
+# config/xml_hmc.py's operators, which the interpreter binds to the
+# posterior's gradient
+GRADIENT_OPERATORS = frozenset((
+    "hamiltonianMonteCarloOperator", "NoUTurnOperator", "noUTurnOperator",
+    "zigZagOperator", "bouncyParticleOperator",
+    "reflectiveHamiltonianMonteCarloOperator",
+    "geodesicHamiltonianMonteCarloOperator"))
 
 
 def _index_ids(root: ET.Element) -> Dict[str, ET.Element]:
@@ -389,6 +402,8 @@ def parse_beast_xml(text: str) -> S.AnalysisSpec:
     ops_el = root.find("operators")
     if ops_el is not None:
         for op in ops_el:
+            if op.tag in GRADIENT_OPERATORS:
+                raise NotImplementedError(f"operator <{op.tag}>")
             for pref in op.findall(".//parameter"):
                 rid = pref.get("idref")
                 if rid and rid in registry:

@@ -154,23 +154,29 @@ def complex_q(rates_full: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
     return q / -torch.sum(freqs * torch.diagonal(q))
 
 
-def general_complex_q(rates: torch.Tensor,
-                      freqs: torch.Tensor) -> torch.Tensor:
+def general_complex_q(rates: torch.Tensor, freqs: torch.Tensor,
+                      normalize: bool = True,
+                      scale_by_freqs: bool = True) -> torch.Tensor:
     """The generator of <svsGeneralSubstitutionModel> with K(K-1) rates in
     the reference's complex order: the upper triangle row-major, then the
     lower triangle in transposed (column-major) order
-    (ComplexSubstitutionModel.setupQMatrix:211-230); Q_ij = r_ij pi_j with
-    freqs normalised here, scaled to unit expected rate. Counterpart of
-    beast_mcmc_tpu/config/xml_geo.py:139 (_complex_q_fn, its defaults)."""
+    (ComplexSubstitutionModel.setupQMatrix:211-230); Q_ij = r_ij pi_j
+    (r_ij alone without scale_by_freqs, a log-rate model's
+    scaleRatesByFrequencies="false") with freqs normalised here, scaled to
+    unit expected rate unless normalize is false. Counterpart of
+    beast_mcmc_tpu/config/xml_geo.py:139 (_complex_q_fn)."""
     k = freqs.shape[-1]
     pi = freqs / torch.sum(freqs)
     iu = torch.triu_indices(k, k, 1, device=freqs.device)
     n_half = k * (k - 1) // 2
     r = rates.to(pi.dtype)
+    col = pi if scale_by_freqs else torch.ones_like(pi)
     q = torch.zeros((k, k), dtype=pi.dtype, device=pi.device)
-    q = q.index_put((iu[0], iu[1]), r[:n_half] * pi[iu[1]])
-    q = q.index_put((iu[1], iu[0]), r[n_half:] * pi[iu[0]])
+    q = q.index_put((iu[0], iu[1]), r[:n_half] * col[iu[1]])
+    q = q.index_put((iu[1], iu[0]), r[n_half:] * col[iu[0]])
     q = q - torch.diag(torch.sum(q, dim=1))
+    if not normalize:
+        return q
     return q / -torch.sum(pi * torch.diagonal(q))
 
 

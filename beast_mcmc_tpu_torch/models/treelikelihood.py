@@ -230,6 +230,29 @@ def tree_loglikelihood_q(tip_partials, pattern_weights, parent, children,
                               freqs, category_weights, pattern_weights)
 
 
+def tree_loglikelihood_q_approx_grad(tip_partials, pattern_weights, parent,
+                                     children, heights, root,
+                                     q: torch.Tensor, freqs, category_rates,
+                                     category_weights,
+                                     branch_rates) -> torch.Tensor:
+    """tree_loglikelihood_q's value, with the gradient in the generator
+    flowing through the first-order surrogate P0 + t P0 (Q - Q0), P0 and
+    Q0 detached (beast_mcmc_tpu/models/treelikelihood.py:153-186): the
+    reference's branch-infinitesimal approximation of the CTMC-rate
+    gradients (AbstractLogAdditiveSubstitutionModelGradient). The times
+    get no gradient (P0 is detached and Q - Q0 is zero at the point), as
+    in JAX. The plain peel on both devices, never a kernel."""
+    bl = branch_lengths(parent, heights) * branch_rates
+    t = bl[:, None] * category_rates[None, :]
+    p0 = transition_probs_expm(q, t).detach()
+    q0 = q.detach()
+    p_mats = p0 + t[..., None, None] * torch.einsum("ncij,jk->ncik", p0,
+                                                    q - q0)
+    order = peel_order_from_heights(heights, tip_partials.shape[0], parent)
+    return peel_loglikelihood(tip_partials, children, order, root, p_mats,
+                              freqs, category_weights, pattern_weights)
+
+
 def tree_loglikelihood_pmats(tip_partials, pattern_weights, children, heights,
                              root, parent, p_mats, freqs,
                              category_weights) -> torch.Tensor:

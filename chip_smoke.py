@@ -276,6 +276,37 @@ result line):
      precision and branch rates, on the card against the CPU to
      P18_REL_TOL.
 
+  19. gradients, HMC and the phylogeographic GLM (`hmc_path`,
+     `glm_path`, `p19_functions_path`): 19a `python -m
+     beast_mcmc_tpu_torch run makona_hmc.xml -testxml` on phase 15's
+     taxa and alignment (HKY+Gamma4, strict clock, constant coalescent, a
+     coalescentSimulator start tree) with a <hamiltonianMonteCarloOperator>
+     of P19_LEAPFROG leapfrogs over a <nodeHeightProxyParameter> (a
+     <jointGradient> of <nodeHeightGradient> and <coalescentGradient>), a
+     <NoUTurnOperator> over the clock rate and the population size and
+     scale and tree moves, P19_STEPS states after the CLI's 100-step
+     check; the document's <assertEqual> holds the <jointGradient>'s
+     analytic report to the CPU's (computed first, from the same
+     document) to P19_TESTXML_TOL of its largest entry. Its peel_stream
+     launches are predicted exactly: the report's evaluations, the
+     chain's, and each bound proposal's own, counted as drawn by
+     `BoundLaunches` (2 nSteps an HMC proposal, n_lf + 1 a NUTS one),
+     which also times each proposal (CUDA events); then the deviation,
+     states/s and a profiler window of P19_PROFILE steps; 19b the
+     north-star document with its BSSVS origin model replaced by a
+     <glmSubstitutionModel> over the same 56 locations (`glm_document`:
+     four seeded predictors, BSSVS indicators, HMC on the coefficients
+     with a <jointGradient> of <glmSubstitutionModelGradient> and the
+     prior's <gradient>) through `run -scale P19_GLM_SCALE`
+     (P19_GLM_STATES states): the same launch prediction, each coefficient
+     proposal's ms, the allocator's peak, the log and the
+     location-annotated trees read back; 19c the first-order surrogate,
+     the GLM gradient element's (surrogate) and the exact coefficient
+     gradients, the GLM, log-rate, lumpable and mixture generators,
+     basta_loglikelihood at 1,610 taxa x P19_BASTA_DEMES demes (with its
+     ms) and the skyline, speciation and increments gradients, on the
+     card against the CPU to P19_REL_TOL.
+
 `python3 chip_smoke.py --tiles` instead builds the kernels and times the
 v1 streaming kernel at the plans its planner could pick, with its largest
 deviation from the plain version (`*` marks the planner's): below 16 states
@@ -356,9 +387,12 @@ KERNELS = ("peel_resident", "peel_stream", "peel_stream_ring", "peel_mxu")
 # Robbins-Monro adaptation moves it); weights beside the 48 of build_analysis
 HMC_LEAPFROG, HMC_STEP = 5, 1e-3
 HMC_WEIGHTS = (10.0, 5.0)  # NodeHeightHmcOperator, HmcOperator
-HMC_ALONE = 8  # proposals of each HMC operator alone: launches and times
-HMC_B2_STEPS, HMC_B2_CHECK = 200, 40
-HMC_MAK_STEPS, HMC_MAK_CHECK = 60, 15
+# the depths here, of P7_STEPS, P7_TOY_STEPS, P10_PATHS, P16_STATES,
+# P16_STEPS, P16_BLOCK_PROPOSALS and P18_STEPS were cut to make room for
+# phase 19 in the script's time (the earlier values beside them)
+HMC_ALONE = 4  # proposals of each HMC operator alone: launches and times (8)
+HMC_B2_STEPS, HMC_B2_CHECK = 50, 10  # 200, 40
+HMC_MAK_STEPS, HMC_MAK_CHECK = 16, 4  # 60, 15
 
 
 def log(*a):
@@ -570,9 +604,9 @@ def codon_analysis(n_taxa=64, n_patterns=512, seed=0, dtype=None,
 # the bounds), and the constraint tolerances of the toy targets
 P7_WARM = 20  # warm-up steps before each measured chain
 P7_ALONE = 4  # proposals of each chain operator alone: launches and times
-P7_STEPS = {"benchmark2": (200, 40), "benchmark1": (100, 25),
+P7_STEPS = {"benchmark2": (100, 20), "benchmark1": (100, 25),  # 200, 40
             "protein": (100, 25)}  # steps, full-evaluation steps
-P7_TOY_STEPS = 500
+P7_TOY_STEPS = 200  # 500
 NUTS_STEP, NUTS_DEPTH = 1e-3, 6
 PDMP_EVENTS = 35.0
 SPHERE_TOL, STIEFEL_TOL, SIMPLEX_TOL = 1e-12, 1e-10, 1e-12
@@ -2916,10 +2950,10 @@ def testxml_path(out_dir, reset_counts, read_counts, dev,
 # proposals, its weight, the steps of its full-evaluation check and its
 # profiler window (proposals), and 16d's seed and tolerance (card against
 # the CPU, relative to the output's largest magnitude)
-P16_STATES = 200
+P16_STATES = 100  # 200
 P16_SCALE = P16_STATES / 200_000_000
-P16_WARM, P16_STEPS, P16_PROFILE = 16, 192, PROFILE_STEPS
-P16_BLOCK_PROPOSALS, P16_BLOCK_WEIGHT, P16_BLOCK_CHECK = 40, 4, 40
+P16_WARM, P16_STEPS, P16_PROFILE = 16, 96, PROFILE_STEPS  # 192
+P16_BLOCK_PROPOSALS, P16_BLOCK_WEIGHT, P16_BLOCK_CHECK = 20, 4, 40  # 40
 P16_BLOCK_PROFILE = 2
 P16_SEED, P16_REL_TOL = 16, 1e-12
 NORTH_STAR_XML = os.path.join(ROOT, "examples", "makona_joint.xml")
@@ -4141,7 +4175,7 @@ def p17_functions_path(out_dir, dev):
     return rec
 
 
-P18_STEPS, P18_CHECK, P18_LOG_EVERY = 200, 100, 10
+P18_STEPS, P18_CHECK, P18_LOG_EVERY = 100, 100, 10  # 200
 P18_PROFILE, P18_SEED, P18_TRAIT_SEED = PROFILE_STEPS, 18, 1818
 P18_MISSING, P18_SIGMA = 0.05, 2.0  # NA share of tips; degrees a sqrt(year)
 P18_CENTRE = (8.5, -11.5)  # latitude, longitude: West Africa
@@ -4591,6 +4625,743 @@ def p18_functions_path(out_dir, dev):
     return rec
 
 
+# phase 19: the gradient and HMC vocabulary and the phylogeographic GLM
+P19_STEPS, P19_LOG_EVERY, P19_CHECK = 100, 10, 100
+P19_LEAPFROG, P19_NUTS_STEP = 10, 0.02
+P19_PROFILE, P19_SEED = PROFILE_STEPS, 19
+P19_GLM_STATES = 64  # the interpreter runs a debug chain of <= 64 in full
+P19_GLM_SCALE = P19_GLM_STATES / 200_000_000
+P19_GLM_LEAPFROG, P19_GLM_STEP = 5, 0.02
+P19_GLM_SEED, P19_COUNTRIES = 1919, 3
+P19_BASTA_DEMES, P19_BASTA_REPS = 3, 2
+P19_REL_TOL = 1e-12
+P19_TESTXML_TOL = 1e-10  # of the largest entry, the card against the CPU
+
+
+def hmc_document(path, data, n_steps=P19_STEPS, log_every=P19_LOG_EVERY,
+                 expected=None):
+    """Write the node-height HMC document of phase 19a at `path` on
+    makona_data's taxa and alignment: HKY+Gamma4, a strict clock and a
+    constant coalescent (a coalescentSimulator start tree); a
+    <hamiltonianMonteCarloOperator> of nSteps P19_LEAPFROG over a
+    <nodeHeightProxyParameter> with a <jointGradient id="heightGradient">
+    of <nodeHeightGradient> and <coalescentGradient>, a
+    <NoUTurnOperator> over clock.rate and popSize (log transform) with a
+    <jointGradient> of <gradient>s, scale moves on kappa, alpha,
+    clock.rate, popSize and the root height, and the subtree slide and
+    narrow exchange. With `expected` (the CPU's analytic gradient), an
+    <assertEqual> before <mcmc> holds heightGradient's analytic line to
+    P19_TESTXML_TOL of its largest entry. Returns the log's file name."""
+    import math
+
+    cfg = data["cfg"]
+    init = cfg["model"]["init"]
+    pop = float(cfg["pop_size"])
+    rate = float(init["ucld.mean"])
+    freqs = " ".join(repr(float(f)) for f in init["frequencies"])
+    alpha = float(init["siteModel.alpha"])
+    name = "makona_hmc"
+    out = ['<?xml version="1.0" standalone="yes"?>', "<beast>"]
+    out += taxa_alignment_xml(data)
+    out.append(f"""  <patterns id="patterns" from="1"><alignment idref="alignment"/></patterns>
+  <constantSize id="constant" units="years">
+    <populationSize><parameter id="popSize" value="{pop!r}" lower="0.0"/></populationSize>
+  </constantSize>
+  <coalescentSimulator id="startingTree">
+    <taxa idref="taxa"/><constantSize idref="constant"/>
+  </coalescentSimulator>
+  <treeModel id="treeModel">
+    <coalescentTree idref="startingTree"/>
+    <rootHeight><parameter id="treeModel.rootHeight"/></rootHeight>
+    <nodeHeights internalNodes="true"><parameter id="treeModel.internalNodeHeights"/></nodeHeights>
+  </treeModel>
+  <coalescentLikelihood id="coalescent">
+    <model><constantSize idref="constant"/></model>
+    <populationTree><treeModel idref="treeModel"/></populationTree>
+  </coalescentLikelihood>
+  <strictClockBranchRates id="clock">
+    <rate><parameter id="clock.rate" value="{rate!r}" lower="0.0"/></rate>
+  </strictClockBranchRates>
+  <HKYModel id="hky">
+    <frequencies><frequencyModel dataType="nucleotide">
+      <frequencies><parameter id="frequencies" value="{freqs}"/></frequencies>
+    </frequencyModel></frequencies>
+    <kappa><parameter id="kappa" value="4.0" lower="0.0"/></kappa>
+  </HKYModel>
+  <siteModel id="siteModel">
+    <substitutionModel><HKYModel idref="hky"/></substitutionModel>
+    <gammaShape gammaCategories="4"><parameter id="alpha" value="{alpha!r}" lower="0.0"/></gammaShape>
+  </siteModel>
+  <treeDataLikelihood id="treeLikelihood" useAmbiguities="false">
+    <patterns idref="patterns"/><treeModel idref="treeModel"/>
+    <siteModel idref="siteModel"/><strictClockBranchRates idref="clock"/>
+  </treeDataLikelihood>
+  <jointGradient id="heightGradient">
+    <nodeHeightGradient><treeDataLikelihood idref="treeLikelihood"/></nodeHeightGradient>
+    <coalescentGradient><coalescentLikelihood idref="coalescent"/></coalescentGradient>
+  </jointGradient>
+  <operators id="operators">
+    <hamiltonianMonteCarloOperator weight="1" nSteps="{P19_LEAPFROG}" stepSize="0.0005"
+        drawVariance="1.0" autoOptimize="true">
+      <jointGradient idref="heightGradient"/>
+      <nodeHeightProxyParameter id="proxy"><treeModel idref="treeModel"/></nodeHeightProxyParameter>
+    </hamiltonianMonteCarloOperator>
+    <NoUTurnOperator weight="1" stepSize="{P19_NUTS_STEP!r}">
+      <jointGradient>
+        <gradient><treeDataLikelihood idref="treeLikelihood"/><parameter idref="clock.rate"/></gradient>
+        <gradient><coalescentLikelihood idref="coalescent"/><parameter idref="popSize"/></gradient>
+      </jointGradient>
+      <transform type="log"/>
+    </NoUTurnOperator>
+    <scaleOperator scaleFactor="0.75" weight="3"><parameter idref="kappa"/></scaleOperator>
+    <scaleOperator scaleFactor="0.75" weight="1"><parameter idref="alpha"/></scaleOperator>
+    <scaleOperator scaleFactor="0.75" weight="3"><parameter idref="clock.rate"/></scaleOperator>
+    <scaleOperator scaleFactor="0.75" weight="3"><parameter idref="popSize"/></scaleOperator>
+    <scaleOperator scaleFactor="0.75" weight="3"><parameter idref="treeModel.rootHeight"/></scaleOperator>
+    <subtreeSlide size="1.0" gaussian="true" weight="10"><treeModel idref="treeModel"/></subtreeSlide>
+    <narrowExchange weight="10"><treeModel idref="treeModel"/></narrowExchange>
+  </operators>""")
+    if expected is not None:
+        tol = P19_TESTXML_TOL * float(max(abs(v) for v in expected))
+        vals = ", ".join(repr(float(v)) for v in expected)
+        out.append(f"""  <assertEqual tolerance="{tol!r}" toleranceType="absolute">
+    <message>node-height joint gradient at the start, against the CPU</message>
+    <actual regex="analytic: \\[(.*)\\]"><jointGradient idref="heightGradient"/></actual>
+    <expected>{vals}</expected>
+  </assertEqual>""")
+    out.append(f"""  <mcmc id="mcmc" chainLength="{n_steps}" autoOptimize="true">
+    <posterior id="posterior">
+      <prior id="prior">
+        <logNormalPrior mean="1.0" stdev="1.25"><parameter idref="kappa"/></logNormalPrior>
+        <exponentialPrior mean="0.5" offset="0.0"><parameter idref="alpha"/></exponentialPrior>
+        <logNormalPrior mean="{math.log(rate)!r}" stdev="1.0"><parameter idref="clock.rate"/></logNormalPrior>
+        <logNormalPrior mean="{math.log(pop)!r}" stdev="1.0"><parameter idref="popSize"/></logNormalPrior>
+        <coalescentLikelihood idref="coalescent"/>
+      </prior>
+      <likelihood id="likelihood">
+        <treeDataLikelihood idref="treeLikelihood"/>
+      </likelihood>
+    </posterior>
+    <operators idref="operators"/>
+    <log logEvery="{log_every}" fileName="{name}.log">
+      <posterior idref="posterior"/>
+      <parameter idref="clock.rate"/>
+      <parameter idref="popSize"/>
+      <parameter idref="treeModel.rootHeight"/>
+    </log>
+  </mcmc>
+</beast>
+""")
+    with open(path, "w") as f:
+        f.write("\n".join(out))
+    return f"{name}.log"
+
+
+class BoundLaunches:
+    """Counts, while entered, the kernel launches the bound operators'
+    proposals add to a chain's own (one a posterior evaluation): 2 nSteps
+    a leapfrog HMC proposal (inference/hmc.py), n_lf + 1 a NUTS proposal
+    (its reported leapfrogs). `extra` is their sum, `proposals` each
+    class's count, `ms` each class's proposal times (CUDA events on the
+    card, the host clock elsewhere; each timed proposal synchronises)."""
+
+    def __enter__(self):
+        import torch
+
+        from beast_mcmc_tpu_torch.inference import hmc
+        from beast_mcmc_tpu_torch.inference.nuts import NutsOperator
+
+        self.extra, self.proposals, self.ms = 0, {}, {}
+        self._orig = hmc._Binds.propose
+        box = self
+
+        def propose(op, params, tree, *a, **k):
+            if tree.heights.is_cuda:
+                ev0, ev1 = (torch.cuda.Event(enable_timing=True)
+                            for _ in range(2))
+                ev0.record()
+                out = box._orig(op, params, tree, *a, **k)
+                ev1.record()
+                torch.cuda.synchronize()
+                ms = ev0.elapsed_time(ev1)
+            else:
+                t0 = time.perf_counter()
+                out = box._orig(op, params, tree, *a, **k)
+                ms = 1e3 * (time.perf_counter() - t0)
+            kind = type(op).__name__
+            box.proposals[kind] = box.proposals.get(kind, 0) + 1
+            box.ms.setdefault(kind, []).append(ms)
+            if isinstance(op, NutsOperator):
+                box.extra += int(op.last_n_leapfrog) + 1
+            elif kind in ("HmcOperator", "NodeHeightHmcOperator"):
+                box.extra += 2 * op.n_leapfrog
+            else:
+                raise AssertionError(f"no launch count for {kind}")
+            return out
+
+        hmc._Binds.propose = propose
+        return self
+
+    def __exit__(self, *exc):
+        from beast_mcmc_tpu_torch.inference import hmc
+
+        hmc._Binds.propose = self._orig
+        return False
+
+
+def _median(xs):
+    """The median of xs, or None where the operator was not drawn."""
+    return statistics.median(xs) if xs else None
+
+
+def _cli_chain(out_dir, args, label, n_steps, n_check, rows, expect):
+    """Run the CLI on a document under BoundLaunches: (record, its output);
+    the launches predicted as the start, two a checked step, one a step,
+    `rows` more (a log row's posterior, a report's evaluations), and the
+    bound proposals' own."""
+    import re
+
+    with BoundLaunches() as bound:
+        rc, text, _, cli_s = _cli_in(out_dir, args)
+    m = re.search(r"(\d+) states in ([0-9.]+)s = ([0-9.]+) states/sec; "
+                  r"full-evaluation deviation (\S+)", text)
+    if rc != 0 or m is None:
+        raise AssertionError(f"{label}: rc {rc}\n{text[-3000:]}")
+    rec = {"rc": rc, "cli_seconds": cli_s, "steps": int(m.group(1)),
+           "chain_seconds": float(m.group(2)),
+           "states_per_s": float(m.group(3)),
+           "full_evaluation_deviation": float(m.group(4).rstrip(";,")),
+           "bound_proposals": bound.proposals,
+           "bound_launches": bound.extra, "bound_ms": bound.ms}
+    rec["predicted_launches"] = (1 + 2 * n_check + n_steps + rows
+                                 + bound.extra)
+    expect(rec["predicted_launches"], label)
+    if not (rec["steps"] == n_steps
+            and rec["full_evaluation_deviation"] <= FULL_EVAL_TOL):
+        raise AssertionError(f"{label} chain: {rec}")
+    return rec, text
+
+
+def hmc_path(out_dir, reset_counts, read_counts, device_ms, dev,
+             n_taxa=SPEC_TAXA, n_sites=SPEC_SITES, n_steps=P19_STEPS,
+             log_every=P19_LOG_EVERY, n_profile=P19_PROFILE):
+    """Phase 19a (see the module docstring) at n_taxa x n_sites: the
+    jointGradient's analytic gradient on the CPU from the document, then
+    `run makona_hmc.xml -testxml` through the CLI with the <assertEqual>
+    holding the card's report to it, its peel_stream launches exactly as
+    predicted (the report's 1 + 2 x heights evaluations, then _cli_chain's
+    count), each bound proposal timed in the run (CUDA events), the log
+    read back; a profiler window on the built analysis. Returns (record,
+    launches)."""
+    import math
+
+    from beast_mcmc_tpu_torch.config import xml_assert
+    from beast_mcmc_tpu_torch.config.interpreter import XmlAnalysis
+    from beast_mcmc_tpu_torch.inference.mcmc import run_chain
+
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    data = makona_data(n_taxa, n_sites, JOINT_SEED, dev)
+    doc = os.path.join(out_dir, "makona_hmc.xml")
+    hmc_document(doc, data, n_steps, log_every)
+    # the CPU's analytic gradient at the document's start state
+    cpu_ax = XmlAnalysis(doc, seed=P19_SEED, device="cpu", workdir=out_dir)
+    cpu_ax.build(cpu_ax._ids["treeModel"])
+    _, _, g_cpu = xml_assert.analytic_gradient(
+        cpu_ax, cpu_ax.build(cpu_ax._ids["heightGradient"]))
+    expected = g_cpu.numpy()
+    del cpu_ax
+    log_name = hmc_document(doc, data, n_steps, log_every, expected)
+    rec = {"taxa": len(data["taxa"]), "sites": data["sites"],
+           "patterns": data["patterns"],
+           "document_seconds": time.perf_counter() - t0}
+    launches = {}
+
+    def expect(n, what):
+        counts = read_counts()
+        want = {k: n * (k == "peel_stream") for k in counts}
+        launches[f"P19 {what}"] = counts
+        if counts != want:
+            raise AssertionError(f"P19 {what}: launches {counts}, "
+                                 f"expected {want}")
+
+    # the report's gradient (one evaluation) and central differences (two
+    # a height) come before the chain, and its diagonal Hessian's as many
+    # again where at most 64 values (config/xml_assert.py::gradient_report)
+    n_heights = int(expected.size)
+    report = (1 + 2 * n_heights) * (2 if n_heights <= 64 else 1)
+    reset_counts()
+    rows = n_steps // log_every
+    a, text = _cli_chain(
+        out_dir, ["run", doc, "-testxml", "-seed", str(P19_SEED),
+                  "-device", str(dev)], "19a CLI", n_steps, P19_CHECK,
+        rows + report, expect)
+    if "all embedded checks passed" not in text:
+        raise AssertionError(f"P19a -testxml:\n{text[-3000:]}")
+    a.update({"report_launches": report,
+              "gradient_entries": n_heights,
+              "gradient_tolerance": P19_TESTXML_TOL})
+    lines = open(os.path.join(out_dir, log_name)).read().splitlines()
+    body = [[float(v) for v in ln.split("\t")] for ln in lines[1:]]
+    if len(body) != rows or not all(math.isfinite(v) for r in body
+                                    for v in r):
+        raise AssertionError(f"P19a log: {lines[:2]}")
+    a["log_rows"] = len(body)
+
+    # the bound proposals' times in the run, and a profiler window
+    hmc_ms = a["bound_ms"].get("NodeHeightHmcOperator", [])
+    nuts_ms = a["bound_ms"].get("NutsOperator", [])
+    ax = XmlAnalysis(doc, seed=P19_SEED, device=dev, workdir=out_dir)
+    chain = ax.prepare_chain()
+    reset_counts()
+    wall, busy = device_ms(lambda: run_chain(chain["step"], chain["state"],
+                                             n_profile),
+                           "p19a hmc chain", n_profile)
+    a.update({"hmc_proposal_ms": hmc_ms, "nuts_proposal_ms": nuts_ms,
+              "profile_ms_per_step": wall,
+              "device_busy_share": None if busy is None else busy / wall,
+              "device_events_per_step": device_ms.events,
+              "profile_launches": read_counts()["peel_stream"]})
+    rec["19a"] = a
+    log(f"[P19a] CLI -testxml rc {a['rc']} in {a['cli_seconds']:.2f} s: "
+        f"the jointGradient's {n_heights} entries equal the CPU's to "
+        f"{P19_TESTXML_TOL} of the largest; {a['steps']} states in "
+        f"{a['chain_seconds']:.2f} s = {a['states_per_s']} states/s, "
+        f"full-evaluation deviation {a['full_evaluation_deviation']!r}, "
+        f"peel_stream launches {a['predicted_launches']} as predicted "
+        f"({a['report_launches']} the report's; bound proposals "
+        f"{a['bound_proposals']}, {a['bound_launches']} of their own); "
+        f"node-height HMC proposal ms {[round(x, 3) for x in hmc_ms]} "
+        f"({P19_LEAPFROG} leapfrogs), NUTS proposal ms "
+        f"{[round(x, 3) for x in nuts_ms]}; profile "
+        f"{wall:.3f} ms a step, busy share {a['device_busy_share']}, "
+        f"{a['device_events_per_step']} device events a step")
+    return rec, launches
+
+
+def glm_predictors(codes, seed=P19_GLM_SEED):
+    """{name: [K(K-1)] values} of the GLM's predictors over the K location
+    codes, in the complex order (upper triangle row-major, then the lower
+    in transposed order; entry (a, b) the rate from a to b), each
+    standardised: the log great-circle distance between centroids drawn
+    over West Africa, the log origin and destination populations
+    (lognormal), and a same-country indicator (P19_COUNTRIES countries),
+    drawn with numpy from `seed`."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    k = len(codes)
+    lat = np.radians(rng.uniform(4.5, 12.5, k))
+    lon = np.radians(rng.uniform(-15.0, -7.5, k))
+    pop = rng.lognormal(12.0, 1.0, k)
+    country = rng.integers(0, P19_COUNTRIES, k)
+    iu = np.triu_indices(k, 1)
+    frm = np.concatenate([iu[0], iu[1]])
+    to = np.concatenate([iu[1], iu[0]])
+    cos_d = (np.sin(lat[frm]) * np.sin(lat[to]) + np.cos(lat[frm])
+             * np.cos(lat[to]) * np.cos(lon[frm] - lon[to]))
+    dist = 6371.0 * np.arccos(np.clip(cos_d, -1.0, 1.0))
+    cols = {"glm.logDistance": np.log(dist),
+            "glm.logOriginPop": np.log(pop[frm]),
+            "glm.logDestinationPop": np.log(pop[to]),
+            "glm.sameCountry": (country[frm] == country[to]).astype(float)}
+    return {n: (v - v.mean()) / v.std() for n, v in cols.items()}
+
+
+def glm_document(path, src=NORTH_STAR_XML):
+    """Write the north-star document with its BSSVS origin model replaced
+    by a GLM over the same 56-state `geography`: a <glmSubstitutionModel>
+    whose <glmModel family="logLinear"> has glm_predictors' four columns,
+    coefficients with BSSVS indicators (a Poisson prior on their sum, a
+    <bitFlipOperator>) under a normal prior, and a
+    <hamiltonianMonteCarloOperator> on the coefficients with a
+    <jointGradient> of a <glmSubstitutionModelGradient> (over a
+    <treeDataLikelihood> of the locations, outside the posterior) and the
+    prior's <gradient>. Returns the predictor names."""
+    import re
+
+    from beast_mcmc_tpu_torch.apps.makona import read_makona_xml
+
+    text = open(src).read()
+    codes = read_makona_xml(src)["location_codes"]
+    preds = glm_predictors(codes)
+    n_p = len(preds)
+    design = "\n".join(
+        f'            <parameter id="{n}" value="'
+        + " ".join(repr(float(x)) for x in v) + '"/>'
+        for n, v in preds.items())
+    glm = f"""<glmSubstitutionModel id="originModel">
+    <generalDataType idref="geography"/>
+    <rootFrequencies>
+      <frequencyModel id="geoFreqs" normalize="true">
+        <generalDataType idref="geography"/>
+        <frequencies><parameter id="geo.frequencies" dimension="{len(codes)}"/></frequencies>
+      </frequencyModel>
+    </rootFrequencies>
+    <glmModel id="glm" family="logLinear" checkIdentifiability="false">
+      <independentVariables>
+        <parameter id="glm.coefficients" value="{' '.join(['0.1'] * n_p)}"/>
+        <indicator><parameter id="glm.indicators" value="{' '.join(['1'] * n_p)}"/></indicator>
+        <designMatrix id="glm.design">
+{design}
+        </designMatrix>
+      </independentVariables>
+    </glmModel>
+  </glmSubstitutionModel>"""
+    text, n = re.subn(r'<svsGeneralSubstitutionModel id="originModel">.*?'
+                      r'</svsGeneralSubstitutionModel>', glm, text,
+                      flags=re.S)
+    assert n == 1, "no origin model"
+    text = text.replace('<svsGeneralSubstitutionModel idref="originModel"/>',
+                        '<glmSubstitutionModel idref="originModel"/>')
+    text = text.replace('<parameter idref="geo.indicators"/>',
+                        '<parameter idref="glm.indicators"/>')
+    # the location likelihood the gradient element reads, outside the
+    # posterior (the posterior's is the ancestral one, for the trees)
+    text = text.replace("""  </ancestralTreeLikelihood>
+""", """  </ancestralTreeLikelihood>
+  <treeDataLikelihood id="geoTreeLikelihood">
+    <attributePatterns idref="geoPatterns"/>
+    <treeModel idref="treeModel"/>
+    <siteModel idref="geoSiteModel"/>
+  </treeDataLikelihood>
+""", 1)
+    text, n = re.subn(
+        r'<scaleOperator scaleFactor="0.75" weight="15" '
+        r'scaleAllIndependently="true">\s*<parameter idref="geo.rates"/>\s*'
+        r'</scaleOperator>', f"""<hamiltonianMonteCarloOperator weight="3" nSteps="{P19_GLM_LEAPFROG}"
+        stepSize="{P19_GLM_STEP!r}" autoOptimize="true">
+      <jointGradient id="coefficientGradient">
+        <glmSubstitutionModelGradient id="glmGradient">
+          <treeDataLikelihood idref="geoTreeLikelihood"/>
+          <glmSubstitutionModel idref="originModel"/>
+        </glmSubstitutionModelGradient>
+        <gradient><normalPrior idref="coefficientPrior"/>
+          <parameter idref="glm.coefficients"/></gradient>
+      </jointGradient>
+      <parameter idref="glm.coefficients"/>
+    </hamiltonianMonteCarloOperator>""", text)
+    assert n == 1, "no rate operator"
+    text = text.replace('<bitFlipOperator weight="21">',
+                        '<bitFlipOperator weight="3">')
+    text, n = re.subn(
+        r'<cachedPrior>.*?</cachedPrior>\s*<poissonPrior [^>]*>', """<normalPrior id="coefficientPrior" mean="0.0" stdev="2.0">
+          <parameter idref="glm.coefficients"/>
+        </normalPrior>
+        <poissonPrior mean="0.6931471805599453" offset="0.0">""", text,
+        flags=re.S)
+    assert n == 1, "no rates prior"
+    text, n = re.subn(r'\s*<glmSubstitutionModel idref="originModel"/>'
+                      r'(\s*<exponentialPrior)', r"\1", text)
+    assert n == 1, "no connectivity prior"
+    with open(path, "w") as f:
+        f.write(text)
+    return tuple(preds)
+
+
+def glm_path(out_dir, reset_counts, read_counts, dev, scale=P19_GLM_SCALE,
+             src=NORTH_STAR_XML):
+    """Phase 19b (see the module docstring): `run makona_glm.xml -scale`
+    through the CLI, its peel_stream launches exactly as predicted
+    (_cli_chain), each coefficient HMC proposal timed in the run (CUDA
+    events), the allocator's peak over the run, its log and
+    location-annotated trees read back. Returns (record, launches)."""
+    import torch
+
+    from beast_mcmc_tpu_torch.apps.makona import read_makona_xml
+
+    out_dir = os.path.join(out_dir, "p19")
+    os.makedirs(out_dir, exist_ok=True)
+    doc = os.path.join(out_dir, "makona_glm.xml")
+    preds = glm_document(doc, src)
+    cfg = read_makona_xml(doc)
+    launches = {}
+
+    def expect(n, label):
+        counts = read_counts()
+        want = {k: n * (k == "peel_stream") for k in counts}
+        launches[f"P19 {label}"] = counts
+        if counts != want:
+            raise AssertionError(f"P19 {label}: launches {counts}, "
+                                 f"expected {want}")
+
+    if dev != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    n_states = max(int(200_000_000 * scale), 64)
+    b, _ = _cli_chain(out_dir, ["run", doc, "-scale", repr(scale),
+                                "-device", str(dev)], "19b CLI", n_states,
+                      100, n_states, expect)
+    b["peak_allocated_gib"] = (torch.cuda.max_memory_allocated() / 2 ** 30
+                               if dev != "cpu" else None)
+    b["hmc_proposal_ms"] = b["bound_ms"].get("HmcOperator", [])
+    lines = open(os.path.join(out_dir, "makona_joint.log")
+                 ).read().splitlines()
+    rows = [ln.split("\t") for ln in lines if ln[:1].isdigit()]
+    if len(rows) != b["steps"]:
+        raise AssertionError(f"P19b log: {lines[0]!r}, {len(rows)} rows")
+    b["log_rows"] = len(rows)
+    b["trees"] = check_joint_trees(os.path.join(out_dir,
+                                                "makona_joint.trees"), cfg)
+    if not b["trees"] >= 1:
+        raise AssertionError(f"P19b trees: {b['trees']}")
+    b["predictors"] = list(preds)
+    ms = b["hmc_proposal_ms"]
+    log(f"[P19b] CLI rc {b['rc']} in {b['cli_seconds']:.2f} s: "
+        f"{b['steps']} states in {b['chain_seconds']:.2f} s = "
+        f"{b['states_per_s']} states/s, full-evaluation deviation "
+        f"{b['full_evaluation_deviation']!r}, peel_stream launches "
+        f"{b['predicted_launches']} as predicted (bound proposals "
+        f"{b['bound_proposals']}, {b['bound_launches']} of their own), "
+        f"{b['log_rows']} log rows, {b['trees']} location-annotated trees; "
+        f"coefficient HMC proposal ms {[round(x, 3) for x in ms]} "
+        f"({P19_GLM_LEAPFROG} leapfrogs), peak allocated "
+        f"{b['peak_allocated_gib']} GiB")
+    return {"19b": b, "locations": len(cfg["location_codes"])}, launches
+
+
+P19_FUNCTIONS_XML = """  <generalDataType id="lumpType">
+{lump_states}
+  </generalDataType>
+  <stronglyLumpableCtmcRates id="lumpRates">
+    <generalDataType idref="lumpType"/>
+    <rates><parameter id="across" value="1.0 2.0"/></rates>
+{lumps}
+  </stronglyLumpableCtmcRates>
+  <logRateSubstitutionModel id="lumpModel" normalize="false">
+    <rootFrequencies><frequencyModel normalize="true">
+      <generalDataType idref="lumpType"/>
+      <frequencies><parameter id="lump.freqs" dimension="8"/></frequencies>
+    </frequencyModel></rootFrequencies>
+    <rateProvider><stronglyLumpableCtmcRates idref="lumpRates"/></rateProvider>
+  </logRateSubstitutionModel>
+  <logRateSubstitutionModel id="logRateModel">
+    <rootFrequencies><frequencyModel idref="geoFreqs"/></rootFrequencies>
+    <logRates><parameter id="logRates" value="{log_rates}"/></logRates>
+  </logRateSubstitutionModel>
+  <generalSubstitutionModel id="reversibleModel">
+    <generalDataType idref="geography"/>
+    <frequencies><frequencyModel idref="geoFreqs"/></frequencies>
+    <rates><parameter id="reversible.rates" value="{rev_rates}"/></rates>
+  </generalSubstitutionModel>
+  <instantaneousMixtureSubstitutionModel id="mixtureModel">
+    <mixtureWeights><parameter id="mixture.w" value="0.3"/></mixtureWeights>
+    <generalSubstitutionModel idref="reversibleModel"/>
+    <logRateSubstitutionModel idref="logRateModel"/>
+    <rootFrequencies><frequencyModel idref="geoFreqs"/></rootFrequencies>
+  </instantaneousMixtureSubstitutionModel>
+  <generalizedSkyLineLikelihood id="skyline" linear="false">
+    <populationSizes><parameter id="skyline.popSize" value="{sky_pops}"/></populationSizes>
+    <groupSizes><parameter id="skyline.groupSize" value="{sky_groups}"/></groupSizes>
+    <populationTree><treeModel idref="treeModel"/></populationTree>
+  </generalizedSkyLineLikelihood>
+  <skylineGradient id="skylineHeights"><generalizedSkyLineLikelihood idref="skyline"/></skylineGradient>
+  <skylineGradient id="skylinePops" wrtParameter="populationSizes"><generalizedSkyLineLikelihood idref="skyline"/></skylineGradient>
+  <yuleModel id="yule" units="years">
+    <birthRate><parameter id="yule.birthRate" value="2.0" lower="0.0"/></birthRate>
+  </yuleModel>
+  <speciationLikelihood id="speciation">
+    <model><yuleModel idref="yule"/></model>
+    <speciesTree><treeModel idref="treeModel"/></speciesTree>
+  </speciationLikelihood>
+  <speciationLikelihoodGradient id="speciationHeights"><speciationLikelihood idref="speciation"/></speciationLikelihoodGradient>
+  <speciationLikelihoodGradient id="speciationBirth" wrtParameter="birthRate"><speciationLikelihood idref="speciation"/></speciationLikelihoodGradient>
+  <gradientWrtIncrements1D id="increments">
+    <speciationLikelihoodGradient idref="speciationBirth"/>
+    <parameter idref="yule.birthRate"/>
+  </gradientWrtIncrements1D>
+  <branchSubstitutionParameterGradient id="branchExact">
+    <treeDataLikelihood idref="geoTreeLikelihood"/><parameter idref="glm.coefficients"/>
+  </branchSubstitutionParameterGradient>
+"""
+
+
+def p19_functions_document(path, glm_doc):
+    """The GLM document with 19c's elements added before <operators>: an
+    8-state strongly lumpable rate provider (two lumps of four) under a
+    log-rate model, a log-rate model over the document's locations, a
+    reversible general model and their instantaneous mixture, a skyline of ten groups with its
+    gradients, and a Yule speciation likelihood with its gradients and the
+    increments' one, values drawn with numpy from P19_SEED."""
+    import numpy as np
+
+    from beast_mcmc_tpu_torch.apps.makona import read_makona_xml
+
+    cfg = read_makona_xml(glm_doc)
+    rng = np.random.default_rng(P19_SEED)
+    k, n_taxa = len(cfg["location_codes"]), len(cfg["taxa"])
+    codes = "ABCDEFGH"
+    lump_states = "\n".join(f'    <state code="{c}"/>' for c in codes)
+    lumps = []
+    for li, members in enumerate((codes[:4], codes[4:])):
+        props = "\n".join(
+            f'      <proportions><state code="{c}"/><parameter '
+            f'id="prop.{c}" value="'
+            + " ".join(repr(float(x)) for x in rng.dirichlet(np.ones(4)))
+            + '"/></proportions>' for c in members)
+        within = " ".join(repr(float(x)) for x in rng.uniform(0.2, 2.0, 12))
+        lumps.append(f"""    <lump>
+      <stateSet><generalDataType idref="lumpType"/>{''.join(f'<state code="{c}"/>' for c in members)}</stateSet>
+      <rates><parameter id="within{li}" value="{within}"/></rates>
+{props}
+    </lump>""")
+    groups = [n_taxa // 10] * 10
+    groups[-1] += n_taxa - 1 - sum(groups)
+    block = P19_FUNCTIONS_XML.format(
+        lump_states=lump_states, lumps="\n".join(lumps),
+        log_rates=" ".join(repr(float(x)) for x in
+                           rng.normal(0.0, 0.5, k * (k - 1))),
+        rev_rates=" ".join(repr(float(x)) for x in
+                           rng.uniform(0.2, 2.0, k * (k - 1) // 2)),
+        sky_pops=" ".join(repr(float(x)) for x in rng.uniform(0.5, 3.0, 10)),
+        sky_groups=" ".join(str(g) for g in groups))
+    text = open(glm_doc).read().replace(
+        '  <operators id="operators">', block + '  <operators id="operators">',
+        1)
+    with open(path, "w") as f:
+        f.write(text)
+
+
+def p19_function_cases(ax, dev):
+    """{label: fn() -> tensor} of 19c on `ax` (the functions document on
+    `dev`): the first-order surrogate's value and coefficient gradient at
+    56 states x 1,610 taxa (config/interpreter.py's _surrogate_liks); the
+    GLM, log-rate, lumpable and mixture generators at the start state;
+    basta_loglikelihood at 1,610 taxa x P19_BASTA_DEMES demes (the
+    document's start tree, tip demes, rates and population sizes drawn
+    with numpy from P19_SEED) with its gradient; the analytic gradients
+    of skylineGradient, speciationLikelihoodGradient (heights and birth
+    rate), gradientWrtIncrements1D's report line, and the GLM
+    coefficients' gradient over the location likelihood by
+    glmSubstitutionModelGradient (the surrogate's) and by
+    branchSubstitutionParameterGradient (exact)."""
+    import numpy as np
+    import torch
+
+    from beast_mcmc_tpu_torch.config import xml_assert
+    from beast_mcmc_tpu_torch.models import basta
+
+    ax.build(ax._ids["treeModel"])
+    geo = ax.build(ax._ids["geoTreeLikelihood"])
+    sur = ax._surrogate_liks["geoTreeLikelihood"]
+    built = {i: ax.build(ax._ids[i]) for i in (
+        "originModel", "logRateModel", "lumpModel", "mixtureModel",
+        "skylineHeights", "skylinePops", "speciationHeights",
+        "speciationBirth", "increments", "branchExact", "glmGradient")}
+    params0, tree0 = xml_assert.initial_eval_state(ax)
+    rng = np.random.default_rng(P19_SEED)
+    n = (tree0.heights.shape[0] + 1) // 2
+    kd = P19_BASTA_DEMES
+    demes = torch.as_tensor(rng.integers(0, kd, n), device=dev)
+    mig_rates = torch.as_tensor(rng.uniform(0.05, 0.5, kd * (kd - 1)),
+                                dtype=torch.float64, device=dev)
+    pops = torch.as_tensor(rng.uniform(0.5, 5.0, kd), dtype=torch.float64,
+                           device=dev)
+
+    def grad(spec):
+        return lambda: xml_assert.analytic_gradient(ax, spec)[2]
+
+    def q_of(model_id):
+        return lambda: built[model_id][1](params0)
+
+    def basta_value_grad():
+        r = mig_rates.clone().requires_grad_(True)
+        p = pops.clone().requires_grad_(True)
+        v = basta.basta_loglikelihood(
+            demes, tree0.parent, tree0.children, tree0.heights,
+            basta.migration_rate_matrix(r, kd), p)
+        return torch.cat([v.reshape(1)] + list(torch.autograd.grad(
+            v, (r, p))))
+
+    def increments():
+        line = built["increments"].report(ax).splitlines()[0]
+        return torch.tensor([float(x) for x in line.split("[")[1].split(
+            "]")[0].split(",")], dtype=torch.float64)
+
+    return {
+        "tree_loglikelihood_q_approx_grad value": lambda: torch.stack([
+            sur.fn(params0, tree0), geo.fn(params0, tree0)]),
+        "glmSubstitutionModelGradient (the surrogate's)":
+            grad(built["glmGradient"]),
+        "branchSubstitutionParameterGradient exact":
+            grad(built["branchExact"]),
+        "glmSubstitutionModel generator": q_of("originModel"),
+        "logRateSubstitutionModel generator": q_of("logRateModel"),
+        "stronglyLumpableCtmcRates generator": q_of("lumpModel"),
+        "instantaneousMixtureSubstitutionModel generator":
+            q_of("mixtureModel"),
+        "basta_loglikelihood and gradient": basta_value_grad,
+        "skylineGradient heights": grad(built["skylineHeights"]),
+        "skylineGradient populations": grad(built["skylinePops"]),
+        "speciationLikelihoodGradient heights": grad(
+            built["speciationHeights"]),
+        "speciationLikelihoodGradient birth rate": grad(
+            built["speciationBirth"]),
+        "gradientWrtIncrements1D": increments,
+    }, (demes, mig_rates, pops, tree0)
+
+
+def p19_functions_path(out_dir, dev, glm_doc):
+    """Phase 19c: p19_function_cases on the card and on the CPU, each
+    output's largest deviation over its largest magnitude held to
+    P19_REL_TOL; basta_loglikelihood's ms on the card (CUDA events).
+    Returns the record."""
+    import torch
+
+    from beast_mcmc_tpu_torch.config.interpreter import XmlAnalysis
+    from beast_mcmc_tpu_torch.models import basta
+
+    t0 = time.perf_counter()
+    doc = os.path.join(os.path.dirname(glm_doc), "makona_glm_functions.xml")
+    p19_functions_document(doc, glm_doc)
+    out = {}
+    for d in (dev, "cpu"):
+        ax = XmlAnalysis(doc, seed=666, device=d,
+                         workdir=os.path.dirname(doc))
+        cases, b_in = p19_function_cases(ax, d)
+        out[d] = {k: fn().detach().cpu().double() for k, fn in cases.items()}
+        if d == dev:
+            demes, rates, pops, tree0 = b_in
+            n_basta = int(demes.shape[0])
+            with torch.no_grad():
+                basta_ms = _event_ms(lambda: basta.basta_loglikelihood(
+                    demes, tree0.parent, tree0.children, tree0.heights,
+                    basta.migration_rate_matrix(rates, P19_BASTA_DEMES),
+                    pops),
+                    P19_BASTA_REPS, d)
+        del ax, cases
+    worst = {}
+    for label, w in out["cpu"].items():
+        g = out[dev][label]
+        if g.shape != w.shape or not bool(torch.isfinite(w).all()):
+            raise AssertionError(f"P19c {label}: {g} against {w}")
+        worst[label] = float((g - w).abs().max()) / max(
+            float(w.abs().max()), 1e-300)
+        if not worst[label] <= P19_REL_TOL:
+            raise AssertionError(f"P19c {label}: {worst[label]!r} > "
+                                 f"{P19_REL_TOL}")
+    top = max(worst, key=worst.get)
+    sur = out["cpu"]["glmSubstitutionModelGradient (the surrogate's)"]
+    exact = out["cpu"]["branchSubstitutionParameterGradient exact"]
+    rec = {"functions": len(worst), "max_rel_err": worst[top], "worst": top,
+           "rel_err": worst, "basta_ms": basta_ms,
+           "surrogate_gradient": sur.tolist(),
+           "exact_gradient": exact.tolist(),
+           "basta_taxa": n_basta,
+           "basta_demes": P19_BASTA_DEMES,
+           "seconds": time.perf_counter() - t0}
+    log(f"[P19c] {len(worst)} functions on the card against the CPU in "
+        f"{rec['seconds']:.2f} s: largest deviation {worst[top]!r} ({top}; "
+        f"tolerance {P19_REL_TOL}); basta_loglikelihood at "
+        f"{rec['basta_taxa']} taxa x {P19_BASTA_DEMES} demes "
+        f"{basta_ms:.3f} ms; the GLM coefficients' gradient by "
+        f"glmSubstitutionModelGradient (the surrogate's) "
+        f"{rec['surrogate_gradient']} beside the exact "
+        f"{rec['exact_gradient']}")
+    return rec
+
+
 def chain_gradient_checks(peel_cases, post_cases, chain_inputs, analyses,
                           reset_counts, read_counts, dev):
     """Phase 10g: the chain-axis gradients. peel_cases: [(kernel, label,
@@ -4949,8 +5720,8 @@ def codon_gamma_path(analysis, kname, reset_counts, read_counts, device_ms,
 # posterior: chains, warm-up, measured and full-evaluation steps of each
 # path, the steps of its single chain with the same operators, and the
 # proposals of each bound operator alone over the batch
-P10_PATHS = {"benchmark2": (8, 10, 100, 10), "makona": (4, 5, 40, 6),
-             "protein": (4, 5, 40, 8)}
+P10_PATHS = {"benchmark2": (8, 10, 50, 6), "makona": (4, 5, 20, 4),
+             "protein": (4, 5, 20, 5)}  # steps 100, 40, 40; checks 10, 6, 8
 P10D_CHAINS, P10D_ROUNDS, P10D_SWAP_EVERY, P10D_WARM = 4, 20, 8, 16
 P10_ALONE = 2
 
@@ -6498,6 +7269,17 @@ def main():
     p18["18b"] = p18_functions_path(SMOKE_OUT, dev)
     mark("18 continuous phylogeography")
 
+    # -- phase 19: gradients and HMC, the phylogeographic GLM -----------
+    p19, p19_launches = hmc_path(SMOKE_OUT, reset_counts, read_counts,
+                                 device_ms, dev)
+    more, more_launches = glm_path(SMOKE_OUT, reset_counts, read_counts,
+                                   dev)
+    p19.update(more)
+    p19_launches.update(more_launches)
+    p19["19c"] = p19_functions_path(
+        SMOKE_OUT, dev, os.path.join(SMOKE_OUT, "p19", "makona_glm.xml"))
+    mark("19 gradients, HMC and the GLM")
+
     # -- summary ------------------------------------------------------
     def entry(kname, source, replaces, launches, label):
         rec = next(r for r in checks[kname] if r["label"] == label)
@@ -6690,6 +7472,23 @@ def main():
         f"device events a step; 18b {p18['18b']['functions']} functions, "
         f"largest deviation {p18['18b']['max_rel_err']!r}; phase "
         f"{phases['18 continuous phylogeography']:.2f} s; on {smi_line}")
+    p19a, p19b = p19["19a"], p19["19b"]
+    log(f"[summary p19] 19a {p19['taxa']} taxa x {p19['sites']} sites "
+        f"({p19['patterns']} patterns): CLI {p19a['cli_seconds']:.2f} s, "
+        f"{p19a['states_per_s']} states/s, peel_stream launches "
+        f"{p19a['predicted_launches']} (predicted), deviation "
+        f"{p19a['full_evaluation_deviation']!r}, node-height HMC proposal "
+        f"{_median(p19a['hmc_proposal_ms'])} ms, busy share "
+        f"{p19a['device_busy_share']}; 19b {p19['locations']} locations: "
+        f"CLI {p19b['cli_seconds']:.2f} s, {p19b['states_per_s']} states/s, "
+        f"peel_stream launches {p19b['predicted_launches']} (predicted), "
+        f"deviation {p19b['full_evaluation_deviation']!r}, coefficient HMC "
+        f"proposal {_median(p19b['hmc_proposal_ms'])} ms, "
+        f"peak {p19b['peak_allocated_gib']} GiB; 19c "
+        f"{p19['19c']['functions']} functions, largest deviation "
+        f"{p19['19c']['max_rel_err']!r}, basta "
+        f"{p19['19c']['basta_ms']:.3f} ms; phase "
+        f"{phases['19 gradients, HMC and the GLM']:.2f} s; on {smi_line}")
     log(f"[phases] {json.dumps(phases)}")
     log(smi_line)
     print(json.dumps({"kernels": [
@@ -6723,7 +7522,8 @@ def main():
                              **p12_launches, **p13_launches,
                              **p14_launches, **p15_launches,
                              **p16_launches, **p17_launches,
-                             **p18_launches}}), flush=True)
+                             **p18_launches, **p19_launches}}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -25,11 +25,11 @@ def test_import_every_module_without_jax():
     # (config, runner, loggers, checkpoint, ancestral draw, the command
     # line), the post-processing apps, the AS91 copy, the XML
     # interpreter and the epoch model, the XML extension modules and their
-    # helpers (xml_ext, the first part of xml_geo, xml_assert's initial
-    # state, xml_hmc's matrix parameters, xml_stats's current state, the
-    # GMRF block update and elliptical slice sampler, the Sericola series,
-    # the stochastic Dollo model, the continuous-trait models and
-    # config/xml_traits.py) are among the modules found
+    # helpers (xml_ext, xml_geo, xml_assert's initial state, xml_hmc,
+    # xml_stats's current state, the GMRF block update and elliptical
+    # slice sampler, the Sericola series, the stochastic Dollo model, the
+    # continuous-trait models, config/xml_traits.py and the BASTA
+    # structured coalescent) are among the modules found
     assert {"beast_mcmc_tpu_torch.apps.makona",
             "beast_mcmc_tpu_torch.config.xml_ext",
             "beast_mcmc_tpu_torch.config.xml_geo",
@@ -42,6 +42,7 @@ def test_import_every_module_without_jax():
             "beast_mcmc_tpu_torch.models.continuous",
             "beast_mcmc_tpu_torch.models.factor",
             "beast_mcmc_tpu_torch.models.liability",
+            "beast_mcmc_tpu_torch.models.basta",
             "beast_mcmc_tpu_torch.config.xml_traits",
             "beast_mcmc_tpu_torch.config.interpreter",
             "beast_mcmc_tpu_torch.models.epoch",

@@ -23,6 +23,7 @@ from beast_mcmc_tpu.config import interpreter as jinterp
 
 from beast_mcmc_tpu_torch import __main__ as cli
 from beast_mcmc_tpu_torch.config import interpreter as interp
+from beast_mcmc_tpu_torch.tree.topology import make_tree_state
 
 from test_distribution_likelihood_xml import XML as CONJUGATE_XML
 from test_torch_interpreter import CLOCKS, _doc
@@ -115,41 +116,34 @@ def _jax_modules():
 
 # the JAX package's extension tags the port registers: all of
 # config/xml_ext.py's, xml_mle.py's, xml_assert.py's, xml_stats.py's (with
-# its operator, fireParameterChanged) and xml_traits.py's (with its
-# operator, newLatentLiabilityGibbsOperator; dummyModel is xml_factor.py's
-# in JAX's registry, which registers it after xml_ext.py, with the same
-# zero density), the discrete-phylogeography part of config/xml_geo.py and
-# the parts of config/xml_hmc.py the trait vocabulary reaches
+# its operator, fireParameterChanged), xml_traits.py's (with its operator,
+# newLatentLiabilityGibbsOperator; dummyModel is xml_factor.py's in JAX's
+# registry, which registers it after xml_ext.py, with the same zero
+# density), xml_geo.py's and xml_hmc.py's
 PORTED_MODULES = ("config/xml_ext.py", "config/xml_mle.py",
                   "config/xml_assert.py", "config/xml_stats.py",
-                  "config/xml_traits.py")
+                  "config/xml_traits.py", "config/xml_geo.py",
+                  "config/xml_hmc.py")
 PORTED_OP_MODULES = PORTED_MODULES
-PORTED_HMC = {"compoundEigenMatrix", "multivariateWishartPrior"}
-PORTED_HMC_OPS = {"precisionGibbsOperator", "internalTraitGibbsOperator"}
-PORTED_GEO = {"generalDataType", "attributePatterns",
-              "generalSubstitutionModel", "svsGeneralSubstitutionModel",
-              "complexSubstitutionModel", "beagleSequenceSimulator",
-              "sequenceSimulator"}
 
 
 def _ported(builders):
     return ({t for t, m in builders.items() if m in PORTED_MODULES}
-            | PORTED_GEO | PORTED_HMC | {"dummyModel"})
+            | {"dummyModel"})
 
 
 def _ported_ops(ops):
-    return {t for t, m in ops.items() if m in PORTED_OP_MODULES} \
-        | PORTED_HMC_OPS
+    return {t for t, m in ops.items() if m in PORTED_OP_MODULES}
 
 
 def test_base_registry_is_the_jax_base_registry():
     builders, ops = _jax_modules()
     base = {t for t, m in builders.items() if m == "config/interpreter.py"}
     assert len(base) == 91
-    assert len(_ported(builders)) == 102
+    assert len(_ported(builders)) == 146
     assert set(interp._BUILDERS) == base | _ported(builders)
     assert set(interp._OP_EXT) == _ported_ops(ops)
-    assert len(interp._OP_EXT) == 7
+    assert len(interp._OP_EXT) == 20
 
 
 def test_every_jax_tag_is_registered_or_names_its_module(tmp_path):
@@ -178,10 +172,9 @@ def test_every_jax_tag_is_registered_or_names_its_module(tmp_path):
             interp._build_operator(ax, el)
         assert f"beast_mcmc_tpu/{ops[el.tag]}" in str(e.value)
         checked += 1
-    assert checked == len(ext) + len(op_tags) == 181 + 27 - 102 - 7
-    assert (len(ext), len(op_tags)) == (79, 20)
-    # no tag of a ported module, and none of the ported xml_geo.py and
-    # xml_hmc.py ones, is left among the unported
+    assert checked == len(ext) + len(op_tags) == 181 + 27 - 146 - 20
+    assert (len(ext), len(op_tags)) == (35, 7)
+    # no tag of a ported module is left among the unported
     assert not set(interp._TAG_MODULE) & ported
     assert not set(PORTED_MODULES) & (set(interp.EXTENSION_TAGS)
                                       | set(interp.QUEUE_ITEMS))
@@ -198,24 +191,45 @@ def test_importer_vocabulary_is_covered():
 
 
 def test_base_file_branches_into_unported_modules_raise(tmp_path):
-    """The base handlers' branches into unported modules raise their
-    Unsupported (the pattern-weight operator's _IdentityOperator of
-    config/xml_hmc.py; the marginal-likelihood estimator, which raised
-    before config/xml_mle.py was ported, runs: tests/
-    test_torch_marginal_likelihood.py); the GMRF block update of an
-    ungrouped field, which raised before inference/gibbs.py was ported,
-    builds that operator as JAX's registry does."""
+    """The base handlers' branches into once unported modules build what
+    JAX's registry builds: the pattern-weight operator, which raised
+    before config/xml_hmc.py was ported, is its _IdentityOperator (no
+    change, always accepted) and the document runs; the
+    marginal-likelihood estimator, which raised before config/xml_mle.py
+    was ported, runs (tests/test_torch_marginal_likelihood.py); the GMRF
+    block update of an ungrouped field, which raised before
+    inference/gibbs.py was ported, builds that operator."""
+    from beast_mcmc_tpu.config.xml_hmc import (
+        _IdentityOperator as JIdentity,
+    )
+    from beast_mcmc_tpu_torch.config.xml_hmc import _IdentityOperator
     from beast_mcmc_tpu_torch.inference.gibbs import GmrfBlockUpdateOperator
 
     doc = ET.fromstring(RLC_DOC)
     ops_el = doc.find("operators")
-    ET.SubElement(ops_el, "patternWeightIncrementOperator")
+    ET.SubElement(ops_el, "patternWeightIncrementOperator", weight="3")
     (tmp_path / "pw.xml").write_text(ET.tostring(doc, encoding="unicode"))
     ax = interp.XmlAnalysis(str(tmp_path / "pw.xml"), max_states=20,
                             workdir=str(tmp_path), device="cpu")
-    with pytest.raises(interp.Unsupported,
-                       match="xml_hmc.py.*queue item 5b"):
-        ax.run(full_eval_steps=2)
+    jax_ax = jinterp.XmlAnalysis(str(tmp_path / "pw.xml"))
+    for a in (ax, jax_ax):
+        a.build(a._ids["treeModel"])
+    (op,) = [o for o in ax.build(ax.root.find("operators"))[0]
+             if isinstance(o, _IdentityOperator)]
+    (jop,) = [o for o in jax_ax.build(jax_ax.root.find("operators"))[0]
+              if isinstance(o, JIdentity)]
+    assert op.weight == jop.weight == 3.0
+    assert op.modified_params() == jop.modified_params() == ()
+    st = interp._StateShim(
+        {"x": torch.ones(2, dtype=torch.float64)},
+        make_tree_state([2, 2, -1], [[-1, -1], [-1, -1], [0, 1]],
+                        [0.0, 0.0, 1.0], 2, torch.float64, "cpu"))
+    params, tree, logh = op.propose(st.params, st.tree, None, None)
+    assert params is st.params and tree is st.tree
+    assert float(logh) == float(jop.propose({}, None, None, None)[2]) \
+        == float("inf")
+    ax.run(full_eval_steps=2)
+    assert ax.runs[0]["full_eval_deviation"] <= 0.1
     sky = _doc(models="""<gmrfSkyrideLikelihood id="skyride">
         <populationSizes><parameter id="g" value="-2.0"/></populationSizes>
         <precisionParameter><parameter id="tau" value="2.0"/></precisionParameter>

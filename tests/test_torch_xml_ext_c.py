@@ -172,10 +172,14 @@ def _analyses(tmp_path, xml):
 
 def test_gradient_elements_build_and_reports_name_their_modules(tmp_path):
     """<gmrfSkyrideGradient> builds over a skygrid with JAX's target
-    parameter; its report (config/xml_hmc.py's GradientSpec) raises
-    Unsupported naming that module, as does the node-height form; the
-    coalescent-interval gradient's report (torch.autograd, since
-    config/xml_assert.py is ported) equals JAX's (jax.grad) to 1e-10."""
+    parameter; its reports over the log populations and the precision
+    (config/xml_assert.py::gradient_report, once waiting for
+    config/xml_hmc.py), the coalescent-interval gradient's and the
+    node-height form's (now xml_hmc.py's GradientSpec) equal JAX's
+    (jax.grad) to 1e-10."""
+    from beast_mcmc_tpu.config import xml_assert as jassert
+    from beast_mcmc_tpu_torch.config import xml_assert
+
     from test_torch_xml_ext_b import DOCS_B
 
     doc = ET.fromstring(ext_documents(
@@ -186,25 +190,23 @@ def test_gradient_elements_build_and_reports_name_their_modules(tmp_path):
                           wrtParameter=wrt)
         ET.SubElement(g, "gmrfSkyGridLikelihood", idref="skygrid")
     jax_ax, ax = _analyses(tmp_path, ET.tostring(doc, encoding="unicode"))
-    for wrt, module in (("logPopulationSizes", "xml_hmc.py"),
-                        ("precision", "xml_hmc.py"),
-                        ("coalescentInterval", None)):
+    for wrt in ("logPopulationSizes", "precision", "coalescentInterval",
+                "nodeHeight"):
         got = ax.build(ax._ids[f"g.{wrt}"])
         want = jax_ax.build(jax_ax._ids[f"g.{wrt}"])
         assert type(got).__name__ == type(want).__name__
         assert getattr(got, "wrt", None) == getattr(want, "wrt", None)
-        if module is None:
-            rep, jrep = got.report(ax), want.report(jax_ax)
-            assert rep.splitlines()[0] == jrep.splitlines()[0] == "Gradient"
-            nums = [np.array(re.findall(r"-?[\d.]+(?:e-?\d+)?", r),
-                             float) for r in (rep, jrep)]
-            np.testing.assert_allclose(nums[0], nums[1], rtol=1e-10,
-                                       atol=1e-10)
-            continue
-        with pytest.raises(interp.Unsupported, match=module):
-            got.report(ax)
-    with pytest.raises(interp.Unsupported, match="xml_hmc.py"):
-        ax.build(ax._ids["g.nodeHeight"])
+        assert getattr(got, "height_tid", None) == getattr(
+            want, "height_tid", None)
+        rep = xml_assert.report_of(ax, ax._ids[f"g.{wrt}"])
+        jrep = jassert.report_of(jax_ax, jax_ax._ids[f"g.{wrt}"])
+        assert rep.splitlines()[0] == jrep.splitlines()[0] == "Gradient"
+        analytic = [np.array(re.findall(r"-?[\d.]+(?:e-?\d+)?",
+                                        r.splitlines()[1]), float)
+                    for r in (rep, jrep)]
+        assert analytic[0].size == analytic[1].size > 0
+        np.testing.assert_allclose(analytic[0], analytic[1], rtol=1e-10,
+                                   atol=1e-10, err_msg=wrt)
 
 
 def test_wrappers_of_unported_modules_raise_naming_them(tmp_path):

@@ -339,18 +339,17 @@ def test_wishart_prior_densities_equal_jax(tmp_path):
 
 def test_extension_registry_names_no_ported_tag():
     """EXTENSION_TAGS and EXTENSION_OPERATORS name no tag the port
-    registers (xml_traits.py's, xml_stats.py's trait statistics, and the
-    parts of xml_hmc.py the trait vocabulary reaches), and 79 element
-    tags and 20 operator tags are left: config/xml_factor.py's,
-    xml_field.py's, the rest of xml_geo.py's and of xml_hmc.py's."""
+    registers (xml_traits.py's, xml_stats.py's trait statistics, all of
+    xml_geo.py's and xml_hmc.py's), and 35 element tags and 7 operator
+    tags are left: config/xml_factor.py's and xml_field.py's."""
     ext = {t for ts in interp.EXTENSION_TAGS.values() for t in ts}
     ext_ops = {t for ts in interp.EXTENSION_OPERATORS.values() for t in ts}
     assert not ext & set(interp._BUILDERS)
     assert not ext_ops & set(interp._OP_EXT)
-    assert len(ext) == 79 and len(ext_ops) == 20
-    assert set(interp.EXTENSION_TAGS) == {
-        "config/xml_factor.py", "config/xml_field.py", "config/xml_geo.py",
-        "config/xml_hmc.py"}
+    assert len(ext) == 35 and len(ext_ops) == 7
+    assert set(interp.EXTENSION_TAGS) == set(interp.QUEUE_ITEMS) == {
+        "config/xml_factor.py", "config/xml_field.py"}
+    assert set(interp.EXTENSION_OPERATORS) == {"config/xml_factor.py"}
     for tag in ("traitDataLikelihood", "arbitraryBranchRates",
                 "traitLogger", "blombergsK", "continuousDiffusionStatistic",
                 "multivariateWishartPrior", "compoundEigenMatrix"):
