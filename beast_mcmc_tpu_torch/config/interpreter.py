@@ -29,11 +29,12 @@ streams cannot be matched, so chains agree in law; every starting value
 drawn from the analysis's numpy generator (`_rng`, the coalescent start
 tree among them) is drawn the same way and equal.
 
-Of the nine extension modules (config/xml_{assert,ext,factor,field,geo,
-hmc,mle,stats,traits}.py), all but xml_factor.py and xml_field.py are
-ported whole: xml_hmc.py's gradient and HMC vocabulary, xml_geo.py's
-discrete phylogeography with the GLM and the structured coalescent, and
-the continuous traits of xml_traits.py among them. A tree likelihood
+All nine extension modules (config/xml_{assert,ext,factor,field,geo,
+hmc,mle,stats,traits}.py) are ported whole: xml_hmc.py's gradient and HMC
+vocabulary, xml_geo.py's discrete phylogeography with the GLM and the
+structured coalescent, the continuous traits of xml_traits.py, the
+factor analysis of xml_factor.py and the random fields of xml_field.py
+among them. A tree likelihood
 registers beside itself its first-order surrogate (`_surrogate_liks`:
 models/treelikelihood.py::tree_loglikelihood_q_approx_grad, the
 generator reassembled from an eigen model), which the approximate
@@ -41,10 +42,8 @@ CTMC-rate gradient elements report. <marginalLikelihoodEstimator> runs
 its ladder of tempered chains in document order (config/xml_mle.py), and
 <assertEqual> its comparison (config/xml_assert.py), which warns and
 skips where the state came from a random stream (after an <mcmc>, or on
-a simulated start tree), as JAX's does. Each remaining tag (`EXTENSION_TAGS`,
-`EXTENSION_OPERATORS`) raises `Unsupported` naming the JAX module and its
-ROADMAP queue item, as do the branches into unported modules. No tag is
-skipped silently.
+a simulated start tree), as JAX's does. A tag without a builder raises
+`Unsupported`; no tag is skipped silently.
 
 <logTree> annotates each sampled tree with the joint ancestral-state draw
 of its <ancestralTreeLikelihood> children, drawn on the device inside the
@@ -76,64 +75,6 @@ class Unsupported(NotImplementedError):
 
 class XmlError(ValueError):
     pass
-
-
-# ---------------------------------------------------------------------------
-# the JAX package's modules that are not ported yet, and their queue items
-# ---------------------------------------------------------------------------
-
-QUEUE_ITEMS = {
-    "config/xml_factor.py": "4g",
-    "config/xml_field.py": "4g",
-}
-
-EXTENSION_TAGS: Dict[str, Tuple[str, ...]] = {
-    "config/xml_factor.py": (
-        "crossValidation", "dataAndMissingFromTreeTips", "dataFromTreeTips",
-        "determinantPrior", "dirichletParameterPrior",
-        "factorProportionStatistic", "independentNormalDistributionModel",
-        "integratedFactorAnalysisLoadingsAndPrecisionGradient",
-        "integratedFactorAnalysisLoadingsGradient",
-        "integratedFactorAnalysisPrecisionGradient", "integratedFactors",
-        "latentFactorModel", "matrixShrinkageLikelihood",
-        "multiplicativeGammaGibbsProvider", "multivariateGammaLikelihood",
-        "normalMatrixNormLikelihood", "productParameter",
-        "sampledLoadingsGradient", "scaledMatrixGradient",
-        "scaledMatrixParameter", "traitValidationProvider",
-        "treeTraitReporter", "wishartStatistics",
-    ),
-    "config/xml_field.py": (
-        "GaussianMarkovRandomField", "gaussianMarkovRandomField",
-        "gaussianProcessConditionalDerivative", "gaussianProcessField",
-        "gaussianProcessKernelGradient", "gaussianProcessPrediction",
-        "multiLocusNPCoalescentLikelihood",
-        "multilocusNPCoalescentLikelihood",
-        "multilocusNPCoalescentLikelihoodGradient", "randomField",
-        "randomFieldGradient", "weightProvider",
-    ),
-}
-
-EXTENSION_OPERATORS: Dict[str, Tuple[str, ...]] = {
-    "config/xml_factor.py": (
-        "extendedLatentLiabilityGibbsOperator", "factorTreeGibbsOperator",
-        "integratedFactorsGibbsOperator", "latentLiabilityGibbsOperator",
-        "loadingsGibbsOperator", "loadingsScaleGibbsOperator",
-        "newLatentLiabilityGibbsOperator2",
-    ),
-}
-
-_TAG_MODULE = {t: m for m, ts in EXTENSION_TAGS.items() for t in ts}
-_OPERATOR_MODULE = {t: m for m, ts in EXTENSION_OPERATORS.items()
-                    for t in ts}
-
-
-def unported(what: str, module: str) -> Unsupported:
-    """The Unsupported error for `what`, which needs the JAX package's
-    `module` (a path below beast_mcmc_tpu/)."""
-    return Unsupported(
-        f"{what} needs beast_mcmc_tpu/{module}, which is not ported to "
-        f"beast_mcmc_tpu_torch yet (ROADMAP queue item "
-        f"{QUEUE_ITEMS[module]})")
 
 
 # ---------------------------------------------------------------------------
@@ -403,8 +344,6 @@ class XmlAnalysis:
             return self._built[key]
         builder = _BUILDERS.get(el.tag)
         if builder is None:
-            if el.tag in _TAG_MODULE:
-                raise unported(f"<{el.tag}>", _TAG_MODULE[el.tag])
             raise Unsupported(f"<{el.tag}> has no registered builder")
         obj = builder(self, el)
         if (isinstance(obj, LikelihoodFn)
@@ -3724,7 +3663,7 @@ def _op_target(ax, el):
     missing = None
     for c in el:
         cc = ax.deref(c)
-        if cc.tag in _BUILDERS or cc.tag in _TAG_MODULE:
+        if cc.tag in _BUILDERS:
             try:
                 obj = ax.build(cc)
             except (Unsupported, XmlError) as e:
@@ -3751,8 +3690,6 @@ def _build_operator(ax: XmlAnalysis, el):
 
     if tag in _OP_EXT:
         return _OP_EXT[tag](ax, el, w)
-    if tag in _OPERATOR_MODULE:
-        raise unported(f"operator <{tag}>", _OPERATOR_MODULE[tag])
 
     if tag == "subtreeSlide":
         _, _, tid = _op_target(ax, el)
@@ -4234,3 +4171,5 @@ from beast_mcmc_tpu_torch.config import xml_mle as _xml_mle  # noqa: E402,F401
 from beast_mcmc_tpu_torch.config import xml_stats as _xml_stats  # noqa: E402,F401
 from beast_mcmc_tpu_torch.config import xml_hmc as _xml_hmc  # noqa: E402,F401
 from beast_mcmc_tpu_torch.config import xml_traits as _xml_traits  # noqa: E402,F401
+from beast_mcmc_tpu_torch.config import xml_field as _xml_field  # noqa: E402,F401
+from beast_mcmc_tpu_torch.config import xml_factor as _xml_factor  # noqa: E402,F401

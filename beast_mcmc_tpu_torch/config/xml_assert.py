@@ -21,8 +21,10 @@ GradientWrtParameterProvider.makeReport (GradientWrtParameterProvider
 differentiated; a config/xml_hmc.py GradientSpec reports so. A trait
 likelihood's report carries the reference's continuous-data extras (the
 trait variance, the observed datum, ContinuousDataLikelihoodDelegate
-.getReport:446) but its outer-product statistics, which are config/
-xml_factor.py's (ROADMAP queue item 4g). An operator's report is its
+.getReport:446) and, where they can be formed, the outer-product
+statistics of config/xml_factor.py's wishartStatistics ("Outer-products
+(DP)"); a traitValidationProvider reports xml_factor.py's
+trait_validation_report. An operator's report is its
 config/xml_hmc.py::OP_REPORTS entry (the geodesic HMC's deterministic
 leapfrog, the log-rate model's generator) where it has one.
 """
@@ -280,7 +282,19 @@ def _trait_report(ax: XmlAnalysis, tl, v) -> str:
         rows = "\n".join("  ".join(str(x) for x in r) for r in var)
         extra += f"Trait variance:\n{rows}\n\n"
     extra += f"datum : {', '.join(str(x) for x in datum)}\n"
-    return extra + f"logLikelihood: {v} == {v}\n"
+    # the old-against-new tester formats (AbstractMultivariateTrait
+    # Likelihood.getReport: "logLikelihood: X == Y" and the outer-product
+    # statistics, left out where they cannot be formed, as JAX does)
+    extra += f"logLikelihood: {v} == {v}\n"
+    from beast_mcmc_tpu_torch.config.xml_factor import _WishartStatistics
+
+    try:
+        s_mat = _WishartStatistics(tl, "ws").scale_matrix(ax)
+        flat = ", ".join(str(float(x)) for x in np.ravel(s_mat))
+        extra += f"Outer-products (DP):\n[{flat}]\n"
+    except Exception:  # noqa: BLE001 -- an optional section, as in JAX
+        pass
+    return extra
 
 
 # ---------------------------------------------------------------------------

@@ -1001,17 +1001,18 @@ def _nn_mean_gibbs(ax: XmlAnalysis, el, weight):
 def _ng_prec_gibbs(ax: XmlAnalysis, el, weight):
     """NormalGammaPrecisionGibbsOperator.java: the exact gamma full
     conditional of the precision (inference/gibbs.py::
-    NormalGammaPrecisionGibbs). Its multiplicative-gamma provider form is
-    config/xml_factor.py's."""
-    from beast_mcmc_tpu_torch.config.interpreter import unported
+    NormalGammaPrecisionGibbs); over a multiplicativeGammaGibbsProvider
+    config/xml_factor.py's MultiplicativeGammaGibbsOperator."""
     from beast_mcmc_tpu_torch.inference.gibbs import (
         NormalGammaPrecisionGibbs,
     )
 
     if el.find("multiplicativeGammaGibbsProvider") is not None:
-        raise unported("<normalGammaPrecisionGibbsOperator> over a "
-                       "multiplicativeGammaGibbsProvider",
-                       "config/xml_factor.py")
+        from beast_mcmc_tpu_torch.config.xml_factor import (
+            multiplicative_gamma_operator,
+        )
+
+        return multiplicative_gamma_operator(ax, el, weight)
     model_el, data_names = _gibbs_likelihood_parts(ax, el)
     mname, scale_name, _ = _normal_model_parts(ax, model_el)
     if model_el.find("precision") is None:
@@ -1553,8 +1554,8 @@ class SphereRowWalkOperator(Operator):
 
 @register_operator("matrixVonMisesFisherGibbsOperator")
 def _matrix_vmf_gibbs(ax: XmlAnalysis, el, weight):
-    """The loadings columns of the integratedFactorModel child (whose
-    builder is config/xml_factor.py's)."""
+    """The loadings columns of the integratedFactorModel child (config/
+    xml_traits.py's builder)."""
     names = []
     for c in el:
         cc = ax.deref(c)

@@ -30,8 +30,7 @@ inputs the port builds:
 Statistics are read at the document's current state on the analysis's
 device (`_current_state`, the derived parameters overlaid) and reported
 in the reference's formats. <property name="wishartStatistics"> reads
-config/xml_factor.py's statistic and raises Unsupported naming it
-(ROADMAP queue item 4g).
+config/xml_factor.py's statistic (its scale matrix, flattened).
 """
 
 from __future__ import annotations
@@ -642,7 +641,7 @@ def _property_report(ax: XmlAnalysis, el):
             return rows[:, data_cols[index or 0]]
         if name == "wishartStatistics":
             if isinstance(val, ET.Element):
-                val = ax_.build(val)  # config/xml_factor.py's: raises
+                val = ax_.build(val)  # config/xml_factor.py's
             return np.ravel(val.scale_matrix(ax_))
         if name == "mean":
             return float(np.mean(np.asarray(val, float)))

@@ -29,8 +29,8 @@ Counterpart of beast_mcmc_tpu/inference/gibbs.py, every class of it:
     139-280): the moves of the continuous-trait models; their XML tags are
     config/xml_hmc.py's <precisionGibbsOperator> and
     <internalTraitGibbsOperator> and config/xml_traits.py's
-    <newLatentLiabilityGibbsOperator> (xml_factor.py's liability
-    operators are not ported).
+    <newLatentLiabilityGibbsOperator> (config/xml_factor.py's factor and
+    liability Gibbs moves draw through this module's helpers).
 
 All but the block update and the latent liabilities are Gibbs moves,
 log-Hastings +inf. The linear algebra reports failure on the device

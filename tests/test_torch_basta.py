@@ -203,3 +203,27 @@ def test_phase19_rehearsal(tmp_path, monkeypatch):
     assert c["functions"] == 13 and c["max_rel_err"] == 0.0
     assert c["basta_taxa"] == 24
     assert len(c["surrogate_gradient"]) == len(c["exact_gradient"]) == 4
+
+
+def test_phase19a_fails_on_a_planted_wrong_gradient(tmp_path, monkeypatch):
+    """19a's -testxml check can fail: with one expected entry of its
+    <assertEqual> moved by 1e-8 of the largest (100 times the tolerance),
+    the assertion warns "(skipped)" on the simulated start tree, and
+    hmc_path raises on that warning."""
+    import chip_smoke
+
+    write = chip_smoke.hmc_document
+
+    def planted(path, data, n_steps, log_every, expected=None):
+        if expected is not None:
+            expected = expected.copy()
+            expected[0] += 1e-8 * np.abs(expected).max()
+        return write(path, data, n_steps, log_every, expected)
+
+    monkeypatch.setattr(chip_smoke, "hmc_document", planted)
+    with pytest.raises(AssertionError,
+                       match=r"19a CLI -testxml: \[.*\(skipped\)"):
+        chip_smoke.hmc_path(
+            str(tmp_path), lambda: None, lambda: {"peel_stream": 0},
+            lambda fn, label, n=1: (0.0, None), "cpu", n_taxa=12,
+            n_sites=200, n_steps=10, log_every=10)

@@ -44,6 +44,16 @@ from test_mcmc import check_tree_valid
 from test_operator_uniformity import exact_topology_probs
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small tensors: one intra-op thread, which six test workers do not
+    contend for."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _to_numpy(tree_like):
     return jax.tree_util.tree_map(np.asarray, tree_like)
 

@@ -64,6 +64,16 @@ from test_torch_chain import _topology_id
 F64 = torch.float64
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small tensors: one intra-op thread, which six test workers do not
+    contend for."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tree_np(n_taxa, seed, caterpillar=False):
     if not caterpillar:
         return simulate_coalescent_tree(np.random.default_rng(seed),

@@ -32,6 +32,16 @@ from beast_mcmc_tpu_torch.models import treelikelihood as ttl
 from beast_mcmc_tpu_torch.ops import cuda_peeling, cuda_stream, cuda_stream2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small tensors: one intra-op thread, which six test workers do not
+    contend for."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _balanced(n_taxa):
     """A balanced tree on n_taxa (a power of two): (parent, children,
     heights, root), internal nodes joined level by level."""

@@ -49,6 +49,16 @@ from fixtures import primate_patterns, primate_tree
 REL, ABS = 1e-10, 1e-12
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small tensors: one intra-op thread, which six test workers do not
+    contend for."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _problem(n_taxa, c, s, p, seed, k=None):
     """A coalescent tree, tips, row-stochastic matrices, random freqs and
     category weights (numpy); with `k`, k partitions on the tree."""

@@ -7,9 +7,22 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+import torch
+
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "beast_mcmc_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "chex", "beast_mcmc_tpu")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small tensors: one intra-op thread, which six test workers do not
+    contend for."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _modules():

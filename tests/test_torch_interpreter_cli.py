@@ -5,11 +5,11 @@ coverage of the JAX package's vocabulary.
 outside the importer's vocabulary (a random local clock) through the
 interpreter and writes its log; `-testxml` runs the conjugate document of
 tests/test_distribution_likelihood_xml.py and prints its expectation; a
-tag of an unported extension module makes a non-zero exit whose message
-names the module and its queue item. Every tag of the JAX package's
-_BUILDERS and _OP_EXT is registered in the port or raises Unsupported
-naming the JAX module that registers it (mirroring
-tests/test_xml_unified.py's one-registry contract).
+tag of the last modules ported (config/xml_factor.py's determinantPrior)
+runs and agrees with JAX, and a tag neither package registers makes a
+non-zero exit naming it. Every tag of the JAX package's _BUILDERS and
+_OP_EXT is registered in the port (mirroring tests/test_xml_unified.py's
+one-registry contract).
 """
 
 import inspect
@@ -76,19 +76,42 @@ def test_cli_testxml_runs_the_conjugate_document(tmp_path, monkeypatch,
 def test_cli_unported_tag_exits_nonzero_naming_its_module(tmp_path,
                                                           monkeypatch,
                                                           capsys):
+    """A <determinantPrior> (config/xml_factor.py's, which once made this
+    exit 1) in the prior: the document runs through the CLI and its
+    posterior with the prior's new term equals JAX's; a tag that neither
+    package registers exits 1 naming it, with and without -testxml."""
+    import numpy as np
+
+    det = ('<matrixParameter id="dm"><parameter id="dm.1" value="2.0 0.3"/>'
+           '<parameter id="dm.2" value="0.4 1.5"/></matrixParameter>')
     doc = RLC_DOC.replace(
         '<poissonPrior mean="1.0">',
-        '<determinantPrior id="det"><parameter idref="kappa"/>'
+        f'<determinantPrior id="det" shapeParameter="2.0">{det}'
         '</determinantPrior>\n        <poissonPrior mean="1.0">')
     (tmp_path / "ext.xml").write_text(doc)
     monkeypatch.chdir(tmp_path)
+    assert cli.main(["run", "ext.xml", "-device", "cpu"]) == 0
+    jax_ax = jinterp.XmlAnalysis(str(tmp_path / "ext.xml"))
+    ax = interp.XmlAnalysis(str(tmp_path / "ext.xml"), device="cpu")
+    for a in (jax_ax, ax):
+        a.build(a._ids["treeModel"])
+        a.build(a._ids["det"])
+    params = {n: p.value for n, p in ax._params.items()}
+    want = float(jax_ax.build(jax_ax._ids["det"]).fn(params, None))
+    got = float(ax.build(ax._ids["det"]).fn(
+        {n: torch.as_tensor(v, dtype=torch.float64)
+         for n, v in params.items()}, None))
+    np.testing.assert_allclose(got, want, rtol=1e-12)
+    assert abs(want - 2.0 * np.log(2.0 * 1.5 - 0.3 * 0.4)) < 1e-12
+    capsys.readouterr()
+    (tmp_path / "bad.xml").write_text(doc.replace(
+        '<determinantPrior id="det"', '<notARegisteredPrior id="det"').replace(
+        "</determinantPrior>", "</notARegisteredPrior>"))
     for extra in ([], ["-testxml"]):
-        rc = cli.main(["run", "ext.xml", "-device", "cpu"] + extra)
+        rc = cli.main(["run", "bad.xml", "-device", "cpu"] + extra)
         err = capsys.readouterr().err
         assert rc == 1
-        assert "<determinantPrior>" in err
-        assert "beast_mcmc_tpu/config/xml_factor.py" in err
-        assert "queue item 4g" in err
+        assert "<notARegisteredPrior> has no registered builder" in err
 
 
 def test_cli_particles_stays_refused(tmp_path, capsys):
@@ -117,13 +140,15 @@ def _jax_modules():
 # the JAX package's extension tags the port registers: all of
 # config/xml_ext.py's, xml_mle.py's, xml_assert.py's, xml_stats.py's (with
 # its operator, fireParameterChanged), xml_traits.py's (with its operator,
-# newLatentLiabilityGibbsOperator; dummyModel is xml_factor.py's in JAX's
-# registry, which registers it after xml_ext.py, with the same zero
-# density), xml_geo.py's and xml_hmc.py's
+# newLatentLiabilityGibbsOperator), xml_geo.py's, xml_hmc.py's,
+# xml_factor.py's and xml_field.py's (dummyModel is xml_factor.py's in
+# JAX's registry, which registers it after xml_ext.py, with the same zero
+# density; the port's is xml_ext.py's)
 PORTED_MODULES = ("config/xml_ext.py", "config/xml_mle.py",
                   "config/xml_assert.py", "config/xml_stats.py",
                   "config/xml_traits.py", "config/xml_geo.py",
-                  "config/xml_hmc.py")
+                  "config/xml_hmc.py", "config/xml_factor.py",
+                  "config/xml_field.py")
 PORTED_OP_MODULES = PORTED_MODULES
 
 
@@ -140,52 +165,59 @@ def test_base_registry_is_the_jax_base_registry():
     builders, ops = _jax_modules()
     base = {t for t, m in builders.items() if m == "config/interpreter.py"}
     assert len(base) == 91
-    assert len(_ported(builders)) == 146
+    assert len(_ported(builders)) == 181
     assert set(interp._BUILDERS) == base | _ported(builders)
     assert set(interp._OP_EXT) == _ported_ops(ops)
-    assert len(interp._OP_EXT) == 20
+    assert len(interp._OP_EXT) == 27
 
 
 def test_every_jax_tag_is_registered_or_names_its_module(tmp_path):
+    """Every element and operator tag of JAX's registry is the port's (no
+    module is left unported); a bare element of each of the last modules'
+    35 element and 7 operator tags builds in both packages or raises an
+    exception of the same class name as JAX's builder (never for want of
+    a builder), and an unregistered tag raises Unsupported naming it."""
     builders, ops = _jax_modules()
-    ported = _ported(builders)
+    assert set(builders) <= set(interp._BUILDERS)
+    assert set(ops) <= set(interp._OP_EXT)
+    last = ("config/xml_factor.py", "config/xml_field.py")
     ext = sorted(t for t, m in builders.items()
-                 if m != "config/interpreter.py" and t not in ported)
-    op_tags = sorted(t for t in ops if t not in _ported_ops(ops))
+                 if m in last and t != "dummyModel")
+    op_tags = sorted(t for t, m in ops.items() if m in last)
+    assert len(ext) == 35 and len(op_tags) == 7
     body = "".join(f'<{t} id="n{i}"/>' for i, t in enumerate(ext))
     body += "<operators>" + "".join(f"<{t}/>" for t in op_tags) + \
         "</operators>"
-    (tmp_path / "all.xml").write_text(f"<beast>{body}</beast>")
+    (tmp_path / "all.xml").write_text(f"<beast>{body}<bogusTag/></beast>")
     ax = interp.XmlAnalysis(str(tmp_path / "all.xml"), device="cpu")
-    checked = 0
-    for el in ax.root:
-        if el.tag == "operators":
-            continue
-        with pytest.raises(interp.Unsupported) as e:
-            ax.build(el)
-        module = builders[el.tag]
-        assert f"beast_mcmc_tpu/{module}" in str(e.value)
-        assert f"queue item {interp.QUEUE_ITEMS[module]}" in str(e.value)
-        checked += 1
-    for el in ax.root.find("operators"):
-        with pytest.raises(interp.Unsupported) as e:
-            interp._build_operator(ax, el)
-        assert f"beast_mcmc_tpu/{ops[el.tag]}" in str(e.value)
-        checked += 1
-    assert checked == len(ext) + len(op_tags) == 181 + 27 - 146 - 20
-    assert (len(ext), len(op_tags)) == (35, 7)
-    # no tag of a ported module is left among the unported
-    assert not set(interp._TAG_MODULE) & ported
-    assert not set(PORTED_MODULES) & (set(interp.EXTENSION_TAGS)
-                                      | set(interp.QUEUE_ITEMS))
+    jax_ax = jinterp.XmlAnalysis(str(tmp_path / "all.xml"))
 
+    def outcome(build, el):
+        try:
+            build(el)
+        except Exception as exc:  # noqa: BLE001 -- compared below
+            assert "no registered builder" not in str(exc), el.tag
+            return type(exc).__name__
+        return None
+
+    pairs = [(ax.build, jax_ax.build, el, jel)
+             for el, jel in zip(ax.root[:-2], jax_ax.root[:-2])]
+    pairs += [(lambda e: interp._build_operator(ax, e),
+               lambda e: jinterp._build_operator(jax_ax, e), el, jel)
+              for el, jel in zip(ax.root.find("operators"),
+                                 jax_ax.root.find("operators"))]
+    assert len(pairs) == 42
+    for build, jbuild, el, jel in pairs:
+        assert outcome(build, el) == outcome(jbuild, jel), el.tag
+    with pytest.raises(interp.Unsupported, match="<bogusTag> has no "
+                                                 "registered builder"):
+        ax.build(ax.root.find("bogusTag"))
 
 def test_importer_vocabulary_is_covered():
-    """Each tag the importer reads is in the port's registry or is an
-    extension module's (which raises naming it), and the run entry point
-    falls back to the interpreter past the importer."""
+    """Each tag the importer reads is in the port's registry, and the run
+    entry point falls back to the interpreter past the importer."""
     for tag in IMPORTER_TAGS:
-        assert tag in interp._BUILDERS or tag in interp._TAG_MODULE, tag
+        assert tag in interp._BUILDERS, tag
     src = inspect.getsource(cli)
     assert "XmlImportError" in src and "XmlAnalysis" in src
 

@@ -43,6 +43,16 @@ from beast_mcmc_tpu_torch.ops import (
 SMEM_LIMIT = 232448  # bytes a block may take on sm_90
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small tensors: one intra-op thread, which six test workers do not
+    contend for."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _caterpillar(n_taxa):
     m = 2 * n_taxa - 1
     parent = np.full(m, -1, np.int32)

@@ -59,6 +59,16 @@ from beast_mcmc_tpu_torch.tree.topology import (
 F64 = torch.float64
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small tensors: one intra-op thread, which six test workers do not
+    contend for."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("n,delta", [(4, 1.0), (6, 2.0), (5, 0.002)])
 def test_temperatures_match_jax(n, delta):
     np.testing.assert_allclose(mc3_temperatures(n, delta).numpy(),

@@ -32,6 +32,16 @@ from beast_mcmc_tpu_torch.ops import special as tspecial
 ATOL = 1e-10
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small tensors: one intra-op thread, which six test workers do not
+    contend for."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def t64(x):
     return torch.tensor(np.array(x), dtype=torch.float64)
 
@@ -87,6 +97,29 @@ def test_hky_and_jc_transition_probs():
     p_ref = jeigen.transition_probs(jsub.jc_eigen(), jnp.asarray(t))
     p_got = teigen.transition_probs(tsub.jc_eigen(device="cpu"), t64(t))
     np.testing.assert_allclose(p_got.numpy(), np.asarray(p_ref), atol=ATOL)
+
+
+@pytest.mark.parametrize("under_autograd", [False, True])
+def test_transition_probs_short_branch_off_diagonals(under_autograd):
+    """A short branch's off-diagonals, O(t), to 1e-12 relative of the
+    series I + Qt + (Qt)^2 / 2 + ...: P(t) is I + U expm1(wt) U_inv, eager
+    and through _SymmetricExpm (an eigensystem made under autograd); the
+    sum U exp(wt) U_inv leaves them a rounding of 1 off, 1e-7 relative at
+    t = 1e-9."""
+    rates6, freqs = _random_model(5)
+    rates = t64(rates6).requires_grad_(under_autograd)
+    eig = tsub.gtr_eigen(rates, t64(freqs))
+    assert (eig.sym is not None) == under_autograd
+    t = t64([1e-9, 1e-7, 1e-5])
+    p = teigen.transition_probs(eig, t).detach().numpy()
+    q = teigen.normalized_q(tsub.symmetric_rates_from_vector(
+        t64(rates6), 4), t64(freqs)).numpy()
+    off = ~np.eye(4, dtype=bool)
+    for k, tk in enumerate(t.numpy()):
+        a = q * tk
+        ref = np.eye(4) + a + a @ a / 2 + a @ a @ a / 6 + a @ a @ a @ a / 24
+        np.testing.assert_allclose(p[k][off], ref[off], rtol=1e-12)
+        np.testing.assert_allclose(p[k].sum(-1), 1.0, atol=1e-15)
 
 
 def test_branch_transition_matrices():

@@ -39,6 +39,16 @@ from test_mcmc import check_tree_valid
 RTOL = 1e-10
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small tensors: one intra-op thread, which six test workers do not
+    contend for."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def t64(x):
     return torch.tensor(np.array(x), dtype=torch.float64)
 

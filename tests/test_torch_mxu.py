@@ -26,6 +26,16 @@ SHAPES = [(6, 4, 4, 61), (9, 4, 20, 50), (7, 1, 61, 40)]
 SMEM_LIMIT = 232448  # bytes a block may take on sm_90
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small tensors: one intra-op thread, which six test workers do not
+    contend for."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _problem(n_taxa, c, s, p, seed=0):
     """Random tree, tips and row-stochastic matrices (numpy). Pattern 0 has
     a fully ambiguous tip (all ones); pattern 1 has an impossible one (all

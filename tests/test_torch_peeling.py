@@ -38,6 +38,16 @@ from beast_mcmc_tpu_torch.ops import peeling as tpeel
 from fixtures import primate_patterns, primate_tree
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small tensors: one intra-op thread, which six test workers do not
+    contend for."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _problem(n_taxa, c, s, p, seed=0):
     """Random tree, tips and row-stochastic matrices (numpy)."""
     rng = np.random.default_rng(seed)

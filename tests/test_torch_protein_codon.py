@@ -63,6 +63,16 @@ T64 = torch.float64
 TIMES = [0.0, 0.01, 0.3, 2.0, 50.0]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small tensors: one intra-op thread, which six test workers do not
+    contend for."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def t64(x):
     return torch.tensor(np.asarray(x), dtype=T64)
 

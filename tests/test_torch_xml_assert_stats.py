@@ -301,12 +301,30 @@ def test_trait_statistics_raise_naming_xml_traits(tag, tmp_path):
 
 
 def test_wishart_statistics_property_raises_naming_xml_factor(tmp_path):
+    """<property name="wishartStatistics"> over config/xml_factor.py's
+    statistic (which once raised naming that module): over a trait
+    likelihood it reads the scale matrix, JAX's to 1e-10; without one
+    the statistic raises Unsupported, as JAX's does."""
+    from test_torch_xml_traits_a import rrw_models, trait_doc
+
     _, ax = _analyses(tmp_path, HEAD + (
         '<wishartStatistics id="ws"/><property id="p" '
         'name="wishartStatistics"><object idref="ws"/></property></beast>'))
     with pytest.raises(interp.Unsupported,
-                       match=r"xml_factor\.py.*queue item 4g"):
+                       match="wishartStatistics without trait likelihood"):
         xml_assert.report_of(ax, ax._ids["p"])
+    doc = trait_doc(rrw_models()).replace("</beast>", (
+        '<wishartStatistics id="ws"><traitDataLikelihood idref="traitLik"/>'
+        '</wishartStatistics><property id="p" name="wishartStatistics">'
+        '<object idref="ws"/></property></beast>'))
+    jax_ax, ax = _analyses(tmp_path, doc, "traits.xml")
+    for a in (jax_ax, ax):
+        a.build(a._ids["treeModel"])
+    got, want = (np.array(re.findall(r"-?[\d.]+(?:e[-+]?\d+)?", r), float)
+                 for r in (xml_assert.report_of(ax, ax._ids["p"]),
+                           jassert.report_of(jax_ax, jax_ax._ids["p"])))
+    assert got.size == want.size == 4
+    np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-12)
 
 
 def test_parse_array_equals_jax():

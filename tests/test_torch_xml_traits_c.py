@@ -10,8 +10,8 @@ tests/test_torch_interpreter.py::check_against_jax and check_chain. Then
 the Gibbs operators' proposals from these documents against JAX's at
 injected draws (tests/test_torch_gibbs_ext.py::_inject), the gradient
 elements' and blombergsK's reports against JAX's, and the registry's
-coverage: EXTENSION_TAGS and EXTENSION_OPERATORS name no tag the port
-registers, 79 element tags and 20 operator tags remain.
+coverage: every element and operator tag of the JAX package's registry is
+registered in the port.
 """
 
 import re
@@ -338,22 +338,21 @@ def test_wishart_prior_densities_equal_jax(tmp_path):
 
 
 def test_extension_registry_names_no_ported_tag():
-    """EXTENSION_TAGS and EXTENSION_OPERATORS name no tag the port
-    registers (xml_traits.py's, xml_stats.py's trait statistics, all of
-    xml_geo.py's and xml_hmc.py's), and 35 element tags and 7 operator
-    tags are left: config/xml_factor.py's and xml_field.py's."""
-    ext = {t for ts in interp.EXTENSION_TAGS.values() for t in ts}
-    ext_ops = {t for ts in interp.EXTENSION_OPERATORS.values() for t in ts}
-    assert not ext & set(interp._BUILDERS)
-    assert not ext_ops & set(interp._OP_EXT)
-    assert len(ext) == 35 and len(ext_ops) == 7
-    assert set(interp.EXTENSION_TAGS) == set(interp.QUEUE_ITEMS) == {
-        "config/xml_factor.py", "config/xml_field.py"}
-    assert set(interp.EXTENSION_OPERATORS) == {"config/xml_factor.py"}
+    """Every element tag of JAX's _BUILDERS and operator tag of its _OP_EXT
+    is registered in the port (config/xml_factor.py's and xml_field.py's,
+    the last two modules, among them), and the registry of unported
+    modules is gone."""
+    assert set(jinterp._BUILDERS) <= set(interp._BUILDERS)
+    assert set(jinterp._OP_EXT) <= set(interp._OP_EXT)
+    for gone in ("EXTENSION_TAGS", "EXTENSION_OPERATORS", "QUEUE_ITEMS",
+                 "unported"):
+        assert not hasattr(interp, gone)
     for tag in ("traitDataLikelihood", "arbitraryBranchRates",
                 "traitLogger", "blombergsK", "continuousDiffusionStatistic",
-                "multivariateWishartPrior", "compoundEigenMatrix"):
+                "multivariateWishartPrior", "compoundEigenMatrix",
+                "latentFactorModel", "randomField", "determinantPrior"):
         assert tag in interp._BUILDERS
     for tag in ("precisionGibbsOperator", "internalTraitGibbsOperator",
-                "newLatentLiabilityGibbsOperator"):
+                "newLatentLiabilityGibbsOperator", "loadingsGibbsOperator",
+                "integratedFactorsGibbsOperator"):
         assert tag in interp._OP_EXT
