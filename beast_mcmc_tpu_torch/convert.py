@@ -12,7 +12,13 @@ An operator is a dataclass whose
 settings are plain values; `operator_from` builds this package's class of
 the same name from them (the HMC operators' transforms too). A joint
 analysis's parameters (`joint_params_from_numpy`) keep their XML ids, the
-anonymous ones renamed by their role. Nothing here imports JAX.
+anonymous ones renamed by their role. The state objects of the model
+families outside the XML vocabulary cross field by field: an ARG
+(`arg_from_numpy`), a constrained tree with its groups
+(`constrained_tree_from_numpy`), an empirical tree set
+(`empirical_trees_from_numpy`), an AlloppNet network
+(`allopp_network_from_numpy`) and a case-to-case painting
+(`painting_from_numpy`). Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -150,3 +156,66 @@ def operator_from(op):
         return _spec(op, (bridge_gibbs,))
     return _spec(op, (operators, tree_operators, hmc, nuts, pdmp, geodesic,
                       samplers))
+
+
+def _ints(x, device):
+    return torch.tensor(np.asarray(x), dtype=torch.long, device=device)
+
+
+def arg_from_numpy(arg, dtype=DEFAULT_FLOAT, device=DEFAULT_DEVICE):
+    """The JAX package's ARGState (numpy leaves, or any object with its
+    fields) as models/arg.py's."""
+    from beast_mcmc_tpu_torch.models.arg import ARGState
+
+    def bools(x):
+        return torch.tensor(np.asarray(x), dtype=torch.bool, device=device)
+
+    return ARGState(
+        parent_left=_ints(arg.parent_left, device),
+        parent_right=_ints(arg.parent_right, device),
+        children=_ints(arg.children, device),
+        heights=torch.tensor(np.asarray(arg.heights), dtype=dtype,
+                             device=device),
+        side=bools(arg.side), is_reassort=bools(arg.is_reassort),
+        active=bools(arg.active), root=_ints(arg.root, device).reshape(()))
+
+
+def constrained_tree_from_numpy(parent, children, heights, root, groups,
+                                dtype=DEFAULT_FLOAT, device=DEFAULT_DEVICE):
+    """tree/constrained.py::build_constrained_tree's arrays (the JAX
+    package's, numpy) as (TreeState, groups int64 numpy), the groups as the
+    constrained operators take them."""
+    return (make_tree_state(parent, children, heights, root, dtype, device),
+            np.asarray(groups).astype(np.int64))
+
+
+def empirical_trees_from_numpy(ts, dtype=DEFAULT_FLOAT,
+                               device=DEFAULT_DEVICE):
+    """The JAX package's EmpiricalTreeSet (numpy leaves) as
+    tree/empirical.py's."""
+    from beast_mcmc_tpu_torch.tree.empirical import EmpiricalTreeSet
+
+    return EmpiricalTreeSet(
+        parents=_ints(ts.parents, device), children=_ints(ts.children, device),
+        heights=torch.tensor(np.asarray(ts.heights), dtype=dtype,
+                             device=device),
+        roots=_ints(ts.roots, device))
+
+
+def allopp_network_from_numpy(net, dtype=DEFAULT_FLOAT,
+                              device=DEFAULT_DEVICE):
+    """The JAX package's AlloppNetwork (numpy leaves) as
+    models/alloppnet.py's."""
+    from beast_mcmc_tpu_torch.models.alloppnet import AlloppNetwork
+
+    return AlloppNetwork(*(
+        torch.tensor(np.asarray(v), device=device,
+                     dtype=dtype if f.endswith(("heights", "height"))
+                     else torch.long)
+        for f, v in zip(AlloppNetwork._fields, net)))
+
+
+def painting_from_numpy(painting, device=DEFAULT_DEVICE) -> torch.Tensor:
+    """A case-to-case painting (node -> case, numpy) as models/casetocase
+    .py takes it, int64."""
+    return _ints(painting, device)

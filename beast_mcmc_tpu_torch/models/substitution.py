@@ -8,7 +8,9 @@ aa_matrices.py (order ACDEFGHIKLMNPQRSTVWY); the codon models run over the
 61 sense codons of data/codons.py. The non-reversible generators of the
 discrete-trait models (`complex_q`, `general_complex_q`) return a
 normalised Q for ops/expm.py instead of an EigenSystem, and
-`svs_connectivity_logprior` is the BSSVS indicator graph's prior.
+`svs_connectivity_logprior` is the BSSVS indicator graph's prior. The
+covarion generator (`covarion_q`) is reversible on its product states and
+goes to ops/eigen.py::eigen_from_q_reversible.
 """
 
 from __future__ import annotations
@@ -20,7 +22,11 @@ import torch
 
 from beast_mcmc_tpu_torch.data.codons import UNIVERSAL_CODE, codon_structure
 from beast_mcmc_tpu_torch.models.data.aa_matrices import AA_MODELS
-from beast_mcmc_tpu_torch.ops.eigen import EigenSystem, reversible_eigen
+from beast_mcmc_tpu_torch.ops.eigen import (
+    EigenSystem,
+    normalized_q,
+    reversible_eigen,
+)
 from beast_mcmc_tpu_torch.utils.dtypes import DEFAULT_DEVICE, DEFAULT_FLOAT
 
 
@@ -89,6 +95,16 @@ def svs_masked_rates(rates_vec: torch.Tensor,
     """BSSVS: elementwise indicator mask over the exchangeabilities;
     masked-out rates become 0."""
     return rates_vec * indicators
+
+
+def hky_q(kappa, freqs: torch.Tensor) -> torch.Tensor:
+    """The normalised HKY generator [4, 4]: kappa on A<->G and C<->T."""
+    kappa = torch.as_tensor(kappa, dtype=freqs.dtype, device=freqs.device)
+    r = torch.ones((4, 4), dtype=freqs.dtype, device=freqs.device)
+    r = r.index_put((torch.tensor([0, 2, 1, 3], device=freqs.device),
+                     torch.tensor([2, 0, 3, 1], device=freqs.device)),
+                    kappa.expand(4))
+    return normalized_q(r, freqs)
 
 
 def empirical_aa_eigen(model_name: str, freqs: Optional[torch.Tensor] = None,
@@ -199,3 +215,49 @@ def svs_connectivity_logprior(indicators: torch.Tensor,
         a = ((a @ a) > 0).to(torch.float32)
     zero = torch.zeros((), dtype=torch.float64, device=ind.device)
     return torch.where(torch.all(a > 0), zero, zero - math.inf)
+
+
+def glm_rates(design: torch.Tensor, coefficients: torch.Tensor,
+              indicators: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """GLM log-linear rates exp(X (beta * delta)) (GlmSubstitutionModel
+    .java), the BSSVS indicators delta on the coefficients optional.
+    design [n_rates, n_covariates]."""
+    beta = coefficients if indicators is None else coefficients * indicators
+    return torch.exp(design @ beta)
+
+
+def covarion_q(base_rates_sym: torch.Tensor, freqs: torch.Tensor,
+               class_rates: torch.Tensor, class_freqs: torch.Tensor,
+               switch_rate):
+    """The Markov-modulated (covarion) generator on S H product states,
+    class-major (state h S + s): within class h substitution runs at
+    class_rates[h] times the base generator of the symmetric
+    exchangeabilities base_rates_sym [S, S] and freqs [S]; the classes
+    switch, the observed state kept, at switch_rate * class_freqs[target]
+    (TwoStateCovarionModel.java; Tuffley & Steel 1998). Returns (q [S H,
+    S H], product frequencies [S H]), normalised by the observed
+    substitution flux alone, so that identical classes give the base
+    model."""
+    s = freqs.shape[-1]
+    h = class_rates.shape[-1]
+    dt, dev = freqs.dtype, freqs.device
+    class_rates, class_freqs = (torch.as_tensor(x, dtype=dt, device=dev)
+                                for x in (class_rates, class_freqs))
+    base_q = base_rates_sym.to(dt) * freqs[None, :]
+    base_q = base_q - torch.diag(torch.sum(base_q, dim=1))
+    sw = torch.as_tensor(switch_rate, dtype=dt, device=dev)
+    off = 1.0 - torch.eye(h, dtype=dt, device=dev)
+    q = torch.kron(torch.diag(class_rates), base_q)
+    q = q + torch.kron(sw * class_freqs[None, :].expand(h, h) * off,
+                       torch.eye(s, dtype=dt, device=dev))
+    q = q - torch.diag(torch.sum(q, dim=1))
+    pf = (class_freqs[:, None] * freqs[None, :]).reshape(-1)
+    subst_rate = -torch.sum(freqs * torch.diagonal(base_q))
+    return q / (torch.sum(class_freqs * class_rates) * subst_rate), pf
+
+
+def expand_tip_partials_hidden(tip_partials: torch.Tensor,
+                               h: int) -> torch.Tensor:
+    """Observed-state tip partials [N, S, P] tiled over H hidden classes,
+    [N, H S, P] (a hidden class is unobserved: partial 1 in each)."""
+    return tip_partials.repeat(1, h, 1)

@@ -43,6 +43,7 @@ from beast_mcmc_tpu_torch.ops.cuda_peeling import (
 from beast_mcmc_tpu_torch.ops.cuda_stream import level_schedule
 from beast_mcmc_tpu_torch.ops.cuda_stream2 import peel_site_loglik_deep
 from beast_mcmc_tpu_torch.ops.eigen import EigenSystem, transition_probs
+from beast_mcmc_tpu_torch.ops import peeling
 from beast_mcmc_tpu_torch.ops.expm import transition_probs_expm
 from beast_mcmc_tpu_torch.ops.peeling import (
     peel_loglikelihood,
@@ -100,6 +101,30 @@ def _route(p_mats: torch.Tensor) -> str:
     return peel_route(m, c, s, p_mats.element_size())
 
 
+def _plain_site_logliks(tip_partials, parent, children, heights, root,
+                        p_mats, freqs, category_weights) -> torch.Tensor:
+    """`_site_logliks` by the height-ordered node-by-node plain peel on any
+    device, as `ops/peeling.py::autograd_peel` asks: [P], [K, P] from K
+    partitions' matrices [K, M, C, S, S] (tips [K, N, S, P]), and a chain
+    batch ([B, M] parent) chain by chain, [B, P] or [B, K, P]."""
+    n_taxa = tip_partials.shape[-3]
+    if parent.dim() == 2:
+        b_n, lead = parent.shape[0], p_mats.dim() - 4
+        freqs = _with_chains(freqs, b_n, lead + 1)
+        category_weights = _with_chains(category_weights, b_n, lead + 1)
+        return torch.stack([_plain_site_logliks(
+            tip_partials, parent[b], children[b], heights[b], root[b],
+            p_mats[b], freqs[b], category_weights[b]) for b in range(b_n)])
+    order = peel_order_from_heights(heights, n_taxa, parent)
+    if p_mats.dim() == 5:
+        return torch.stack([peel_site_loglik(
+            tip_partials[k] if tip_partials.dim() == 4 else tip_partials,
+            children, order, root, p_mats[k], freqs[k], category_weights[k])
+            for k in range(p_mats.shape[0])])
+    return peel_site_loglik(tip_partials, children, order, root, p_mats,
+                            freqs, category_weights)
+
+
 def _site_logliks(tip_partials, parent, children, heights, root, p_mats,
                   freqs, category_weights) -> torch.Tensor:
     """Per-pattern log-likelihoods of one tree, or [K, P] of K partitions
@@ -108,7 +133,12 @@ def _site_logliks(tip_partials, parent, children, heights, root, p_mats,
     device every other route does too; the CPU's plain
     peel takes the height order. A chain batch ([B, M] parent) is one
     chain-axis peel on both devices: [B, P], or [B, K, P] on the deep
-    route."""
+    route. Under `ops/peeling.py::autograd_peel` every route and device
+    takes the node-by-node plain peel, which autograd differentiates to
+    any order (the kernels' adjoints are once differentiable)."""
+    if not peeling._ADJOINT_PEEL:
+        return _plain_site_logliks(tip_partials, parent, children, heights,
+                                   root, p_mats, freqs, category_weights)
     n_taxa = tip_partials.shape[-3]
     route = _route(p_mats)
     if parent.dim() == 2:
@@ -181,10 +211,16 @@ def multipartition_loglikelihood(tip_partials, pattern_weights, parent,
     each partition is one peel. A chain batch ([B, M] parent, eigs batched
     over [B, K], category_rates [B, K, C]) gives [B]: on the deep route one
     launch for every chain and partition, elsewhere one chain-axis peel a
-    partition."""
+    partition. Under `ops/peeling.py::autograd_peel` every partition takes
+    the node-by-node plain peel on any device."""
     k_parts, n_taxa = tip_partials.shape[:2]
     p_mats = branch_transition_matrices(eigs, parent, heights, branch_rates,
                                         category_rates)  # [K, M, C, S, S]
+    if not peeling._ADJOINT_PEEL:  # autograd_peel: the plain peel anywhere
+        site = _plain_site_logliks(tip_partials, parent, children, heights,
+                                   root, p_mats, freqs, category_weights)
+        return (chain_dot(pattern_weights, site) if parent.dim() == 2
+                else stable_dot(pattern_weights, site))
     route = _route(p_mats)
     if parent.dim() == 2:
         if route == "deep":

@@ -211,10 +211,7 @@ def level_schedule(children, n_tips, parent=None):
     (children [B, M, 2], parent [B, M]) every array gains it, and row b is
     the schedule of chain b's tree: a row-wise stable sort, scatter-add and
     cumulative sum."""
-    m = children.shape[-2]
-    lead = children.shape[:-2]
-    n_int = m - n_tips
-    dev = children.device
+    n_int = children.shape[-2] - n_tips
     if parent is None:
         parent = parent_from_children(children, n_tips)
     d = node_depths(parent)[..., n_tips:]
@@ -222,6 +219,17 @@ def level_schedule(children, n_tips, parent=None):
     # operator rejects whatever the likelihood) has depths past n_int: the
     # clamp keeps its schedule in range, and is a no-op on a tree.
     lvl = (d.amax(-1, keepdim=True) - d).clamp_(0, n_int - 1)
+    return schedule_from_levels(children, n_tips, lvl)
+
+
+def schedule_from_levels(children, n_tips, lvl):
+    """`level_schedule` from each internal node's level lvl int64 [...,
+    n_int] (0 the deepest, peeled first; the root's level last and the
+    root alone in it), for graphs whose levels are not the depths from
+    one root (models/arg.py)."""
+    lead = children.shape[:-2]
+    n_int = children.shape[-2] - n_tips
+    dev = children.device
     order = torch.sort(lvl, dim=-1, stable=True).indices + n_tips
     counts = torch.zeros((*lead, n_int), dtype=torch.int32, device=dev)
     counts.scatter_add_(-1, lvl, torch.ones_like(counts))

@@ -146,15 +146,34 @@ def reversible_eigen(rates_symmetric: torch.Tensor,
                        U_inv=u_inv.to(out_dt), sym=sym)
 
 
+def eigen_from_q_reversible(q: torch.Tensor,
+                            freqs: torch.Tensor) -> EigenSystem:
+    """Spectral decomposition of an already built reversible generator q
+    [..., S, S] with stationary frequencies freqs [..., S] (a covarion
+    product chain, models/substitution.py::covarion_q), by the same
+    pi-symmetrisation as `reversible_eigen`: eigh in float64, cast back to
+    the inputs' dtype. q is taken as it is, not normalised again."""
+    out_dt = torch.promote_types(q.dtype, freqs.dtype)
+    q = q.to(torch.float64)
+    sqrt_pi = torch.sqrt(freqs.to(torch.float64))
+    a = q * (sqrt_pi[..., :, None] / sqrt_pi[..., None, :])
+    w, v = torch.linalg.eigh(0.5 * (a + a.transpose(-1, -2)))
+    return EigenSystem(values=w.to(out_dt),
+                       U=(v / sqrt_pi[..., :, None]).to(out_dt),
+                       U_inv=(v.transpose(-1, -2)
+                              * sqrt_pi[..., None, :]).to(out_dt))
+
+
 def transition_probs(eig: EigenSystem, t: torch.Tensor) -> torch.Tensor:
-    """P(t) = U exp(values t) U_inv, batched over t's shape: [..., S, S].
+    """P(t) = I + U expm1(values t) U_inv, batched over t's shape:
+    [..., S, S].
     With a batched eigensystem (values [K, S]) t is [K, ...] and row k of t
     goes with system k. Negative round-off entries are clamped to 0. A
     decomposition made under autograd differentiates through
     _SymmetricExpm.
 
-    It is computed as I + U expm1(values t) U_inv (U U_inv = I): the form
-    U exp(values t) U_inv makes a short branch's off-diagonals, O(t), as
+    That is U exp(values t) U_inv, since U U_inv = I; but the exp form
+    makes a short branch's off-diagonals, O(t), as
     sums of O(1) terms, so they carry an absolute error of a rounding
     (relative eps / t). At the Makona tree (branch lengths down to 4e-8)
     that moved the node-height gradient by 3.5e-10 of its largest entry

@@ -117,9 +117,11 @@ _ADJOINT_PEEL = True
 class autograd_peel:
     """Context manager: `peel_site_loglik` runs its plain forward
     (`_peel_forward_functional`), and
-    ops/eigen.py::transition_probs its plain U exp(values t) U_inv, under
-    autograd, which differentiates both to any order, in place of their
-    custom backwards (once differentiable); re-entrant. A diagonal Hessian
+    ops/eigen.py::transition_probs its plain I + U expm1(values t) U_inv,
+    under autograd, which differentiates both to any order, in place of
+    their custom backwards (once differentiable); re-entrant. The tree
+    likelihoods (models/treelikelihood.py) then take that plain peel on
+    every route and device, the kernels' included. A diagonal Hessian
     (config/xml_assert.py::gradient_report) takes it with
     `sequential_peel_only`, as the JAX package takes its scan peel."""
 

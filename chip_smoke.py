@@ -339,6 +339,35 @@ result line):
      NP coalescent and its gradient, and the small densities on the card
      against the CPU to P20_REL_TOL.
 
+  21. the model families outside the XML vocabulary (`p21_paths`) on
+     `p21_data`, the Makona taxa, start tree and 2,048 padded patterns:
+     21a (`covarion_path`) an HKY covarion chain with two hidden classes
+     (S = 8: covarion_q, eigen_from_q_reversible), sequence-error tips of
+     a sampled error rate (expand_tip_partials_hidden), the constrained
+     NNI and SPR inside the start tree's constraints tree (clades of fewer
+     than P21_MIN_CLADE tips collapsed) with node heights under a constant
+     coalescent, P21_STEPS steps of exactly one peel_stream_ring launch,
+     the launch at the start held per site against the node-by-node plain
+     peel, every constraint clade kept in every step, the deviation, a
+     profiler window, then branch_expected_jumps and
+     sample_branch_histories over all 3,218 branches card against CPU;
+     21b (`arg_path`) an ARG of P21_ARG_EVENTS reassortments with the
+     patterns split in two segments, each partition's level route (one
+     peel_stream launch) against the plain peel, and P21_ARG_STEPS steps
+     of the height and flip moves under arg_coalescent_loglik, two
+     launches a step exactly; 21c (`thorney_path`, `empirical_path`) a
+     Thorney chain at P21_THORNEY_TIPS tips of a constrained tree
+     (build_constrained_tree of its constraints Newick) under the Poisson
+     branch-length likelihood, P21_THORNEY_STEPS steps and no launch, and
+     an empirical-tree chain over 21a's start tree and 31 of its steps'
+     under GTR+Gamma4, P21_EMP_STEPS steps of one peel_stream launch;
+     21d (`p21_functions_path`) the msc, alloppnet, transmission,
+     case-to-case, clustering, MDS, antigenic, Hawkes, geo, regression and
+     hypermutation functions at the issue's sizes on the card against the
+     CPU to P21_REL_TOL; and fault C7's check (`c7_path`): a <gradient>
+     report over kappa, the frequencies and the clock rate, Hessian
+     diagonal included, on the card against the CPU to P21_C7_TOL.
+
 `python3 chip_smoke.py --tiles` instead builds the kernels and times the
 v1 streaming kernel at the plans its planner could pick, with its largest
 deviation from the plain version (`*` marks the planner's): below 16 states
@@ -6722,6 +6751,1130 @@ def bound_chain_paths(paths, reset_counts, read_counts, device_ms, dev):
     return records, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the model families outside the XML vocabulary
+# ---------------------------------------------------------------------------
+
+P21_SEED = 2121
+P21_MIN_CLADE = 32  # 21a and 21c: smaller clades' internal branches collapse
+P21_STEPS, P21_PROFILE = 50, 4  # 21a: one peel_stream_ring launch a step
+P21_SWITCH = (0.3, 1.7)  # 21a: the two hidden classes' rates
+P21_NMAX = 32  # 21a: the uniformization's bound on candidate jumps
+P21_ARG_EVENTS, P21_ARG_STEPS = 32, 30  # 21b
+P21_THORNEY_TIPS, P21_THORNEY_STEPS = 10_000, 200  # 21c
+P21_THORNEY_SITES = 29_903  # SARS-CoV-2's genome, the Poisson scale
+P21_EMP_TREES, P21_EMP_STEPS = 32, 50  # 21c: one peel_stream launch a step
+P21_HOSTS, P21_ITEMS, P21_LOCATIONS = 200, 1000, 1000  # 21d
+P21_EVENTS, P21_POINTS, P21_RASTER, P21_ROWS = 10_000, 100_000, 64, 10_000
+P21_SPECIES = 8  # 21d: the species tree of the msc and the MUL-tree
+P21_REL_TOL = 1e-12  # 21d, card against CPU (20c's)
+P21_C7_TAXA, P21_C7_SITES = 128, 2000  # the C7 report's document
+P21_C7_TOL = 1e-10  # of each analytic line's largest entry
+
+
+def p21_data(dev, n_taxa=SPEC_TAXA, n_sites=SPEC_SITES, seed=JOINT_SEED):
+    """makona_data's taxa, start tree and alignment (simulate_sites down
+    the coalescent tree from `seed`) as phase 21 takes them: {"tree"
+    (numpy parent, children, heights, root), "states" int64 [N, P] on
+    `dev` with the patterns padded to a multiple of 128 by the ambiguous
+    code 4, "weights" [P] (0 on the padding), "freqs" [4] (the data's),
+    "patterns" (unpadded), "sites"}."""
+    import numpy as np
+    import torch
+
+    from beast_mcmc_tpu_torch.apps.makona import (
+        read_makona_xml, simulate_sites, tip_heights)
+    from beast_mcmc_tpu_torch.apps.seqgen import compress_patterns
+    from beast_mcmc_tpu_torch.tree.topology import simulate_coalescent_tree
+
+    cfg = read_makona_xml()
+    tree = simulate_coalescent_tree(np.random.default_rng(seed),
+                                    tip_heights(cfg["dates"][:n_taxa]),
+                                    cfg["pop_size"])
+    sites = simulate_sites(cfg, tree, seed, dev, n_sites)
+    pats, w = compress_patterns(sites)
+    p = pats.shape[1]
+    pad = -(-p // 128) * 128 - p
+    states = torch.nn.functional.pad(pats, (0, pad), value=4)
+    weights = torch.nn.functional.pad(w, (0, pad))
+    counts = torch.stack([(sites == s).sum() for s in range(4)]).double()
+    return {"cfg": cfg, "tree": tree, "states": states, "weights": weights,
+            "freqs": counts / counts.sum(), "patterns": p,
+            "sites": int(sites.shape[1])}
+
+
+def constraint_groups(parent, children, root, n_tips, min_clade):
+    """(groups int64 [M], constraint clades) of a binary tree (numpy) read
+    as a resolution of its constraints tree, the tree with every internal
+    branch of a clade of fewer than min_clade tips collapsed into its
+    parent's polytomy: a kept internal node (the root, or a clade of
+    min_clade tips or more) heads a group of its own, a collapsed one
+    takes its parent's group, a tip a group of its own
+    (tree/constrained.py's labels); the clades are the kept internal
+    nodes' tip-index frozensets."""
+    import numpy as np
+
+    m = len(parent)
+    order = [int(root)]
+    for v in order:  # breadth first: parents before children
+        order.extend(int(c) for c in children[v] if c >= 0)
+    size = np.zeros(m, np.int64)
+    tips_below = {}
+    for v in reversed(order):
+        if v < n_tips:
+            size[v] = 1
+            tips_below[v] = frozenset([v])
+        else:
+            a, b = (int(c) for c in children[v])
+            size[v] = size[a] + size[b]
+            tips_below[v] = tips_below[a] | tips_below[b]
+    groups = np.arange(m, dtype=np.int64)
+    clades = []
+    for v in order:
+        if v >= n_tips and v != root and size[v] < min_clade:
+            groups[v] = groups[parent[v]]
+        elif v >= n_tips:
+            clades.append(tips_below[v])
+    return groups, clades
+
+
+def constraints_newick(parent, children, root, n_tips, min_clade):
+    """The constraints tree of `constraint_groups` as a multifurcating
+    Newick string over tip names t0, t1, ..."""
+    groups, _ = constraint_groups(parent, children, root, n_tips, min_clade)
+
+    def members(v):  # v's polytomy: collapsed internal children flattened
+        out = []
+        for c in children[v]:
+            c = int(c)
+            if c >= n_tips and groups[c] == groups[v]:
+                out.extend(members(c))
+            else:
+                out.append(c)
+        return out
+
+    def text(v):
+        if v < n_tips:
+            return f"t{v}"
+        return "(" + ",".join(text(c) for c in members(v)) + ")"
+
+    return text(int(root)) + ";"
+
+
+def clades_kept(trees, clades, n_tips):
+    """Whether every clade (tip-index frozensets) is a clade of every tree
+    ((parent, children, heights) numpy): each node's tip set hashed as
+    the sum of random 64-bit keys of its tips, nodes in height order."""
+    import numpy as np
+
+    keys = np.random.default_rng(0).integers(1, 2 ** 62, n_tips,
+                                             dtype=np.uint64)
+    with np.errstate(over="ignore"):
+        want = {int(np.sum(keys[sorted(c)], dtype=np.uint64))
+                for c in clades}
+    for parent, children, heights in trees:
+        m = len(parent)
+        h = np.zeros(m, np.uint64)
+        h[:n_tips] = keys
+        with np.errstate(over="ignore"):  # sums modulo 2^64
+            for v in n_tips + np.argsort(heights[n_tips:], kind="stable"):
+                h[v] = h[children[v, 0]] + h[children[v, 1]]
+        if not want <= set(int(x) for x in h[n_tips:]):
+            return False
+    return True
+
+
+def covarion_analysis(data, dev, groups):
+    """Phase 21a's posterior and operators on p21_data: the HKY covarion
+    with two hidden classes (P21_SWITCH rates, equal class frequencies,
+    S = 8) by covarion_q and eigen_from_q_reversible, the tips
+    sequence_error_partials of the sampled error rate expanded by
+    expand_tip_partials_hidden, a strict clock and a constant coalescent
+    on the dated start tree; the constrained NNI and SPR in `groups`,
+    node heights, and scale moves on kappa, the switch rate, the error
+    rate, the clock rate and the population size. Returns (log_post,
+    operators, params0, tree0, model) with model(params) -> (eig, pf)."""
+    import torch
+
+    from beast_mcmc_tpu_torch.inference.operators import (
+        ScaleOperator, UniformNodeHeightOperator)
+    from beast_mcmc_tpu_torch.models.coalescent import (
+        constant_coalescent_loglik)
+    from beast_mcmc_tpu_torch.models.priors import (
+        lognormal_logpdf, one_on_x_logpdf)
+    from beast_mcmc_tpu_torch.models.substitution import (
+        covarion_q, expand_tip_partials_hidden)
+    from beast_mcmc_tpu_torch.models.tipstates import sequence_error_partials
+    from beast_mcmc_tpu_torch.models.treelikelihood import tree_loglikelihood
+    from beast_mcmc_tpu_torch.ops.eigen import eigen_from_q_reversible
+    from beast_mcmc_tpu_torch.tree.constrained import (
+        ConstrainedNNIOperator, ConstrainedUniformSPROperator)
+    from beast_mcmc_tpu_torch.tree.topology import make_tree_state
+
+    f64 = torch.float64
+    n_taxa = data["states"].shape[0]
+    freqs = data["freqs"].to(dev)
+    transition = torch.zeros((4, 4), dtype=torch.bool, device=dev)
+    transition[0, 2] = transition[2, 0] = True
+    transition[1, 3] = transition[3, 1] = True
+    off = 1.0 - torch.eye(4, dtype=f64, device=dev)
+    class_rates = torch.tensor(P21_SWITCH, dtype=f64, device=dev)
+    class_freqs = torch.full((2,), 0.5, dtype=f64, device=dev)
+    one = torch.ones(1, dtype=f64, device=dev)
+
+    def model(params):
+        r = torch.where(transition, params["kappa"], 1.0) * off
+        q, pf = covarion_q(r, freqs, class_rates, class_freqs,
+                           params["switch.rate"])
+        return eigen_from_q_reversible(q, pf), pf
+
+    def log_lik(params, tree):
+        eig, pf = model(params)
+        tips = expand_tip_partials_hidden(sequence_error_partials(
+            data["states"], params["error.rate"]), 2)
+        return tree_loglikelihood(tips, data["weights"], tree.parent,
+                                  tree.children, tree.heights, tree.root,
+                                  eig, pf, one, one, params["clock.rate"])
+
+    def log_post(params, tree):
+        err = params["error.rate"]
+        return (log_lik(params, tree)
+                + lognormal_logpdf(params["kappa"], 1.0, 1.25)
+                + lognormal_logpdf(params["switch.rate"], 0.0, 1.0)
+                + lognormal_logpdf(params["clock.rate"], -7.0, 1.0)
+                + one_on_x_logpdf(params["pop.size"])
+                + torch.where((err > 0) & (err < 0.1), torch.zeros_like(err),
+                              torch.full_like(err, -torch.inf))
+                + constant_coalescent_loglik(tree.heights, n_taxa,
+                                             params["pop.size"]))
+
+    init = data["cfg"]["model"]["init"]
+    params0 = {k: torch.tensor(v, dtype=f64, device=dev) for k, v in {
+        "kappa": 4.0, "switch.rate": 0.5, "error.rate": 0.005,
+        "clock.rate": float(init["ucld.mean"]),
+        "pop.size": float(data["cfg"]["pop_size"])}.items()}
+    operators = [
+        ConstrainedNNIOperator(groups=groups, weight=10.0),
+        ConstrainedUniformSPROperator(groups=groups, weight=10.0),
+        UniformNodeHeightOperator(weight=10.0),
+        *(ScaleOperator(parameter=p, weight=2.0) for p in (
+            "kappa", "switch.rate", "error.rate", "clock.rate", "pop.size"))]
+    tree0 = make_tree_state(*data["tree"], f64, dev)
+    return log_post, operators, params0, tree0, model
+
+
+def _per_site(got, want):
+    """Per-site deviation relative to max(|site logL|, 1) (F64_REL_TOL's
+    measure)."""
+    import torch
+
+    return float(((got - want).abs() / torch.clamp_min(want.abs(), 1.0))
+                 .max())
+
+
+def _hold(label, got, want, tol):
+    """max |got - want| over max |want| (finite, of one shape), raised
+    above tol."""
+    import torch
+
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    if got.shape != want.shape or not bool(torch.isfinite(want).all()):
+        raise AssertionError(f"{label}: {got} against {want}")
+    err = float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                1e-300)
+    if not err <= tol:
+        raise AssertionError(f"{label}: {err!r} > {tol}")
+    return err
+
+
+def covarion_path(data, reset_counts, read_counts, device_ms, dev,
+                  n_steps=P21_STEPS, n_profile=P21_PROFILE,
+                  min_clade=P21_MIN_CLADE, nmax=P21_NMAX):
+    """Phase 21a on p21_data: the constraints tree of the start tree at
+    min_clade; one launch of the S = 8 peel (peel_stream_ring on the
+    card) at the start held per site against the node-by-node plain peel
+    on the same device (F64_REL_TOL); a chain of n_steps steps with
+    exactly one launch each, every constraint clade kept in every step's
+    tree, the carried posterior against a fresh one (FULL_EVAL_TOL),
+    states/s and a profiler window; then on the last tree, over all its
+    branches, branch_expected_jumps of A<->G under the base HKY and
+    sample_branch_histories (uniforms drawn on the host), each on the
+    card against the CPU (P21_REL_TOL; the histories' states exactly), the
+    dwell times summing to the branch lengths. Returns (record, launches,
+    the trees: the start's and every step's, numpy)."""
+    import numpy as np
+    import torch
+
+    from beast_mcmc_tpu_torch.inference.mcmc import (
+        init_mcmc_state, make_mcmc_step, run_chain)
+    from beast_mcmc_tpu_torch.models import treelikelihood as ttl
+    from beast_mcmc_tpu_torch.models.substitution import (
+        expand_tip_partials_hidden, hky_eigen, hky_q)
+    from beast_mcmc_tpu_torch.models.tipstates import sequence_error_partials
+    from beast_mcmc_tpu_torch.ops.eigen import transition_probs
+    from beast_mcmc_tpu_torch.ops.markov_jumps import branch_expected_jumps
+    from beast_mcmc_tpu_torch.ops.uniformization import (
+        history_uniforms, sample_branch_histories, state_dwell_times)
+
+    t0 = time.perf_counter()
+    parent, children, heights, root = data["tree"]
+    n_taxa = data["states"].shape[0]
+    groups, clades = constraint_groups(parent, children, root, n_taxa,
+                                       min_clade)
+    log_post, ops, params0, tree0, model = covarion_analysis(data, dev,
+                                                             groups)
+    rec = {"taxa": n_taxa, "patterns": data["patterns"],
+           "patterns_padded": int(data["states"].shape[1]), "states": 8,
+           "constraint_clades": len(clades),
+           "polytomies": int(len(set(groups[n_taxa:].tolist())))}
+    launches = {}
+    kname = "peel_stream_ring"
+
+    def expect(n, what):
+        counts = read_counts()
+        launches[f"P21 {what}"] = counts
+        want = {k: n * (k == kname) for k in counts}
+        if counts != want:
+            raise AssertionError(f"P21 {what}: launches {counts}, expected "
+                                 f"{want}")
+
+    # the kernel's launch at the start against the plain peel
+    eig, pf = model(params0)
+    tips = expand_tip_partials_hidden(sequence_error_partials(
+        data["states"], params0["error.rate"]), 2)
+    one = torch.ones(1, dtype=torch.float64, device=dev)
+    pm = ttl.branch_transition_matrices(eig, tree0.parent, tree0.heights,
+                                        params0["clock.rate"], one)
+    if str(dev).startswith("cuda"):
+        rec["route"] = ttl._route(pm)
+        if rec["route"] != "stream":
+            raise AssertionError(f"P21a route {rec['route']}")
+    args = (tips, tree0.parent, tree0.children, tree0.heights, tree0.root,
+            pm, pf, one)
+    reset_counts()
+    site = ttl._site_logliks(*args)
+    expect(1, "21a kernel check")
+    plain = ttl._plain_site_logliks(*args)
+    rec["kernel_max_rel_err"] = _per_site(site, plain)
+    if not rec["kernel_max_rel_err"] <= F64_REL_TOL:
+        raise AssertionError(f"P21a kernel: {rec['kernel_max_rel_err']!r}")
+
+    # the chain
+    step = make_mcmc_step(log_post, ops)
+    gen = torch.Generator(device=dev).manual_seed(P21_SEED)
+    st = init_mcmc_state(params0, tree0, gen, ops, log_post)
+    trees = [tuple(getattr(st.tree, f) for f in ("parent", "children",
+                                                 "heights"))]
+    reset_counts()
+    t1 = time.perf_counter()
+    for _ in range(n_steps):
+        st = step(st)
+        trees.append(tuple(getattr(st.tree, f) for f in (
+            "parent", "children", "heights")))
+    if str(dev).startswith("cuda"):
+        torch.cuda.synchronize()
+    rec["chain_seconds"] = time.perf_counter() - t1
+    rec["states_per_s"] = n_steps / rec["chain_seconds"]
+    expect(n_steps, "21a chain")
+    trees = [tuple(x.cpu().numpy() for x in t) for t in trees]
+    if not clades_kept(trees, clades, n_taxa):
+        raise AssertionError("P21a: a constraint clade was broken")
+    fresh = log_post(st.params, st.tree)
+    rec["full_evaluation_deviation"] = float(
+        (fresh - st.log_posterior).abs())
+    if not rec["full_evaluation_deviation"] <= FULL_EVAL_TOL:
+        raise AssertionError(f"P21a deviation "
+                             f"{rec['full_evaluation_deviation']!r}")
+    rec["accepted"] = st.op_accept.tolist()
+    rec["log_posterior"] = float(st.log_posterior)
+    reset_counts()
+    wall, busy = device_ms(lambda: run_chain(step, st, n_profile),
+                           "p21a covarion chain", n_profile)
+    expect(n_profile, "21a profile")
+    rec.update({"profile_ms_per_step": wall,
+                "device_busy_share": None if busy is None else busy / wall,
+                "device_events_per_step": device_ms.events})
+
+    # stochastic mapping on the last tree, every branch, card against CPU
+    last = st.tree
+    bl_rate = float(st.params["clock.rate"])
+    rng = np.random.default_rng(P21_SEED)
+    node_states = rng.integers(0, 4, last.parent.shape[0])
+    obs = data["states"][:, 0].cpu().numpy()
+    node_states[:n_taxa] = np.where(obs < 4, obs, node_states[:n_taxa])
+    ag = torch.zeros((4, 4), dtype=torch.float64)
+    ag[0, 2] = ag[2, 0] = 1.0
+    uniforms = history_uniforms(torch.Generator().manual_seed(P21_SEED),
+                                last.parent.shape[0], nmax)
+    out = {}
+    for d in (dev, "cpu"):
+        par = last.parent.to(d)
+        h = last.heights.to(d)
+        freqs = data["freqs"].to(d)
+        eig = hky_eigen(st.params["kappa"].to(d), freqs)
+        q = hky_q(st.params["kappa"].to(d), freqs)
+        bl = ttl.branch_lengths(par, h) * bl_rate
+        probs = torch.nn.functional.one_hot(torch.tensor(
+            node_states, device=d), 4).double()
+        jumps = branch_expected_jumps(eig, q, ag.to(d), bl, probs, par,
+                                      transition_probs(eig, bl))
+        nz = (par >= 0).nonzero()[:, 0]
+        hist = sample_branch_histories(
+            None, q, bl[nz], probs.argmax(1)[par[nz]], probs.argmax(1)[nz],
+            nmax, uniforms[nz.cpu()].to(d))
+        dwell = state_dwell_times(hist, 4)
+        sums = _hold(f"P21a dwell sums ({d})", dwell.sum(1), bl[nz], 1e-12)
+        out[d] = (jumps, hist, dwell, sums)
+    rec["branches"] = int(out["cpu"][1].n_jumps.shape[0])
+    rec["expected_jumps_rel_err"] = _hold(
+        "P21a branch_expected_jumps", out[dev][0], out["cpu"][0],
+        P21_REL_TOL)
+    if not torch.equal(out[dev][1].states.cpu(), out["cpu"][1].states):
+        raise AssertionError("P21a histories: the states differ")
+    rec["dwell_rel_err"] = _hold("P21a dwell times", out[dev][2],
+                                 out["cpu"][2], P21_REL_TOL)
+    rec["dwell_sum_rel_err"] = max(out[d][3] for d in out)
+    rec["jumps_total"] = float(out["cpu"][0].sum())
+    rec["history_jumps"] = int(out["cpu"][1].n_jumps.sum())
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"[P21a] covarion S = 8 at {n_taxa} taxa x {rec['patterns']} "
+        f"patterns ({rec['patterns_padded']} padded), "
+        f"{rec['constraint_clades']} constraint clades, {rec['polytomies']} "
+        f"polytomies: kernel vs plain {rec['kernel_max_rel_err']!r}; "
+        f"{n_steps} steps {rec['states_per_s']:.2f} states/s, launches "
+        f"{launches['P21 21a chain']}, clades kept, deviation "
+        f"{rec['full_evaluation_deviation']!r}, accepted {rec['accepted']}; "
+        f"profile {wall:.3f} ms a step, busy share "
+        f"{rec['device_busy_share']}; {rec['branches']} branches: expected "
+        f"A<->G jumps card vs CPU {rec['expected_jumps_rel_err']!r}, "
+        f"histories {rec['history_jumps']} jumps, dwell card vs CPU "
+        f"{rec['dwell_rel_err']!r}, sums {rec['dwell_sum_rel_err']!r}")
+    return rec, launches, trees
+
+
+def arg_with_reassortments(parent, children, heights, root, n_events,
+                           n_partitions, rng):
+    """The numpy fields of an ARG (models/arg.py::ARGState's, root an int)
+    with n_events reassortments added to a binary tree (2n - 1 nodes) in
+    its 2 n_events spare slots: each event puts a reassortment node r at a
+    uniform height on a uniform non-root node's primary edge (r's left
+    parent that edge's parent) and r's right parent, a new coalescence q,
+    at a uniform height between r and the root on a uniform primary edge
+    spanning it (not r's own); each partition's routing bit of r is a fair
+    coin."""
+    import numpy as np
+
+    m0 = len(parent)
+    m = m0 + 2 * n_events
+    pl = np.concatenate([parent, np.full(2 * n_events, -1)]).astype(np.int64)
+    pr = pl.copy()
+    ch = np.concatenate([children, np.full((2 * n_events, 2), -1)]).astype(
+        np.int64)
+    h = np.concatenate([heights, np.zeros(2 * n_events)])
+    side = np.zeros((m, n_partitions), bool)
+    reassort = np.zeros(m, bool)
+    active = np.concatenate([np.ones(m0, bool), np.zeros(2 * n_events, bool)])
+    top = float(heights[root])
+
+    def splice(node, below):  # node onto the primary edge above `below`
+        p = pl[below]
+        ch[p] = np.where(ch[p] == below, node, ch[p])
+        pl[node] = pr[node] = p
+        pl[below] = node
+        if not reassort[below]:
+            pr[below] = node
+
+    for e in range(n_events):
+        r, q = m0 + 2 * e, m0 + 2 * e + 1
+        c = int(rng.choice(np.flatnonzero(active & (pl >= 0))))
+        h[r] = rng.uniform(h[c], h[pl[c]])
+        splice(r, c)
+        ch[r] = (c, -1)
+        reassort[r] = active[r] = True
+        h[q] = rng.uniform(h[r], top)
+        span = np.flatnonzero(active & (pl >= 0) & (h < h[q])
+                              & (h[np.maximum(pl, 0)] > h[q])
+                              & (np.arange(m) != r))
+        x = int(rng.choice(span))
+        splice(q, x)
+        ch[q] = (x, r)
+        pr[r] = q
+        active[q] = True
+        side[r] = rng.random(n_partitions) < 0.5
+    return {"parent_left": pl, "parent_right": pr, "children": ch,
+            "heights": h, "side": side, "is_reassort": reassort,
+            "active": active, "root": int(root)}
+
+
+def arg_path(data, reset_counts, read_counts, device_ms, dev,
+             n_events=P21_ARG_EVENTS, n_steps=P21_ARG_STEPS):
+    """Phase 21b: an ARG of n_events reassortments on the start tree, the
+    padded patterns split in two partitions (segments), HKY+Gamma4 and a
+    strict clock. Each partition's arg_partition_site_loglik by the level
+    route (one peel_stream launch on the card) held per site against the
+    node-by-node plain peel on the same device; then a chain of n_steps
+    of reassort_height_move and partition_flip_move under
+    arg_coalescent_loglik, accepted on the device, one launch a partition
+    an evaluation (exactly), and the carried posterior against a fresh
+    one. Returns (record, launches)."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+
+    from beast_mcmc_tpu_torch import convert
+    from beast_mcmc_tpu_torch.models import arg as A
+    from beast_mcmc_tpu_torch.models.sitemodel import discrete_gamma_rates
+    from beast_mcmc_tpu_torch.models.substitution import hky_eigen
+    from beast_mcmc_tpu_torch.ops.eigen import transition_probs
+
+    t0 = time.perf_counter()
+    f64 = torch.float64
+    parent, children, heights, root = data["tree"]
+    n_taxa = data["states"].shape[0]
+    fields = arg_with_reassortments(parent, children, heights, root,
+                                    n_events, 2,
+                                    np.random.default_rng(P21_SEED))
+    arg = convert.arg_from_numpy(type("ARG", (), fields), f64, dev)
+    p_all = data["states"].shape[1]
+    halves = (slice(0, p_all // 2), slice(p_all // 2, p_all))
+    onehot = torch.nn.functional.one_hot(data["states"].clamp_max(3), 4)
+    onehot = torch.where((data["states"] >= 4)[..., None], 1, onehot)
+    tips = [onehot[:, sl].transpose(1, 2).to(f64).contiguous()
+            for sl in halves]
+    weights = [data["weights"][sl] for sl in halves]
+    freqs = data["freqs"].to(dev)
+    eig = hky_eigen(torch.tensor(4.0, dtype=f64, device=dev), freqs)
+    rates, cat_w = (x.to(dev) for x in discrete_gamma_rates(
+        torch.tensor(0.5, dtype=f64), 4))
+    clock = float(data["cfg"]["model"]["init"]["ucld.mean"])
+    pop = float(data["cfg"]["pop_size"])
+    rho = 1.0 / pop
+
+    def transition_fn(t):
+        return transition_probs(eig, t[:, None] * clock * rates[None, :])
+
+    def loglik(a, levels=True):
+        return A.arg_loglikelihood(a, tips, weights, transition_fn, freqs,
+                                   cat_w, levels)
+
+    def log_post(a):
+        return loglik(a) + A.arg_coalescent_loglik(a, n_taxa, pop, rho)
+
+    rec = {"taxa": n_taxa, "reassortments": n_events,
+           "patterns": [int(t.shape[-1]) for t in tips],
+           "capacity": arg.capacity}
+    launches = {}
+
+    def expect(n, what):
+        counts = read_counts()
+        launches[f"P21 {what}"] = counts
+        want = {k: n * (k == "peel_stream") for k in counts}
+        if counts != want:
+            raise AssertionError(f"P21 {what}: launches {counts}, expected "
+                                 f"{want}")
+
+    errs = []
+    for p in range(2):
+        reset_counts()
+        site = A.arg_partition_site_loglik(arg, p, tips[p], transition_fn,
+                                           freqs, cat_w, levels=True)
+        expect(1, f"21b kernel check {p}")
+        plain = A.arg_partition_site_loglik(arg, p, tips[p], transition_fn,
+                                            freqs, cat_w, levels=False)
+        errs.append(_per_site(site, plain))
+    rec["kernel_max_rel_err"] = max(errs)
+    if not rec["kernel_max_rel_err"] <= F64_REL_TOL:
+        raise AssertionError(f"P21b kernel: {errs}")
+    rec["ms_per_evaluation"] = _event_ms(lambda: loglik(arg), 3, dev)
+
+    gen = torch.Generator(device=dev).manual_seed(P21_SEED)
+    cur = log_post(arg)
+    accepted = torch.zeros(2, dtype=torch.long, device=dev)
+    reset_counts()
+    t1 = time.perf_counter()
+    for i in range(n_steps):
+        move = i % 2
+        if move == 0:
+            prop, logh = A.reassort_height_move(arg, gen, 0.05)
+        else:
+            prop, logh = A.partition_flip_move(arg, gen)
+        new = log_post(prop)
+        u = torch.rand((), generator=gen, dtype=f64, device=dev)
+        ok = torch.log(u) < new - cur + logh
+        arg = A.ARGState(*(torch.where(ok, getattr(prop, f.name),
+                                       getattr(arg, f.name))
+                           for f in dataclasses.fields(A.ARGState)))
+        cur = torch.where(ok, new, cur)
+        accepted[move] += ok.long()
+    if str(dev).startswith("cuda"):
+        torch.cuda.synchronize()
+    rec["chain_seconds"] = time.perf_counter() - t1
+    rec["states_per_s"] = n_steps / rec["chain_seconds"]
+    expect(2 * n_steps, "21b chain")
+    fresh = log_post(arg)
+    rec["full_evaluation_deviation"] = float((fresh - cur).abs())
+    if not (math.isfinite(float(cur))
+            and rec["full_evaluation_deviation"] <= FULL_EVAL_TOL):
+        raise AssertionError(f"P21b deviation {float(cur)} "
+                             f"{rec['full_evaluation_deviation']!r}")
+    rec["accepted"] = accepted.tolist()
+    rec["log_posterior"] = float(cur)
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"[P21b] ARG {n_taxa} taxa, {n_events} reassortments (capacity "
+        f"{arg.capacity}), partitions {rec['patterns']} patterns: level "
+        f"route vs plain {rec['kernel_max_rel_err']!r}, an evaluation "
+        f"{rec['ms_per_evaluation']:.3f} ms; {n_steps} steps "
+        f"{rec['states_per_s']:.2f} states/s, launches "
+        f"{launches['P21 21b chain']}, accepted (height, flip) "
+        f"{rec['accepted']}, deviation {rec['full_evaluation_deviation']!r}")
+    return rec, launches
+
+
+def thorney_path(reset_counts, read_counts, device_ms, dev,
+                 n_tips=P21_THORNEY_TIPS, n_steps=P21_THORNEY_STEPS,
+                 n_profile=P21_PROFILE):
+    """Phase 21c's Thorney chain: a coalescent tree of n_tips tips, its
+    constraints tree at P21_MIN_CLADE as a multifurcating Newick resolved
+    by build_constrained_tree, mutation counts drawn Poisson about the
+    branch lengths at P21_THORNEY_SITES, poisson_branch_length_loglik with
+    the clock rate under the constant coalescent; the constrained NNI and
+    SPR, node heights and the clock rate, n_steps steps with no kernel
+    launch, the constraint clades kept in the last tree, the deviation,
+    states/s and a profiler window. Returns (record, launches)."""
+    import numpy as np
+    import torch
+
+    from beast_mcmc_tpu_torch.inference.mcmc import (
+        init_mcmc_state, make_mcmc_step, run_chain)
+    from beast_mcmc_tpu_torch.inference.operators import (
+        ScaleOperator, UniformNodeHeightOperator)
+    from beast_mcmc_tpu_torch.models.coalescent import (
+        constant_coalescent_loglik)
+    from beast_mcmc_tpu_torch.models.thorney import (
+        poisson_branch_length_loglik)
+    from beast_mcmc_tpu_torch.tree import constrained as C
+    from beast_mcmc_tpu_torch.tree.topology import (
+        make_tree_state, simulate_coalescent_tree)
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(P21_SEED)
+    sim = simulate_coalescent_tree(rng, np.zeros(n_tips), 1.0)
+    newick = constraints_newick(sim[0], sim[1], sim[3], n_tips,
+                                P21_MIN_CLADE)
+    parent, children, heights, root, groups, names = \
+        C.build_constrained_tree(newick, rng)
+    index = {nm: i for i, nm in enumerate(names)}
+    clades = [frozenset(index[t] for t in c)
+              for c in C.clades_of_constraints(newick)]
+    rec = {"tips": n_tips, "constraint_clades": len(clades),
+           "build_seconds": time.perf_counter() - t0}
+    bl = np.where(parent >= 0, heights[np.maximum(parent, 0)] - heights, 0)
+    muts = torch.tensor(rng.poisson(bl * P21_THORNEY_SITES * 1e-3),
+                        dtype=torch.float64, device=dev)
+
+    def log_post(params, tree):
+        return (poisson_branch_length_loglik(
+            muts, tree.parent, tree.heights, params["clock.rate"],
+            P21_THORNEY_SITES)
+            + constant_coalescent_loglik(tree.heights, n_tips, 1.0))
+
+    ops = [C.ConstrainedNNIOperator(groups=groups, weight=10.0),
+           C.ConstrainedUniformSPROperator(groups=groups, weight=10.0),
+           UniformNodeHeightOperator(weight=10.0),
+           ScaleOperator(parameter="clock.rate", weight=2.0)]
+    tree0 = make_tree_state(parent, children, heights, root, torch.float64,
+                            dev)
+    step = make_mcmc_step(log_post, ops)
+    st = init_mcmc_state({"clock.rate": torch.tensor(
+        1e-3, dtype=torch.float64, device=dev)}, tree0,
+        torch.Generator(device=dev).manual_seed(P21_SEED), ops, log_post)
+    reset_counts()
+    t1 = time.perf_counter()
+    st, _ = run_chain(step, st, n_steps)
+    if str(dev).startswith("cuda"):
+        torch.cuda.synchronize()
+    rec["chain_seconds"] = time.perf_counter() - t1
+    rec["states_per_s"] = n_steps / rec["chain_seconds"]
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"P21c Thorney launched {counts}")
+    fresh = log_post(st.params, st.tree)
+    rec["full_evaluation_deviation"] = float(
+        (fresh - st.log_posterior).abs())
+    if not rec["full_evaluation_deviation"] <= FULL_EVAL_TOL:
+        raise AssertionError(f"P21c deviation "
+                             f"{rec['full_evaluation_deviation']!r}")
+    if not clades_kept([tuple(getattr(st.tree, f).cpu().numpy() for f in (
+            "parent", "children", "heights"))], clades, n_tips):
+        raise AssertionError("P21c: a constraint clade was broken")
+    rec["accepted"] = st.op_accept.tolist()
+    wall, busy = device_ms(lambda: run_chain(step, st, n_profile),
+                           "p21c thorney chain", n_profile)
+    rec.update({"profile_ms_per_step": wall,
+                "device_busy_share": None if busy is None else busy / wall,
+                "device_events_per_step": device_ms.events,
+                "seconds": time.perf_counter() - t0})
+    log(f"[P21c] Thorney {n_tips} tips, {len(clades)} constraint clades "
+        f"(built in {rec['build_seconds']:.2f} s): {n_steps} steps "
+        f"{rec['states_per_s']:.2f} states/s, no launch, clades kept, "
+        f"deviation {rec['full_evaluation_deviation']!r}, accepted "
+        f"{rec['accepted']}; profile {wall:.3f} ms a step, busy share "
+        f"{rec['device_busy_share']}, {device_ms.events} device events a "
+        f"step")
+    return rec, {"P21 21c thorney": counts}
+
+
+def empirical_path(data, trees, reset_counts, read_counts, dev,
+                   n_steps=P21_EMP_STEPS):
+    """Phase 21c's empirical-tree chain: the trees (numpy parent,
+    children, heights; 21a's start tree and its steps', the root the
+    parentless node) stacked by stack_trees, EmpiricalTreeOperator alone,
+    the GTR+Gamma4 tree likelihood of the padded patterns under the
+    constant coalescent: n_steps steps of exactly one peel_stream launch
+    each, the deviation. Returns (record, launches)."""
+    import numpy as np
+    import torch
+
+    from beast_mcmc_tpu_torch.inference.mcmc import (
+        init_mcmc_state, make_mcmc_step, run_chain)
+    from beast_mcmc_tpu_torch.models.coalescent import (
+        constant_coalescent_loglik)
+    from beast_mcmc_tpu_torch.models.sitemodel import discrete_gamma_rates
+    from beast_mcmc_tpu_torch.models.substitution import gtr_eigen
+    from beast_mcmc_tpu_torch.models.treelikelihood import tree_loglikelihood
+    from beast_mcmc_tpu_torch.tree.empirical import (
+        EmpiricalTreeOperator, stack_trees, tree_at)
+
+    t0 = time.perf_counter()
+    f64 = torch.float64
+    n_taxa = data["states"].shape[0]
+    ts = stack_trees([(p, c, h, int(np.flatnonzero(p < 0)[0]))
+                      for p, c, h in trees], f64, dev)
+    onehot = torch.nn.functional.one_hot(data["states"].clamp_max(3), 4)
+    tips = torch.where((data["states"] >= 4)[..., None], 1, onehot) \
+        .transpose(1, 2).to(f64).contiguous()
+    freqs = data["freqs"].to(dev)
+    eig = gtr_eigen(torch.tensor([1.0, 4.0, 0.6, 1.1, 4.2, 1.0], dtype=f64,
+                                 device=dev), freqs)
+    rates, cat_w = (x.to(dev) for x in discrete_gamma_rates(
+        torch.tensor(0.5, dtype=f64), 4))
+    clock = float(data["cfg"]["model"]["init"]["ucld.mean"])
+    pop = float(data["cfg"]["pop_size"])
+
+    def log_post(params, tree):
+        return (tree_loglikelihood(tips, data["weights"], tree.parent,
+                                   tree.children, tree.heights, tree.root,
+                                   eig, freqs, rates, cat_w, clock)
+                + constant_coalescent_loglik(tree.heights, n_taxa, pop))
+
+    ops = [EmpiricalTreeOperator(trees=ts)]
+    step = make_mcmc_step(log_post, ops)
+    st = init_mcmc_state({}, tree_at(ts, 0),
+                         torch.Generator(device=dev).manual_seed(P21_SEED),
+                         ops, log_post)
+    reset_counts()
+    t1 = time.perf_counter()
+    st, _ = run_chain(step, st, n_steps)
+    if str(dev).startswith("cuda"):
+        torch.cuda.synchronize()
+    rec = {"trees": ts.n_trees, "chain_seconds": time.perf_counter() - t1}
+    rec["states_per_s"] = n_steps / rec["chain_seconds"]
+    counts = read_counts()
+    want = {k: n_steps * (k == "peel_stream") for k in counts}
+    if counts != want:
+        raise AssertionError(f"P21c empirical: launches {counts}, expected "
+                             f"{want}")
+    fresh = log_post(st.params, st.tree)
+    rec["full_evaluation_deviation"] = float(
+        (fresh - st.log_posterior).abs())
+    if not rec["full_evaluation_deviation"] <= FULL_EVAL_TOL:
+        raise AssertionError(f"P21c empirical deviation "
+                             f"{rec['full_evaluation_deviation']!r}")
+    rec["accepted"] = st.op_accept.tolist()
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"[P21c] empirical trees: {ts.n_trees} trees, {n_steps} steps "
+        f"{rec['states_per_s']:.2f} states/s, launches {counts}, accepted "
+        f"{rec['accepted']}, deviation {rec['full_evaluation_deviation']!r}")
+    return rec, {"P21 21c empirical": counts}
+
+
+def species_tree_of(parent, children, heights, root, n_tips, n_species):
+    """(species parent, species heights, tip_species) numpy: n_species
+    clades of a gene tree (the largest clade split in two until there are
+    n_species) as species tips at height 0, the splitting nodes as the
+    species tree's internal nodes at 0.95 of the gene node's height, so
+    the gene tree is compatible and its coalescences interleave with the
+    divergences."""
+    import numpy as np
+
+    def tips_under(v):
+        out, stack = [], [v]
+        while stack:
+            x = stack.pop()
+            if x < n_tips:
+                out.append(x)
+            else:
+                stack.extend(int(c) for c in children[x])
+        return out
+
+    clades = [int(root)]
+    splits = []
+    while len(clades) < n_species:
+        big = max((c for c in clades if c >= n_tips),
+                  key=lambda c: len(tips_under(c)))
+        clades.remove(big)
+        clades.extend(int(c) for c in children[big])
+        splits.append(big)
+    s = 2 * n_species - 1
+    sp_parent = np.full(s, -1)
+    sp_heights = np.zeros(s)
+    index = {c: i for i, c in enumerate(clades)}
+    for j, g in enumerate(reversed(splits)):  # the root split last
+        index[g] = n_species + j
+        sp_heights[n_species + j] = 0.95 * heights[g]
+    for g in splits:
+        for c in children[g]:
+            sp_parent[index[int(c)]] = index[g]
+    tip_species = np.zeros(n_tips, np.int64)
+    for c in clades:
+        tip_species[tips_under(c)] = index[c]
+    return sp_parent, sp_heights, tip_species
+
+
+def p21_function_cases(data, seed=P21_SEED):
+    """{label: fn(dev) -> tensor} of 21d on the host-made inputs of `seed`
+    (numpy), each evaluated on a device from the same numbers: the msc and
+    alloppnet densities of the start tree (a gene tree of n taxa) under
+    an 8-species tree and an 8-tip MUL-tree; transmission and
+    case-to-case densities of P21_HOSTS hosts; the DP Gibbs sweep of
+    P21_ITEMS items at injected uniforms and the CRP, ddCRP and HDP
+    priors; MDS and the antigenic likelihood of P21_LOCATIONS locations
+    in 2 dimensions, the MDS gradient and both drift priors; Hawkes on
+    P21_EVENTS events; point_in_polygon on P21_POINTS points and
+    lattice_rate_matrix on a P21_RASTER square raster; the regressions on
+    P21_ROWS rows; the hypermutation partials at the data's shape."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from beast_mcmc_tpu_torch.models import (
+        alloppnet, casetocase, clustering, geo, hawkes, mds, msc, regression,
+        tipstates, transmission)
+    from beast_mcmc_tpu_torch.tree.topology import simulate_coalescent_tree
+
+    rng = np.random.default_rng(seed)
+    f64 = torch.float64
+    parent, children, heights, root = data["tree"]
+    n_taxa = len(parent) // 2 + 1
+    sp_parent, sp_heights, tip_species = species_tree_of(
+        parent, children, heights, root, n_taxa, P21_SPECIES)
+    sp_pops = rng.uniform(0.5, 2.0, len(sp_parent))
+    # a network of 4 diploid and 2 tetraploid tips (an 8-tip MUL-tree),
+    # every height below the gene tree's lowest coalescence
+    low = 0.9 * float(heights[n_taxa:].min())
+    net = dict(dip_parent=[4, 4, 5, 6, 5, 6, -1],
+               dip_children=[[-1, -1]] * 4 + [[0, 1], [4, 2], [5, 3]],
+               dip_heights=np.array([0, 0, 0, 0, 0.3, 0.6, 0.9]) * low,
+               dip_root=6, tet_parent=[2, 2, -1],
+               tet_children=[[-1, -1], [-1, -1], [0, 1]],
+               tet_heights=np.array([0, 0, 0.2]) * low, tet_root=2,
+               leg_a=1, leg_b=2, hyb_height=0.25 * low)
+    mul_species = rng.integers(0, 8, n_taxa)
+    mul_pops = rng.uniform(0.5, 2.0, 15)
+
+    # transmission and case-to-case: one tip a host, the painting of
+    # initial_painting, each host infected on the branch above its subtree
+    hp, hc, hh, hr = simulate_coalescent_tree(rng, rng.uniform(
+        0, 0.5, P21_HOSTS), 1.0)
+    painting = casetocase.initial_painting(hp, hc, hr, P21_HOSTS)
+    case_root = np.full(P21_HOSTS, -1)
+    for v in range(len(hp)):
+        if v == hr or painting[v] != painting[hp[v]]:
+            case_root[painting[v]] = v
+    frac = rng.uniform(0.05, 0.95, P21_HOSTS)
+    donor = np.where(case_root == hr, np.arange(P21_HOSTS),
+                     painting[np.maximum(hp[case_root], 0)])
+    t_inf = np.where(case_root == hr, np.inf, hh[case_root] + frac * (
+        hh[np.maximum(hp[case_root], 0)] - hh[case_root]))
+    host_pops = rng.uniform(0.2, 2.0, P21_HOSTS)
+    dist = rng.uniform(0, 10, (P21_HOSTS, P21_HOSTS))
+
+    # clustering: a 1-D normal mixture
+    items = np.concatenate([rng.normal(m, 0.5, P21_ITEMS // 4)
+                            for m in (-3, 0, 2, 5)])
+    assign0 = rng.integers(0, 6, P21_ITEMS)
+    sweep_u = rng.random(P21_ITEMS)
+    links = rng.integers(0, P21_ITEMS, P21_ITEMS)
+    item_d = np.abs(items[:, None] - items[None, :])
+    hdp_counts = rng.integers(0, 30, (40, 20))
+    hdp_beta = rng.dirichlet(np.ones(20))
+
+    # MDS and the antigenic likelihood
+    locs = rng.normal(0, 3, (P21_LOCATIONS, 2))
+    true = np.sqrt(((locs[:, None] - locs[None]) ** 2).sum(-1))
+    observed = true + rng.normal(0, 0.3, true.shape)
+    mask = np.triu(rng.random(true.shape) < 0.3, 1)
+    n_meas = 10 * P21_LOCATIONS
+    vi = rng.integers(0, P21_LOCATIONS, n_meas)
+    si = rng.integers(0, 200, n_meas)
+    sera = rng.normal(0, 3, (200, 2))
+    mtypes = rng.integers(0, 4, n_meas)
+    potency = rng.uniform(6, 10, 200)
+    avidity = rng.normal(0, 0.5, P21_LOCATIONS)
+    v_off = rng.uniform(0, 10, P21_LOCATIONS)
+    s_off = rng.uniform(0, 10, 200)
+    # titres drawn about the model's own expectation (drift 0.1, sd of
+    # precision 1.5), so that no interval's two cdfs both round to 1
+    shift = np.zeros((1, 2))
+    shift[0, 0] = 0.1
+    gap = (locs[vi] + shift * v_off[vi, None]
+           - sera[si] - shift * s_off[si, None])
+    titres = (potency[si] + avidity[vi] - np.sqrt((gap ** 2).sum(1))
+              + rng.normal(0, 1.5 ** -0.5, n_meas))
+
+    # Hawkes, geo, regression, hypermutation
+    ev_x = rng.normal(0, 1, (P21_EVENTS, 2))
+    ev_t = np.sort(rng.uniform(0, 100, P21_EVENTS))
+    pts = rng.uniform(-1.2, 1.2, (P21_POINTS, 2))
+    ang = np.linspace(0, 2 * np.pi, 50, endpoint=False)
+    star = np.stack([np.cos(ang), np.sin(ang)], 1) * np.where(
+        np.arange(50) % 2, 0.45, 1.0)[:, None]
+    valid = rng.random((P21_RASTER, P21_RASTER)) < 0.7
+    cell_rates = rng.uniform(0.5, 2.0, (P21_RASTER, P21_RASTER))
+    design = rng.normal(0, 1, (P21_ROWS, 5))
+    beta = rng.normal(0, 0.3, 5)
+    y_lin = np.exp(design @ beta + rng.normal(0, 0.2, P21_ROWS))
+    y_bin = (rng.random(P21_ROWS) < 0.5).astype(float)
+    y_cnt = rng.poisson(2.0, P21_ROWS).astype(float)
+    sccs_n = rng.poisson(1.0, (P21_ROWS // 10, 10)).astype(float)
+    sccs_x = rng.normal(0, 1, (P21_ROWS // 10, 10, 5))
+    sccs_e = np.log(rng.uniform(0.1, 1.0, (P21_ROWS // 10, 10)))
+    sccs_e[:, -2:] = -np.inf
+    states = data["states"].cpu().numpy()
+    ctx = rng.random(states.shape) < 0.2
+    hyper = rng.random(states.shape[0]) < 0.3
+
+    def T(x, d, dt=f64):
+        return torch.as_tensor(np.asarray(x), dtype=dt, device=d)
+
+    def L(x, d):
+        return torch.as_tensor(np.asarray(x), dtype=torch.long, device=d)
+
+    def net_on(d):
+        return alloppnet.AlloppNetwork(*(
+            T(net[f], d) if f.endswith(("heights", "height")) else L(net[f], d)
+            for f in alloppnet.AlloppNetwork._fields))
+
+    def predictive(x):
+        def fn(i, k, a):
+            member = (a == k).to(x.dtype)
+            n = member.sum()
+            mean = (member * x).sum() / (n + 1.0)  # a N(0, 1) prior mean
+            var = 0.25 + 1.0 / (n + 1.0)
+            return -0.5 * (x[i] - mean) ** 2 / var - 0.5 * torch.log(
+                2 * math.pi * var)
+        return fn
+
+    def sweep(d):
+        x = T(items, d)
+        out = clustering.dp_gibbs_sweep(None, L(assign0, d), predictive(x),
+                                        0.7, 16, uniforms=T(sweep_u, d))
+        return out.to(f64)
+
+    def mds_grad(d):
+        return mds.mds_location_gradient(T(observed, d),
+                                         torch.as_tensor(mask, device=d),
+                                         T(locs, d), 2.0)
+
+    return {
+        "msc": lambda d: msc.multispecies_coalescent_loglik(
+            L(parent, d), L(children, d), T(heights, d), L(tip_species, d),
+            L(sp_parent, d), T(sp_heights, d), T(sp_pops, d)),
+        "alloppnet": lambda d: alloppnet.alloppnet_gene_tree_loglik(
+            L(parent, d), L(children, d), T(heights, d), L(mul_species, d),
+            net_on(d), T(mul_pops, d)),
+        "alloppnet MUL-tree heights": lambda d: alloppnet.mul_tree(
+            net_on(d))[2],
+        "transmission": lambda d: transmission.transmission_loglik(
+            L(hp, d), L(hc, d), T(hh, d), P21_HOSTS,
+            L(np.arange(P21_HOSTS), d), L(donor, d), T(t_inf, d),
+            T(host_pops, d)),
+        "casetocase": lambda d: casetocase.case_to_case_loglik(
+            L(hp, d), L(hc, d), T(hh, d), L(hr, d), L(painting, d),
+            P21_HOSTS, T(hh[:P21_HOSTS], d), T(frac, d), 2.0, 0.3, 1.5,
+            T(dist, d), 0.2),
+        "casetocase infection times": lambda d: casetocase.infection_events(
+            L(hp, d), L(painting, d), T(hh, d), L(hr, d), P21_HOSTS,
+            T(frac, d))[0],
+        "dp_gibbs_sweep": sweep,
+        "crp prior": lambda d: clustering.crp_log_prior(
+            L(assign0, d), 0.7, 16),
+        "ddcrp prior": lambda d: clustering.ddcrp_log_prior(
+            L(links, d), T(item_d, d), 0.7, 2.0),
+        "hdp prior": lambda d: clustering.hdp_log_prior(
+            L(hdp_counts, d), T(hdp_beta, d), 3.0, 2.0),
+        "mds": lambda d: mds.mds_loglikelihood(
+            T(observed, d), torch.as_tensor(mask, device=d), T(locs, d), 2.0),
+        "mds gradient": mds_grad,
+        "antigenic": lambda d: mds.antigenic_loglikelihood(
+            T(titres, d), L(mtypes, d), L(vi, d), L(si, d), T(locs, d),
+            T(sera, d), T(potency, d), 1.5, T(avidity, d), 0.1,
+            T(v_off, d), T(s_off, d)),
+        "antigenic drift prior (mds)": lambda d: mds.antigenic_drift_prior(
+            T(locs, d), T(v_off, d), 0.3, 0.8),
+        "antigenic drift prior (clustering)":
+            lambda d: clustering.antigenic_drift_prior(
+                T(locs, d), T(v_off, d), 0.3, 0.8),
+        "hawkes": lambda d: hawkes.hawkes_loglikelihood(
+            T(ev_x, d), T(ev_t, d), 4.0, 1.0, 0.05, 0.5, 0.4, 50.0),
+        "hawkes rates": lambda d: torch.cat(hawkes.hawkes_event_rates(
+            T(ev_x, d), T(ev_t, d), 4.0, 1.0, 0.05, 0.5, 0.4, 50.0)),
+        "point_in_polygon": lambda d: geo.point_in_polygon(
+            T(pts, d), T(star, d)).to(f64),
+        "lattice_rate_matrix": lambda d: geo.lattice_rate_matrix(
+            torch.as_tensor(valid, device=d), T(cell_rates, d)),
+        "great_circle_distance": lambda d: geo.great_circle_distance(
+            T(pts * 60, d), T(pts[::-1] * 60, d)),
+        "linear regression": lambda d: regression.linear_regression_loglik(
+            T(y_lin, d), T(design, d), T(beta, d), 2.0, log_transform=True),
+        "logistic regression": lambda d: regression.glm_loglik(
+            "logistic", T(y_bin, d), T(design, d), T(beta, d)),
+        "log-linear regression": lambda d: regression.glm_loglik(
+            "poisson", T(y_cnt, d), T(design, d), T(beta, d)),
+        "sccs": lambda d: regression.sccs_conditional_loglik(
+            T(sccs_n, d), T(sccs_x, d), T(beta, d), T(sccs_e, d)),
+        "hypermutant_error_partials":
+            lambda d: tipstates.hypermutant_error_partials(
+                L(states, d), torch.as_tensor(ctx, device=d),
+                torch.as_tensor(hyper, device=d), 0.3),
+    }
+
+
+def p21_functions_path(data, dev, seed=P21_SEED):
+    """Phase 21d: p21_function_cases on the card and on the CPU, each
+    output's largest deviation over its largest magnitude held to
+    P21_REL_TOL (the sweep's assignments exactly). Returns the record."""
+    t0 = time.perf_counter()
+    cases = p21_function_cases(data, seed)
+    worst = {}
+    for label, fn in cases.items():
+        got = fn(dev)
+        want = fn("cpu")
+        worst[label] = _hold(f"P21d {label}", got.reshape(-1),
+                             want.reshape(-1), P21_REL_TOL)
+        if label == "dp_gibbs_sweep" and worst[label] != 0.0:
+            raise AssertionError("P21d dp_gibbs_sweep: the seats differ")
+    top = max(worst, key=worst.get)
+    rec = {"functions": len(worst), "max_rel_err": worst[top], "worst": top,
+           "rel_err": worst, "seconds": time.perf_counter() - t0}
+    log(f"[P21d] {len(worst)} functions on the card against the CPU in "
+        f"{rec['seconds']:.2f} s: largest deviation {worst[top]!r} ({top}; "
+        f"tolerance {P21_REL_TOL})")
+    return rec
+
+
+def c7_document(path, data):
+    """The C7 check's document on makona_data's taxa and alignment:
+    _seq_models_xml's HKY+Gamma4 tree likelihood with a <gradient> over
+    kappa, the frequencies and the clock rate (6 values, so the report
+    takes the Hessian diagonal)."""
+    out = ['<?xml version="1.0" standalone="yes"?>', "<beast>"]
+    out += taxa_alignment_xml(data)
+    out.append(_seq_models_xml(data))
+    out.append("""  <gradient id="c7Gradient">
+    <treeDataLikelihood idref="treeLikelihood"/>
+    <parameter idref="kappa"/><parameter idref="frequencies"/>
+    <parameter idref="clock.rate"/>
+  </gradient>
+</beast>
+""")
+    with open(path, "w") as f:
+        f.write("\n".join(out))
+
+
+def c7_path(out_dir, dev, n_taxa=P21_C7_TAXA, n_sites=P21_C7_SITES):
+    """Fault C7's check: the <gradient> report of c7_document on the card
+    (the tree likelihood's Hessian diagonal through the plain peel under
+    autograd_peel) against the CPU's, each analytic line (gradient,
+    Hessian) to P21_C7_TOL of its largest entry; the numeric lines'
+    deviations reported. Returns the record."""
+    import re
+
+    import numpy as np
+
+    from beast_mcmc_tpu_torch.config.interpreter import XmlAnalysis
+    from beast_mcmc_tpu_torch.config.xml_assert import report_of
+
+    t0 = time.perf_counter()
+    os.makedirs(out_dir, exist_ok=True)
+    data = makona_data(n_taxa, n_sites, JOINT_SEED, dev)
+    doc = os.path.join(out_dir, "makona_c7.xml")
+    c7_document(doc, data)
+    lines = {}
+    for d in (dev, "cpu"):
+        ax = XmlAnalysis(doc, seed=P21_SEED, device=d, workdir=out_dir)
+        text = report_of(ax, ax._ids["c7Gradient"])
+        if "\nHessian\n" not in text:
+            raise AssertionError(f"C7 report on {d}: {text}")
+        vals = []
+        for section in text.split("\nHessian\n"):
+            for key in ("analytic:", "numeric :"):
+                m = re.search(re.escape(key) + r" \[(.*?)\]", section)
+                vals.append(np.array([float(x) for x in m.group(1).split(
+                    ",")]))
+        lines[d] = vals
+    names = ("gradient analytic", "gradient numeric", "Hessian analytic",
+             "Hessian numeric")
+    rel = {}
+    for i, nm in enumerate(names):
+        a, b = lines[dev][i], lines["cpu"][i]
+        rel[nm] = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+    for nm in ("gradient analytic", "Hessian analytic"):
+        if not rel[nm] <= P21_C7_TOL:
+            raise AssertionError(f"C7 {nm}: {rel[nm]!r} > {P21_C7_TOL}")
+    rec = {"taxa": n_taxa, "sites": n_sites, "values": len(lines["cpu"][0]),
+           "rel_err": rel, "hessian": lines[dev][2].tolist(),
+           "seconds": time.perf_counter() - t0}
+    log(f"[P21 C7] <gradient> report over kappa, frequencies and clock.rate "
+        f"({rec['values']} values) at {n_taxa} taxa x {n_sites} sites, card "
+        f"against CPU: " + ", ".join(f"{k} {v!r}" for k, v in rel.items())
+        + f" (analytic lines to {P21_C7_TOL}); Hessian {rec['hessian']}; "
+        f"{rec['seconds']:.2f} s")
+    return rec
+
+
+def p21_paths(out_dir, reset_counts, read_counts, device_ms, dev,
+              n_taxa=SPEC_TAXA, n_sites=SPEC_SITES, steps=P21_STEPS,
+              arg_events=P21_ARG_EVENTS, arg_steps=P21_ARG_STEPS,
+              thorney_tips=P21_THORNEY_TIPS, thorney_steps=P21_THORNEY_STEPS,
+              emp_trees=P21_EMP_TREES, emp_steps=P21_EMP_STEPS,
+              c7=(P21_C7_TAXA, P21_C7_SITES)):
+    """Phase 21 (see the module docstring): 21a to 21d and the C7 check.
+    Returns (record, launches)."""
+    t0 = time.perf_counter()
+    data = p21_data(dev, n_taxa, n_sites)
+    rec = {"taxa": n_taxa, "sites": data["sites"],
+           "patterns": data["patterns"], "data_seconds":
+           time.perf_counter() - t0}
+    rec["21a"], launches, trees = covarion_path(
+        data, reset_counts, read_counts, device_ms, dev, steps)
+    rec["21b"], more = arg_path(data, reset_counts, read_counts, device_ms,
+                                dev, arg_events, arg_steps)
+    launches.update(more)
+    rec["21c"], more = thorney_path(reset_counts, read_counts, device_ms,
+                                    dev, thorney_tips, thorney_steps)
+    launches.update(more)
+    rec["21c empirical"], more = empirical_path(
+        data, trees[:emp_trees], reset_counts, read_counts, dev, emp_steps)
+    launches.update(more)
+    rec["21d"] = p21_functions_path(data, dev)
+    rec["C7"] = c7_path(out_dir, dev, *c7)
+    return rec, launches
+
+
 def main():
     import numpy as np
     import torch
@@ -8007,6 +9160,11 @@ def main():
     p20["20c"] = p20_functions_path(SMOKE_OUT, dev)
     mark("20 factor analysis and the HMC skygrid")
 
+    # -- phase 21: the model families outside the XML vocabulary ---------
+    p21, p21_launches = p21_paths(SMOKE_OUT, reset_counts, read_counts,
+                                  device_ms, dev)
+    mark("21 model families outside the XML vocabulary")
+
     # -- summary ------------------------------------------------------
     def entry(kname, source, replaces, launches, label):
         rec = next(r for r in checks[kname] if r["label"] == label)
@@ -8234,6 +9392,35 @@ def main():
         f"{p20['20c']['max_rel_err']!r}; phase "
         f"{phases['20 factor analysis and the HMC skygrid']:.2f} s; on "
         f"{smi_line}")
+    p21a, p21b, p21c, p21e = (p21[k] for k in ("21a", "21b", "21c",
+                                               "21c empirical"))
+    log(f"[summary p21] {p21['taxa']} taxa x {p21['sites']} sites "
+        f"({p21['patterns']} patterns): 21a covarion S = 8 "
+        f"{p21a['states_per_s']:.2f} states/s, peel_stream_ring launches "
+        f"{p21_launches['P21 21a chain']['peel_stream_ring']} in "
+        f"{P21_STEPS} steps, kernel vs plain "
+        f"{p21a['kernel_max_rel_err']!r}, deviation "
+        f"{p21a['full_evaluation_deviation']!r}, busy share "
+        f"{p21a['device_busy_share']}, {p21a['constraint_clades']} clades "
+        f"kept; stochastic mapping over {p21a['branches']} branches card vs "
+        f"CPU {p21a['expected_jumps_rel_err']!r}, "
+        f"{p21a['dwell_rel_err']!r}; 21b ARG {p21b['reassortments']} "
+        f"reassortments, level route vs plain "
+        f"{p21b['kernel_max_rel_err']!r}, "
+        f"{p21b['ms_per_evaluation']:.3f} ms an evaluation, "
+        f"{p21b['states_per_s']:.2f} states/s, peel_stream launches "
+        f"{p21_launches['P21 21b chain']['peel_stream']}, deviation "
+        f"{p21b['full_evaluation_deviation']!r}; 21c Thorney "
+        f"{p21c['tips']} tips {p21c['states_per_s']:.2f} states/s, busy "
+        f"share {p21c['device_busy_share']}, deviation "
+        f"{p21c['full_evaluation_deviation']!r}; empirical "
+        f"{p21e['trees']} trees {p21e['states_per_s']:.2f} states/s, "
+        f"deviation {p21e['full_evaluation_deviation']!r}; 21d "
+        f"{p21['21d']['functions']} functions, largest deviation "
+        f"{p21['21d']['max_rel_err']!r} ({p21['21d']['worst']}); C7 "
+        f"report card vs CPU {json.dumps(p21['C7']['rel_err'])}; phase "
+        f"{phases['21 model families outside the XML vocabulary']:.2f} s; "
+        f"on {smi_line}")
     log(f"[phases] {json.dumps(phases)}")
     log(smi_line)
     print(json.dumps({"kernels": [
@@ -8268,7 +9455,7 @@ def main():
                              **p14_launches, **p15_launches,
                              **p16_launches, **p17_launches,
                              **p18_launches, **p19_launches,
-                             **p20_launches}}),
+                             **p20_launches, **p21_launches}}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -42,8 +42,19 @@ def test_import_every_module_without_jax():
     # xml_stats's current state, the GMRF block update and elliptical
     # slice sampler, the Sericola series, the stochastic Dollo model, the
     # continuous-trait models, config/xml_traits.py and the BASTA
-    # structured coalescent) are among the modules found
+    # structured coalescent), and the model families outside the XML
+    # vocabulary (stochastic mapping, the tip-error, Thorney, constrained
+    # and empirical-tree modules, the GLM, geo, MSC, AlloppNet,
+    # transmission, case-to-case, clustering, MDS, Hawkes and ARG
+    # models) are among the modules found
     assert {"beast_mcmc_tpu_torch.apps.makona",
+            *(f"beast_mcmc_tpu_torch.{m}" for m in (
+                "ops.markov_jumps", "ops.uniformization", "models.thorney",
+                "models.tipstates", "tree.constrained", "tree.empirical",
+                "models.regression", "models.geo", "models.msc",
+                "models.alloppnet", "models.transmission",
+                "models.casetocase", "models.clustering", "models.mds",
+                "models.hawkes", "models.arg")),
             "beast_mcmc_tpu_torch.config.xml_ext",
             "beast_mcmc_tpu_torch.config.xml_geo",
             "beast_mcmc_tpu_torch.config.xml_assert",
