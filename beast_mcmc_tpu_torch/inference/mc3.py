@@ -23,7 +23,10 @@ Differences from the JAX package, by design:
     hands to `run` (JAX splits a key); `swap_with` is the swap's
     arithmetic given them, so that the tests can feed it JAX's draws;
   - the batch has one device generator where JAX gives each chain its own
-    key: the chains' draws are different elements of one stream.
+    key: the chains' draws are different elements of one stream;
+  - chains sharded over ranks (`make_mc3_runner(mesh=...)`) swap through
+    parallel/distributed.py::swap_across_chain_shards, the port's form of
+    what XLA inserts when swap_states runs on chain-sharded states.
 An operator that evaluates the posterior inside its proposal (HMC, NUTS,
 the PDMPs, the slice samplers) drawn by a subset of the chains proposes
 over that subset alone, its in-proposal posterior the chain-axis one of
@@ -77,17 +80,22 @@ def swap_with(states: MCMCState, temperatures: torch.Tensor, i: int, j: int,
                           log_posterior=lp[idx]), accept
 
 
-def swap_states(states: MCMCState, temperatures: torch.Tensor,
-                generator: torch.Generator):
-    """One random-pair swap attempt (JAX swap_states): i uniform over the
-    slots, j uniform over the others, u uniform, all drawn on the CPU
-    `generator`."""
-    n = temperatures.shape[0]
+def swap_draws(n: int, generator: torch.Generator):
+    """(i, j, log u) of one swap attempt over n slots (JAX swap_states' law):
+    i uniform over the slots, j uniform over the others, u uniform, all
+    drawn on the CPU `generator`."""
     i = int(torch.randint(0, n, (), generator=generator))
     j = (i + 1 + int(torch.randint(0, n - 1, (), generator=generator))) % n
     u = float(torch.rand((), generator=generator, dtype=torch.float64))
-    return swap_with(states, temperatures, i, j,
-                     math.log(u) if u > 0 else -math.inf)
+    return i, j, math.log(u) if u > 0 else -math.inf
+
+
+def swap_states(states: MCMCState, temperatures: torch.Tensor,
+                generator: torch.Generator):
+    """One random-pair swap attempt (JAX swap_states), drawn by
+    `swap_draws`."""
+    return swap_with(states, temperatures,
+                     *swap_draws(temperatures.shape[0], generator))
 
 
 def chain_state(states: MCMCState, b: int) -> MCMCState:
@@ -106,20 +114,44 @@ def chain_state(states: MCMCState, b: int) -> MCMCState:
 
 def make_mc3_runner(log_posterior, operators, n_chains: int,
                     swap_every: int = 100, delta: float = 1.0,
-                    adaptation: bool = True, temperatures=None):
+                    adaptation: bool = True, temperatures=None,
+                    mesh=None):
     """(run, temperatures), the JAX signature. `log_posterior(params, tree)
     -> [B]` is the chain-axis posterior (apps/benchmarks.py's
     aux["log_post_chains"]). run(states, generator, n_rounds,
     collector=None) -> (states, outputs): each round is `swap_every` steps
     of the batch, each chain with its own operator draw, then one swap
     attempt drawn on the CPU `generator`; `collector(cold chain)` is taken
-    each round, and outputs["swap_accepted"] is [n_rounds]."""
+    each round, and outputs["swap_accepted"] is [n_rounds].
+
+    With a `mesh` (parallel/mesh.py) the chains are sharded over its chains
+    axis: this rank's batch is its n_chains / n_chain_shards slots, at
+    their temperatures, and the swap is
+    parallel/distributed.py::swap_across_chain_shards, whose `generator`
+    must be seeded alike on every rank; the collector sees this rank's
+    first slot, the cold chain on the ranks of chain coordinate 0."""
     core = _chain_batch_core(log_posterior, operators, None, adaptation)
     _, cum = _operator_cdf(operators)
     temps = (torch.as_tensor(temperatures, dtype=torch.float64)
              if temperatures is not None
              else mc3_temperatures(n_chains, delta))
     on_device = {}
+    slots, swap = slice(None), swap_states
+    if mesh is not None:
+        from beast_mcmc_tpu_torch.parallel import distributed
+        from beast_mcmc_tpu_torch.parallel.mesh import CHAINS_AXIS, axis_size
+
+        shards = axis_size(mesh, CHAINS_AXIS)
+        if n_chains % shards:
+            raise ValueError(f"{n_chains} chains do not divide over "
+                             f"{shards} chain shards")
+        n_chains //= shards
+        lo = mesh.get_local_rank(CHAINS_AXIS) * n_chains
+        slots = slice(lo, lo + n_chains)
+
+        def swap(states, temps_dev, generator):
+            return distributed.swap_across_chain_shards(mesh, states,
+                                                        temps_dev, generator)
 
     def step(states: MCMCState, temps_dev) -> MCMCState:
         u = torch.rand(n_chains, generator=states.op_generator,
@@ -147,13 +179,14 @@ def make_mc3_runner(log_posterior, operators, n_chains: int,
             collector: Optional[Callable[[MCMCState], Dict]] = None):
         dev = states.log_posterior.device
         if dev not in on_device:
-            on_device[dev] = temps.to(dev)
-        temps_dev = on_device[dev]
+            full = temps.to(dev)
+            on_device[dev] = full, full[slots]
+        temps_dev, local = on_device[dev]
         outs = []
         for _ in range(n_rounds):
             for _ in range(swap_every):
-                states = step(states, temps_dev)
-            states, accepted = swap_states(states, temps_dev, generator)
+                states = step(states, local)
+            states, accepted = swap(states, temps_dev, generator)
             out = dict(collector(chain_state(states, 0))) if collector else {}
             out["swap_accepted"] = accepted
             outs.append(out)

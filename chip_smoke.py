@@ -368,6 +368,29 @@ result line):
      report over kappa, the frequencies and the clock rate, Hessian
      diagonal included, on the card against the CPU to P21_C7_TOL.
 
+  22. the multi-process layer (`parallel_path`): P22_RANKS ranks of `python
+     -m beast_mcmc_tpu_torch.parallel` on the one card with
+     backend="gloo" (NCCL takes one rank a GPU), started once: 22a the
+     pattern-sharded likelihood (parallel/distributed.py::
+     sharded_pattern_loglik) of random inputs at P22_LIK, Makona's width,
+     on a P22_LIK_MESH mesh, each rank one peel_stream launch on its
+     shard, held per site against the node-by-node plain peel, the
+     reduced total equal on both ranks bit for bit and within
+     P22_TOTAL_TOL of this process's unsharded total; 22b the counterpart
+     of __graft_entry__.py::dryrun_multichip at P22_DRY, a tempered
+     ensemble of 4 GTR+Gamma4 chains in float64 (swap every 12 steps, delta
+     0.002, 10 rounds) with the likelihood of each rank's pattern shard
+     all-reduced and the priors added once, on a 2 x 1 mesh (two chains a
+     rank, swaps across ranks, each chain shard its own streams) and a 1 x
+     2 mesh (all chains on each rank, half the patterns, the ranks' states
+     equal bit for bit): swap acceptance inside SWAP_BAND, exactly one
+     peel_stream launch a batch step and one a check on each rank, the
+     full-evaluation deviation, each rank's shard (128 and 64 patterns)
+     held per site against the node-by-node plain peel; meanwhile 22c, in this process, a world of
+     one rank on backend="nccl" takes 22a's total over a 1 x 1 mesh, equal
+     to the unsharded one. A rank that fails or outlives P22_TIMEOUT fails
+     the run.
+
 `python3 chip_smoke.py --tiles` instead builds the kernels and times the
 v1 streaming kernel at the plans its planner could pick, with its largest
 deviation from the plain version (`*` marks the planner's): below 16 states
@@ -386,6 +409,7 @@ nothing of the JAX package.
 """
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -668,9 +692,9 @@ P7_WARM = 20  # warm-up steps before each measured chain
 P7_ALONE = 2  # proposals of each chain operator alone: launches, times (4)
 P7_STEPS = {"benchmark2": (50, 12), "benchmark1": (50, 12),  # 200, 40; 100, 20
             "protein": (50, 12)}  # steps, full-evaluation steps (100, 25)
-P7_TOY_STEPS = 100  # 500; 200
+P7_TOY_STEPS = 50  # 500; 200; 100 before phase 22's cut
 NUTS_STEP, NUTS_DEPTH = 1e-3, 6
-PDMP_EVENTS = 35.0
+PDMP_EVENTS = 20.0  # 35 before phase 22's cut
 SPHERE_TOL, STIEFEL_TOL, SIMPLEX_TOL = 1e-12, 1e-10, 1e-12
 
 
@@ -7875,6 +7899,214 @@ def p21_paths(out_dir, reset_counts, read_counts, device_ms, dev,
     return rec, launches
 
 
+# phase 22: the multi-process layer (beast_mcmc_tpu_torch/parallel/), two
+# gloo ranks of the worker entry sharing the card, started once for 22a and
+# 22b, and a one-rank NCCL world in this process (22c)
+P22_RANKS = 2
+P22_LIK = (1610, 4, 2048)  # 22a: taxa, categories, patterns (Makona's width)
+P22_LIK_MESH = "1x2"
+P22_DRY = (1441, 128)  # 22b: benchmark1's taxa, JAX dryrun's patterns
+P22_DRY_MESHES = ("2x1", "1x2")
+P22_ROUNDS, P22_SWAP_EVERY, P22_DELTA = 10, 12, 0.002  # JAX dryrun's
+P22_SEED = 22
+P22_TIMEOUT = 300  # seconds a rank may take, start-up included
+P22_TOTAL_TOL = 1e-12  # the reduced total against this process's unsharded
+
+
+def start_ranks(args, rendezvous, device, world=P22_RANKS):
+    """Start `world` gloo ranks of `python -m beast_mcmc_tpu_torch.parallel`
+    on one `device` with `args`."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT, os.environ.get("PYTHONPATH", "")]))
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")  # the world is this host
+    env.pop("LOCAL_RANK", None)
+    return [subprocess.Popen(
+        [sys.executable, "-m", "beast_mcmc_tpu_torch.parallel", "--init",
+         f"file://{rendezvous}", "--world", str(world), "--rank", str(r),
+         "--backend", "gloo", "--device", device, *args], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+
+
+def finish_ranks(procs, timeout=P22_TIMEOUT):
+    """Each rank's RESULT records; a rank that fails or outlives `timeout`
+    fails the phase, and every rank is stopped."""
+    results, failed = [], []
+    deadline = time.perf_counter() + timeout
+    try:
+        for r, p in enumerate(procs):
+            try:
+                out, err = p.communicate(
+                    timeout=max(deadline - time.perf_counter(), 1.0))
+            except subprocess.TimeoutExpired:
+                failed.append(f"rank {r} did not end within {timeout} s")
+                continue
+            if p.returncode != 0:
+                failed.append(f"rank {r} exited {p.returncode}:\n"
+                              f"{out[-2000:]}\n{err[-4000:]}")
+            results.append([json.loads(line[len("RESULT "):])
+                            for line in out.splitlines()
+                            if line.startswith("RESULT ")])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    if failed:
+        raise AssertionError("P22: " + "\n".join(failed))
+    return results
+
+
+def parallel_path(reset_counts, read_counts, dev, out_dir=SMOKE_OUT,
+                  lik=P22_LIK, dry=P22_DRY, rounds=P22_ROUNDS,
+                  swap_every=P22_SWAP_EVERY, delta=P22_DELTA):
+    """Phase 22 (see the module docstring): 22a and 22b on P22_RANKS gloo
+    ranks of the worker sharing the card, while this process computes the
+    unsharded total and runs 22c, a one-rank NCCL world. Returns (record,
+    launches). The rendezvous files go into `out_dir`. With dev "cpu" (a
+    rehearsal) the ranks are CPU ranks, 22c's world is gloo's and no
+    kernel launches."""
+    from beast_mcmc_tpu_torch.parallel import distributed
+    from beast_mcmc_tpu_torch.parallel.__main__ import (
+        FULL_EVAL_TOL, KERNELS, SITE_REL_TOL, SWAP_BAND, likelihood_inputs,
+        likelihood_site_fn)
+    from beast_mcmc_tpu_torch.parallel.mesh import make_mesh
+    from beast_mcmc_tpu_torch.ops.cuda_peeling import peel_route
+    from beast_mcmc_tpu_torch.utils.accum import stable_dot
+
+    os.makedirs(out_dir, exist_ok=True)
+    rdv = [os.path.join(out_dir, f"p22-{name}-{os.getpid()}")
+           for name in ("gloo", "nccl")]
+    for path in rdv:
+        if os.path.exists(path):
+            os.remove(path)
+    n_taxa, n_cat, n_pat = lik
+    args = ["likelihood", "--taxa", str(n_taxa), "--categories", str(n_cat),
+            "--patterns", str(n_pat), "--mesh", P22_LIK_MESH, "--seed",
+            str(P22_SEED)]
+    for mesh in P22_DRY_MESHES:
+        args += ["dryrun", "--taxa", str(dry[0]), "--patterns", str(dry[1]),
+                 "--mesh", mesh, "--rounds", str(rounds), "--swap-every",
+                 str(swap_every), "--delta", str(delta), "--seed",
+                 str(P22_SEED)]
+    device = "cpu" if dev == "cpu" else "cuda:0"
+    t0 = time.perf_counter()
+    procs = start_ranks(args, rdv[0], device)
+    try:
+        # this process, meanwhile: the unsharded total, then 22c
+        site_fn, x = likelihood_site_fn(likelihood_inputs(*lik, P22_SEED),
+                                        dev)
+        reset_counts()
+        unsharded = float(stable_dot(x["weights"], site_fn(x["tips"])))
+        main_counts = read_counts()
+        backend = "gloo" if dev == "cpu" else "nccl"
+        distributed.initialize(f"file://{rdv[1]}", 1, 0, backend=backend,
+                               device=device)
+        try:
+            reset_counts()
+            nccl = float(distributed.sharded_pattern_loglik(
+                make_mesh(1, 1), site_fn)(x["tips"], x["weights"]))
+            nccl_counts = read_counts()
+        finally:
+            distributed.shutdown()
+    except BaseException:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        raise
+    results = finish_ranks(procs)
+    seconds = time.perf_counter() - t0
+    rec = {"ranks": P22_RANKS, "seconds": seconds,
+           "unsharded_total": unsharded, "22c": {
+               "backend": backend, "mesh": [1, 1], "total": nccl,
+               "equal_to_unsharded": nccl == unsharded,
+               "launches": nccl_counts}}
+    launches = {"P22 unsharded": main_counts, "P22 22c nccl": nccl_counts}
+    n_modes = 1 + len(P22_DRY_MESHES)
+    if [len(r) for r in results] != [n_modes] * P22_RANKS:
+        raise AssertionError(f"P22: expected {n_modes} results a rank, got "
+                             f"{[len(r) for r in results]}")
+    # 22a: the pattern-sharded Makona likelihood
+    lik_recs = [r[0] for r in results]
+    kname = KERNELS[peel_route(2 * n_taxa - 1, n_cat, 4, 8)]
+    totals = [r["total"] for r in lik_recs]
+    rec["22a"] = {"mesh": lik_recs[0]["mesh"],
+                  "shard_patterns": [r["shard_patterns"] for r in lik_recs],
+                  "totals": totals,
+                  "rel_err_vs_unsharded": abs(totals[0] - unsharded)
+                  / abs(unsharded),
+                  "kernel_vs_plain": [r["kernel_vs_plain"] for r in lik_recs],
+                  "launches": [r["launches"] for r in lik_recs],
+                  "rank_seconds": [r["seconds"] for r in lik_recs]}
+    for r in lik_recs:
+        launches[f"P22 22a rank {r['rank']}"] = r["launches"]
+    # 22b: the dry run in each layout
+    rec["22b"] = {}
+    for m, mesh in enumerate(P22_DRY_MESHES):
+        recs = [r[1 + m] for r in results]
+        rec["22b"][mesh] = {k: [r[k] for r in recs] for k in (
+            "slots", "patterns_local", "swap_acceptance", "swaps_accepted",
+            "launches", "launches_per_batch_step",
+            "full_evaluation_deviation", "kernel_vs_plain", "state_digest",
+            "aggregate_states_per_s", "seconds")}
+        rec["22b"][mesh]["cold_log_posterior"] = next(
+            r["cold_log_posterior"] for r in recs
+            if r["cold_log_posterior"] is not None)
+        for r in recs:
+            launches[f"P22 22b {mesh} rank {r['rank']}"] = r["launches"]
+    log(f"[P22] {json.dumps(rec)}")
+
+    def check(ok, what):
+        if not ok:
+            raise AssertionError(f"P22: {what}")
+
+    def only(name, n):  # n launches of kernel `name` and no other
+        return {**{k: 0 for k in main_counts},
+                **({} if dev == "cpu" else {name: n})}
+
+    check(main_counts == only(kname, 1), f"unsharded {main_counts}")
+    check(len(set(totals)) == 1, f"22a: the ranks' totals differ {totals}")
+    check(rec["22a"]["rel_err_vs_unsharded"] <= P22_TOTAL_TOL,
+          f"22a: {totals[0]!r} against the unsharded {unsharded!r}")
+    check(rec["22a"]["shard_patterns"] == [n_pat // P22_RANKS] * P22_RANKS,
+          f"22a: shards {rec['22a']['shard_patterns']}")
+    check(all(e <= SITE_REL_TOL for e in rec["22a"]["kernel_vs_plain"]),
+          f"22a: a shard's {kname} vs plain {rec['22a']['kernel_vs_plain']}")
+    # each rank: its shard's launch and the unsharded one
+    check(all(c == only(kname, 2) for c in rec["22a"]["launches"]),
+          f"22a: launches {rec['22a']['launches']}")
+    dry_kname = KERNELS[peel_route(2 * dry[0] - 1, 4, 4, 8)]
+    # the start, the batch steps, the full evaluation, the shard check
+    expected = 1 + rounds * swap_every + 1 + 1
+    for mesh, r in rec["22b"].items():
+        check(all(SWAP_BAND[0] <= a <= SWAP_BAND[1]
+                  for a in r["swap_acceptance"]),
+              f"22b {mesh}: swap acceptance {r['swap_acceptance']}")
+        check(all(c == only(dry_kname, expected) for c in r["launches"]),
+              f"22b {mesh}: launches {r['launches']}, expected {expected} "
+              f"of {dry_kname} a rank")
+        check(all(d < FULL_EVAL_TOL for d in r["full_evaluation_deviation"]),
+              f"22b {mesh}: deviation {r['full_evaluation_deviation']}")
+        check(all(e <= SITE_REL_TOL for e in r["kernel_vs_plain"]),
+              f"22b {mesh}: a shard's {dry_kname} vs plain "
+              f"{r['kernel_vs_plain']}")
+        check(len(set(map(json.dumps, r["swaps_accepted"]))) == 1,
+              f"22b {mesh}: the ranks' swaps differ")
+        check(math.isfinite(r["cold_log_posterior"]),
+              f"22b {mesh}: cold chain {r['cold_log_posterior']}")
+    chains, patterns = (rec["22b"][m] for m in P22_DRY_MESHES)
+    check(len(set(chains["state_digest"])) == P22_RANKS,
+          "22b 2x1: the chain shards' states are equal: their chains are "
+          "copies")
+    check(len(set(patterns["state_digest"])) == 1,
+          f"22b 1x2: the pattern shards' states differ "
+          f"{patterns['state_digest']}")
+    check(nccl == unsharded, f"22c: {backend} total {nccl!r} against "
+          f"{unsharded!r}")
+    check(nccl_counts == only(kname, 1), f"22c: launches {nccl_counts}")
+    return rec, launches
+
+
 def main():
     import numpy as np
     import torch
@@ -9165,6 +9397,10 @@ def main():
                                   device_ms, dev)
     mark("21 model families outside the XML vocabulary")
 
+    # -- phase 22: the multi-process layer ------------------------------
+    p22, p22_launches = parallel_path(reset_counts, read_counts, dev)
+    mark("22 multi-process layer")
+
     # -- summary ------------------------------------------------------
     def entry(kname, source, replaces, launches, label):
         rec = next(r for r in checks[kname] if r["label"] == label)
@@ -9421,6 +9657,22 @@ def main():
         f"report card vs CPU {json.dumps(p21['C7']['rel_err'])}; phase "
         f"{phases['21 model families outside the XML vocabulary']:.2f} s; "
         f"on {smi_line}")
+    p22a, p22c = p22["22a"], p22["22c"]
+    log(f"[summary p22] {P22_RANKS} gloo ranks sharing the card: 22a "
+        f"{P22_LIK} on a {P22_LIK_MESH} mesh, {p22a['shard_patterns']} "
+        f"patterns a rank, totals {p22a['totals']} against the unsharded "
+        f"{p22['unsharded_total']!r} ({p22a['rel_err_vs_unsharded']!r}), "
+        f"each shard's peel vs plain {p22a['kernel_vs_plain']}; 22b "
+        f"{P22_DRY} " + "; ".join(
+            f"{m}: swap acceptance {r['swap_acceptance']}, launches a batch "
+            f"step {r['launches_per_batch_step']}, deviation "
+            f"{r['full_evaluation_deviation']}, shard peel vs plain "
+            f"{r['kernel_vs_plain']}, cold log posterior "
+            f"{r['cold_log_posterior']!r}, aggregate states/s a rank "
+            f"{r['aggregate_states_per_s']}" for m, r in p22["22b"].items())
+        + f"; 22c one NCCL rank {p22c['total']!r}, equal to the unsharded "
+        f"{p22c['equal_to_unsharded']}; phase "
+        f"{phases['22 multi-process layer']:.2f} s; on {smi_line}")
     log(f"[phases] {json.dumps(phases)}")
     log(smi_line)
     print(json.dumps({"kernels": [
@@ -9455,7 +9707,8 @@ def main():
                              **p14_launches, **p15_launches,
                              **p16_launches, **p17_launches,
                              **p18_launches, **p19_launches,
-                             **p20_launches, **p21_launches}}),
+                             **p20_launches, **p21_launches,
+                             **p22_launches}}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

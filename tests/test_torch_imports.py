@@ -46,8 +46,13 @@ def test_import_every_module_without_jax():
     # vocabulary (stochastic mapping, the tip-error, Thorney, constrained
     # and empirical-tree modules, the GLM, geo, MSC, AlloppNet,
     # transmission, case-to-case, clustering, MDS, Hawkes and ARG
-    # models) are among the modules found
+    # models), and the multi-process layer with its worker entry are among
+    # the modules found
     assert {"beast_mcmc_tpu_torch.apps.makona",
+            "beast_mcmc_tpu_torch.parallel",
+            "beast_mcmc_tpu_torch.parallel.mesh",
+            "beast_mcmc_tpu_torch.parallel.distributed",
+            "beast_mcmc_tpu_torch.parallel.__main__",
             *(f"beast_mcmc_tpu_torch.{m}" for m in (
                 "ops.markov_jumps", "ops.uniformization", "models.thorney",
                 "models.tipstates", "tree.constrained", "tree.empirical",
